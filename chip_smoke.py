@@ -1,0 +1,458 @@
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+then, on the card:
+
+1. holds each kernel against its plain PyTorch twin at the shapes of the
+   FedCAMS round on ConvMixer-256-8 (d = 704,266, blocks of 2048, k = 32,
+   n = 10 clients of m = 100): ``topk_ef_sparse`` at k = 32, k = 1 and on
+   a tie-laden input, and at k = 1024 and k = block (more picks than a
+   CTA has threads); ``fedams_ingest`` at fp32, bf16 and int8 state for
+   both options and with a NaN delta; ``fedams_update`` for both options
+   at a ragged N, also with NaN deltas. All bitwise (a NaN must meet a
+   NaN). Each kernel is timed with CUDA events (median of 30 launches,
+   L2 flushed before each) beside its twin and its bound;
+2. checks the round on the card against the same round on the CPU (the
+   port's twins, which the CPU tests hold against the JAX package) on a
+   small MLP problem, both server routes;
+3. runs the FedCAMS round on ConvMixer-256-8 (random weights from a seed,
+   synthetic CIFAR-shaped data), 6 rounds on each server route:
+   (a) ``track_gamma=False``, fused ingest → ``fedams_ingest``;
+   (b) ``track_gamma=True`` → scatter-mean + ``fedams_update``.
+   Every kernel launch counter is reset before a route and read after it;
+   a route whose kernels never launched fails.
+
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
+without CUDA or when any check fails. Longer output goes to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS needs this before CUDA starts for deterministic algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3 (data sheet)
+PEAK_F32_S = 67e12       # H100 SXM fp32 outside the tensor cores
+REPLACES = {
+    "topk_ef_sparse": "src/repro/kernels/topk_ef.py:90",
+    "fedams_ingest": "src/repro/kernels/fedams_ingest.py:127",
+    "fedams_update": "src/repro/kernels/fedams_update.py:55",
+}
+
+# the slice: ConvMixer-256-8, fedcams + blocktopk 1/64, m=100, n=10, K=3, B=20
+M, N_CLI, K_STEPS, BATCH, RATIO, BLOCK = 100, 10, 3, 20, 1 / 64, 2048
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, before=None, iters: int = 30, warmup: int = 3) -> float:
+    """Median of per-launch CUDA-event times. ``before`` runs outside the
+    timed window (restoring inputs, flushing L2). A spin kernel ahead of
+    the start event keeps the card busy while the host enqueues ``fn``, so
+    the window holds device time and not the wrapper's host overhead."""
+    for _ in range(warmup):
+        if before:
+            before()
+        fn()
+    times = []
+    for _ in range(iters):
+        if before:
+            before()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound(nbytes: int, flops: int):
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def max_abs(a, b) -> float:
+    """Largest |a - b| over the positions where both are numbers."""
+    diff = (a.double() - b.double()).abs()
+    diff = diff[~diff.isnan()]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def same(name, got, want):
+    """Bitwise equal outputs; a NaN must meet a NaN (its payload is not
+    compared)."""
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{name}: output {i} is {g.dtype}{tuple(g.shape)}, twin "
+              f"{w.dtype}{tuple(w.shape)}")
+        if g.is_floating_point():
+            gn, wn = g.isnan(), w.isnan()
+            if not torch.equal(gn, wn):
+                bad.append(f"output {i}: NaN at {int((gn != wn).sum())} "
+                           f"positions of one side only")
+                continue
+            g, w = g[~gn], w[~wn]
+        if not torch.equal(g, w):
+            bad.append(f"output {i}: {int((g != w).sum())} of {g.numel()} "
+                       f"differ, max abs {max_abs(g.float(), w.float())}")
+    check(not bad, f"{name} differs from the twin: {'; '.join(bad)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 1: each kernel against its twin at the slice's shapes
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels(dev, d: int):
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    nb = -(-d // BLOCK)
+    k = max(1, int(round(RATIO * BLOCK)))
+    rows = torch.randperm(M, generator=g, device=dev)[:N_CLI].contiguous()
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)
+    out = {}
+
+    # -- topk_ef_sparse ----------------------------------------------------
+    x = torch.randn(N_CLI, d, generator=g, device=dev) * 0.01
+    err0 = torch.randn(M, d, generator=g, device=dev) * 0.003
+    ties_x = (torch.randint(-2, 3, (N_CLI, d), generator=g, device=dev)
+              .float() * 0.5)
+    worst = 0.0
+    zeros = torch.zeros_like(err0)
+    for xin, e_in, kk, what in ((x, err0, k, "k=32"), (x, err0, 1, "k=1"),
+                                (ties_x, zeros, k, "ties"),
+                                (ties_x, zeros, 1, "ties k=1"),
+                                # more picks than the CTA's 512 threads
+                                (x, err0, 1024, "k=1024"),
+                                (ties_x, zeros, BLOCK, "ties k=block")):
+        e_k, e_r = e_in.clone(), e_in.clone()
+        got = ops.topk_ef_sparse_cuda(xin, e_k, rows, k=kk, block=BLOCK)
+        want = ref.topk_ef_sparse(xin, e_r, rows, k=kk, block=BLOCK)
+        torch.cuda.synchronize()
+        same(f"topk_ef_sparse[{what}]", list(got) + [e_k],
+             list(want) + [e_r])
+        worst = max(worst, max_abs(got[0], want[0]), max_abs(e_k, e_r))
+    err = err0.clone()
+
+    def evict():
+        flush.sum()       # read 256 MB: L2 holds clean lines of nothing used
+
+    def restore():
+        err.copy_(err0)
+        evict()
+
+    # the kernel without the wrapper's rows check, which syncs the host
+    ms = time_ms(lambda: ops._topk_ef_sparse_launch(x, err, rows, k=k,
+                                                    block=BLOCK), restore)
+    plain = time_ms(lambda: ref.topk_ef_sparse(x, err, rows, k=k,
+                                               block=BLOCK), restore, iters=10)
+    nbytes = N_CLI * d * 4 * 3 + N_CLI * nb * k * 8 + N_CLI * 8
+    out["topk_ef_sparse"] = dict(
+        ms=ms, plain_ms=plain, max_abs_err=worst, bytes=nbytes,
+        flops=N_CLI * d, library_ms=None,
+        shapes=f"x ({N_CLI},{d}) f32, err ({M},{d}) f32, k={k}, "
+               f"block={BLOCK}")
+
+    # -- fedams_ingest -------------------------------------------------------
+    tot = torch.randn(N_CLI, d, generator=g, device=dev)
+    vals, idx = ref.topk_ef_sparse(tot, torch.zeros(N_CLI, d, device=dev),
+                                   torch.arange(N_CLI, device=dev), k=k,
+                                   block=BLOCK)
+    vals = vals * 0.01
+    xs = torch.randn(d, generator=g, device=dev)
+    ms_ = torch.randn(d, generator=g, device=dev) * 1e-3
+    v32 = torch.rand(d, generator=g, device=dev) * 1e-4
+    vh32 = v32 + torch.rand(d, generator=g, device=dev) * 1e-4
+    kw = dict(n_div=N_CLI, eta=0.1, beta1=0.9, beta2=0.99, eps=1e-4,
+              block=BLOCK)
+    worst = 0.0
+    timed = {}
+    for sd in ("float32", "bfloat16", "int8"):
+        if sd == "int8":
+            q = torch.randint(0, 128, (nb * BLOCK,), generator=g, device=dev,
+                              dtype=torch.int8)
+            qh = torch.randint(0, 128, (nb * BLOCK,), generator=g,
+                               device=dev, dtype=torch.int8)
+            sc = torch.rand(nb, generator=g, device=dev) * 1e-6 + 1e-7
+            args = (xs, ms_, q, qh, vals, idx, sc, sc * 1.5)
+            sbytes = 2 * (nb * BLOCK + nb * 4)
+        else:
+            dt = getattr(torch, sd)
+            args = (xs, ms_, v32.to(dt), vh32.to(dt), vals, idx)
+            sbytes = 2 * d * (4 if sd == "float32" else 2)
+        # a diverged client: NaN must reach v-hat (and int8 scales) as in
+        # the twin and the JAX reference
+        nan_args = list(args)
+        nan_args[4] = vals.clone()
+        nan_args[4][3, 7, :5] = float("nan")
+        for option, a, what in ((1, args, ""), (2, args, ""),
+                                (1, nan_args, ", NaN delta")):
+            got = ops.fedams_ingest_cuda(*a, option=option,
+                                         state_dtype=sd, **kw)
+            want = ref.fedams_ingest_ref(*a, option=option,
+                                         state_dtype=sd, **kw)
+            torch.cuda.synchronize()
+            same(f"fedams_ingest[{sd}, option {option}{what}]", got, want)
+            vhat = got[5] if sd == "int8" else got[3]
+            check(bool(vhat.float().isnan().any()) == bool(what),
+                  f"fedams_ingest[{sd}{what}]: NaN in v-hat is "
+                  f"{bool(vhat.float().isnan().any())}")
+            worst = max(worst, max(max_abs(a.float(), b.float())
+                                   for a, b in zip(got, want)))
+        timed[sd] = (args, sbytes)
+    args, sbytes = timed["float32"]
+    ms = time_ms(lambda: ops.fedams_ingest_cuda(*args, option=1, **kw),
+                 evict)
+    plain = time_ms(lambda: ref.fedams_ingest_ref(*args, option=1, **kw),
+                    evict, iters=10)
+    extra = {sd: time_ms(lambda a=a: ops.fedams_ingest_cuda(
+        *a, option=1, state_dtype=sd, **kw), evict)
+        for sd, (a, _) in timed.items() if sd != "float32"}
+    nbytes = 2 * (2 * d * 4) + 2 * sbytes + vals.numel() * 8
+    out["fedams_ingest"] = dict(
+        ms=ms, plain_ms=plain, max_abs_err=worst, bytes=nbytes,
+        flops=d * 14 + vals.numel(), library_ms=None,
+        ms_bf16=extra["bfloat16"], ms_int8=extra["int8"],
+        shapes=f"d={d}, vals/idx ({N_CLI},{nb},{k}), fp32 state "
+               f"(bf16/int8 timed too)")
+
+    # -- fedams_update -------------------------------------------------------
+    ins = [torch.randn(d, generator=g, device=dev),
+           torch.randn(d, generator=g, device=dev) * 1e-3,
+           torch.rand(d, generator=g, device=dev) * 1e-4,
+           torch.rand(d, generator=g, device=dev) * 2e-4,
+           torch.randn(d, generator=g, device=dev) * 1e-2]
+    kw = dict(eta=0.1, beta1=0.9, beta2=0.99, eps=1e-4)
+    nan_ins = list(ins)
+    nan_ins[4] = ins[4].clone()
+    nan_ins[4][::4099] = float("nan")      # non-finite deltas
+    worst = 0.0
+    for option, a, what in ((1, ins, ""), (2, ins, ""),
+                            (1, nan_ins, ", NaN delta"),
+                            (2, nan_ins, ", NaN delta")):
+        got = ops.fedams_update_cuda(*a, option=option, **kw)
+        want = ref.fedams_update_ref(*a, option=option, **kw)
+        torch.cuda.synchronize()
+        same(f"fedams_update[option {option}{what}]", got, want)
+        check(bool(got[3].isnan().any()) == bool(what),
+              f"fedams_update[option {option}{what}]: NaN in v-hat is "
+              f"{bool(got[3].isnan().any())}")
+        worst = max(worst, max(max_abs(a, b) for a, b in zip(got, want)))
+    ms = time_ms(lambda: ops.fedams_update_cuda(*ins, option=1, **kw), evict)
+    plain = time_ms(lambda: ref.fedams_update_ref(*ins, option=1, **kw),
+                    evict)
+    out["fedams_update"] = dict(
+        ms=ms, plain_ms=plain, max_abs_err=worst, bytes=9 * d * 4,
+        flops=12 * d, library_ms=None,
+        shapes=f"N={d} (ragged), fp32")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the round on the card against the round on the CPU (small MLP)
+# ---------------------------------------------------------------------------
+
+
+def _route_cfg(route: str, m: int, n: int, k: int):
+    from repro_torch.configs.base import FedConfig
+    kw = dict(algorithm="fedcams", eta=0.1, eps=1e-4, eta_l=0.05,
+              local_steps=k, num_clients=m, participating=n,
+              compressor="blocktopk", compress_ratio=RATIO,
+              wire_block=BLOCK)
+    if route == "a":
+        kw.update(track_gamma=False, fused_ingest="auto")
+    return FedConfig(**kw)
+
+
+def phase_reference():
+    from repro_torch.core.sim import FedSim
+    from repro_torch.data.synthetic import FederatedClassification
+    from repro_torch.models import convmixer as cm
+    from repro_torch.models.params import init_params
+
+    cfg = cm.MLPConfig(in_dim=32, hidden=64, depth=2, num_classes=10)
+    data = FederatedClassification(num_clients=20, feature_dim=32, seed=0)
+    loss = lambda p, b: cm.mlp_loss(p, b, cfg)
+    p0 = init_params(cm.mlp_defs(cfg), torch.Generator().manual_seed(0))
+    worst = {}
+    for route in ("a", "b"):
+        fed = _route_cfg(route, 20, 4, 2)
+        sims = {dev: FedSim(loss, fed, device=dev) for dev in ("cpu", "cuda")}
+        check(sims["cuda"]._fused == ("kernel" if route == "a" else "off"),
+              f"route {route}: resolved fused_ingest={sims['cuda']._fused}")
+        sts = {dev: s.init(p0) for dev, s in sims.items()}
+        gen = torch.Generator().manual_seed(1)
+        rel = 0.0
+        for r in range(4):
+            idx = torch.randperm(20, generator=gen)[:4].numpy()
+            b = data.round_batches(idx, r, 2, 8)
+            losses = {}
+            for dev, s in sims.items():
+                sts[dev], met = s.round(sts[dev], b, idx)
+                losses[dev] = float(met["loss"])
+            rel = max(rel, abs(losses["cuda"] - losses["cpu"])
+                      / abs(losses["cpu"]))
+        dx = max_abs(sts["cuda"].params.cpu(), sts["cpu"].params)
+        check(rel < 1e-4 and dx < 1e-4,
+              f"route {route}: card vs CPU loss rel {rel}, params {dx}")
+        worst[route] = {"loss_rel": rel, "params_max_abs": dx}
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the slice, ConvMixer-256-8, both server routes
+# ---------------------------------------------------------------------------
+
+
+def phase_slice(rounds: int = 6):
+    from repro_torch.core.sampling import sample_clients
+    from repro_torch.core.sim import FedSim
+    from repro_torch.data.synthetic import FederatedClassification
+    from repro_torch.kernels import ops
+    from repro_torch.models import convmixer as cm
+    from repro_torch.models.params import count_params, init_params
+
+    cfg = cm.ConvMixerConfig()
+    defs = cm.convmixer_defs(cfg)
+    d = count_params(defs)
+    check(d == 704266, f"ConvMixer-256-8 has d={d}")
+    data = FederatedClassification(num_clients=M, image_shape=(32, 32, 3),
+                                   alpha=0.3, seed=0)
+    loss = lambda p, b: cm.convmixer_loss(p, b, cfg)
+    p0 = init_params(defs, torch.Generator().manual_seed(0))
+    expect = {"a": ("topk_ef_sparse", "fedams_ingest"),
+              "b": ("topk_ef_sparse", "fedams_update")}
+    res = {}
+    for route in ("a", "b"):
+        sim = FedSim(loss, _route_cfg(route, M, N_CLI, K_STEPS))
+        check(sim._fused == ("kernel" if route == "a" else "off"),
+              f"route {route}: resolved fused_ingest={sim._fused}")
+        st = sim.init(p0)
+        gen = torch.Generator().manual_seed(1)
+        plan = []
+        for r in range(rounds):
+            idx = sample_clients(gen, M, N_CLI).numpy()
+            plan.append((idx, data.round_batches(idx, r, K_STEPS, BATCH)))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ms, losses, gammas = [], [], []
+        for idx, b in plan:
+            t0 = time.perf_counter()
+            st, met = sim.round(st, b, idx)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            gammas.append(float(met["gamma"]))
+        counts = dict(ops.launches)
+        for name in expect[route]:
+            check(counts[name] > 0, f"route {route}: {name} never launched")
+        check(all(np.isfinite(losses)), f"route {route}: losses {losses}")
+        check(st.params.shape == (d,) and bool(torch.isfinite(
+            st.params).all()), f"route {route}: non-finite params")
+        check(bool(torch.isfinite(st.errors).all()),
+              f"route {route}: non-finite EF buffer")
+        res[route] = dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses,
+                          gamma=gammas, launches=counts,
+                          ef_buffer_mb=st.errors.numel() * 4 / 1e6)
+        print(f"route {route}: round ms (round 0 excluded) "
+              f"{[round(t, 2) for t in ms[1:]]}, median "
+              f"{np.median(ms[1:]):.2f}; loss {losses}; launches {counts}")
+    return res
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False — this script needs a card")
+    card = card_line()
+    print(card)
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"built {sorted(paths)} in {build_s:.1f} s")
+    for p in paths.values():
+        log = p.with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
+
+    torch.use_deterministic_algorithms(True)
+    kern = phase_kernels(dev, 704266)
+    torch.use_deterministic_algorithms(False)
+    for name, r in kern.items():
+        print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
+              f"{r['plain_ms']:.4f} ms), max_abs_err {r['max_abs_err']}")
+    refcheck = phase_reference()
+    print(f"card vs CPU round (small MLP): {refcheck}")
+    sl = phase_slice()
+
+    rows = []
+    for name, r in kern.items():
+        runs = [(route, sl[route]["launches"][name]) for route in ("a", "b")]
+        per_round = {route: n / (len(sl[route]["round_ms"]) + 1)
+                     for route, n in runs if n}
+        print(f"kernel {name}: {r['ms']:.4f} ms median of 30, {r['bytes']} "
+              f"bytes, launches per round {per_round}")
+        b_ms, b_by = bound(r["bytes"], r["flops"])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name],
+            "launches": sl["a"]["launches"][name] + sl["b"]["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": r["library_ms"]})
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    (outdir / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "torch": torch.__version__,
+         "build_s": build_s, "kernels": kern, "kernel_rows": rows,
+         "reference": refcheck, "slice": sl}, indent=1))
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

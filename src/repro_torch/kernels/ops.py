@@ -1,0 +1,221 @@
+"""Per-call dispatch between the CUDA kernels and their plain twins.
+
+Counterpart of ``repro.kernels.ops``. Each public function looks at the
+device of the tensors it is given: on CUDA it launches the kernel (built
+from ``csrc/`` on first use), on the CPU it runs the plain twin in
+:mod:`repro_torch.kernels.ref`. It never falls back from a kernel to its
+twin: a kernel that fails to build or launch raises.
+
+The ``*_cuda`` functions are the kernel wrappers themselves. They check
+device, dtype, shape and contiguity, allocate outputs with
+``torch.empty``, launch on the current stream, raise on a nonzero
+``cudaGetLastError()``, and count the launch in :data:`launches`. Called
+with CPU tensors they raise.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: kernel name → launches since the last :func:`reset_launches`. A wrapper
+#: adds one where it launches its kernel and nowhere else.
+launches = {name: 0 for name in _build.SIGNATURES}
+
+_STATE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2}
+_STATE_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "int8": torch.int8}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _check(t, what: str, dtype, shape=None, device=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
+    if not t.is_cuda:
+        raise RuntimeError(f"{what}: the CUDA kernel needs a CUDA tensor, "
+                           f"got one on {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+
+
+def _launch(name: str, device, *args):
+    fn = _build.kernel(name)
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"repro_torch: {name} launch failed with "
+                           f"cudaError {rc}")
+    launches[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _check_rows(rows, m: int):
+    """``rows`` name the EF rows a call updates in place: they must lie in
+    [0, m) (the kernel would write outside the buffer) and be distinct (the
+    kernel's CTAs of a repeated row would race). One host sync."""
+    if rows.numel() == 0:
+        return
+    s = torch.sort(rows).values
+    out_of_range, repeated = torch.stack(
+        [(s[0] < 0) | (s[-1] >= m), (s[1:] == s[:-1]).any()]).tolist()
+    if out_of_range:
+        raise ValueError(f"topk_ef_sparse: rows must lie in [0, {m}), got "
+                         f"{rows.tolist()}")
+    if repeated:
+        raise ValueError(f"topk_ef_sparse: rows must be distinct, got "
+                         f"{rows.tolist()}")
+
+
+# -- client uplink: blockwise exact top-k + fused error feedback -------------
+
+
+def topk_ef_sparse(x, err, rows, *, k: int, block: int):
+    """Select-once uplink for ``c`` clients; see
+    :func:`repro_torch.kernels.ref.topk_ef_sparse` for the contract
+    (``err[rows]`` is updated in place; returns ``(vals, idx)`` (c, nb, k)).
+    """
+    if x.is_cuda:
+        return topk_ef_sparse_cuda(x, err, rows, k=k, block=block)
+    _check_rows(rows, err.shape[0])
+    return ref.topk_ef_sparse(x, err, rows, k=k, block=block)
+
+
+def topk_ef_sparse_cuda(x, err, rows, *, k: int, block: int):
+    if x.dim() != 2 or err.dim() != 2:
+        raise ValueError("topk_ef_sparse: x is (c, d), err is (m, d)")
+    _check(rows, "topk_ef_sparse rows", torch.int64, (x.shape[0],), x.device)
+    _check_rows(rows, err.shape[0])
+    return _topk_ef_sparse_launch(x, err, rows, k=k, block=block)
+
+
+def _topk_ef_sparse_launch(x, err, rows, *, k: int, block: int):
+    """The launch behind :func:`topk_ef_sparse_cuda`, without its
+    host-synchronizing check of ``rows`` (times the kernel alone)."""
+    c, d = x.shape
+    dev = x.device
+    _check(x, "topk_ef_sparse x", torch.float32)
+    _check(err, "topk_ef_sparse err", torch.float32, (err.shape[0], d), dev)
+    _check(rows, "topk_ef_sparse rows", torch.int64, (c,), dev)
+    if not 0 < block <= 2048 or not 0 < k <= block:
+        raise ValueError(f"topk_ef_sparse: need 0 < k <= block <= 2048, got "
+                         f"k={k}, block={block}")
+    nb = -(-d // block)
+    vals = torch.empty((c, nb, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((c, nb, k), dtype=torch.int32, device=dev)
+    _launch("topk_ef_sparse", dev, _ptr(x), _ptr(err), _ptr(rows),
+            _ptr(vals), _ptr(idx), d, block, nb, k, c)
+    return vals, idx
+
+
+# -- server: one-pass fused ingest -------------------------------------------
+
+
+def fedams_ingest(x, m, v, vhat, vals, idx, v_scale=None, vh_scale=None, *,
+                  n_div, eta: float, beta1: float, beta2: float, eps: float,
+                  option: int = 1, block: int = 2048,
+                  state_dtype: str = "float32"):
+    """Fused scatter-mean + FedAMS step; the contract of
+    :func:`repro_torch.kernels.ref.fedams_ingest_ref`."""
+    kw = dict(n_div=n_div, eta=eta, beta1=beta1, beta2=beta2, eps=eps,
+              option=option, block=block, state_dtype=state_dtype)
+    if x.is_cuda:
+        return fedams_ingest_cuda(x, m, v, vhat, vals, idx, v_scale,
+                                  vh_scale, **kw)
+    return ref.fedams_ingest_ref(x, m, v, vhat, vals, idx, v_scale, vh_scale,
+                                 **kw)
+
+
+def fedams_ingest_cuda(x, m, v, vhat, vals, idx, v_scale=None, vh_scale=None,
+                       *, n_div, eta: float, beta1: float, beta2: float,
+                       eps: float, option: int = 1, block: int = 2048,
+                       state_dtype: str = "float32"):
+    if state_dtype not in _STATE_CODES:
+        raise ValueError(f"fedams_ingest: state_dtype {state_dtype!r}")
+    if option not in (1, 2):
+        raise ValueError(f"fedams_ingest: option {option!r}")
+    if block * 4 * (2 if state_dtype == "int8" else 1) > 200 * 1024:
+        raise ValueError(f"fedams_ingest: block={block} exceeds shared memory")
+    dev = x.device
+    d = x.shape[0]
+    _check(x, "fedams_ingest x", torch.float32, (d,))
+    _check(m, "fedams_ingest m", torch.float32, (d,), dev)
+    if vals.dim() != 3:
+        raise ValueError("fedams_ingest: vals/idx are (n, nb, k)")
+    n, nb, k = vals.shape
+    if nb != -(-d // block):
+        raise ValueError(f"fedams_ingest: nb={nb} != ceil(d={d}/{block})")
+    _check(vals, "fedams_ingest vals", torch.float32, (n, nb, k), dev)
+    _check(idx, "fedams_ingest idx", torch.int32, (n, nb, k), dev)
+    sdt = _STATE_TORCH[state_dtype]
+    slen = nb * block if state_dtype == "int8" else d
+    _check(v, "fedams_ingest v", sdt, (slen,), dev)
+    _check(vhat, "fedams_ingest vhat", sdt, (slen,), dev)
+    x_out = torch.empty_like(x)
+    m_out = torch.empty_like(m)
+    v_out = torch.empty_like(v)
+    vh_out = torch.empty_like(vhat)
+    vs_out = vhs_out = None
+    if state_dtype == "int8":
+        _check(v_scale, "fedams_ingest v_scale", torch.float32, (nb,), dev)
+        _check(vh_scale, "fedams_ingest vh_scale", torch.float32, (nb,), dev)
+        vs_out = torch.empty_like(v_scale)
+        vhs_out = torch.empty_like(vh_scale)
+    else:
+        v_scale = vh_scale = None
+    _launch("fedams_ingest", dev, _ptr(x), _ptr(m), _ptr(v), _ptr(vhat),
+            _ptr(vals), _ptr(idx), _ptr(v_scale), _ptr(vh_scale),
+            _ptr(x_out), _ptr(m_out), _ptr(v_out), _ptr(vh_out),
+            _ptr(vs_out), _ptr(vhs_out), d, block, n, nb, k,
+            float(n_div), float(beta1), float(1.0 - beta1), float(beta2),
+            float(1.0 - beta2), float(eta), float(eps), int(option),
+            _STATE_CODES[state_dtype])
+    if state_dtype == "int8":
+        return x_out, m_out, v_out, vh_out, vs_out, vhs_out
+    return x_out, m_out, v_out, vh_out
+
+
+# -- server: two-pass elementwise update -------------------------------------
+
+
+def fedams_update(x, m, v, vhat, delta, *, eta: float, beta1: float,
+                  beta2: float, eps: float, option: int = 1):
+    """Elementwise FedAMS step on (N,) fp32 vectors → ``(x, m, v, vhat)``;
+    the contract of :func:`repro_torch.kernels.ref.fedams_update_ref`."""
+    kw = dict(eta=eta, beta1=beta1, beta2=beta2, eps=eps, option=option)
+    if x.is_cuda:
+        return fedams_update_cuda(x, m, v, vhat, delta, **kw)
+    return ref.fedams_update_ref(x, m, v, vhat, delta, **kw)
+
+
+def fedams_update_cuda(x, m, v, vhat, delta, *, eta: float, beta1: float,
+                       beta2: float, eps: float, option: int = 1):
+    if option not in (1, 2):
+        raise ValueError(f"fedams_update: option {option!r}")
+    n = x.numel()
+    dev = x.device
+    for t, what in ((x, "x"), (m, "m"), (v, "v"), (vhat, "vhat"),
+                    (delta, "delta")):
+        _check(t, f"fedams_update {what}", torch.float32, (n,), dev)
+    outs = [torch.empty_like(x) for _ in range(4)]
+    _launch("fedams_update", dev, _ptr(x), _ptr(m), _ptr(v), _ptr(vhat),
+            _ptr(delta), *(_ptr(o) for o in outs), n, float(beta1),
+            float(1.0 - beta1), float(beta2), float(1.0 - beta2), float(eta),
+            float(eps), int(option))
+    return tuple(outs)

@@ -1,0 +1,88 @@
+"""The top-k compressors against ``repro.core.compressors``, bitwise:
+``select`` and ``compress`` for topk and blocktopk, on ties, at k = 1, and
+with a padded last block."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.compressors import block_layout as jax_block_layout
+from repro.core.compressors import make_compressor as jax_make
+from repro.core.compressors import selection_to_dense as jax_to_dense
+from repro_torch.core.compressors import (Selection, block_layout,
+                                          make_compressor, selection_to_dense)
+
+torch.set_num_threads(1)
+
+
+def _vec(kind, d, seed):
+    r = np.random.default_rng(seed)
+    if kind == "ties":
+        return (r.integers(-3, 4, size=d) * 0.25).astype(np.float32)
+    if kind == "zeros":
+        return np.zeros(d, np.float32)
+    return r.normal(size=d).astype(np.float32)
+
+
+CASES = [
+    # (compressor, ratio, block, d)
+    ("topk", 1 / 64, 2048, 5000),
+    ("topk", 1 / 4, 2048, 37),
+    ("topk", 1 / 1000, 2048, 900),       # k = 1: the argmax path
+    ("blocktopk", 1 / 64, 2048, 6922),   # ragged last block
+    ("blocktopk", 1 / 64, 2048, 4096),   # no padding
+    ("blocktopk", 1 / 128, 256, 1000),   # k = 2, ragged
+    ("blocktopk", 1 / 256, 256, 1000),   # k = 1 per block, ragged
+    ("blocktopk", 1 / 8, 2048, 300),     # block clamped to 384
+]
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros"])
+@pytest.mark.parametrize("name,ratio,block,d", CASES)
+def test_select_and_compress_match_jax_bitwise(name, ratio, block, d, kind):
+    x = _vec(kind, d, d)
+    jc, tc = jax_make(name, ratio, block), make_compressor(name, ratio, block)
+    assert tc.name == jc.name
+    assert tc.bits_per_message(d) == jc.bits_per_message(d)
+    assert tc.q_bound(None) == jc.q_bound(None)
+    js, ts = jc.select(jnp.asarray(x)), tc.select(torch.from_numpy(x))
+    np.testing.assert_array_equal(np.asarray(js.idx), ts.idx.numpy())
+    np.testing.assert_array_equal(np.asarray(js.vals), ts.vals.numpy())
+    assert ts.idx.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(jc.compress(jnp.asarray(x))),
+                                  tc.compress(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jax_to_dense(js, d)),
+        selection_to_dense(ts, d).numpy())
+
+
+def test_padded_tail_can_be_selected_and_is_dropped():
+    """A ragged last block holding fewer nonzeros than k: padded positions
+    (index >= d) compete as zeros, carry 0.0, and are dropped densely."""
+    d = 300                       # block 384: 84 padded positions
+    x = np.zeros(d, np.float32)
+    x[260:262] = [5.0, -4.0]
+    c = make_compressor("blocktopk", 4 / 384, 2048)
+    sel = c.select(torch.from_numpy(x))
+    assert sel.idx.tolist() == [260, 261, 0, 1]
+    x[:] = 0
+    x[299] = 1.0
+    sel = make_compressor("blocktopk", 4 / 384, 2048).select(
+        torch.from_numpy(x))
+    assert sel.idx.tolist() == [299, 0, 1, 2]
+    sel = Selection(vals=torch.tensor([1.0, 0.0]),
+                    idx=torch.tensor([299, 310], dtype=torch.int32))
+    dense = selection_to_dense(sel, d)
+    assert dense.shape == (d,) and float(dense[299]) == 1.0
+
+
+@pytest.mark.parametrize("d,block", [(1, 2048), (127, 2048), (129, 2048),
+                                     (704266, 2048), (5000, 256)])
+def test_block_layout_matches(d, block):
+    assert block_layout(d, block) == jax_block_layout(d, block)
+
+
+@pytest.mark.parametrize("name", ["sign", "randk", "int8", "none"])
+def test_unported_compressors_are_refused_by_name(name):
+    with pytest.raises(NotImplementedError, match=name):
+        make_compressor(name)

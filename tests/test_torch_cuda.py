@@ -1,0 +1,130 @@
+"""The CUDA kernels against their plain twins, on the card. Marked ``cuda``:
+each test asks for the ``card`` fixture, which skips without CUDA (decided
+at run time, never at import). Run on a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+HP = dict(eta=0.1, beta1=0.9, beta2=0.99, eps=1e-4)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("d,block,k,ties", [
+    (704266, 2048, 32, False), (704266, 2048, 1, False),
+    (5000, 2048, 32, True), (1000, 384, 6, False), (300, 128, 1, True),
+    (704266, 2048, 1024, False), (5000, 2048, 2048, True),
+    (1000, 384, 384, False)])
+def test_topk_ef_sparse_kernel_matches_twin(card, d, block, k, ties):
+    g = torch.Generator(device=card).manual_seed(d + k)
+    if ties:
+        x = torch.randint(-2, 3, (3, d), generator=g, device=card).float()
+        err = torch.zeros(7, d, device=card)
+    else:
+        x = torch.randn(3, d, generator=g, device=card)
+        err = torch.randn(7, d, generator=g, device=card) * 0.3
+    rows = torch.tensor([6, 0, 3], device=card)
+    e_k, e_r = err.clone(), err.clone()
+    vk, ik = ops.topk_ef_sparse(x, e_k, rows, k=k, block=block)
+    vr, ir = ref.topk_ef_sparse(x, e_r, rows, k=k, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vr) and torch.equal(ik, ir)
+    assert torch.equal(e_k, e_r)
+
+
+def _same(a, b):
+    """Bitwise equal, with NaN where the other has NaN (the payload of a
+    NaN is not compared)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("option", [1, 2])
+def test_fedams_ingest_kernel_matches_twin(card, dtype, option, nan):
+    d, block, n, k = 5000, 2048, 4, 32
+    nb = -(-d // block)
+    g = torch.Generator(device=card).manual_seed(option)
+    vals, idx = ref.topk_ef_sparse(
+        torch.randn(n, d, generator=g, device=card),
+        torch.zeros(n, d, device=card), torch.arange(n, device=card), k=k,
+        block=block)
+    if nan:   # a diverged client: NaN propagates into v-hat and int8 scales
+        vals[1, 0, :3] = float("nan")
+    x = torch.randn(d, generator=g, device=card)
+    m = torch.randn(d, generator=g, device=card) * 1e-3
+    if dtype == "int8":
+        q = torch.randint(0, 128, (nb * block,), generator=g, device=card,
+                          dtype=torch.int8)
+        s = torch.rand(nb, generator=g, device=card) * 1e-5 + 1e-7
+        args = (x, m, q, q.flip(0).contiguous(), vals * 0.05, idx, s, s * 2)
+    else:
+        v = (torch.rand(d, generator=g, device=card) * 1e-4).to(
+            getattr(torch, dtype))
+        args = (x, m, v, v * 2, vals * 0.05, idx)
+    kw = dict(n_div=n, option=option, block=block, state_dtype=dtype, **HP)
+    got = ops.fedams_ingest(*args, **kw)
+    want = ref.fedams_ingest_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _same(a, b)
+    vhat = got[5] if dtype == "int8" else got[3]   # int8: v-hat's scales
+    assert bool(vhat.float().isnan().any()) == nan
+
+
+@pytest.mark.parametrize("option", [1, 2])
+@pytest.mark.parametrize("n", [704266, 4096, 1])
+def test_fedams_update_kernel_matches_twin(card, option, n):
+    g = torch.Generator(device=card).manual_seed(n)
+    ins = [torch.randn(n, generator=g, device=card),
+           torch.randn(n, generator=g, device=card) * 1e-3,
+           torch.rand(n, generator=g, device=card) * 1e-4,
+           torch.rand(n, generator=g, device=card) * 2e-4,
+           torch.randn(n, generator=g, device=card) * 1e-2]
+    ins[4][::97] = float("nan")   # non-finite deltas, e.g. a diverged client
+    got = ops.fedams_update(*ins, option=option, **HP)
+    want = ref.fedams_update_ref(*ins, option=option, **HP)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _same(a, b)
+    assert got[3].isnan().sum() == len(range(0, n, 97))
+
+
+def test_launch_counts_and_wrapper_checks(card):
+    ops.reset_launches()
+    x = torch.zeros(2, 256, device=card)
+    err = torch.zeros(4, 256, device=card)
+    ops.topk_ef_sparse(x, err, torch.tensor([0, 1], device=card), k=4,
+                       block=128)
+    assert ops.launches["topk_ef_sparse"] == 1
+    with pytest.raises(TypeError, match="int64"):
+        ops.topk_ef_sparse(x, err, torch.tensor([0, 1], device=card,
+                                                dtype=torch.int32),
+                           k=4, block=128)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.topk_ef_sparse(x.t().contiguous().t(), err,
+                           torch.tensor([0, 1], device=card), k=4, block=128)
+    for rows, match in (([0, 4], "in"), ([-1, 2], "in"), ([1, 1], "distinct")):
+        with pytest.raises(ValueError, match=match):
+            ops.topk_ef_sparse(x, err, torch.tensor(rows, device=card), k=4,
+                               block=128)
+    assert ops.launches["topk_ef_sparse"] == 1
