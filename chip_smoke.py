@@ -7,22 +7,37 @@ then, on the card:
 
 1. holds each kernel against its plain PyTorch twin at the shapes of the
    FedCAMS round on ConvMixer-256-8 (d = 704,266, blocks of 2048, k = 32,
-   n = 10 clients of m = 100): ``topk_ef_sparse`` at k = 32, k = 1 and on
-   a tie-laden input, and at k = 1024 and k = block (more picks than a
-   CTA has threads); ``fedams_ingest`` at fp32, bf16 and int8 state for
-   both options and with a NaN delta; ``fedams_update`` for both options
-   at a ragged N, also with NaN deltas. All bitwise (a NaN must meet a
-   NaN). Each kernel is timed with CUDA events (median of 30 launches,
-   L2 flushed before each) beside its twin and its bound;
+   n = 10 clients of m = 100): ``topk_ef_sparse`` and ``topk_ef`` at
+   k = 32, k = 1 and on a tie-laden input, and at k = 1024 and k = block
+   (more picks than a CTA has threads); ``sign_ef`` with zeros, -0.0 and a
+   NaN client, and at a d past 2^24 (its scale tree runs in chunks); ``pack_uint``/``unpack_uint`` at n = 1 over 704,266 values
+   (the sign codec's bits) and n = 11 over 11,008 (blocktopk's index
+   stream), every n in 1..32 at a ragged count, and the round trip;
+   ``fedams_ingest`` at fp32, bf16 and int8 state for both options and with
+   a NaN delta; ``fedams_update`` for both options at a ragged N, also with
+   NaN deltas. All bitwise (a NaN must meet a NaN). Each kernel is timed
+   with CUDA events (median of 30 launches, L2 flushed before each) beside
+   its twin and its bound;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
-   small MLP problem, both server routes;
+   small MLP problem, every route below;
 3. runs the FedCAMS round on ConvMixer-256-8 (random weights from a seed,
-   synthetic CIFAR-shaped data), 6 rounds on each server route:
-   (a) ``track_gamma=False``, fused ingest → ``fedams_ingest``;
-   (b) ``track_gamma=True`` → scatter-mean + ``fedams_update``.
+   synthetic CIFAR-shaped data), 6 rounds on each route:
+   (a) blocktopk, ``track_gamma=False``, fused ingest → ``topk_ef_sparse``
+       + ``fedams_ingest``;
+   (b) blocktopk, ``track_gamma=True`` → ``topk_ef_sparse``, scatter-mean
+       + ``fedams_update``;
+   (c) sign, in memory → ``sign_ef`` + ``fedams_update``;
+   (d) sign over the packed wire →
+       ``pack_uint``/``unpack_uint`` (n = 1) + ``fedams_update``;
+   (e) blocktopk 1/64 over the dense uplink (``sparse_uplink=False``) →
+       ``topk_ef`` + ``fedams_update``;
+   (f) as (e) over the packed wire → ``pack_uint``/``unpack_uint``
+       (n = 11) + ``fedams_update``.
    Every kernel launch counter is reset before a route and read after it;
-   a route whose kernels never launched fails.
+   a route whose kernels never launched fails. Wire routes also check that
+   every encoded buffer is ``codec.nbytes(d)`` long and that each round
+   bills n of them uplink.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
@@ -31,6 +46,7 @@ without CUDA or when any check fails. Longer output goes to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -52,7 +68,18 @@ REPLACES = {
     "topk_ef_sparse": "src/repro/kernels/topk_ef.py:90",
     "fedams_ingest": "src/repro/kernels/fedams_ingest.py:127",
     "fedams_update": "src/repro/kernels/fedams_update.py:55",
+    "topk_ef": "src/repro/kernels/topk_ef.py:69",
+    "sign_ef": "src/repro/kernels/sign_ef.py:38",
+    "pack_uint": "src/repro/kernels/bitpack.py:184",
+    "unpack_uint": "src/repro/kernels/bitpack.py:210",
 }
+ROUTES = ("a", "b", "c", "d", "e", "f")
+EXPECT = {"a": ("topk_ef_sparse", "fedams_ingest"),
+          "b": ("topk_ef_sparse", "fedams_update"),
+          "c": ("sign_ef", "fedams_update"),
+          "d": ("pack_uint", "unpack_uint", "fedams_update"),
+          "e": ("topk_ef", "fedams_update"),
+          "f": ("pack_uint", "unpack_uint", "fedams_update")}
 
 # the slice: ConvMixer-256-8, fedcams + blocktopk 1/64, m=100, n=10, K=3, B=20
 M, N_CLI, K_STEPS, BATCH, RATIO, BLOCK = 100, 10, 3, 20, 1 / 64, 2048
@@ -146,27 +173,11 @@ def phase_kernels(dev, d: int):
     rows = torch.randperm(M, generator=g, device=dev)[:N_CLI].contiguous()
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)
     out = {}
-
-    # -- topk_ef_sparse ----------------------------------------------------
     x = torch.randn(N_CLI, d, generator=g, device=dev) * 0.01
     err0 = torch.randn(M, d, generator=g, device=dev) * 0.003
     ties_x = (torch.randint(-2, 3, (N_CLI, d), generator=g, device=dev)
               .float() * 0.5)
-    worst = 0.0
     zeros = torch.zeros_like(err0)
-    for xin, e_in, kk, what in ((x, err0, k, "k=32"), (x, err0, 1, "k=1"),
-                                (ties_x, zeros, k, "ties"),
-                                (ties_x, zeros, 1, "ties k=1"),
-                                # more picks than the CTA's 512 threads
-                                (x, err0, 1024, "k=1024"),
-                                (ties_x, zeros, BLOCK, "ties k=block")):
-        e_k, e_r = e_in.clone(), e_in.clone()
-        got = ops.topk_ef_sparse_cuda(xin, e_k, rows, k=kk, block=BLOCK)
-        want = ref.topk_ef_sparse(xin, e_r, rows, k=kk, block=BLOCK)
-        torch.cuda.synchronize()
-        same(f"topk_ef_sparse[{what}]", list(got) + [e_k],
-             list(want) + [e_r])
-        worst = max(worst, max_abs(got[0], want[0]), max_abs(e_k, e_r))
     err = err0.clone()
 
     def evict():
@@ -176,17 +187,84 @@ def phase_kernels(dev, d: int):
         err.copy_(err0)
         evict()
 
-    # the kernel without the wrapper's rows check, which syncs the host
-    ms = time_ms(lambda: ops._topk_ef_sparse_launch(x, err, rows, k=k,
-                                                    block=BLOCK), restore)
-    plain = time_ms(lambda: ref.topk_ef_sparse(x, err, rows, k=k,
-                                               block=BLOCK), restore, iters=10)
-    nbytes = N_CLI * d * 4 * 3 + N_CLI * nb * k * 8 + N_CLI * 8
-    out["topk_ef_sparse"] = dict(
-        ms=ms, plain_ms=plain, max_abs_err=worst, bytes=nbytes,
-        flops=N_CLI * d, library_ms=None,
-        shapes=f"x ({N_CLI},{d}) f32, err ({M},{d}) f32, k={k}, "
-               f"block={BLOCK}")
+    def worst_of(got, want):
+        return max(max_abs(a.float(), b.float())
+                   for a, b in zip(got, want) if a.is_floating_point())
+
+    # -- topk_ef_sparse, topk_ef: one selection, compacted or dense ----------
+    cases = ((x, err0, k, "k=32"), (x, err0, 1, "k=1"),
+             (ties_x, zeros, k, "ties"), (ties_x, zeros, 1, "ties k=1"),
+             # more picks than the CTA's 512 threads
+             (x, err0, 1024, "k=1024"), (ties_x, zeros, BLOCK, "ties k=block"))
+    topk = {
+        "topk_ef_sparse": (ops.topk_ef_sparse_cuda, ref.topk_ef_sparse, list,
+                           N_CLI * d * 4 * 3 + N_CLI * nb * k * 8 + N_CLI * 8,
+                           N_CLI * d),
+        "topk_ef": (ops.topk_ef_cuda, ref.topk_ef, lambda hat: [hat],
+                    N_CLI * d * 4 * 4 + N_CLI * 8, N_CLI * d * 2),
+    }
+    for name, (kern, twin, outs, nbytes, flops) in topk.items():
+        worst = 0.0
+        for xin, e_in, kk, what in cases:
+            e_k, e_r = e_in.clone(), e_in.clone()
+            got = outs(kern(xin, e_k, rows, k=kk, block=BLOCK)) + [e_k]
+            want = outs(twin(xin, e_r, rows, k=kk, block=BLOCK)) + [e_r]
+            torch.cuda.synchronize()
+            same(f"{name}[{what}]", got, want)
+            worst = max(worst, worst_of(got, want))
+        # the kernel without the wrapper's rows check, which syncs the host
+        ms = time_ms(lambda: kern(x, err, rows, k=k, block=BLOCK,
+                                  check_rows=False), restore)
+        plain = time_ms(lambda: twin(x, err, rows, k=k, block=BLOCK),
+                        restore, iters=10)
+        out[name] = dict(
+            ms=ms, plain_ms=plain, max_abs_err=worst, bytes=nbytes,
+            flops=flops, library_ms=None,
+            shapes=f"x ({N_CLI},{d}) f32, err ({M},{d}) f32, k={k}, "
+                   f"block={BLOCK}")
+
+    # -- sign_ef ---------------------------------------------------------------
+    xs = x.clone()
+    xs[0, ::5] = 0.0
+    xs[0, 1::5] = -0.0
+    es = err0.clone()
+    es[rows[0], ::5] = 0.0
+    es[rows[0], 1::5] = -0.0     # -0.0 + -0.0 = -0.0: sign(-0.0) = +1
+    bad = N_CLI // 2
+    xs[bad, d // 2] = float("nan")  # a diverged client: its hat is all NaN
+    e_k, e_r = es.clone(), es.clone()
+    got = [ops.sign_ef_cuda(xs, e_k, rows), e_k]
+    want = [ref.sign_ef(xs, e_r, rows), e_r]
+    torch.cuda.synchronize()
+    same("sign_ef[zeros, -0.0, NaN client]", got, want)
+    check(bool(got[0][bad].isnan().all()) and not bool(
+        got[0][torch.arange(N_CLI, device=dev) != bad].isnan().any()),
+        "sign_ef: the NaN client's hat is not all NaN, or another is")
+    check(bool((got[0][0][::5] > 0).all()), "sign_ef: sign(0) is not +1")
+    worst = worst_of(got, want)
+    del xs, es, e_k, e_r, got, want
+    # more partials per client than one tree takes: the scale sums in chunks
+    dl = ref.SIGN_BLOCK * (ref.SIGN_CHUNK + 3) + 7
+    xl = torch.randn(2, dl, generator=g, device=dev)
+    el = torch.randn(3, dl, generator=g, device=dev) * 0.1
+    rl = torch.tensor([2, 0], device=dev)
+    e_k, e_r = el.clone(), el.clone()
+    got = [ops.sign_ef_cuda(xl, e_k, rl), e_k]
+    want = [ref.sign_ef(xl, e_r, rl), e_r]
+    torch.cuda.synchronize()
+    same(f"sign_ef[d={dl}, chunked scale]", got, want)
+    worst = max(worst, worst_of(got, want))
+    del xl, el, e_k, e_r, got, want
+    ms = time_ms(lambda: ops.sign_ef_cuda(x, err, rows, check_rows=False),
+                 restore)
+    plain = time_ms(lambda: ref.sign_ef(x, err, rows), restore, iters=10)
+    out["sign_ef"] = dict(
+        ms=ms, plain_ms=plain, max_abs_err=worst,
+        bytes=N_CLI * d * 4 * 4 + N_CLI * 8, flops=N_CLI * d * 5,
+        library_ms=None,
+        shapes=f"x ({N_CLI},{d}) f32, err ({M},{d}) f32, {nb} partials "
+               f"per client")
+    del ties_x, zeros
 
     # -- fedams_ingest -------------------------------------------------------
     tot = torch.randn(N_CLI, d, generator=g, device=dev)
@@ -280,6 +358,57 @@ def phase_kernels(dev, d: int):
         ms=ms, plain_ms=plain, max_abs_err=worst, bytes=9 * d * 4,
         flops=12 * d, library_ms=None,
         shapes=f"N={d} (ragged), fp32")
+    # -- pack_uint / unpack_uint ---------------------------------------------
+    bits = (torch.randn(d, generator=g, device=dev) >= 0).to(torch.uint8)
+    ib = 11
+    idx = torch.randint(0, BLOCK, (nb * k,), generator=g, device=dev,
+                        dtype=torch.int32)
+    cases = [(1, bits, torch.uint8, "n=1 sign bits"),
+             (ib, idx, torch.int32, "n=11 blocktopk indices")]
+    for nbits in range(1, 33):
+        v = torch.randint(-2**31, 2**31 - 1, (10_000 + nbits,), generator=g,
+                          device=dev, dtype=torch.int32)
+        cases.append((nbits, v, torch.int32, f"n={nbits}, count={v.numel()}"))
+    worst_p = worst_u = 0.0
+    for nbits, vals, dt, what in cases:
+        got = ops.pack_uint_cuda(vals, nbits)
+        want = ref.pack_uint(vals, nbits)
+        torch.cuda.synchronize()
+        same(f"pack_uint[{what}]", [got], [want])
+        back = ops.unpack_uint_cuda(got, nbits, vals.numel(), dt)
+        back_r = ref.unpack_uint(want, nbits, vals.numel(), dt)
+        same(f"unpack_uint[{what}]", [back], [back_r])
+        mask = (1 << nbits) - 1   # the round trip keeps the low nbits
+        check(torch.equal(back.long() & mask, vals.long() & mask),
+              f"pack/unpack round trip[{what}] lost bits")
+        worst_p = max(worst_p, max_abs(got.float(), want.float()))
+        worst_u = max(worst_u, max_abs(back.double(), back_r.double()),
+                      max_abs((back.long() & mask).double(),
+                              (vals.long() & mask).double()))
+    nbytes1, nbytes11 = (d + 7) // 8, (nb * k * ib + 7) // 8
+    buf1, buf11 = ops.pack_uint_cuda(bits, 1), ops.pack_uint_cuda(idx, ib)
+    t = {
+        "pack_uint": (
+            lambda: ops.pack_uint_cuda(bits, 1),
+            lambda: ref.pack_uint(bits, 1), d + nbytes1,
+            lambda: ops.pack_uint_cuda(idx, ib),
+            lambda: ref.pack_uint(idx, ib), 4 * nb * k + nbytes11, worst_p),
+        "unpack_uint": (
+            lambda: ops.unpack_uint_cuda(buf1, 1, d, torch.uint8),
+            lambda: ref.unpack_uint(buf1, 1, d, torch.uint8), d + nbytes1,
+            lambda: ops.unpack_uint_cuda(buf11, ib, nb * k),
+            lambda: ref.unpack_uint(buf11, ib, nb * k),
+            4 * nb * k + nbytes11, worst_u),
+    }
+    for name, (k1, p1, b1, k11, p11, b11, worst) in t.items():
+        out[name] = dict(
+            ms=time_ms(k1, evict), plain_ms=time_ms(p1, evict),
+            ms_n11=time_ms(k11, evict), plain_ms_n11=time_ms(p11, evict),
+            max_abs_err=worst, bytes=b1, flops=d, bytes_n11=b11,
+            library_ms=None,
+            shapes=f"n=1 over {d} uint8 values <-> {nbytes1} bytes "
+                   f"(timed row); n=11 over {nb * k} int32 values <-> "
+                   f"{nbytes11} bytes (ms_n11)")
     return out
 
 
@@ -294,8 +423,14 @@ def _route_cfg(route: str, m: int, n: int, k: int):
               local_steps=k, num_clients=m, participating=n,
               compressor="blocktopk", compress_ratio=RATIO,
               wire_block=BLOCK)
-    if route == "a":
-        kw.update(track_gamma=False, fused_ingest="auto")
+    kw.update({
+        "a": dict(track_gamma=False, fused_ingest="auto"),
+        "b": {},
+        "c": dict(compressor="sign"),
+        "d": dict(compressor="sign", wire=True),
+        "e": dict(sparse_uplink=False),
+        "f": dict(sparse_uplink=False, wire=True),
+    }[route])
     return FedConfig(**kw)
 
 
@@ -310,7 +445,7 @@ def phase_reference():
     loss = lambda p, b: cm.mlp_loss(p, b, cfg)
     p0 = init_params(cm.mlp_defs(cfg), torch.Generator().manual_seed(0))
     worst = {}
-    for route in ("a", "b"):
+    for route in ROUTES:
         fed = _route_cfg(route, 20, 4, 2)
         sims = {dev: FedSim(loss, fed, device=dev) for dev in ("cpu", "cuda")}
         check(sims["cuda"]._fused == ("kernel" if route == "a" else "off"),
@@ -335,8 +470,18 @@ def phase_reference():
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the slice, ConvMixer-256-8, both server routes
+# phase 3: the slice, ConvMixer-256-8, every route
 # ---------------------------------------------------------------------------
+
+
+def _recording(codec, sizes: list):
+    """``codec`` with an ``encode`` that also appends each buffer's length
+    to ``sizes``."""
+    def encode(x, rng=None):
+        buf = codec.encode(x, rng)
+        sizes.append(buf.numel())
+        return buf
+    return dataclasses.replace(codec, encode=encode)
 
 
 def phase_slice(rounds: int = 6):
@@ -355,13 +500,14 @@ def phase_slice(rounds: int = 6):
                                    alpha=0.3, seed=0)
     loss = lambda p, b: cm.convmixer_loss(p, b, cfg)
     p0 = init_params(defs, torch.Generator().manual_seed(0))
-    expect = {"a": ("topk_ef_sparse", "fedams_ingest"),
-              "b": ("topk_ef_sparse", "fedams_update")}
     res = {}
-    for route in ("a", "b"):
+    for route in ROUTES:
         sim = FedSim(loss, _route_cfg(route, M, N_CLI, K_STEPS))
         check(sim._fused == ("kernel" if route == "a" else "off"),
               f"route {route}: resolved fused_ingest={sim._fused}")
+        sizes = []
+        if sim.codec is not None:
+            sim.codec = _recording(sim.codec, sizes)
         st = sim.init(p0)
         gen = torch.Generator().manual_seed(1)
         plan = []
@@ -370,7 +516,7 @@ def phase_slice(rounds: int = 6):
             plan.append((idx, data.round_batches(idx, r, K_STEPS, BATCH)))
         torch.cuda.synchronize()
         ops.reset_launches()
-        ms, losses, gammas = [], [], []
+        ms, losses, gammas, wire = [], [], [], []
         for idx, b in plan:
             t0 = time.perf_counter()
             st, met = sim.round(st, b, idx)
@@ -378,16 +524,33 @@ def phase_slice(rounds: int = 6):
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(met["loss"]))
             gammas.append(float(met["gamma"]))
+            if sim.codec is not None:
+                wire.append({key: met[key] for key in (
+                    "wire_up_bytes", "wire_down_bytes", "wire_bytes",
+                    "round_time_s", "sim_time_s")})
         counts = dict(ops.launches)
-        for name in expect[route]:
+        for name in EXPECT[route]:
             check(counts[name] > 0, f"route {route}: {name} never launched")
+        if sim.codec is not None:
+            nbytes = sim.codec.nbytes(d)
+            check(len(sizes) == rounds * N_CLI and set(sizes) == {nbytes},
+                  f"route {route}: encoded buffer sizes {sorted(set(sizes))}"
+                  f" over {len(sizes)} messages, codec.nbytes(d)={nbytes}")
+            check(all(w["wire_up_bytes"] == N_CLI * nbytes for w in wire),
+                  f"route {route}: uplink bytes per round "
+                  f"{[w['wire_up_bytes'] for w in wire]} != n × {nbytes}")
+            down = N_CLI * (4 * d + 16)
+            check([w["wire_bytes"] for w in wire] == [
+                (r + 1) * (N_CLI * nbytes + down) for r in range(rounds)],
+                f"route {route}: cumulative wire bytes "
+                f"{[w['wire_bytes'] for w in wire]}")
         check(all(np.isfinite(losses)), f"route {route}: losses {losses}")
         check(st.params.shape == (d,) and bool(torch.isfinite(
             st.params).all()), f"route {route}: non-finite params")
         check(bool(torch.isfinite(st.errors).all()),
               f"route {route}: non-finite EF buffer")
         res[route] = dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses,
-                          gamma=gammas, launches=counts,
+                          gamma=gammas, launches=counts, wire=wire,
                           ef_buffer_mb=st.errors.numel() * 4 / 1e6)
         print(f"route {route}: round ms (round 0 excluded) "
               f"{[round(t, 2) for t in ms[1:]]}, median "
@@ -416,19 +579,25 @@ def main():
         if log.exists():
             print(log.read_text().strip())
 
+    t_phase = time.perf_counter()
     torch.use_deterministic_algorithms(True)
     kern = phase_kernels(dev, 704266)
     torch.use_deterministic_algorithms(False)
+    print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
     for name, r in kern.items():
         print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
               f"{r['plain_ms']:.4f} ms), max_abs_err {r['max_abs_err']}")
+    t_phase = time.perf_counter()
     refcheck = phase_reference()
     print(f"card vs CPU round (small MLP): {refcheck}")
+    print(f"phase 2 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     sl = phase_slice()
+    print(f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
 
     rows = []
     for name, r in kern.items():
-        runs = [(route, sl[route]["launches"][name]) for route in ("a", "b")]
+        runs = [(route, sl[route]["launches"][name]) for route in ROUTES]
         per_round = {route: n / (len(sl[route]["round_ms"]) + 1)
                      for route, n in runs if n}
         print(f"kernel {name}: {r['ms']:.4f} ms median of 30, {r['bytes']} "
@@ -436,9 +605,10 @@ def main():
         b_ms, b_by = bound(r["bytes"], r["flops"])
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{_build.SOURCES.get(name, name)}.cu",
             "replaces": REPLACES[name],
-            "launches": sl["a"]["launches"][name] + sl["b"]["launches"][name],
+            "launches": sum(n for _, n in runs),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"]})

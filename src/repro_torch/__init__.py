@@ -8,8 +8,11 @@ neither ``jax`` nor anything of ``repro``:
     repro_torch.configs.base      — ``FedConfig`` (a copy, same fields)
     repro_torch.data.synthetic    — ``FederatedClassification`` (a copy)
     repro_torch.models            — ``ParamDef``/ravel order, ConvMixer, MLP
-    repro_torch.core              — compressors, server optimizers, local
-                                    rules, sampling, round stages, FedSim
+    repro_torch.core              — compressors, error feedback, server
+                                    optimizers, local rules, sampling,
+                                    round stages, FedSim
+    repro_torch.comm              — wire codecs, simulated network,
+                                    ``CommLog``
     repro_torch.kernels           — CUDA kernels (``csrc/``), their plain
                                     PyTorch twins (``ref``) and the
                                     per-call dispatch (``ops``)

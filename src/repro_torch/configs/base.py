@@ -113,7 +113,10 @@ class FedConfig:
     wire: bool = False
     wire_value_dtype: str = "float32"  # float32 = bit-exact vs the dense path
     wire_block: int = 2048         # codec block size (blocktopk/bitpack)
-    wire_pack_impl: str = "jnp"    # jnp | pallas — sub-word bit packing path
+    # jnp | pallas: the JAX package's sub-word packing route (XLA or
+    # Pallas, byte-identical). Kept for parity; the port packs through
+    # kernels.ops.pack_uint (the kernel on a card) for either value.
+    wire_pack_impl: str = "jnp"
     # FedSim: process the per-client train/compress/encode pipeline in
     # chunks of this many clients (lax.scan over n/client_chunk chunks), so
     # peak delta memory is (client_chunk, d) instead of (n, d). 0 = off.

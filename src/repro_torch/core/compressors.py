@@ -1,20 +1,28 @@
-"""Biased top-k compressors C: R^d -> R^d (paper §4.2, Assumption 4.14).
+"""Biased compressors C: R^d -> R^d (paper §4.2, Assumption 4.14).
 
-Counterpart of ``repro.core.compressors`` for the top-k family: ``topk``
-(global) and ``blocktopk`` (exact top-k' inside fixed-size blocks of the
-flat vector), each with ``compress`` (dense output) and ``select`` (the
-compacted ``(vals, idx)`` :class:`Selection`). Selection order is
-``lax.top_k``'s: descending |x|, ties to the lowest index — a stable
-descending sort here, or ``argmax`` (first maximum) when k = 1. The
-results are bitwise those of the JAX compressors
-(tests/test_torch_compressors.py).
+Counterpart of ``repro.core.compressors``:
+
+* the top-k family, ``topk`` (global) and ``blocktopk`` (exact top-k'
+  inside fixed-size blocks of the flat vector), each with ``compress``
+  (dense output) and ``select`` (the compacted ``(vals, idx)``
+  :class:`Selection`). Selection order is ``lax.top_k``'s: descending |x|,
+  ties to the lowest index — a stable descending sort here, or ``argmax``
+  (first maximum) when k = 1. Bitwise the JAX compressors
+  (tests/test_torch_compressors.py);
+* ``sign`` (and ``packedsign``, the same numerics): ``‖x‖₁/d · sign(x)``
+  with sign(0) := +1. The scale is summed by the fixed halving trees of the
+  ``sign_ef`` kernel (:func:`repro_torch.kernels.ref.sign_scale`), so
+  ``compress`` equals the kernel bitwise and ``jnp.mean``'s scale within a
+  few ulp;
+* ``int8`` (absmax scale, round half to even) and ``none``/``identity``,
+  bitwise the JAX compressors.
 
 In the FedSim round the blocktopk selection runs through the
-``topk_ef_sparse`` kernel (:mod:`repro_torch.kernels.ops`); ``select`` and
-``compress`` serve the global top-k uplink and the γ diagnostic.
+``topk_ef_sparse`` kernel, and the dense uplink's error feedback through
+``topk_ef`` and ``sign_ef`` (:mod:`repro_torch.core.error_feedback`).
 
-The sign, randk, int8 and identity compressors (the dense uplink) are not
-ported yet; :func:`make_compressor` refuses them by name.
+``randk`` draws its coordinates from a JAX PRNG stream the port cannot
+reproduce; :func:`make_compressor` refuses it by name.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ref
 
 
 class Selection(NamedTuple):
@@ -58,6 +68,9 @@ class Compressor:
     # (x, rng=None) -> Selection; None for compressors whose messages are
     # not (value, index) pairs
     select: Optional[Callable] = None
+    # blocktopk's block cap (the ``block`` of make_blocktopk); the dense
+    # uplink's topk_ef kernel cuts the same blocks. Not a JAX field.
+    block: Optional[int] = None
 
 
 def _top_idx(mag: torch.Tensor, k: int) -> torch.Tensor:
@@ -130,16 +143,76 @@ def make_blocktopk(ratio: float, block: int = 2048) -> Compressor:
         q_bound=lambda x: math.sqrt(max(1.0 - ratio, 0.0)),
         ratio=ratio,
         select=select,
+        block=block,
+    )
+
+
+def make_sign() -> Compressor:
+    def compress(x, rng=None):
+        # sign(0) = sign(-0.0) := +1 — the convention a 1-bit wire can carry
+        flat = x.reshape(1, -1)
+        scale = ref.sign_scale(flat)[:, None]
+        return torch.where(flat >= 0, scale, -scale).reshape(x.shape)
+
+    def q_bound(x):
+        x = torch.as_tensor(x, dtype=torch.float32).reshape(-1)
+        l1 = x.abs().sum()
+        l2sq = (x * x).sum()
+        q = 1.0 - l1 * l1 / (x.numel() * l2sq.clamp_min(1e-30))
+        return float(torch.sqrt(q.clamp_min(0.0)))
+
+    return Compressor(
+        name="sign",
+        compress=compress,
+        bits_per_message=lambda d: 32 + d,       # Table 1
+        q_bound=q_bound,
+    )
+
+
+def make_int8() -> Compressor:
+    def compress(x, rng=None):
+        scale = ref.div_rn(x.abs().amax(), 127.0)
+        scale = torch.maximum(scale, scale.new_tensor(1e-30))
+        return torch.round(x / scale) * scale
+
+    return Compressor(
+        name="int8",
+        compress=compress,
+        bits_per_message=lambda d: 32 + 8 * d,
+        q_bound=lambda x: 1.0 / 127.0 * math.sqrt(1.0),
+    )
+
+
+def make_identity() -> Compressor:
+    return Compressor(
+        name="none",
+        compress=lambda x, rng=None: x,
+        bits_per_message=lambda d: 32 * d,
+        q_bound=lambda x: 0.0,
     )
 
 
 def make_compressor(name: str, ratio: float = 1 / 64,
                     block: int = 2048) -> Compressor:
+    if name in ("none", "identity"):
+        return make_identity()
     if name == "topk":
         return make_topk(ratio)
     if name == "blocktopk":
         return make_blocktopk(ratio, block)
-    if name in ("sign", "packedsign", "randk", "int8", "none", "identity"):
+    if name in ("sign", "packedsign"):
+        c = make_sign()
+        if name == "packedsign":
+            # identical numerics; the packed 1-bit wire format of the mesh
+            return Compressor(name="packedsign", compress=c.compress,
+                              bits_per_message=c.bits_per_message,
+                              q_bound=c.q_bound)
+        return c
+    if name == "int8":
+        return make_int8()
+    if name == "randk":
         raise NotImplementedError(
-            f"compressor {name!r} is not ported to repro_torch yet")
+            "compressor 'randk' is not ported to repro_torch yet: its JAX "
+            "draw cannot be reproduced, so it waits for a slice that takes "
+            "the draw as an input")
     raise ValueError(f"unknown compressor {name!r}")

@@ -5,18 +5,34 @@ and 2 on one device: m clients with an (m, d) error-feedback buffer that
 stays resident on the device, n sampled clients per round training K local
 steps each, the select-once sparse uplink, and the FedAMS server step.
 
-One round (the sparse branch of ``_round_impl``):
+One round (``_round_impl``):
 
 * each sampled client runs K local steps from the model it sees
   (``core.local``) and yields its delta;
-* ``stages.client_uplink_sparse`` adds the deltas to the clients' EF rows,
-  selects ``(vals, idx)`` once per client and leaves the residual in the
-  rows — for blocktopk through the ``topk_ef_sparse`` kernel;
+* the uplink, sparse or dense:
+
+  - sparse (the top-k family, by default): ``stages.client_uplink_sparse``
+    adds the deltas to the clients' EF rows, selects ``(vals, idx)`` once
+    per client and leaves the residual in the rows — for blocktopk through
+    the ``topk_ef_sparse`` kernel;
+  - dense (``sparse_uplink=False``, or sign/int8/identity):
+    ``stages.client_uplink`` compresses ``delta + e`` per client and keeps
+    ``tot − hat`` in the rows — in memory through the ``sign_ef`` /
+    ``topk_ef`` kernels for sign and blocktopk, or, in wire mode, through
+    the codec's encode→decode (the ``pack_uint``/``unpack_uint`` kernels,
+    whatever ``wire_pack_impl`` says); the server averages the hats;
+
 * the server either ingests the selections in one fused pass
   (``fused_ingest`` resolves to ``"kernel"``/``"jnp"``: the
-  ``fedams_ingest`` kernel or its plain twin) or scatter-means them and
-  takes the two-pass ``server_update`` (the ``fedams_update`` kernel for
-  the FedAMS family).
+  ``fedams_ingest`` kernel or its plain twin) or takes the two-pass
+  ``server_update`` on the mean (the ``fedams_update`` kernel for the
+  FedAMS family).
+
+With ``fed.wire=True`` every delta is serialized to packed bytes
+(``comm.wire``), timed through a simulated network (``comm.transport``,
+host-side numpy keyed by (seed, round, client)) and decoded; the round's
+metrics then carry the measured ``wire_*`` bytes, ``round_time_s`` and
+``sim_time_s`` (``comm.metrics.CommLog``) next to the analytic ``bits``.
 
 Differences from the JAX class: the state holds the FLAT (d,) model
 (``FedSim.unravel`` gives the dict of views in JAX shapes); a round updates
@@ -25,10 +41,8 @@ only the returned state; per-client local training is a loop of
 ``torch.autograd`` steps; ``run_rounds`` is a plain loop.
 
 Knobs outside this slice raise ``NotImplementedError`` naming the knob:
-``wire``, ``fault``/``deadline_s``, ``async_buffer``, ``ef_store``,
-``client_chunk``, ``agg_groups > 1`` and ``two_way``, and the dense
-compressed uplink (``sparse_uplink=False`` or a compressor without a
-compacted form).
+``fault``/``deadline_s``, ``async_buffer``, ``ef_store``,
+``client_chunk``, ``agg_groups > 1`` and ``two_way``.
 """
 from __future__ import annotations
 
@@ -38,6 +52,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.comm.metrics import CommLog
+from repro_torch.comm.transport import NetworkConfig, SimulatedNetwork
+from repro_torch.comm.wire import make_dense32_codec, make_wire_codec
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.compressors import (Compressor, block_layout,
                                           make_compressor)
@@ -46,9 +63,10 @@ from repro_torch.core.local import (hetero_step_counts, local_lr,
 from repro_torch.core.server_opt import (FUSED_INGEST_GROUPS_DETAIL,
                                          init_server_state, server_ingest,
                                          server_update)
-from repro_torch.core.stages import (client_uplink_sparse, gamma_diagnostic,
-                                     resolve_fused_ingest,
-                                     server_aggregate_sparse, server_downlink)
+from repro_torch.core.stages import (client_uplink, client_uplink_sparse,
+                                     gamma_diagnostic, resolve_fused_ingest,
+                                     server_aggregate_sparse, server_downlink,
+                                     stage)
 from repro_torch.models.params import ravel
 
 
@@ -62,19 +80,10 @@ class SimState(NamedTuple):
     round: int
 
 
-def _stage(name: str):
-    """A ``torch.profiler`` range over one stage of a round, named
-    ``fedsim.<name>``; a profiled round reports its host and device time per
-    stage (``scripts/profile_round.py``). Nearly free when no profiler
-    runs."""
-    return torch.profiler.record_function(f"fedsim.{name}")
-
-
 def _refuse_unported(fed: FedConfig) -> None:
-    unported = {   # the most specific knob first: deadlines need wire
+    unported = {
         "deadline_s": fed.deadline_s > 0,
         "async_buffer": fed.async_buffer > 0,
-        "wire": fed.wire,
         "ef_store": fed.ef_store,
         "client_chunk": fed.client_chunk > 0,
         "agg_groups": fed.agg_groups > 1,
@@ -92,10 +101,13 @@ class FedSim:
     aux)``, where ``params_dict`` holds tensors in the JAX shapes.
 
     ``device``: where the state and the round run; ``None`` means CUDA and
-    raises without a card (pass ``device="cpu"`` to run on the CPU)."""
+    raises without a card (pass ``device="cpu"`` to run on the CPU).
+    ``network``: the wire mode's ``comm.transport.SimulatedNetwork``
+    (default: ``NetworkConfig()`` over ``fed.num_clients``)."""
 
     def __init__(self, loss_fn: Callable, fed: FedConfig,
-                 compressor: Optional[Compressor] = None, *, device=None):
+                 compressor: Optional[Compressor] = None,
+                 network: Optional[SimulatedNetwork] = None, *, device=None):
         _refuse_unported(fed)
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
@@ -113,10 +125,6 @@ class FedSim:
             raise ValueError(
                 "sparse_uplink=True needs a compressor with a .select "
                 "(topk/blocktopk family); this one has none")
-        if self.comp is not None and not self.sparse:
-            raise NotImplementedError(
-                "FedConfig.sparse_uplink=False (the dense compressed uplink) "
-                "is not ported to repro_torch's FedSim yet")
         eligible = (self.sparse and self.comp.name.startswith("blocktopk")
                     and not fed.track_gamma)
         self._fused = resolve_fused_ingest(
@@ -126,6 +134,20 @@ class FedSim:
                    "track_gamma=False (the γ diagnostic consumes a dense "
                    "aggregate)" + FUSED_INGEST_GROUPS_DETAIL)
         self.unravel = None
+        self.codec = self.network = self.comm_log = None
+        if network is not None and not fed.wire:
+            raise ValueError(
+                "a network was supplied but fed.wire is False — the "
+                "transport simulation only runs in wire mode; set "
+                "FedConfig(wire=True)")
+        if fed.wire:
+            name = fed.compressor if self.comp is not None else "dense32"
+            self.codec = make_wire_codec(name, fed.compress_ratio,
+                                         fed.wire_block, fed.wire_value_dtype)
+            self._down_codec = make_dense32_codec()   # two_way is refused
+            self.network = network or SimulatedNetwork(NetworkConfig(),
+                                                       fed.num_clients)
+            self.comm_log = CommLog()
 
     def init(self, params) -> SimState:
         """``params``: a nested dict of tensors in JAX shapes."""
@@ -153,6 +175,19 @@ class FedSim:
             return n * int(self.comp.bits_per_message(self._d))
         return n * 32 * self._d
 
+    def _round_timing(self, ids, round_idx: int):
+        """Simulated-network timing draw for one round (host-side numpy,
+        deterministic in (seed, round, client)); None outside wire mode."""
+        if self.network is None:
+            return None
+        return self.network.round(ids, self.codec.nbytes(self._d),
+                                  self._down_codec.nbytes(self._d), round_idx)
+
+    def _record_timing(self, timing) -> dict:
+        """Book one round's timing into the CommLog and return its metric
+        entries (every client's payload is delivered: no faults here)."""
+        return self.comm_log.record(timing)
+
     # -- one round ---------------------------------------------------------
     def round(self, state: SimState, client_batches, client_idx,
               rng: Optional[torch.Generator] = None):
@@ -165,15 +200,18 @@ class FedSim:
         ids = np.array(client_idx, dtype=np.int64)
         if np.unique(ids).size != ids.size:
             raise ValueError("client_idx must hold distinct client ids")
-        with _stage("host_to_device"):
+        with stage("host_to_device"):
             idx = torch.as_tensor(ids, device=self.device)
             batches = {k: torch.as_tensor(v).to(self.device)
                        for k, v in client_batches.items()}
         k_all = hetero_step_counts(self.fed, rng, ids.size)
+        timing = self._round_timing(ids, state.round)
         new_state, met = self._round_impl(state, batches, idx, state.round,
                                           k_all)
         bits = state.bits + self._bits_per_round(ids.size)
         met["bits"] = bits
+        if timing is not None:
+            met.update(self._record_timing(timing))
         return new_state._replace(bits=bits, round=state.round + 1), met
 
     def run_rounds(self, state: SimState, client_batches, client_idx,
@@ -214,41 +252,45 @@ class FedSim:
         n = client_idx.numel()
         flat0 = state.x_client
         d = flat0.numel()
-        with _stage("local_training"):
+        with stage("local_training"):
             delta, losses = self._train_block(flat0, batches,
                                               local_lr(fed, round_idx), k_all)
             loss = losses.mean()
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         errors = state.errors
         mean_tot = None
-        if self.sparse:
-            with _stage("uplink"):
-                if fed.track_gamma:   # the diagnostic needs the EF totals
-                    mean_tot = (errors[client_idx] + delta).mean(dim=0)
+        with stage("uplink"):
+            if fed.track_gamma and self.comp is not None:
+                # the diagnostic needs the EF totals before the uplink
+                mean_tot = (errors[client_idx] + delta).mean(dim=0)
+            if self.sparse:
                 vals, sidx = client_uplink_sparse(self.comp, errors,
                                                   client_idx, delta,
-                                                  self._ingest_block)
+                                                  self._ingest_block,
+                                                  self.codec)
+            else:
+                hats = client_uplink(self.comp, self.codec, d, delta, errors,
+                                     client_idx)
         if self.sparse and self._fused != "off":
             # one-pass fused ingest: the selections go straight into the
             # m/v/v̂/x update, no dense mean delta
-            with _stage("server_ingest"):
+            with stage("server_ingest"):
                 new_flat, opt = server_ingest(
                     fed, state.opt, state.params, vals, sidx, n,
                     block=self._ingest_block, impl=self._fused)
             gamma = zero
         else:
-            with _stage("server_aggregate"):
+            with stage("server_aggregate"):
                 agg = (server_aggregate_sparse(vals, sidx, d, n)
-                       if self.sparse
-                       else delta.mean(dim=0))   # uncompressed: the mean
-            with _stage("gamma"):
+                       if self.sparse else hats.mean(dim=0))
+            with stage("gamma"):
                 gamma = (gamma_diagnostic(self.comp, mean_tot, agg,
                                           delta.mean(dim=0))
                          if fed.track_gamma else zero)
-            with _stage("server_update"):
+            with stage("server_update"):
                 new_flat, opt = server_update(fed, state.opt, state.params,
                                               agg)
-        with _stage("downlink"):
+        with stage("downlink"):
             x_client, server_error = server_downlink(
                 fed, self.comp, new_flat, state.x_client, state.server_error)
         return (state._replace(params=new_flat, opt=opt, errors=errors,

@@ -1,11 +1,11 @@
-"""Round stages of the simulation backend: the select-once sparse uplink,
-the server aggregate, the downlink and the γ diagnostic.
+"""Round stages of the simulation backend: the dense EF→compress→wire
+uplink, the select-once sparse uplink, the server aggregate, the downlink
+and the γ diagnostic.
 
 Counterpart of the simulation-side half of ``repro.core.stages``. The
-mesh-side stages are not ported yet. Wire codecs are not ported either, so
-the uplink here is the float32-wire case: the server receives exactly the
-selected values, and error feedback zeroes exactly the selected
-coordinates.
+mesh-side stages are not ported yet. The uplinks work on the resident
+(m, d) EF buffer in place (the JAX stages return new error rows that the
+round scatters back).
 """
 from __future__ import annotations
 
@@ -14,11 +14,58 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.compressors import Compressor
+from repro_torch.core.compressors import Compressor, Selection
+from repro_torch.core.error_feedback import ef_compress_rows
 from repro_torch.kernels import ops, ref
 
 
-def client_uplink_sparse(comp: Compressor, errors, rows, delta, block: int):
+def stage(name: str):
+    """A ``torch.profiler`` range over one stage of a round, named
+    ``fedsim.<name>``; a profiled round reports its host and device time per
+    stage (``scripts/profile_round.py``; ranges nest, and a kernel counts
+    for the innermost one). Nearly free when no profiler runs."""
+    return torch.profiler.record_function(f"fedsim.{name}")
+
+
+def _wire_roundtrip(codec, d: int, tot):
+    """What the server decodes from each row of ``tot`` sent through
+    ``codec``: encode every client, then decode every buffer."""
+    with stage("encode"):
+        bufs = [codec.encode(t) for t in tot]
+    with stage("decode"):
+        return torch.stack([codec.decode(b, d) for b in bufs])
+
+
+def client_uplink(comp: Optional[Compressor], codec, d: int, delta, errors,
+                  rows):
+    """Local delta → what the server receives, for a block of clients.
+
+    ``delta``: (c, d) flat deltas; ``errors``: the (m, d) EF buffer, whose
+    rows ``rows`` ((c,) int64, distinct) are updated IN PLACE — untouched
+    when ``comp`` is None. Returns the (c, d) hats. Four cases, as in
+    ``repro.core.stages.client_uplink``:
+
+    * comp + codec — wire mode: the EF total really goes through
+      encode→decode, client by client; EF tracks the *decoded* value;
+    * comp only — in-memory EF compression (``ef_compress_rows``: the
+      ``sign_ef``/``topk_ef`` kernels for sign and blocktopk);
+    * codec only — an uncompressed algorithm over a dense32 wire;
+    * neither — the delta passes through untouched.
+    """
+    if comp is not None:
+        if codec is None:
+            return ef_compress_rows(comp, delta, errors, rows)
+        tot = errors[rows] + delta
+        hat = _wire_roundtrip(codec, d, tot)
+        errors[rows] = tot - hat
+        return hat
+    if codec is not None:
+        return _wire_roundtrip(codec, d, delta)
+    return delta
+
+
+def client_uplink_sparse(comp: Compressor, errors, rows, delta, block: int,
+                         codec=None):
     """The select-once uplink for a block of clients, on the resident EF
     buffer.
 
@@ -28,24 +75,37 @@ def client_uplink_sparse(comp: Compressor, errors, rows, delta, block: int):
     ``errors[rows] + delta`` are selected once and their rows keep the
     residual (the totals with the picks zeroed) — in JAX terms
     ``errors.at[rows].add(delta)``, ``client_uplink_sparse`` and
-    ``ef_update_sparse`` on a float32 wire.
+    ``ef_update_sparse``.
 
-    blocktopk runs the ``topk_ef_sparse`` kernel (its twin on the CPU);
-    global top-k runs ``comp.select`` per client. Returns ``(vals, idx)``,
-    each (c, k_total): per-client selections, blocks in order, global flat
-    positions (a blockwise selection may point into the padded tail)."""
-    c = delta.shape[0]
+    blocktopk runs the ``topk_ef_sparse`` kernel (its twin on the CPU),
+    which leaves the float32-wire residual (the picks zeroed); global top-k
+    runs ``comp.select`` per client. With a ``codec`` whose values narrow
+    (fp16/bf16/int8), the server receives ``codec.roundtrip_selection`` of
+    each selection — bit-identical to decoding the packed bytes — and the
+    picks keep the quantization residual ``sel − rx``. Returns
+    ``(rx_vals, idx)``, each (c, k_total): the values as the server
+    receives them, blocks in order, global flat positions (a blockwise
+    selection may point into the padded tail)."""
+    c, d = delta.shape
     if comp.name.startswith("blocktopk"):
         k = max(1, int(round(comp.ratio * block)))
         vals, idx = ops.topk_ef_sparse(delta, errors, rows, k=k, block=block)
-        return vals.reshape(c, -1), idx.reshape(c, -1)
-    errors[rows] += delta
-    tot = errors[rows]
-    sels = [comp.select(t) for t in tot]
-    vals = torch.stack([s.vals for s in sels])
-    idx = torch.stack([s.idx for s in sels])
-    ef_update_sparse(errors, rows, idx, vals, vals)
-    return vals, idx
+        vals, idx = vals.reshape(c, -1), idx.reshape(c, -1)
+        exact = True     # the kernel already zeroed the picks
+    else:
+        errors[rows] += delta
+        sels = [comp.select(t) for t in errors[rows]]
+        vals = torch.stack([s.vals for s in sels])
+        idx = torch.stack([s.idx for s in sels])
+        exact = False
+    if codec is None or codec.exact:
+        if not exact:
+            ef_update_sparse(errors, rows, idx, vals, vals)
+        return vals, idx
+    rx = torch.stack([codec.roundtrip_selection(Selection(v, i), d).vals
+                      for v, i in zip(vals, idx)])
+    ef_update_sparse(errors, rows, idx, vals, rx)
+    return rx, idx
 
 
 def ef_update_sparse(errors, rows, idx, sel_vals, rx_vals):

@@ -1,12 +1,15 @@
 """Build and load the CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C entry point (``<name>_launch``) and is
-compiled by ``nvcc`` into its own shared library under ``build/repro_torch/``
-at the repository root, then loaded with ``ctypes``. Nothing is built when a
-module is imported: the first launch of a kernel builds all of them, one
-``nvcc`` per source, started together. A library's file name carries a hash
-of its source and flags, so an edited source is rebuilt and an unchanged one
-is reused.
+Each kernel has a plain C entry point ``<name>_launch`` in
+``csrc/<source>.cu`` (``<source>`` is the kernel's name unless
+:data:`SOURCES` says otherwise: ``bitpack.cu`` holds both ``pack_uint`` and
+``unpack_uint``). Each source is compiled by ``nvcc`` into its own shared
+library under ``build/repro_torch/`` at the repository root, then loaded
+with ``ctypes``. Nothing is built when a module is imported: the first
+launch of a kernel builds all of them, one ``nvcc`` per source, started
+together. A library's file name carries a hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
+an unchanged one is reused.
 
 Flags: ``sm_90a`` (Hopper), no ``--use_fast_math``, and ``--fmad=false`` —
 the JAX reference rounds every multiply and add separately, and a fused
@@ -39,7 +42,15 @@ SIGNATURES = {
     "fedams_ingest": [_P] * 14 + [_LL, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                                   _F, _F, _I, _I, _P],
     "fedams_update": [_P] * 9 + [_LL, _F, _F, _F, _F, _F, _F, _I, _P],
+    "topk_ef": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "sign_ef": [_P] * 6 + [_LL, _I, _I, _I, _P],
+    "pack_uint": [_P, _P, _LL, _I, _I, _P],
+    "unpack_uint": [_P, _LL, _P, _LL, _I, _I, _P],
 }
+
+#: kernel name → the ``csrc/<source>.cu`` that holds its entry point, where
+#: it is not ``<name>.cu``
+SOURCES = {"pack_uint": "bitpack", "unpack_uint": "bitpack"}
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -53,19 +64,26 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+def _source(name: str) -> str:
+    return SOURCES.get(name, name)
+
+
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha1((CSRC / f"{source}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, Path]:
-    """Compile every kernel whose library is missing, all ``nvcc``
-    processes at once. Returns name → library path. The ``-Xptxas -v``
-    report (registers, shared memory, spills) is kept beside each library
-    as ``<lib>.log``."""
+    """Compile every source whose library is missing, all ``nvcc``
+    processes at once. Returns source name → library path. The
+    ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
+    each library as ``<lib>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in SIGNATURES}
+    paths = {src: _lib_path(src)
+             for src in dict.fromkeys(map(_source, SIGNATURES))}
     todo = {name: p for name, p in paths.items() if not p.exists()}
     procs = {}
     for name, p in todo.items():
@@ -93,9 +111,11 @@ def kernel(name: str):
     """The ctypes entry ``<name>_launch`` (building the kernels on first
     use). It returns the launch's ``cudaGetLastError()`` as an int."""
     if not _loaded:
-        for lib_name, path in build_all().items():
-            fn = getattr(ctypes.CDLL(str(path)), f"{lib_name}_launch")
-            fn.argtypes = SIGNATURES[lib_name]
+        libs = {src: ctypes.CDLL(str(path))
+                for src, path in build_all().items()}
+        for kname, argtypes in SIGNATURES.items():
+            fn = getattr(libs[_source(kname)], f"{kname}_launch")
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _loaded[lib_name] = fn
+            _loaded[kname] = fn
     return _loaded[name]

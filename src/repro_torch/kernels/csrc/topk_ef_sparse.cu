@@ -12,39 +12,22 @@
 // memory before it writes it back, and rows are distinct). vals/idx are
 // (c, nb, k). One CTA per (block, client).
 //
-// Selection: each value becomes a 64-bit key (|v| bits << 32) |
-// (0xFFFFFFFF - local_idx). Non-negative fp32 bit patterns order like the
-// floats, and the low word makes a lower index the larger key, so a
-// descending bitonic sort of the keys is lax.top_k's order exactly. The
-// ragged last block is zero-filled in shared memory (never in device
-// memory): padded positions compete as zeros with indices >= d, exactly as
-// the JAX compressor's zero-padded blocks do. Sort padding up to the next
-// power of two uses key 0, below every real key. k == 1 takes a max
-// reduction over the same keys instead of the sort.
+// Selection: topk_select.cuh (64-bit |v|/index keys, bitonic sort or a max
+// reduction at k == 1). The ragged last block is zero-filled in shared
+// memory (never in device memory): padded positions compete as zeros with
+// indices >= d, exactly as the JAX compressor's zero-padded blocks do.
 //
 // Bound on this card: bytes. Per element it reads x and err and writes err
 // (12 bytes), plus 8 bytes per pick; the sort is O(block log^2 block)
 // shared-memory work per CTA, which is what keeps it off the bandwidth
 // roof. Making it fast (radix select, fewer barriers) is later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "topk_select.cuh"
 
 namespace {
 
-constexpr int kMaxBlock = 2048;
-constexpr int kThreads = 512;
-
-__device__ __forceinline__ unsigned long long make_key(float v, int local) {
-  const unsigned int mag = __float_as_uint(v) & 0x7FFFFFFFu;
-  return (static_cast<unsigned long long>(mag) << 32) |
-         static_cast<unsigned long long>(0xFFFFFFFFu -
-                                         static_cast<unsigned int>(local));
-}
-
-__device__ __forceinline__ int key_index(unsigned long long key) {
-  return static_cast<int>(0xFFFFFFFFu -
-                          static_cast<unsigned int>(key & 0xFFFFFFFFull));
-}
+using topk::key_index;
+using topk::kMaxBlock;
+using topk::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 topk_ef_sparse_kernel(const float* __restrict__ x, float* __restrict__ err,
@@ -67,51 +50,7 @@ topk_ef_sparse_kernel(const float* __restrict__ x, float* __restrict__ err,
     tot[i] = (g < d) ? __fadd_rn(xr[g], er[g]) : 0.0f;
   }
   __syncthreads();
-
-  if (k == 1) {
-    unsigned long long best = 0ull;
-    for (int i = tid; i < block; i += blockDim.x) {
-      const unsigned long long key = make_key(tot[i], i);
-      best = key > best ? key : best;
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long o = __shfl_down_sync(0xFFFFFFFFu, best, off);
-      best = o > best ? o : best;
-    }
-    if ((tid & 31) == 0) warp_best[tid >> 5] = best;
-    __syncthreads();
-    if (tid < 32) {
-      best = tid < static_cast<int>(blockDim.x >> 5) ? warp_best[tid] : 0ull;
-      for (int off = 16; off > 0; off >>= 1) {
-        const unsigned long long o = __shfl_down_sync(0xFFFFFFFFu, best, off);
-        best = o > best ? o : best;
-      }
-      if (tid == 0) keys[0] = best;
-    }
-    __syncthreads();
-  } else {
-    for (int i = tid; i < pow2; i += blockDim.x)
-      keys[i] = (i < block) ? make_key(tot[i], i) : 0ull;
-    __syncthreads();
-    // bitonic sort, descending
-    for (int size = 2; size <= pow2; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int i = tid; i < pow2; i += blockDim.x) {
-          const int j = i ^ stride;
-          if (j > i) {
-            const unsigned long long a = keys[i];
-            const unsigned long long e = keys[j];
-            const bool descending = (i & size) == 0;
-            if (descending ? (a < e) : (a > e)) {
-              keys[i] = e;
-              keys[j] = a;
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
+  topk::select_block(tot, keys, warp_best, block, k, pow2);
 
   // emit in selection order (k may exceed the CTA's threads: strided);
   // every read of tot finishes before any pick is zeroed
@@ -139,11 +78,9 @@ extern "C" int topk_ef_sparse_launch(const float* x, float* err,
   if (block <= 0 || block > kMaxBlock || k <= 0 || k > block || c <= 0 ||
       nb <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int pow2 = 1;
-  while (pow2 < block) pow2 <<= 1;
   const dim3 grid(static_cast<unsigned int>(nb), static_cast<unsigned int>(c));
   topk_ef_sparse_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      x, err, rows, vals, idx, d, block, nb, k, pow2);
+      x, err, rows, vals, idx, d, block, nb, k, topk::sort_width(block));
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,7 +66,7 @@ def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _check_rows(rows, m: int):
+def _check_rows(rows, m: int, what: str = "topk_ef_sparse"):
     """``rows`` name the EF rows a call updates in place: they must lie in
     [0, m) (the kernel would write outside the buffer) and be distinct (the
     kernel's CTAs of a repeated row would race). One host sync."""
@@ -76,11 +76,23 @@ def _check_rows(rows, m: int):
     out_of_range, repeated = torch.stack(
         [(s[0] < 0) | (s[-1] >= m), (s[1:] == s[:-1]).any()]).tolist()
     if out_of_range:
-        raise ValueError(f"topk_ef_sparse: rows must lie in [0, {m}), got "
+        raise ValueError(f"{what}: rows must lie in [0, {m}), got "
                          f"{rows.tolist()}")
     if repeated:
-        raise ValueError(f"topk_ef_sparse: rows must be distinct, got "
+        raise ValueError(f"{what}: rows must be distinct, got "
                          f"{rows.tolist()}")
+
+
+def _check_ef_args(x, err, rows, what: str):
+    """The (c, d) deltas / (m, d) EF buffer / (c,) rows layout shared by
+    the error-feedback kernels."""
+    if x.dim() != 2 or err.dim() != 2:
+        raise ValueError(f"{what}: x is (c, d), err is (m, d)")
+    c, d = x.shape
+    dev = x.device
+    _check(x, f"{what} x", torch.float32)
+    _check(err, f"{what} err", torch.float32, (err.shape[0], d), dev)
+    _check(rows, f"{what} rows", torch.int64, (c,), dev)
 
 
 # -- client uplink: blockwise exact top-k + fused error feedback -------------
@@ -97,22 +109,15 @@ def topk_ef_sparse(x, err, rows, *, k: int, block: int):
     return ref.topk_ef_sparse(x, err, rows, k=k, block=block)
 
 
-def topk_ef_sparse_cuda(x, err, rows, *, k: int, block: int):
-    if x.dim() != 2 or err.dim() != 2:
-        raise ValueError("topk_ef_sparse: x is (c, d), err is (m, d)")
-    _check(rows, "topk_ef_sparse rows", torch.int64, (x.shape[0],), x.device)
-    _check_rows(rows, err.shape[0])
-    return _topk_ef_sparse_launch(x, err, rows, k=k, block=block)
-
-
-def _topk_ef_sparse_launch(x, err, rows, *, k: int, block: int):
-    """The launch behind :func:`topk_ef_sparse_cuda`, without its
-    host-synchronizing check of ``rows`` (times the kernel alone)."""
+def topk_ef_sparse_cuda(x, err, rows, *, k: int, block: int,
+                        check_rows: bool = True):
+    """``check_rows=False`` skips the host-synchronizing check of ``rows``
+    (for timing the kernel alone, on rows checked once outside)."""
+    _check_ef_args(x, err, rows, "topk_ef_sparse")
+    if check_rows:
+        _check_rows(rows, err.shape[0])
     c, d = x.shape
     dev = x.device
-    _check(x, "topk_ef_sparse x", torch.float32)
-    _check(err, "topk_ef_sparse err", torch.float32, (err.shape[0], d), dev)
-    _check(rows, "topk_ef_sparse rows", torch.int64, (c,), dev)
     if not 0 < block <= 2048 or not 0 < k <= block:
         raise ValueError(f"topk_ef_sparse: need 0 < k <= block <= 2048, got "
                          f"k={k}, block={block}")
@@ -122,6 +127,117 @@ def _topk_ef_sparse_launch(x, err, rows, *, k: int, block: int):
     _launch("topk_ef_sparse", dev, _ptr(x), _ptr(err), _ptr(rows),
             _ptr(vals), _ptr(idx), d, block, nb, k, c)
     return vals, idx
+
+
+def topk_ef(x, err, rows, *, k: int, block: int):
+    """Dense-hat blockwise top-k with error feedback for ``c`` clients; see
+    :func:`repro_torch.kernels.ref.topk_ef` for the contract (``err[rows]``
+    becomes ``tot - hat`` in place; returns the (c, d) hat)."""
+    if x.is_cuda:
+        return topk_ef_cuda(x, err, rows, k=k, block=block)
+    _check_rows(rows, err.shape[0], "topk_ef")
+    return ref.topk_ef(x, err, rows, k=k, block=block)
+
+
+def topk_ef_cuda(x, err, rows, *, k: int, block: int,
+                 check_rows: bool = True):
+    """``check_rows`` as in :func:`topk_ef_sparse_cuda`."""
+    _check_ef_args(x, err, rows, "topk_ef")
+    if check_rows:
+        _check_rows(rows, err.shape[0], "topk_ef")
+    if not 0 < block <= 2048 or not 0 < k <= block:
+        raise ValueError(f"topk_ef: need 0 < k <= block <= 2048, got "
+                         f"k={k}, block={block}")
+    c, d = x.shape
+    nb = -(-d // block)
+    hat = torch.empty((c, d), dtype=torch.float32, device=x.device)
+    _launch("topk_ef", x.device, _ptr(x), _ptr(err), _ptr(rows), _ptr(hat),
+            d, block, nb, k, c)
+    return hat
+
+
+# -- client uplink: scaled sign + fused error feedback -----------------------
+
+
+def sign_ef(x, err, rows):
+    """Scaled sign with error feedback for ``c`` clients; see
+    :func:`repro_torch.kernels.ref.sign_ef` for the contract (``err[rows]``
+    becomes ``tot - hat`` in place; returns the (c, d) hat)."""
+    if x.is_cuda:
+        return sign_ef_cuda(x, err, rows)
+    _check_rows(rows, err.shape[0], "sign_ef")
+    return ref.sign_ef(x, err, rows)
+
+
+def sign_ef_cuda(x, err, rows, *, check_rows: bool = True):
+    """``check_rows`` as in :func:`topk_ef_sparse_cuda`."""
+    _check_ef_args(x, err, rows, "sign_ef")
+    if check_rows:
+        _check_rows(rows, err.shape[0], "sign_ef")
+    c, d = x.shape
+    nb = -(-d // ref.SIGN_BLOCK)
+    width = min(1 << max(nb - 1, 0).bit_length(), ref.SIGN_CHUNK)
+    dev = x.device
+    hat = torch.empty((c, d), dtype=torch.float32, device=dev)
+    partials = torch.empty((c, nb), dtype=torch.float32, device=dev)
+    scale = torch.empty((c,), dtype=torch.float32, device=dev)
+    _launch("sign_ef", dev, _ptr(x), _ptr(err), _ptr(rows), _ptr(hat),
+            _ptr(partials), _ptr(scale), d, nb, width, c)
+    return hat
+
+
+# -- wire: n-bit packing -----------------------------------------------------
+
+_PACK_IN = {torch.uint8: 1, torch.int32: 4}
+
+
+def pack_uint(vals, nbits: int):
+    """MSB-first ``nbits``-bit packing of uint8 or int32 (uint32 bit
+    pattern) values → uint8 bytes; the contract of
+    :func:`repro_torch.kernels.ref.pack_uint`."""
+    if vals.is_cuda:
+        return pack_uint_cuda(vals, nbits)
+    return ref.pack_uint(vals, nbits)
+
+
+def pack_uint_cuda(vals, nbits: int):
+    if not isinstance(vals, torch.Tensor) or vals.dtype not in _PACK_IN:
+        raise TypeError(f"pack_uint: values must be a uint8 or int32 "
+                        f"tensor, got {getattr(vals, 'dtype', type(vals))}")
+    _check(vals, "pack_uint vals", vals.dtype)
+    if not 1 <= nbits <= 32:
+        raise ValueError(f"pack_uint: nbits must be in [1, 32], got {nbits}")
+    count = vals.numel()
+    out = torch.empty(((count * nbits + 7) // 8,), dtype=torch.uint8,
+                      device=vals.device)
+    if count:
+        _launch("pack_uint", vals.device, _ptr(vals), _ptr(out), count,
+                nbits, _PACK_IN[vals.dtype])
+    return out
+
+
+def unpack_uint(buf, nbits: int, count: int, dtype=torch.int32):
+    """Inverse of :func:`pack_uint`: ``count`` values as int32 (uint32 bit
+    patterns) or, for nbits <= 8, uint8; the contract of
+    :func:`repro_torch.kernels.ref.unpack_uint`."""
+    if buf.is_cuda:
+        return unpack_uint_cuda(buf, nbits, count, dtype)
+    return ref.unpack_uint(buf, nbits, count, dtype)
+
+
+def unpack_uint_cuda(buf, nbits: int, count: int, dtype=torch.int32):
+    _check(buf, "unpack_uint buf", torch.uint8)
+    if not 1 <= nbits <= 32:
+        raise ValueError(f"unpack_uint: nbits must be in [1, 32], got "
+                         f"{nbits}")
+    if dtype not in _PACK_IN or (dtype == torch.uint8 and nbits > 8):
+        raise TypeError(f"unpack_uint: dtype {dtype} cannot hold "
+                        f"{nbits}-bit values")
+    out = torch.empty((count,), dtype=dtype, device=buf.device)
+    if count:
+        _launch("unpack_uint", buf.device, _ptr(buf), buf.numel(),
+                _ptr(out), count, nbits, _PACK_IN[dtype])
+    return out
 
 
 # -- server: one-pass fused ingest -------------------------------------------

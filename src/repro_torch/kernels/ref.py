@@ -3,16 +3,26 @@ oracle).
 
 Each function computes exactly what its kernel in ``csrc/`` computes, with
 the same inputs, outputs and accumulation order, so the kernel is held to
-it bitwise on the card, and the twin is held bitwise to the JAX package's
-eager functions and ``repro.kernels.ref`` oracles on the CPU
-(tests/test_torch_kernels.py). Every multiply and add is rounded
-separately; the jitted Pallas programs on XLA:CPU contract the moment
-updates into FMAs and sit one rounding away.
+it bitwise on the card, and the twin is held to the JAX package's eager
+functions, Pallas kernels (interpret mode) and ``repro.kernels.ref``
+oracles on the CPU (tests/test_torch_kernels.py,
+tests/test_torch_dense_uplink.py, tests/test_torch_wire.py). Every
+multiply and add is rounded separately; the jitted Pallas programs on
+XLA:CPU contract the moment updates into FMAs and sit one rounding away.
 
 * :func:`topk_ef_sparse` — ``repro.kernels.topk_ef.topk_ef_sparse``:
   exact-k per block in ``lax.top_k`` order (descending |value|, ties to the
   lowest index). This is NOT the threshold ``repro.kernels.ref.topk_ef_ref``,
   which keeps more than k on ties.
+* :func:`topk_ef` — ``repro.kernels.topk_ef.topk_ef``: the same selection
+  with a dense hat (picks kept, the rest 0) and ``err = tot - hat``.
+* :func:`sign_ef` — ``repro.kernels.sign_ef.sign_ef``: scaled sign with
+  error feedback; the scale ``‖x+e‖₁/d`` is summed by fixed halving trees
+  (:func:`sign_scale`), so it is a few ulp from ``jnp.mean``'s, whose order
+  is unspecified.
+* :func:`pack_uint` / :func:`unpack_uint` — ``repro.kernels.bitpack``'s
+  MSB-first n-bit packing, byte-identical to ``pack_uint_words`` /
+  ``unpack_uint_words``.
 * :func:`fedams_update_ref` — ``repro.kernels.fedams_update`` (and
   ``repro.kernels.ref.fedams_update_ref``): the elementwise FedAMS step.
 * :func:`fedams_ingest_ref` — ``repro.kernels.fedams_ingest`` (and
@@ -25,8 +35,28 @@ constants.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+
+def _block_picks(x, err, rows, k: int, block: int):
+    """EF totals ``x + err[rows]`` cut into zero-padded blocks, and the
+    block-local indices of each block's k picks in ``lax.top_k`` order
+    (stable descending sort on |v|, or ``argmax`` at k = 1: the first
+    maximum on ties)."""
+    c, d = x.shape
+    nb = -(-d // block)
+    tot = x + err[rows]
+    tb = F.pad(tot, (0, nb * block - d)).view(c, nb, block)
+    mag = tb.abs()
+    if k == 1:
+        li = mag.argmax(dim=-1, keepdim=True)
+    else:
+        li = torch.sort(mag, dim=-1, descending=True,
+                        stable=True).indices[..., :k]
+    return tot, tb, li
 
 
 def topk_ef_sparse(x, err, rows, *, k: int, block: int):
@@ -40,19 +70,161 @@ def topk_ef_sparse(x, err, rows, *, k: int, block: int):
     (c, nb, k): kept values in selection order and their global int32 flat
     positions."""
     c, d = x.shape
-    nb = -(-d // block)
-    tot = x + err[rows]
-    tb = F.pad(tot, (0, nb * block - d)).view(c, nb, block)
-    mag = tb.abs()
-    if k == 1:
-        li = mag.argmax(dim=-1, keepdim=True)   # first maximum on ties
-    else:
-        li = torch.sort(mag, dim=-1, descending=True,
-                        stable=True).indices[..., :k]
+    _, tb, li = _block_picks(x, err, rows, k, block)
+    nb = tb.shape[1]
     vals = tb.gather(-1, li)
     err[rows] = tb.scatter(-1, li, 0.0).view(c, nb * block)[:, :d]
     base = torch.arange(nb, device=x.device)[:, None] * block
     return vals, (li + base).to(torch.int32)
+
+
+def topk_ef(x, err, rows, *, k: int, block: int):
+    """The dense form of :func:`topk_ef_sparse`: the same picks, returned
+    as a (c, d) hat that keeps them and is 0 elsewhere. ``err[rows]``
+    becomes ``tot - hat`` IN PLACE (0 at the picks, the totals elsewhere),
+    the arithmetic of the Pallas ``_topk_ef_kernel``."""
+    c, d = x.shape
+    tot, tb, li = _block_picks(x, err, rows, k, block)
+    nb = tb.shape[1]
+    hat = torch.zeros_like(tb).scatter(-1, li, tb.gather(-1, li))
+    hat = hat.view(c, nb * block)[:, :d]
+    err[rows] = tot - hat
+    return hat
+
+
+#: elements per pass-1 partial sum of ``sign_ef`` (the Pallas kernel's
+#: DEFAULT_BLOCK)
+SIGN_BLOCK = 2048
+#: widest halving tree over one client's pass-1 partials (sign_ef.cu kChunk)
+SIGN_CHUNK = 8192
+
+
+def tree_sum(a):
+    """Sum over the last axis by a halving tree: zero-pad to a power of two
+    P, then ``a[..., :h] + a[..., h:]`` for h = P/2, ..., 1 — the order of
+    ``sign_ef.cu``'s shared-memory trees, on any device."""
+    n = a.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    a = F.pad(a, (0, p - n))
+    while a.shape[-1] > 1:
+        h = a.shape[-1] // 2
+        a = a[..., :h] + a[..., h:]
+    return a[..., 0]
+
+
+def sign_scale(tot):
+    """(c, d) → (c,) scales ``‖tot_i‖₁ / d``: each block of
+    :data:`SIGN_BLOCK` |values| (the ragged tail zero-filled) is summed by a
+    halving tree, the nb partials by a second tree (padded to a power of
+    two), and the sum is divided by the true d (a correctly rounded
+    division). Past :data:`SIGN_CHUNK` partials (d > 16,777,216) the second
+    tree runs over chunks of that many (the last zero-padded), and the
+    chunk sums are added in chunk order."""
+    c, d = tot.shape
+    nb = -(-d // SIGN_BLOCK)
+    a = F.pad(tot.abs(), (0, nb * SIGN_BLOCK - d)).view(c, nb, SIGN_BLOCK)
+    partials = tree_sum(a)
+    if nb <= SIGN_CHUNK:
+        return div_rn(tree_sum(partials), float(d))
+    nch = -(-nb // SIGN_CHUNK)
+    chunks = tree_sum(F.pad(partials, (0, nch * SIGN_CHUNK - nb))
+                      .view(c, nch, SIGN_CHUNK))
+    total = chunks[:, 0]
+    for j in range(1, nch):
+        total = total + chunks[:, j]
+    return div_rn(total, float(d))
+
+
+def sign_ef(x, err, rows):
+    """Scaled sign with fused error feedback for ``c`` clients:
+    ``tot = x + err[rows]``, ``hat = scale·(tot >= 0 ? 1 : -1)`` with the
+    per-client :func:`sign_scale`, and ``err[rows] = tot - hat`` IN PLACE.
+    sign(0) = sign(-0.0) = +1; a NaN total makes its client's scale, and so
+    its whole hat, NaN. Returns the (c, d) hat."""
+    tot = x + err[rows]
+    scale = sign_scale(tot)[:, None]
+    hat = torch.where(tot >= 0, scale, -scale)
+    err[rows] = tot - hat
+    return hat
+
+
+# -- n-bit packing (MSB first), the wire formats' sub-word streams ----------
+
+
+def group_shape(nbits: int):
+    """(values, bytes) per stream group: L/nbits and L/8 for L=lcm(nbits,8)."""
+    if not 1 <= nbits <= 32:
+        raise ValueError(f"nbits must be in [1, 32], got {nbits}")
+    lcm = math.lcm(nbits, 8)
+    return lcm // nbits, lcm // 8
+
+
+def pack_pairs(nbits: int):
+    """(byte k) → [(value slot s, shift)] for one group: slot s lands in
+    byte k shifted left by ``8k + 8 − (s+1)·nbits`` (right if negative)."""
+    gv, gb = group_shape(nbits)
+    return [[(s, 8 * k + 8 - (s + 1) * nbits)
+             for s in range((8 * k) // nbits,
+                            min((8 * k + 7) // nbits, gv - 1) + 1)]
+            for k in range(gb)]
+
+
+def unpack_pairs(nbits: int):
+    """(value slot s) → [(byte k, shift)], the transpose of
+    :func:`pack_pairs`."""
+    gv, gb = group_shape(nbits)
+    return [[(k, 8 * k + 8 - (s + 1) * nbits)
+             for k in range((s * nbits) // 8,
+                            min(((s + 1) * nbits - 1) // 8, gb - 1) + 1)]
+            for s in range(gv)]
+
+
+def _shl(x, sh: int):
+    return x << sh if sh >= 0 else x >> -sh
+
+
+def pack_uint(vals, nbits: int):
+    """``vals`` (any shape, uint8 or int32 holding uint32 bit patterns,
+    only the low ``nbits`` bits are kept) → ceil(count·nbits/8) uint8
+    bytes, MSB first (slot 0 lands in bit 7 of byte 0, as
+    ``np.packbits``), the last byte zero-padded. Word-wise shift/or in
+    int64, one column per byte of a group."""
+    v = vals.reshape(-1).to(torch.int64) & ((1 << nbits) - 1)
+    count = v.numel()
+    gv, gb = group_shape(nbits)
+    groups = -(-count // gv)
+    v = torch.cat([v, v.new_zeros(groups * gv - count)]).view(groups, gv)
+    cols = []
+    for pairs in pack_pairs(nbits):
+        acc = v.new_zeros(groups)
+        for s, sh in pairs:
+            acc = acc | _shl(v[:, s], sh)
+        cols.append(acc & 0xFF)
+    out = torch.stack(cols, dim=1).reshape(-1).to(torch.uint8)
+    return out[:(count * nbits + 7) // 8]
+
+
+def unpack_uint(buf, nbits: int, count: int, dtype=torch.int32):
+    """Inverse of :func:`pack_uint`: read ``count`` values of ``nbits``
+    from the uint8 stream ``buf`` (missing trailing bytes read as 0).
+    ``dtype``: int32 (uint32 bit patterns) or, for nbits ≤ 8, uint8."""
+    b = buf.reshape(-1).to(torch.int64)
+    gv, gb = group_shape(nbits)
+    groups = -(-count // gv)
+    need = groups * gb
+    b = torch.cat([b[:need], b.new_zeros(max(need - b.numel(), 0))])
+    b = b.view(groups, gb)
+    mask = (1 << nbits) - 1
+    cols = []
+    for pairs in unpack_pairs(nbits):
+        acc = b.new_zeros(groups)
+        for k, sh in pairs:
+            acc = acc | _shl(b[:, k], -sh)
+        cols.append(acc & mask)
+    out = torch.stack(cols, dim=1).reshape(-1)[:count]
+    if dtype == torch.int32:   # uint32 bit patterns: wrap the top half
+        out = torch.where(out >= 1 << 31, out - (1 << 32), out)
+    return out.to(dtype)
 
 
 def div_rn(a, s):
@@ -60,8 +232,9 @@ def div_rn(a, s):
     PyTorch on CUDA divides by a Python scalar as a multiply by its
     reciprocal, which can differ in the last bit from the true quotient that
     JAX and the CUDA kernels compute; a 0-d tensor divisor is a true
-    division."""
-    return a / torch.tensor(s, dtype=a.dtype, device=a.device)
+    division. The divisor is filled on the device (``torch.tensor`` would
+    copy it from the host and wait for the device's queue)."""
+    return a / torch.full((), s, dtype=a.dtype, device=a.device)
 
 
 def sqrt_rn(a):

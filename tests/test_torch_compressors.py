@@ -1,6 +1,7 @@
 """The top-k compressors against ``repro.core.compressors``, bitwise:
 ``select`` and ``compress`` for topk and blocktopk, on ties, at k = 1, and
-with a padded last block."""
+with a padded last block. The dense compressors (sign, int8, identity) are
+held in tests/test_torch_dense_uplink.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,7 +83,9 @@ def test_block_layout_matches(d, block):
     assert block_layout(d, block) == jax_block_layout(d, block)
 
 
-@pytest.mark.parametrize("name", ["sign", "randk", "int8", "none"])
+@pytest.mark.parametrize("name", ["randk"])
 def test_unported_compressors_are_refused_by_name(name):
     with pytest.raises(NotImplementedError, match=name):
         make_compressor(name)
+    with pytest.raises(ValueError, match="unknown"):
+        make_compressor("topq")

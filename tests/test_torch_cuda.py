@@ -128,3 +128,90 @@ def test_launch_counts_and_wrapper_checks(card):
             ops.topk_ef_sparse(x, err, torch.tensor(rows, device=card), k=4,
                                block=128)
     assert ops.launches["topk_ef_sparse"] == 1
+
+
+@pytest.mark.parametrize("d,block,k,ties", [
+    (704266, 2048, 32, False), (704266, 2048, 1, False),
+    (5000, 2048, 32, True), (1000, 384, 6, False), (300, 128, 1, True),
+    (704266, 2048, 1024, False), (5000, 2048, 2048, True)])
+def test_topk_ef_kernel_matches_twin(card, d, block, k, ties):
+    g = torch.Generator(device=card).manual_seed(d + k + 1)
+    if ties:
+        x = torch.randint(-2, 3, (3, d), generator=g, device=card).float()
+        err = torch.zeros(7, d, device=card)
+    else:
+        x = torch.randn(3, d, generator=g, device=card)
+        err = torch.randn(7, d, generator=g, device=card) * 0.3
+    rows = torch.tensor([6, 0, 3], device=card)
+    e_k, e_r = err.clone(), err.clone()
+    hk = ops.topk_ef(x, e_k, rows, k=k, block=block)
+    hr = ref.topk_ef(x, e_r, rows, k=k, block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, hr) and torch.equal(e_k, e_r)
+
+
+@pytest.mark.parametrize("d", [704266, 8192, 2049, 1, 2048 * 8195 + 7])
+def test_sign_ef_kernel_matches_twin(card, d):
+    """Bitwise, scale included (the kernel's trees are the twin's), with
+    zeros, -0.0 and a client whose totals hold a NaN; the last d has more
+    partials than one tree takes (``ref.SIGN_CHUNK``), so it sums in
+    chunks."""
+    g = torch.Generator(device=card).manual_seed(d)
+    x = torch.randn(3, d, generator=g, device=card)
+    x[0, ::5] = 0.0
+    x[0, 1::5] = -0.0
+    err = torch.zeros(5, d, device=card)
+    err[[4, 1]] = torch.randn(2, d, generator=g, device=card) * 0.1
+    err[4, ::7] = 0.0
+    x[2, d // 2] = float("nan")
+    rows = torch.tensor([4, 1, 2], device=card)
+    e_k, e_r = err.clone(), err.clone()
+    hk = ops.sign_ef(x, e_k, rows)
+    hr = ref.sign_ef(x, e_r, rows)
+    torch.cuda.synchronize()
+    assert _same(hk, hr) and _same(e_k, e_r)
+    assert bool(hk[2].isnan().all()) and not bool(hk[:2].isnan().any())
+
+
+@pytest.mark.parametrize("nbits", range(1, 33))
+def test_pack_unpack_kernels_match_twins(card, nbits):
+    count = 1000 + nbits
+    g = torch.Generator(device=card).manual_seed(nbits)
+    v = torch.randint(-2**31, 2**31 - 1, (count,), generator=g, device=card,
+                      dtype=torch.int32)
+    got = ops.pack_uint(v, nbits)
+    want = ref.pack_uint(v, nbits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    back = ops.unpack_uint(got, nbits, count)
+    assert torch.equal(back, ref.unpack_uint(want, nbits, count))
+    mask = (1 << nbits) - 1
+    assert torch.equal(back.long() & mask, v.long() & mask)
+    if nbits <= 8:
+        b8 = ops.unpack_uint(got, nbits, count, torch.uint8)
+        assert torch.equal(b8, ref.unpack_uint(want, nbits, count,
+                                               torch.uint8))
+        u8 = (v & mask).to(torch.uint8)
+        assert torch.equal(ops.pack_uint(u8, nbits), want)
+
+
+def test_new_kernels_count_launches_and_check_arguments(card):
+    ops.reset_launches()
+    x = torch.zeros(2, 256, device=card)
+    err = torch.zeros(4, 256, device=card)
+    rows = torch.tensor([0, 1], device=card)
+    ops.topk_ef(x, err, rows, k=4, block=128)
+    ops.sign_ef(x, err, rows)
+    buf = ops.pack_uint(torch.ones(9, dtype=torch.uint8, device=card), 1)
+    ops.unpack_uint(buf, 1, 9)
+    ops.pack_uint(torch.ones(0, dtype=torch.uint8, device=card), 1)
+    assert {n: ops.launches[n] for n in
+            ("topk_ef", "sign_ef", "pack_uint", "unpack_uint")} == \
+        {"topk_ef": 1, "sign_ef": 1, "pack_uint": 1, "unpack_uint": 1}
+    with pytest.raises(ValueError, match="distinct"):
+        ops.sign_ef(x, err, torch.tensor([1, 1], device=card))
+    with pytest.raises(TypeError, match="uint8 or int32"):
+        ops.pack_uint(torch.ones(9, dtype=torch.int64, device=card), 1)
+    with pytest.raises(TypeError, match="cannot hold"):
+        ops.unpack_uint(buf, 9, 9, torch.uint8)
+    assert ops.launches["sign_ef"] == 1 and ops.launches["pack_uint"] == 1

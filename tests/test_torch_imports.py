@@ -1,6 +1,6 @@
-"""The PyTorch port's package boundary: no jax, no repro; the copied config
-and data generator agree with the originals; unported knobs and missing
-CUDA raise instead of falling back."""
+"""The PyTorch port's package boundary: no jax, no repro; the copied config,
+data generator, transport and comm log agree with the originals; unported
+knobs and missing CUDA raise instead of falling back."""
 import dataclasses
 import os
 import subprocess
@@ -10,8 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.comm import metrics as jmetrics
+from repro.comm import transport as jtransport
 from repro.configs.base import FedConfig as JaxFedConfig
 from repro.data.synthetic import FederatedClassification as JaxData
+from repro_torch.comm import metrics as tmetrics
+from repro_torch.comm import transport as ttransport
 from repro_torch.configs.base import FedConfig
 from repro_torch.data.synthetic import FederatedClassification
 
@@ -24,6 +28,8 @@ MODULES = [
     "repro_torch.core.compressors", "repro_torch.core.server_opt",
     "repro_torch.core.local", "repro_torch.core.sampling",
     "repro_torch.core.stages", "repro_torch.core.sim",
+    "repro_torch.core.error_feedback", "repro_torch.comm.wire",
+    "repro_torch.comm.transport", "repro_torch.comm.metrics",
     "repro_torch.kernels.ref", "repro_torch.kernels._build",
     "repro_torch.kernels.ops", "repro_torch.convert",
 ]
@@ -92,7 +98,6 @@ def test_federated_classification_draws_the_same_batches(kw):
 
 
 @pytest.mark.parametrize("knob,kw", [
-    ("wire", dict(wire=True)),
     ("deadline_s", dict(wire=True, deadline_s=1.0, track_gamma=False)),
     ("async_buffer", dict(wire=True, async_buffer=2, participating=4,
                           track_gamma=False, compressor="blocktopk")),
@@ -100,13 +105,70 @@ def test_federated_classification_draws_the_same_batches(kw):
     ("client_chunk", dict(client_chunk=2, participating=4)),
     ("agg_groups", dict(agg_groups=2, participating=4)),
     ("two_way", dict(two_way=True)),
-    ("sparse_uplink", dict(sparse_uplink=False)),
 ])
 def test_fedsim_refuses_unported_knobs_by_name(knob, kw):
     from repro_torch.core.sim import FedSim
     fed = FedConfig(num_clients=8, **kw)
     with pytest.raises(NotImplementedError, match=knob):
         FedSim(lambda p, b: None, fed, device="cpu")
+
+
+def test_fedsim_wire_needs_a_codec_and_wire_mode_for_a_network():
+    from repro_torch.comm.transport import NetworkConfig, SimulatedNetwork
+    from repro_torch.core.sim import FedSim
+    with pytest.raises(ValueError, match="no wire codec"):
+        FedSim(lambda p, b: None, FedConfig(compressor="int8", wire=True),
+               device="cpu")
+    with pytest.raises(ValueError, match="wire is False"):
+        FedSim(lambda p, b: None, FedConfig(),
+               network=SimulatedNetwork(NetworkConfig(), 4), device="cpu")
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(), dict(straggler_prob=0.5, latency_jitter_ms=30.0, seed=7,
+                 compute_s=0.25)])
+def test_transport_copy_draws_what_the_original_draws(cfg):
+    """The same per-client links, per-round latency/straggler draws and
+    timing reports, bit for bit, over resampled and reordered cohorts."""
+    jnet = jtransport.SimulatedNetwork(jtransport.NetworkConfig(**cfg), 50)
+    tnet = ttransport.SimulatedNetwork(ttransport.NetworkConfig(**cfg), 50)
+    r = np.random.default_rng(0)
+    for rnd in range(6):
+        ids = r.choice(50, size=int(r.integers(0, 12)), replace=False)
+        a = jnet.round(ids, 1000 + rnd, 90000, rnd)
+        b = tnet.round(ids, 1000 + rnd, 90000, rnd)
+        for f in dataclasses.fields(a):
+            va, vb = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(va, np.ndarray):
+                np.testing.assert_array_equal(va, vb)
+            else:
+                assert va == vb and type(va) is type(vb), f.name
+    ids = np.arange(1000, 1010)
+    for lane in (0, 2, 5):
+        np.testing.assert_array_equal(
+            jtransport.client_round_u01(3, 9, ids, lane),
+            ttransport.client_round_u01(3, 9, ids, lane))
+    assert dataclasses.asdict(jtransport.NetworkConfig()) == \
+        dataclasses.asdict(ttransport.NetworkConfig())
+
+
+def test_event_clock_and_commlog_copies_book_what_the_originals_book():
+    jc, tc = jtransport.EventClock(), ttransport.EventClock()
+    for t, p in ((2.0, "a"), (1.0, "b"), (2.0, "c"), (0.5, "d")):
+        jc.push(t, p)
+        tc.push(t, p)
+    assert [jc.pop() for _ in range(4)] == [tc.pop() for _ in range(4)]
+    assert jc.now == tc.now and len(tc) == 0
+    jnet = jtransport.SimulatedNetwork(jtransport.NetworkConfig(), 20)
+    jlog, tlog = jmetrics.CommLog(), tmetrics.CommLog()
+    for rnd, kw in enumerate([dict(), dict(tier2_bytes=4096),
+                              dict(round_time_s=0.125,
+                                   delivered_uplink_bytes=300)]):
+        timing = jnet.round(np.arange(5) + rnd, 500, 2000, rnd)
+        tt = ttransport.RoundTiming(**dataclasses.asdict(timing))
+        assert jlog.record(timing, **kw) == tlog.record(tt, **kw)
+    assert dataclasses.asdict(jlog) == dataclasses.asdict(tlog)
+    assert jlog.total_bytes == tlog.total_bytes
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
@@ -139,4 +201,12 @@ def test_forced_kernels_raise_on_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         ops.fedams_ingest_cuda(v, v, v, v, vals, idx, n_div=2, eta=0.1,
                                beta1=0.9, beta2=0.99, eps=1e-3, block=128)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ops.topk_ef_cuda(x, err, rows, k=4, block=128)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ops.sign_ef_cuda(x, err, rows)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ops.pack_uint_cuda(torch.zeros(9, dtype=torch.uint8), 1)
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        ops.unpack_uint_cuda(torch.zeros(9, dtype=torch.uint8), 1, 70)
     assert all(n == 0 for n in ops.launches.values())

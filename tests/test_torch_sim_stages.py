@@ -13,13 +13,13 @@ from benchmarks.common import make_problem
 from repro.configs.base import FedConfig as JaxFedConfig
 from repro.core import stages as jst
 from repro.core.sim import FedSim as JaxSim
-from repro.models import params as jp
 from repro_torch.configs.base import FedConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core.sim import FedSim
-from repro_torch.core.stages import client_uplink_sparse
+from repro_torch.core.stages import client_uplink, client_uplink_sparse
+from test_torch_dense_uplink import SIGN_ULP, _ulps
 from test_torch_sim import (LOSS_RTOL, M, N, _cfg, _port_loss, _run_both,
-                            _staged_rounds)
+                            _staged_rounds, staged_init)
 
 torch.set_num_threads(1)
 
@@ -34,7 +34,7 @@ def test_round0_ef_rows_bitwise_given_the_same_deltas(model):
     kw = _cfg("b")
     js = JaxSim(jloss, JaxFedConfig(**kw))
     ts = FedSim(_port_loss(model), FedConfig(**kw), device="cpu")
-    p0 = jp.init_params(defs, jax.random.PRNGKey(0))
+    p0 = staged_init(defs)
     jstate = js.init(p0)
     tstate = ts.init(params_from_jax(jax.device_get(p0)))
     idx, b, key = _staged_rounds(data, 1)[0]
@@ -59,6 +59,51 @@ def test_round0_ef_rows_bitwise_given_the_same_deltas(model):
     tdelta, _ = ts._train_block(tstate.x_client, tb, 0.05)
     np.testing.assert_allclose(tdelta.numpy(), np.asarray(jdelta),
                                atol=1e-6, rtol=1e-4)
+
+
+@pytest.mark.parametrize("model", ["mlp", "convmixer"])
+@pytest.mark.parametrize("comp,wire", [("blocktopk", False),
+                                       ("blocktopk", True), ("sign", False),
+                                       ("sign", True)])
+def test_round0_dense_uplink_given_the_same_deltas(model, comp, wire):
+    """Round 0 of the dense uplink from the JAX side's deltas, in memory
+    (the topk_ef / sign_ef twins, in place on the (m, d) buffer) and over
+    the packed wire (the pack/unpack twins): hats and EF rows bitwise for
+    blocktopk; for sign the scale within SIGN_ULP ulp, the signs equal, and
+    the EF rows ``tot − hat`` of the port's own hat."""
+    defs, jloss, data = make_problem(model, M)
+    kw = _cfg("b", compressor=comp, sparse_uplink=False, wire=wire,
+              wire_pack_impl="pallas")
+    js = JaxSim(jloss, JaxFedConfig(**kw))
+    ts = FedSim(_port_loss(model), FedConfig(**kw), device="cpu")
+    p0 = staged_init(defs)
+    jstate = js.init(p0)
+    tstate = ts.init(params_from_jax(jax.device_get(p0)))
+    idx, b, key = _staged_rounds(data, 1)[0]
+    jdelta, _ = js._train_block(js.unravel(jstate.x_client), jstate.x_client,
+                                jax.tree.map(jnp.asarray, b), key, 0.05)
+    d = jstate.x_client.size
+    r = np.random.default_rng(2)     # a nonzero carried error
+    errs0 = (r.normal(size=(M, d)) * 1e-3).astype(np.float32)
+    jhat, jerr = jst.client_uplink(js.comp, js.codec, d, key, jdelta,
+                                   jnp.asarray(errs0[idx]), jnp.arange(N))
+    errors = torch.from_numpy(errs0.copy())
+    hat = client_uplink(ts.comp, ts.codec, d, torch.from_numpy(
+        np.array(jdelta)), errors, torch.from_numpy(idx))
+    jhat, jerr = np.asarray(jhat), np.asarray(jerr)
+    rest = np.setdiff1d(np.arange(M), idx)
+    np.testing.assert_array_equal(errors.numpy()[rest], errs0[rest])
+    if comp == "blocktopk":
+        np.testing.assert_array_equal(hat.numpy(), jhat)
+        np.testing.assert_array_equal(errors.numpy()[idx], jerr)
+        return
+    tot = np.array(jdelta) + errs0[idx]
+    for i in range(N):
+        scale, jscale = np.abs(hat[i].numpy()).max(), np.abs(jhat[i]).max()
+        assert _ulps(scale, jscale) <= SIGN_ULP
+        np.testing.assert_array_equal(np.sign(hat[i].numpy()),
+                                      np.sign(jhat[i]))
+    np.testing.assert_array_equal(errors.numpy()[idx], tot - hat.numpy())
 
 
 @pytest.mark.parametrize("kw", [
@@ -93,8 +138,7 @@ def test_fused_ingest_resolves_like_the_jax_fedsim_on_cpu():
 
 def test_run_rounds_equals_round_loop_and_refuses_repeated_ids():
     defs, _, data = make_problem("mlp", M)
-    p0 = params_from_jax(jax.device_get(
-        jp.init_params(defs, jax.random.PRNGKey(0))))
+    p0 = params_from_jax(jax.device_get(staged_init(defs)))
     staged = _staged_rounds(data, 3)
     sims = [FedSim(_port_loss("mlp"), FedConfig(**_cfg("a")), device="cpu")
             for _ in range(2)]
