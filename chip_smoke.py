@@ -8,11 +8,17 @@ then, on the card:
 1. holds each kernel against its plain PyTorch twin at the shapes of the
    FedCAMS round on ConvMixer-256-8 (d = 704,266, blocks of 2048, k = 32,
    n = 10 clients of m = 100): ``topk_ef_sparse`` and ``topk_ef`` at
-   k = 32, k = 1 and on a tie-laden input, and at k = 1024 and k = block
-   (more picks than a CTA has threads); ``sign_ef`` with zeros, -0.0 and a
-   NaN client, and at a d past 2^24 (its scale tree runs in chunks); ``pack_uint``/``unpack_uint`` at n = 1 over 704,266 values
-   (the sign codec's bits) and n = 11 over 11,008 (blocktopk's index
-   stream), every n in 1..32 at a ragged count, and the round trip;
+   k = 32, k = 1 and on a tie-laden input, at k = 1024 and k = block (more
+   picks than a CTA has threads), and on ``ref.topk_hard_cases`` (values
+   equal but for the last radix digit, all-equal magnitudes, more ties at
+   the threshold than are kept, NaNs beside ±inf, ±0.0 and denormals) at
+   blocks of 128, 384 and 2048 and k in {1, 2, 31, 32, 33, 1024, block},
+   with ``torch.topk`` on the same blocks timed as the nearest library
+   call; ``sign_ef`` with zeros, -0.0 and a NaN client, and at a d past
+   2^24 (its scale tree runs in chunks); ``pack_uint``/``unpack_uint`` at
+   n = 1 over 704,266 values (the sign codec's bits) and n = 11 over 11,008
+   (blocktopk's index stream), every n in 1..32 at a ragged count, and the
+   round trip;
    ``fedams_ingest`` at fp32, bf16 and int8 state for both options and with
    a NaN delta; ``fedams_update`` for both options at a ragged N, also with
    NaN deltas. All bitwise (a NaN must meet a NaN). Each kernel is timed
@@ -61,6 +67,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 PEAK_F32_S = 67e12       # H100 SXM fp32 outside the tensor cores
@@ -106,23 +113,31 @@ def time_ms(fn, before=None, iters: int = 30, warmup: int = 3) -> float:
     """Median of per-launch CUDA-event times. ``before`` runs outside the
     timed window (restoring inputs, flushing L2). A spin kernel ahead of
     the start event keeps the card busy while the host enqueues ``fn``, so
-    the window holds device time and not the wrapper's host overhead."""
-    for _ in range(warmup):
-        if before:
-            before()
-        fn()
-    times = []
-    for _ in range(iters):
-        if before:
-            before()
-        torch.cuda._sleep(2_000_000)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    the window holds device time and not the wrapper's host overhead. The
+    NaN fill that deterministic mode gives ``torch.empty`` (which lets the
+    checks catch an output a kernel leaves unwritten) is off while timing:
+    the window holds the kernel, not a fill of its outputs."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        for _ in range(warmup):
+            if before:
+                before()
+            fn()
+        times = []
+        for _ in range(iters):
+            if before:
+                before()
+            torch.cuda._sleep(2_000_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    finally:
+        torch.utils.deterministic.fill_uninitialized_memory = fill
     return float(np.median(times))
 
 
@@ -192,10 +207,19 @@ def phase_kernels(dev, d: int):
                    for a, b in zip(got, want) if a.is_floating_point())
 
     # -- topk_ef_sparse, topk_ef: one selection, compacted or dense ----------
-    cases = ((x, err0, k, "k=32"), (x, err0, 1, "k=1"),
-             (ties_x, zeros, k, "ties"), (ties_x, zeros, 1, "ties k=1"),
-             # more picks than the CTA's 512 threads
-             (x, err0, 1024, "k=1024"), (ties_x, zeros, BLOCK, "ties k=block"))
+    cases = [(x, err0, k, BLOCK, "k=32"), (x, err0, 1, BLOCK, "k=1"),
+             (ties_x, zeros, k, BLOCK, "ties"),
+             (ties_x, zeros, 1, BLOCK, "ties k=1"),
+             # more picks than the CTA has threads
+             (x, err0, 1024, BLOCK, "k=1024"),
+             (ties_x, zeros, BLOCK, BLOCK, "ties k=block")]
+    # inputs that trip a threshold select (ref.topk_hard_cases), with an EF
+    # of -0.0, which adds nothing to any value
+    hard = ref.topk_hard_cases(N_CLI, d, seed=1).to(dev)
+    negz = torch.full_like(err0, -0.0)
+    cases += [(hard, negz, kk, blk, f"hard cases, block={blk}, k={kk}")
+              for blk in (128, 384, BLOCK)
+              for kk in (1, 2, 31, 32, 33, 1024, blk) if kk <= blk]
     topk = {
         "topk_ef_sparse": (ops.topk_ef_sparse_cuda, ref.topk_ef_sparse, list,
                            N_CLI * d * 4 * 3 + N_CLI * nb * k * 8 + N_CLI * 8,
@@ -205,10 +229,10 @@ def phase_kernels(dev, d: int):
     }
     for name, (kern, twin, outs, nbytes, flops) in topk.items():
         worst = 0.0
-        for xin, e_in, kk, what in cases:
+        for xin, e_in, kk, blk, what in cases:
             e_k, e_r = e_in.clone(), e_in.clone()
-            got = outs(kern(xin, e_k, rows, k=kk, block=BLOCK)) + [e_k]
-            want = outs(twin(xin, e_r, rows, k=kk, block=BLOCK)) + [e_r]
+            got = outs(kern(xin, e_k, rows, k=kk, block=blk)) + [e_k]
+            want = outs(twin(xin, e_r, rows, k=kk, block=blk)) + [e_r]
             torch.cuda.synchronize()
             same(f"{name}[{what}]", got, want)
             worst = max(worst, worst_of(got, want))
@@ -219,11 +243,23 @@ def phase_kernels(dev, d: int):
                         restore, iters=10)
         out[name] = dict(
             ms=ms, plain_ms=plain, max_abs_err=worst, bytes=nbytes,
-            flops=flops, library_ms=None,
+            flops=flops, library_ms=None, cases=len(cases),
             shapes=f"x ({N_CLI},{d}) f32, err ({M},{d}) f32, k={k}, "
                    f"block={BLOCK}")
+    # the nearest library call: torch.topk of the same |tot| blocks, which
+    # neither breaks ties to the lowest index nor writes EF (so not
+    # library_ms); and the digit passes the selection takes on these blocks
+    tb = F.pad(x + err0[rows], (0, nb * BLOCK - d)).view(N_CLI * nb, BLOCK)
+    mag = tb.abs()
+    topk_ms = time_ms(lambda: torch.topk(mag, k, dim=-1), evict)
+    passes = torch.bincount(ref.threshold_select(tb, k)[2], minlength=5)
+    for name in topk:
+        out[name].update(nearest_library="torch.topk",
+                         nearest_library_ms=topk_ms,
+                         select_passes=passes.tolist()[1:])
+    del tb, mag, hard, negz
 
-    # -- sign_ef ---------------------------------------------------------------
+    # -- sign_ef -------------------------------------------------------------
     xs = x.clone()
     xs[0, ::5] = 0.0
     xs[0, 1::5] = -0.0
@@ -587,6 +623,10 @@ def main():
     for name, r in kern.items():
         print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
               f"{r['plain_ms']:.4f} ms), max_abs_err {r['max_abs_err']}")
+        if "nearest_library_ms" in r:
+            print(f"  nearest library call {r['nearest_library']}: "
+                  f"{r['nearest_library_ms']:.4f} ms; selection blocks by "
+                  f"digit passes 1-4: {r['select_passes']}")
     t_phase = time.perf_counter()
     refcheck = phase_reference()
     print(f"card vs CPU round (small MLP): {refcheck}")

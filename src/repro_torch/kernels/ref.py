@@ -11,9 +11,13 @@ multiply and add is rounded separately; the jitted Pallas programs on
 XLA:CPU contract the moment updates into FMAs and sit one rounding away.
 
 * :func:`topk_ef_sparse` — ``repro.kernels.topk_ef.topk_ef_sparse``:
-  exact-k per block in ``lax.top_k`` order (descending |value|, ties to the
-  lowest index). This is NOT the threshold ``repro.kernels.ref.topk_ef_ref``,
-  which keeps more than k on ties.
+  exact-k per block in ``lax.top_k`` order (descending |value| as its bit
+  pattern, so NaN above +inf and NaNs by payload; ties to the lowest
+  index). This is NOT the threshold ``repro.kernels.ref.topk_ef_ref``,
+  which keeps more than k on ties. The kernels reach the same picks by a
+  radix select of the k-th magnitude, which :func:`threshold_select`
+  repeats step by step for the tests, on inputs such as
+  :func:`topk_hard_cases`.
 * :func:`topk_ef` — ``repro.kernels.topk_ef.topk_ef``: the same selection
   with a dense hat (picks kept, the rest 0) and ``err = tot - hat``.
 * :func:`sign_ef` — ``repro.kernels.sign_ef.sign_ef``: scaled sign with
@@ -37,20 +41,28 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def magnitude_bits(t):
+    """|t| as its fp32 bit pattern (int32 ``bits & 0x7FFFFFFF``): orders as
+    ``lax.top_k`` orders ``jnp.abs(t)`` — like the floats (+0.0 == -0.0),
+    with a NaN above +inf and NaNs by their payload bits."""
+    return t.view(torch.int32) & 0x7FFFFFFF
 
 
 def _block_picks(x, err, rows, k: int, block: int):
     """EF totals ``x + err[rows]`` cut into zero-padded blocks, and the
     block-local indices of each block's k picks in ``lax.top_k`` order
-    (stable descending sort on |v|, or ``argmax`` at k = 1: the first
-    maximum on ties)."""
+    (stable descending sort on :func:`magnitude_bits`, or ``argmax`` at
+    k = 1: the first maximum on ties)."""
     c, d = x.shape
     nb = -(-d // block)
     tot = x + err[rows]
     tb = F.pad(tot, (0, nb * block - d)).view(c, nb, block)
-    mag = tb.abs()
+    mag = magnitude_bits(tb)
     if k == 1:
         li = mag.argmax(dim=-1, keepdim=True)
     else:
@@ -90,6 +102,107 @@ def topk_ef(x, err, rows, *, k: int, block: int):
     hat = hat.view(c, nb * block)[:, :d]
     err[rows] = tot - hat
     return hat
+
+
+#: the CUDA selection's radix digits of a 31-bit magnitude, from the top:
+#: (shift, width)
+SELECT_DIGITS = ((23, 8), (15, 8), (7, 8), (0, 7))
+
+
+def threshold_select(tb, k: int):
+    """The CUDA kernels' selection (``csrc/topk_select.cuh``) step by step,
+    with tensor ops; for tests, which hold it to the stable sort of
+    :func:`topk_ef_sparse` and to the Pallas kernels.
+
+    ``tb``: (..., block) fp32 selection blocks. Per block, a radix select
+    over the digits of :data:`SELECT_DIGITS` finds the k-th largest
+    magnitude's prefix, stopping once its bin is taken whole; then
+    ``above`` values lie above the prefix, and the first ``need = k -
+    above`` of those equal to it, by index, are kept. The k picks are then
+    ordered by (magnitude, index), as the sparse kernel sorts them.
+
+    Returns ``(keep, li, passes)``: the (..., block) membership, the
+    (..., k) block-local picks in ``lax.top_k`` order, and the digit passes
+    each block took."""
+    mag = magnitude_bits(tb).long()
+    lead = tb.shape[:-1]
+    prefix = torch.zeros(lead, dtype=torch.long, device=tb.device)
+    r = torch.full(lead, k, dtype=torch.long, device=tb.device)
+    shift = torch.full(lead, 31, dtype=torch.long, device=tb.device)
+    done = torch.zeros(lead, dtype=torch.bool, device=tb.device)
+    passes = torch.zeros(lead, dtype=torch.long, device=tb.device)
+    for sh, width in SELECT_DIGITS:
+        live = ~done
+        inside = (mag >> shift[..., None]) == prefix[..., None]
+        digit = (mag >> sh) & ((1 << width) - 1)
+        hist = torch.zeros(lead + (256,), dtype=torch.long, device=tb.device)
+        hist.scatter_add_(-1, digit, inside.long())
+        upto = hist.flip(-1).cumsum(-1).flip(-1)    # count at digit >= bin
+        above = upto - hist
+        hit = (above < r[..., None]) & (r[..., None] <= upto)
+        b = hit.long().argmax(-1, keepdim=True)
+        r_new = r - above.gather(-1, b)[..., 0]
+        whole = hist.gather(-1, b)[..., 0] == r_new
+        prefix = torch.where(live, (prefix << width) | b[..., 0], prefix)
+        r = torch.where(live, r_new, r)
+        shift = torch.where(live, torch.full_like(shift, sh), shift)
+        passes += live.long()
+        done |= whole
+    hi = mag >> shift[..., None]
+    tie = hi == prefix[..., None]
+    rank = tie.long().cumsum(-1) - tie.long()      # among ties, by index
+    keep = (hi > prefix[..., None]) | (tie & (rank < r[..., None]))
+    # the k picks in index order, then by descending magnitude (stable)
+    li = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True).indices
+    li = li[..., :k]
+    order = torch.sort(mag.gather(-1, li), dim=-1, descending=True,
+                       stable=True).indices
+    return keep, li.gather(-1, order), passes
+
+
+def topk_hard_cases(c: int, d: int, seed: int = 0):
+    """(c, d) fp32 totals on which a threshold select can go wrong, from a
+    numpy seed, one case per 2048-value segment of each row (repeating),
+    normal values after: magnitudes that share their top three radix
+    digits; all-equal magnitudes; more ties at the threshold than are
+    kept; NaNs (fewer and more than 32 per segment, with several payloads)
+    beside ±inf; ±0.0 and denormals. Pass them with an EF of -0.0, which
+    adds nothing to any value."""
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(c, d)).astype(np.float32)
+    seg = 2048
+    sign = np.where(r.random((c, d)) < 0.5, 0x80000000, 0).astype(np.uint32)
+    bits = x.view(np.uint32)
+    for i, s0 in enumerate(range(0, d, seg)):
+        s1 = min(s0 + seg, d)
+        n = s1 - s0
+        part = bits[:, s0:s1]
+        case = i % 6
+        if case == 0:      # last digit only: 1.0's pattern + 7 random bits
+            part[:] = (0x3F800000 | r.integers(0, 128, (c, n))).astype(
+                np.uint32) | sign[:, s0:s1]
+        elif case == 1:    # all equal magnitudes
+            part[:] = np.uint32(0x3F400000) | sign[:, s0:s1]
+        elif case == 2:    # 20 above, then 100 tied at 2.0, then small
+            v = (r.normal(size=(c, n)) * 0.1).astype(np.float32)
+            pick = r.permutation(n)
+            v[:, pick[:20]] = 3.0
+            v[:, pick[20:120]] = -2.0
+            part[:] = v.view(np.uint32)
+        elif case in (3, 4):   # NaNs with ±inf: 5 (case 3) or 40 (case 4)
+            many = 5 if case == 3 else 40
+            pick = r.permutation(n)
+            payload = r.choice(np.array([0x7FC00000, 0x7FFFFFFF, 0xFFC00001,
+                                         0x7F800001], np.uint32), (c, many))
+            part[:, pick[:many]] = payload
+            part[:, pick[many:many + 3]] = 0x7F800000
+            part[:, pick[many + 3:many + 5]] = 0xFF800000
+        else:              # ±0.0, denormals, a few small normals
+            den = r.integers(1, 0x800000, (c, n)).astype(np.uint32)
+            den[r.random((c, n)) < 0.3] = 0
+            den[:, r.permutation(n)[:8]] = 0x00800000   # smallest normal
+            part[:] = den | sign[:, s0:s1]
+    return torch.from_numpy(x)
 
 
 #: elements per pass-1 partial sum of ``sign_ef`` (the Pallas kernel's

@@ -150,6 +150,31 @@ def test_topk_ef_kernel_matches_twin(card, d, block, k, ties):
     assert torch.equal(hk, hr) and torch.equal(e_k, e_r)
 
 
+@pytest.mark.parametrize("block,k", [
+    (block, k) for block in (128, 384, 2048)
+    for k in (1, 2, 31, 32, 33, 1024, block) if k <= block])
+def test_topk_kernels_match_twins_on_hard_cases(card, block, k):
+    """Both top-k kernels at d = 704,266 (a 1,802-value tail) on
+    ``ref.topk_hard_cases``: magnitudes equal but for the last radix digit,
+    all-equal magnitudes, more ties at the threshold than are kept, NaNs
+    (fewer and more than k) beside ±inf, ±0.0 and denormals. The EF rows
+    hold -0.0, which adds nothing."""
+    x = ref.topk_hard_cases(3, 704266, seed=block + k).to(card)
+    err = torch.full((7, 704266), -0.0, device=card)
+    err[[1, 2, 4, 5]] = torch.randn(4, 704266, device=card)
+    rows = torch.tensor([6, 0, 3], device=card)
+    e_k, e_r = err.clone(), err.clone()
+    got = [*ops.topk_ef_sparse(x, e_k, rows, k=k, block=block), e_k]
+    want = [*ref.topk_ef_sparse(x, e_r, rows, k=k, block=block), e_r]
+    torch.cuda.synchronize()
+    assert all(_same(a, b) for a, b in zip(got, want))
+    e_k, e_r = err.clone(), err.clone()
+    hk = ops.topk_ef(x, e_k, rows, k=k, block=block)
+    hr = ref.topk_ef(x, e_r, rows, k=k, block=block)
+    torch.cuda.synchronize()
+    assert _same(hk, hr) and _same(e_k, e_r)
+
+
 @pytest.mark.parametrize("d", [704266, 8192, 2049, 1, 2048 * 8195 + 7])
 def test_sign_ef_kernel_matches_twin(card, d):
     """Bitwise, scale included (the kernel's trees are the twin's), with
