@@ -14,8 +14,11 @@ then, on the card:
    the threshold than are kept, NaNs beside ±inf, ±0.0 and denormals) at
    blocks of 128, 384 and 2048 and k in {1, 2, 31, 32, 33, 1024, block},
    with ``torch.topk`` on the same blocks timed as the nearest library
-   call; ``sign_ef`` with zeros, -0.0 and a NaN client, and at a d past
-   2^24 (its scale tree runs in chunks); ``pack_uint``/``unpack_uint`` at
+   call; ``sign_ef`` with zeros, -0.0 and a NaN client, at c = 1 and
+   c = 12 (more blocks than the card holds on chip), at d = 2047, 2048 and
+   2049, three calls back to back and one on a second stream (one launch
+   each), and at a d past 2^24 (its scale tree runs in chunks);
+   ``pack_uint``/``unpack_uint`` at
    n = 1 over 704,266 values (the sign codec's bits) and n = 11 over 11,008
    (blocktopk's index stream), every n in 1..32 at a ragged count, and the
    round trip;
@@ -260,6 +263,23 @@ def phase_kernels(dev, d: int):
     del tb, mag, hard, negz
 
     # -- sign_ef -------------------------------------------------------------
+    worst = 0.0
+
+    def sign_case(what, xin, e_in, r_in):
+        """One call, bitwise against the twin, one launch; returns the
+        kernel's hat and EF buffer."""
+        nonlocal worst
+        e_k, e_r = e_in.clone(), e_in.clone()
+        n0 = ops.launches["sign_ef"]
+        got = [ops.sign_ef_cuda(xin, e_k, r_in), e_k]
+        check(ops.launches["sign_ef"] == n0 + 1,
+              f"sign_ef[{what}]: {ops.launches['sign_ef'] - n0} launches")
+        want = [ref.sign_ef(xin, e_r, r_in), e_r]
+        torch.cuda.synchronize()
+        same(f"sign_ef[{what}]", got, want)
+        worst = max(worst, worst_of(got, want))
+        return got
+
     xs = x.clone()
     xs[0, ::5] = 0.0
     xs[0, 1::5] = -0.0
@@ -268,29 +288,47 @@ def phase_kernels(dev, d: int):
     es[rows[0], 1::5] = -0.0     # -0.0 + -0.0 = -0.0: sign(-0.0) = +1
     bad = N_CLI // 2
     xs[bad, d // 2] = float("nan")  # a diverged client: its hat is all NaN
-    e_k, e_r = es.clone(), es.clone()
-    got = [ops.sign_ef_cuda(xs, e_k, rows), e_k]
-    want = [ref.sign_ef(xs, e_r, rows), e_r]
-    torch.cuda.synchronize()
-    same("sign_ef[zeros, -0.0, NaN client]", got, want)
+    got = sign_case("zeros, -0.0, NaN client", xs, es, rows)
     check(bool(got[0][bad].isnan().all()) and not bool(
         got[0][torch.arange(N_CLI, device=dev) != bad].isnan().any()),
         "sign_ef: the NaN client's hat is not all NaN, or another is")
     check(bool((got[0][0][::5] > 0).all()), "sign_ef: sign(0) is not +1")
-    worst = worst_of(got, want)
+    # one client; 12 clients, more blocks than the card holds on chip (some
+    # are read twice); widths around one block
+    sign_case("c=1", xs[:1], es, rows[:1])
+    x12 = torch.randn(12, d, generator=g, device=dev) * 0.01
+    r12 = torch.randperm(M, generator=g, device=dev)[:12].contiguous()
+    sign_case("c=12, blocks read again", x12, err0, r12)
+    del x12
+    for dd in (2047, 2048, 2049):
+        sign_case(f"d={dd}", xs[:, :dd].contiguous(),
+                  es[:, :dd].contiguous(), rows)
+    # back to back on one stream with no sync (the arrival counts start
+    # over on every call), then on a second stream
+    e_k, e_r = es.clone(), es.clone()
+    n0 = ops.launches["sign_ef"]
+    got = [ops.sign_ef_cuda(xs * (i + 1), e_k, rows) for i in range(3)]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got.append(ops.sign_ef_cuda(xs, e_k, rows))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    want = [ref.sign_ef(xs * (i + 1), e_r, rows) for i in range(3)]
+    want.append(ref.sign_ef(xs, e_r, rows))
+    torch.cuda.synchronize()
+    check(ops.launches["sign_ef"] == n0 + 4,
+          f"sign_ef: {ops.launches['sign_ef'] - n0} launches for 4 calls")
+    same("sign_ef[3 calls back to back, then a second stream]",
+         got + [e_k], want + [e_r])
+    worst = max(worst, worst_of(got + [e_k], want + [e_r]))
     del xs, es, e_k, e_r, got, want
     # more partials per client than one tree takes: the scale sums in chunks
     dl = ref.SIGN_BLOCK * (ref.SIGN_CHUNK + 3) + 7
     xl = torch.randn(2, dl, generator=g, device=dev)
     el = torch.randn(3, dl, generator=g, device=dev) * 0.1
-    rl = torch.tensor([2, 0], device=dev)
-    e_k, e_r = el.clone(), el.clone()
-    got = [ops.sign_ef_cuda(xl, e_k, rl), e_k]
-    want = [ref.sign_ef(xl, e_r, rl), e_r]
-    torch.cuda.synchronize()
-    same(f"sign_ef[d={dl}, chunked scale]", got, want)
-    worst = max(worst, worst_of(got, want))
-    del xl, el, e_k, e_r, got, want
+    sign_case(f"d={dl}, chunked scale", xl, el,
+              torch.tensor([2, 0], device=dev))
+    del xl, el
     ms = time_ms(lambda: ops.sign_ef_cuda(x, err, rows, check_rows=False),
                  restore)
     plain = time_ms(lambda: ref.sign_ef(x, err, rows), restore, iters=10)

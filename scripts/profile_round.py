@@ -51,10 +51,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 M, N_CLI, K_STEPS, BATCH = 100, 10, 3, 20
-#: the __global__ functions of src/repro_torch/kernels/csrc/ (sign_ef.cu
-#: launches three: l1_partials, scale, apply)
-PORT_KERNELS = ("topk_ef_sparse_kernel", "topk_ef_kernel",
-                "l1_partials_kernel", "scale_kernel", "apply_kernel",
+#: the __global__ functions of src/repro_torch/kernels/csrc/
+PORT_KERNELS = ("topk_ef_sparse_kernel", "topk_ef_kernel", "sign_ef_kernel",
                 "pack_kernel", "unpack_kernel", "fedams_ingest_kernel",
                 "fedams_update_kernel")
 WARMUP, TIMED, PROFILED = 1, 3, 3

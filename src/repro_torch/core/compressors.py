@@ -5,10 +5,14 @@ Counterpart of ``repro.core.compressors``:
 * the top-k family, ``topk`` (global) and ``blocktopk`` (exact top-k'
   inside fixed-size blocks of the flat vector), each with ``compress``
   (dense output) and ``select`` (the compacted ``(vals, idx)``
-  :class:`Selection`). Selection order is ``lax.top_k``'s: descending |x|,
-  ties to the lowest index — a stable descending sort here, or ``argmax``
-  (first maximum) when k = 1. Bitwise the JAX compressors
-  (tests/test_torch_compressors.py);
+  :class:`Selection`). Each follows the JAX function's own path: where it
+  calls ``lax.top_k(|x|, k)`` (``compress`` always, ``select`` at k > 1)
+  the picks are a stable descending sort of |x| as its bit pattern
+  (:func:`repro_torch.kernels.ref.magnitude_bits`: ties to the lowest
+  index, NaNs above +inf and by payload); where it calls
+  ``_argmax_select`` (``select`` at k = 1) they are ``argmax`` of the
+  float |x|, where the first NaN wins. Bitwise the JAX compressors, NaNs
+  included (tests/test_torch_compressors.py);
 * ``sign`` (and ``packedsign``, the same numerics): ``‖x‖₁/d · sign(x)``
   with sign(0) := +1. The scale is summed by the fixed halving trees of the
   ``sign_ef`` kernel (:func:`repro_torch.kernels.ref.sign_scale`), so
@@ -73,12 +77,20 @@ class Compressor:
     block: Optional[int] = None
 
 
-def _top_idx(mag: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries of ``mag`` along the last axis, in
-    ``lax.top_k`` order (descending, ties to the lowest index)."""
+def _top_idx(v: torch.Tensor, k: int) -> torch.Tensor:
+    """``lax.top_k(jnp.abs(v), k)``'s indices along the last axis: |v| as
+    its bit pattern, descending, ties to the lowest index (NaNs above +inf,
+    by payload)."""
+    mag = ref.magnitude_bits(v)
     if k == 1:
         return mag.argmax(dim=-1, keepdim=True)
     return torch.sort(mag, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def _argmax_idx(v: torch.Tensor) -> torch.Tensor:
+    """``_argmax_select``'s index along the last axis: the first maximum of
+    the float |v|, so the first NaN wins whatever its payload."""
+    return v.abs().argmax(dim=-1, keepdim=True)
 
 
 def make_topk(ratio: float) -> Compressor:
@@ -87,13 +99,15 @@ def make_topk(ratio: float) -> Compressor:
 
     def select(x, rng=None):
         flat = x.reshape(-1)
-        idx = _top_idx(flat.abs(), k_of(flat.numel()))
+        k = k_of(flat.numel())
+        idx = _argmax_idx(flat) if k == 1 else _top_idx(flat, k)
         return Selection(vals=flat[idx], idx=idx.to(torch.int32))
 
     def compress(x, rng=None):
         flat = x.reshape(-1)
-        sel = select(flat)
-        return selection_to_dense(sel, flat.numel()).reshape(x.shape)
+        idx = _top_idx(flat, k_of(flat.numel()))
+        out = torch.zeros_like(flat).scatter(0, idx, flat[idx])
+        return out.reshape(x.shape)
 
     return Compressor(
         name=f"topk_{ratio:g}",
@@ -124,7 +138,7 @@ def make_blocktopk(ratio: float, block: int = 2048) -> Compressor:
 
     def select(x, rng=None):
         xb, d, bs, nb, k = _blocks(x)
-        idx = _top_idx(xb.abs(), k)                  # (nb, k)
+        idx = _argmax_idx(xb) if k == 1 else _top_idx(xb, k)   # (nb, k)
         kept = xb.gather(1, idx)
         gidx = idx.to(torch.int32) + (torch.arange(
             nb, dtype=torch.int32, device=xb.device) * bs)[:, None]
@@ -132,7 +146,7 @@ def make_blocktopk(ratio: float, block: int = 2048) -> Compressor:
 
     def compress(x, rng=None):
         xb, d, bs, nb, k = _blocks(x)
-        idx = _top_idx(xb.abs(), k)
+        idx = _top_idx(xb, k)
         out = torch.zeros_like(xb).scatter(1, idx, xb.gather(1, idx))
         return out.reshape(-1)[:d].reshape(x.shape)
 

@@ -169,20 +169,40 @@ def sign_ef(x, err, rows):
     return ref.sign_ef(x, err, rows)
 
 
+#: (device index, stream) → ``sign_ef``'s per-client arrival counts and
+#: epochs, zeroed once when made. Each call leaves every count at 0 (the
+#: kernel resets it) and only moves epochs, so no call zeroes the buffer;
+#: one per stream, so calls on two streams never share one.
+_sign_arrivals_of = {}
+
+
+def _sign_arrivals(dev, c: int):
+    """The arrival buffer (at least 2c int32) for a ``sign_ef`` call of
+    ``c`` clients on the current stream of ``dev``."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _sign_arrivals_of.get(key)
+    if buf is None or buf.numel() < 2 * c:
+        with torch.cuda.device(dev):
+            buf = torch.zeros(2 * max(c, 64), dtype=torch.int32, device=dev)
+        _sign_arrivals_of[key] = buf
+    return buf
+
+
 def sign_ef_cuda(x, err, rows, *, check_rows: bool = True):
-    """``check_rows`` as in :func:`topk_ef_sparse_cuda`."""
+    """``check_rows`` as in :func:`topk_ef_sparse_cuda`. One cooperative
+    launch, whose grid the entry point sizes from the device's SM count,
+    opt-in shared memory and occupancy; a grid the card cannot hold at once
+    is refused, and this raises."""
     _check_ef_args(x, err, rows, "sign_ef")
     if check_rows:
         _check_rows(rows, err.shape[0], "sign_ef")
     c, d = x.shape
     nb = -(-d // ref.SIGN_BLOCK)
-    width = min(1 << max(nb - 1, 0).bit_length(), ref.SIGN_CHUNK)
     dev = x.device
     hat = torch.empty((c, d), dtype=torch.float32, device=dev)
     partials = torch.empty((c, nb), dtype=torch.float32, device=dev)
-    scale = torch.empty((c,), dtype=torch.float32, device=dev)
     _launch("sign_ef", dev, _ptr(x), _ptr(err), _ptr(rows), _ptr(hat),
-            _ptr(partials), _ptr(scale), d, nb, width, c)
+            _ptr(partials), _ptr(_sign_arrivals(dev, c)), d, nb, c)
     return hat
 
 

@@ -205,17 +205,17 @@ def topk_hard_cases(c: int, d: int, seed: int = 0):
     return torch.from_numpy(x)
 
 
-#: elements per pass-1 partial sum of ``sign_ef`` (the Pallas kernel's
+#: elements per block partial of ``sign_ef`` (the Pallas kernel's
 #: DEFAULT_BLOCK)
 SIGN_BLOCK = 2048
-#: widest halving tree over one client's pass-1 partials (sign_ef.cu kChunk)
+#: widest halving tree over one client's block partials (sign_ef.cu kChunk)
 SIGN_CHUNK = 8192
 
 
 def tree_sum(a):
     """Sum over the last axis by a halving tree: zero-pad to a power of two
     P, then ``a[..., :h] + a[..., h:]`` for h = P/2, ..., 1 — the order of
-    ``sign_ef.cu``'s shared-memory trees, on any device."""
+    ``sign_ef.cu``'s trees, on any device."""
     n = a.shape[-1]
     p = 1 << max(n - 1, 0).bit_length()
     a = F.pad(a, (0, p - n))

@@ -89,3 +89,43 @@ def test_unported_compressors_are_refused_by_name(name):
         make_compressor(name)
     with pytest.raises(ValueError, match="unknown"):
         make_compressor("topq")
+
+
+NAN_PAYLOADS = (0x7FC00000, 0x7FFFFFFF, 0xFFC00001)
+
+
+def _nan_vec(d, seed, n_nan):
+    """Normal values (no denormals) with ``n_nan`` NaNs of the three
+    payloads above at random positions, beside a few ±inf."""
+    r = np.random.default_rng(seed)
+    x = r.normal(size=d).astype(np.float32)
+    bits = x.view(np.uint32)
+    pick = r.permutation(d)
+    bits[pick[:n_nan]] = r.choice(np.array(NAN_PAYLOADS, np.uint32), n_nan)
+    bits[pick[n_nan:n_nan + 2]] = [0x7F800000, 0xFF800000]
+    return x
+
+
+@pytest.mark.parametrize("name,ratio,block,d,n_nan", [
+    ("topk", 1 / 64, 2048, 5000, 40),       # k = 78: lax.top_k
+    ("topk", 1 / 64, 2048, 5000, 200),      # more NaNs than k
+    ("topk", 1 / 1000, 2048, 900, 6),       # k = 1: select by argmax
+    ("blocktopk", 1 / 64, 2048, 6922, 60),  # k = 32 per block, ragged
+    ("blocktopk", 1 / 256, 256, 1000, 12),  # k = 1 per block
+    ("blocktopk", 1 / 128, 256, 1000, 30),  # k = 2 per block
+])
+def test_nans_order_as_the_jax_path_does(name, ratio, block, d, n_nan):
+    """Where the JAX compressor calls ``lax.top_k`` (``compress``, and
+    ``select`` at k > 1) NaNs order by payload; where it calls
+    ``_argmax_select`` (``select`` at k = 1) the first NaN wins. The port
+    follows each: equal indices and bitwise-equal values."""
+    x = _nan_vec(d, d + n_nan, n_nan)
+    jc, tc = jax_make(name, ratio, block), make_compressor(name, ratio, block)
+    js, ts = jc.select(jnp.asarray(x)), tc.select(torch.from_numpy(x))
+    np.testing.assert_array_equal(np.asarray(js.idx), ts.idx.numpy())
+    np.testing.assert_array_equal(np.asarray(js.vals).view(np.uint32),
+                                  ts.vals.numpy().view(np.uint32))
+    jd = np.asarray(jc.compress(jnp.asarray(x)))
+    td = tc.compress(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(jd.view(np.uint32), td.view(np.uint32))
+    assert np.isnan(td).sum() == np.isnan(jd).sum() > 0

@@ -175,27 +175,107 @@ def test_topk_kernels_match_twins_on_hard_cases(card, block, k):
     assert _same(hk, hr) and _same(e_k, e_r)
 
 
-@pytest.mark.parametrize("d", [704266, 8192, 2049, 1, 2048 * 8195 + 7])
-def test_sign_ef_kernel_matches_twin(card, d):
-    """Bitwise, scale included (the kernel's trees are the twin's), with
-    zeros, -0.0 and a client whose totals hold a NaN; the last d has more
-    partials than one tree takes (``ref.SIGN_CHUNK``), so it sums in
-    chunks."""
-    g = torch.Generator(device=card).manual_seed(d)
-    x = torch.randn(3, d, generator=g, device=card)
+@pytest.fixture
+def nan_fill():
+    """Deterministic mode: ``torch.empty`` fills new floats with NaN, so an
+    output element the kernel leaves unwritten cannot match the twin."""
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _sign_inputs(card, c, d, seed):
+    """(c, d) deltas and a (c + 2, d) EF buffer with its rows: client 0
+    has zeros and -0.0 (x = -0.0 on err = -0.0 gives a total of -0.0), and
+    client c - 1 of c >= 2 a NaN total."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(c, d, generator=g, device=card)
     x[0, ::5] = 0.0
     x[0, 1::5] = -0.0
-    err = torch.zeros(5, d, device=card)
-    err[[4, 1]] = torch.randn(2, d, generator=g, device=card) * 0.1
-    err[4, ::7] = 0.0
-    x[2, d // 2] = float("nan")
-    rows = torch.tensor([4, 1, 2], device=card)
+    err = torch.randn(c + 2, d, generator=g, device=card) * 0.1
+    rows = torch.randperm(c + 2, generator=g, device=card)[:c].contiguous()
+    err[rows[0], ::7] = 0.0
+    err[rows[0], 1::5] = -0.0
+    if c >= 2:
+        x[c - 1, d // 2] = float("nan")
+    return x, err, rows
+
+
+def _sign_check(x, e_k, e_r, rows, hk, hr):
+    c, d = x.shape
+    assert _same(hk, hr) and _same(e_k, e_r)
+    if c >= 2:
+        assert bool(hk[c - 1].isnan().all())
+    assert not bool(hk[:max(c - 1, 1)].isnan().any())
+    assert bool((hk[0, 1::5] > 0).all())          # sign(-0.0) = +1
+
+
+@pytest.mark.parametrize("c,d", [
+    (3, 704266), (3, 8192), (3, 2049), (3, 1), (3, 2048 * 8195 + 7),
+    (1, 704266), (12, 704266), (3, 2047), (3, 2048)])
+def test_sign_ef_kernel_matches_twin(card, nan_fill, c, d):
+    """Bitwise, scale included (the kernel's trees are the twin's), with
+    zeros, -0.0 and a client whose totals hold a NaN; one launch a call.
+    At d = 2048·8195 + 7 a client has more partials than one tree takes
+    (``ref.SIGN_CHUNK``), so its scale sums in chunks, and it, like 12
+    clients of 704,266, has more blocks than the card holds on chip, so
+    some are read again."""
+    x, err, rows = _sign_inputs(card, c, d, seed=c * d)
+    e_k, e_r = err.clone(), err.clone()
+    ops.reset_launches()
+    hk = ops.sign_ef(x, e_k, rows)
+    assert ops.launches["sign_ef"] == 1
+    hr = ref.sign_ef(x, e_r, rows)
+    torch.cuda.synchronize()
+    _sign_check(x, e_k, e_r, rows, hk, hr)
+
+
+def test_sign_ef_rereads_past_the_cards_capacity(card, nan_fill):
+    """More 2048-value blocks than the SMs' opt-in shared memory holds
+    (one CTA an SM at most holds optin // 8 KiB blocks): the blocks past a
+    CTA's share are summed, dropped and read again for the write."""
+    props = torch.cuda.get_device_properties(card)
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    held = props.multi_processor_count * (optin // (ref.SIGN_BLOCK * 4))
+    d = 704266
+    nb = -(-d // ref.SIGN_BLOCK)
+    c = held // nb + 2
+    assert c * nb > held
+    x, err, rows = _sign_inputs(card, c, d, seed=7)
     e_k, e_r = err.clone(), err.clone()
     hk = ops.sign_ef(x, e_k, rows)
     hr = ref.sign_ef(x, e_r, rows)
     torch.cuda.synchronize()
+    _sign_check(x, e_k, e_r, rows, hk, hr)
+
+
+def test_sign_ef_back_to_back_and_on_a_second_stream(card, nan_fill):
+    """The per-client arrival counts start over on every call: three calls
+    in a row on one stream with no sync between (each on the EF rows the
+    last one wrote), then one on a second stream; each bitwise, one launch
+    a call."""
+    c, d = 10, 704266
+    x, err, rows = _sign_inputs(card, c, d, seed=3)
+    e_k, e_r = err.clone(), err.clone()
+    ops.reset_launches()
+    got = [ops.sign_ef(x * (i + 1), e_k, rows) for i in range(3)]
+    e_mid = e_k.clone()
+    want = [ref.sign_ef(x * (i + 1), e_r, rows) for i in range(3)]
+    torch.cuda.synchronize()
+    assert ops.launches["sign_ef"] == 3
+    for hk, hr in zip(got, want):
+        assert _same(hk, hr)
+    assert _same(e_mid, e_r)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        hk = ops.sign_ef(x, e_k, rows)
+    side.synchronize()
+    hr = ref.sign_ef(x, e_r, rows)
+    torch.cuda.synchronize()
+    assert ops.launches["sign_ef"] == 4
     assert _same(hk, hr) and _same(e_k, e_r)
-    assert bool(hk[2].isnan().all()) and not bool(hk[:2].isnan().any())
+    assert bool(hk[c - 1].isnan().all()) and not hk[:c - 1].isnan().any()
 
 
 @pytest.mark.parametrize("nbits", range(1, 33))
