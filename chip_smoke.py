@@ -18,10 +18,16 @@ then, on the card:
    c = 12 (more blocks than the card holds on chip), at d = 2047, 2048 and
    2049, three calls back to back and one on a second stream (one launch
    each), and at a d past 2^24 (its scale tree runs in chunks);
-   ``pack_uint``/``unpack_uint`` at
-   n = 1 over 704,266 values (the sign codec's bits) and n = 11 over 11,008
-   (blocktopk's index stream), every n in 1..32 at a ragged count, and the
-   round trip;
+   ``pack_uint``/``unpack_uint`` over the (c, ·) message block of a round,
+   one launch a call: the sign codec's fused pair (the ``>= 0`` predicate
+   packed from the (10, 704,266) fp32 totals into 88,054-byte messages at
+   column 20, and the scaled unpack that reads each row's scale from the
+   message), on totals with -0.0, NaNs, ±inf and denormals and scales of
+   NaN, ±inf, ±0 and a denormal, and with per-block scales; blocktopk's
+   11-bit offsets (10 × 11,008) into 59,184-byte messages at column 16;
+   every n in 1..32 at c = 1, 3 and 10 with odd row strides and offsets
+   that put the streams at every alignment mod 16 (uint8 values too where
+   n <= 8); and one-row calls with their round trip;
    ``fedams_ingest`` at fp32, bf16 and int8 state for both options and with
    a NaN delta; ``fedams_update`` for both options at a ragged N, also with
    NaN deltas. All bitwise (a NaN must meet a NaN). Each kernel is timed
@@ -45,8 +51,9 @@ then, on the card:
        (n = 11) + ``fedams_update``.
    Every kernel launch counter is reset before a route and read after it;
    a route whose kernels never launched fails. Wire routes also check that
-   every encoded buffer is ``codec.nbytes(d)`` long and that each round
-   bills n of them uplink.
+   ``pack_uint`` and ``unpack_uint`` launched once a round for all n
+   clients, that every encoded message is ``codec.nbytes(d)`` long and
+   that each round bills n of them uplink.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
@@ -433,56 +440,133 @@ def phase_kernels(dev, d: int):
         flops=12 * d, library_ms=None,
         shapes=f"N={d} (ragged), fp32")
     # -- pack_uint / unpack_uint ---------------------------------------------
-    bits = (torch.randn(d, generator=g, device=dev) >= 0).to(torch.uint8)
-    ib = 11
-    idx = torch.randint(0, BLOCK, (nb * k,), generator=g, device=dev,
-                        dtype=torch.int32)
-    cases = [(1, bits, torch.uint8, "n=1 sign bits"),
-             (ib, idx, torch.int32, "n=11 blocktopk indices")]
-    for nbits in range(1, 33):
-        v = torch.randint(-2**31, 2**31 - 1, (10_000 + nbits,), generator=g,
-                          device=dev, dtype=torch.int32)
-        cases.append((nbits, v, torch.int32, f"n={nbits}, count={v.numel()}"))
     worst_p = worst_u = 0.0
-    for nbits, vals, dt, what in cases:
+
+    def rows_case(what, vals, nbits, block, col, dtype, scale_block=None):
+        """One rows pack and one rows unpack, each one launch, bitwise to
+        the twins over the whole block (bytes outside the streams stay)."""
+        nonlocal worst_p, worst_u
+        count = vals.shape[1]
+        fkw = ({} if scale_block is None else
+               dict(scale_col=16, scale_block=scale_block))
+        n0 = dict(ops.launches)
+        got = ops.pack_uint_rows(vals, nbits, block.clone(), col)
+        back = ops.unpack_uint_rows(got, col, nbits, count, dtype, **fkw)
+        check(ops.launches["pack_uint"] == n0["pack_uint"] + 1 and
+              ops.launches["unpack_uint"] == n0["unpack_uint"] + 1,
+              f"pack/unpack_uint_rows[{what}]: not one launch a call")
+        want = ref.pack_uint_rows(vals, nbits, block.clone(), col)
+        back_r = ref.unpack_uint_rows(want, col, nbits, count, dtype, **fkw)
+        torch.cuda.synchronize()
+        same(f"pack_uint_rows[{what}]", [got], [want])
+        check(torch.equal(back.view(torch.int32) if dtype == torch.float32
+                          else back,
+                          back_r.view(torch.int32) if dtype == torch.float32
+                          else back_r),
+              f"unpack_uint_rows[{what}] differs from the twin")
+        worst_p = max(worst_p, max_abs(got.float(), want.float()))
+        worst_u = max(worst_u, max_abs(back.double(), back_r.double()))
+        return got
+
+    # the main path's blocks: the sign codec's fused pair over 10 clients
+    # of d = 704,266 (messages of 88,054 bytes: row r's stream at 6r + 4 mod
+    # 16), totals with -0.0, NaNs, ±inf and denormals, scales NaN, ±inf,
+    # ±0, a denormal; blocktopk's 11-bit offsets (messages of 59,184 bytes)
+    sign_w = 20 + (d + 7) // 8
+    tot = x + err0[rows]
+    special = torch.tensor([-2**31, 0, 0x7FC00000, 0xFFC00001 - 2**32,
+                            0x7F800000, 0xFF800000 - 2**32, 1,
+                            0x807FFFFF - 2**32], dtype=torch.int32,
+                           device=dev)
+    pick = torch.rand(N_CLI, d, generator=g, device=dev) < 0.3
+    which = torch.randint(0, special.numel(), (N_CLI, d), generator=g,
+                          device=dev)
+    tot_sp = torch.where(pick, special[which], tot.view(torch.int32)).view(
+        torch.float32)
+    msgs = torch.randint(0, 256, (N_CLI, sign_w), generator=g, device=dev,
+                         dtype=torch.uint8)
+    sc = torch.tensor([0x7FC00000, 0xFFC00001 - 2**32, 0x7F800000,
+                       0xFF800000 - 2**32, 0, -2**31, 3, 0x3E4CCCCD,
+                       0x3C23D70A, 0x3F800000], dtype=torch.int32,
+                      device=dev)
+    msgs[:, 16:20] = sc.view(torch.uint8).view(N_CLI, 4)
+    sign_msgs = rows_case("sign, fused, special values", tot_sp, 1, msgs, 20,
+                          torch.float32, scale_block=0)
+    rows_case("sign, fused", tot, 1, msgs, 20, torch.float32, scale_block=0)
+    dl = 2 * 300 + 7      # per-block scales
+    msgs_b = torch.randint(0, 256, (N_CLI, 16 + 12 + (dl + 7) // 8),
+                           generator=g, device=dev, dtype=torch.uint8)
+    msgs_b[:, 16:28] = sc[torch.arange(3 * N_CLI, device=dev) % 10].view(
+        torch.uint8).view(N_CLI, 12)
+    rows_case("sign, fused, per-block scales", tot_sp[:, :dl].contiguous(),
+              1, msgs_b, 28, torch.float32, scale_block=300)
+    ib = 11
+    li = torch.randint(0, BLOCK, (N_CLI, nb * k), generator=g, device=dev,
+                       dtype=torch.int32)
+    topk_w = 16 + (nb * k * ib + 7) // 8 + 4 * nb * k
+    msgs11 = torch.randint(0, 256, (N_CLI, topk_w), generator=g, device=dev,
+                           dtype=torch.uint8)
+    idx_msgs = rows_case("blocktopk offsets n=11", li, ib, msgs11, 16,
+                         torch.int32)
+    # every width, c in {1, 3, 10}, odd row strides and offsets that leave
+    # the streams at every alignment mod 16; uint8 values where n <= 8
+    for c in (1, 3, N_CLI):
+        for nbits in range(1, 33):
+            count = 1000 + nbits
+            col = (3 * nbits + c) % 16
+            wide = col + (count * nbits + 7) // 8 + 5
+            wide += 1 - wide % 2
+            v = torch.randint(-2**31, 2**31 - 1, (c, count), generator=g,
+                              device=dev, dtype=torch.int32)
+            blk = torch.randint(0, 256, (c, wide), generator=g, device=dev,
+                                dtype=torch.uint8)
+            rows_case(f"n={nbits}, c={c}, col={col}", v, nbits, blk, col,
+                      torch.int32)
+            if nbits <= 8:
+                rows_case(f"n={nbits}, c={c}, uint8", (v & ((1 << nbits) - 1))
+                          .to(torch.uint8), nbits, blk, col, torch.uint8)
+    # one-row calls (the 1-D wrappers) and their round trip
+    bits = (torch.randn(d, generator=g, device=dev) >= 0).to(torch.uint8)
+    idx = li[0].contiguous()
+    for nbits, vals, dt, what in ((1, bits, torch.uint8, "n=1, one row"),
+                                  (ib, idx, torch.int32, "n=11, one row")):
         got = ops.pack_uint_cuda(vals, nbits)
         want = ref.pack_uint(vals, nbits)
+        back = ops.unpack_uint_cuda(got, nbits, vals.numel(), dt)
         torch.cuda.synchronize()
         same(f"pack_uint[{what}]", [got], [want])
-        back = ops.unpack_uint_cuda(got, nbits, vals.numel(), dt)
-        back_r = ref.unpack_uint(want, nbits, vals.numel(), dt)
-        same(f"unpack_uint[{what}]", [back], [back_r])
-        mask = (1 << nbits) - 1   # the round trip keeps the low nbits
-        check(torch.equal(back.long() & mask, vals.long() & mask),
-              f"pack/unpack round trip[{what}] lost bits")
-        worst_p = max(worst_p, max_abs(got.float(), want.float()))
-        worst_u = max(worst_u, max_abs(back.double(), back_r.double()),
-                      max_abs((back.long() & mask).double(),
-                              (vals.long() & mask).double()))
+        same(f"unpack_uint[{what}]", [back], [vals])
     nbytes1, nbytes11 = (d + 7) // 8, (nb * k * ib + 7) // 8
-    buf1, buf11 = ops.pack_uint_cuda(bits, 1), ops.pack_uint_cuda(idx, ib)
+    blank = torch.empty_like(msgs)
+    blank11 = torch.empty_like(msgs11)
     t = {
         "pack_uint": (
-            lambda: ops.pack_uint_cuda(bits, 1),
-            lambda: ref.pack_uint(bits, 1), d + nbytes1,
-            lambda: ops.pack_uint_cuda(idx, ib),
-            lambda: ref.pack_uint(idx, ib), 4 * nb * k + nbytes11, worst_p),
+            lambda: ops.pack_uint_rows_cuda(tot, 1, blank, 20),
+            lambda: ref.pack_uint_rows(tot, 1, blank, 20),
+            N_CLI * (4 * d + nbytes1), N_CLI * d,
+            lambda: ops.pack_uint_rows_cuda(li, ib, blank11, 16),
+            lambda: ref.pack_uint_rows(li, ib, blank11, 16),
+            N_CLI * (4 * nb * k + nbytes11), worst_p),
         "unpack_uint": (
-            lambda: ops.unpack_uint_cuda(buf1, 1, d, torch.uint8),
-            lambda: ref.unpack_uint(buf1, 1, d, torch.uint8), d + nbytes1,
-            lambda: ops.unpack_uint_cuda(buf11, ib, nb * k),
-            lambda: ref.unpack_uint(buf11, ib, nb * k),
-            4 * nb * k + nbytes11, worst_u),
+            lambda: ops.unpack_uint_rows_cuda(sign_msgs, 20, 1, d,
+                                              torch.float32, scale_col=16),
+            lambda: ref.unpack_uint_rows(sign_msgs, 20, 1, d, torch.float32,
+                                         scale_col=16),
+            N_CLI * (4 + nbytes1 + 4 * d), N_CLI * d,
+            lambda: ops.unpack_uint_rows_cuda(idx_msgs, 16, ib, nb * k),
+            lambda: ref.unpack_uint_rows(idx_msgs, 16, ib, nb * k),
+            N_CLI * (4 * nb * k + nbytes11), worst_u),
     }
-    for name, (k1, p1, b1, k11, p11, b11, worst) in t.items():
+    for name, (k1, p1, b1, f1, k11, p11, b11, worst) in t.items():
         out[name] = dict(
-            ms=time_ms(k1, evict), plain_ms=time_ms(p1, evict),
+            ms=time_ms(k1, evict), plain_ms=time_ms(p1, evict, iters=10),
             ms_n11=time_ms(k11, evict), plain_ms_n11=time_ms(p11, evict),
-            max_abs_err=worst, bytes=b1, flops=d, bytes_n11=b11,
+            max_abs_err=worst, bytes=b1, flops=f1, bytes_n11=b11,
             library_ms=None,
-            shapes=f"n=1 over {d} uint8 values <-> {nbytes1} bytes "
-                   f"(timed row); n=11 over {nb * k} int32 values <-> "
-                   f"{nbytes11} bytes (ms_n11)")
+            shapes=f"n=1: the sign codec's fused form over ({N_CLI},{d}) "
+                   f"fp32 <-> ({N_CLI},{sign_w}) messages, stream at column "
+                   f"20 (timed row); n=11: ({N_CLI},{nb * k}) int32 offsets "
+                   f"<-> ({N_CLI},{topk_w}) messages at column 16 (ms_n11)")
     return out
 
 
@@ -549,13 +633,13 @@ def phase_reference():
 
 
 def _recording(codec, sizes: list):
-    """``codec`` with an ``encode`` that also appends each buffer's length
-    to ``sizes``."""
-    def encode(x, rng=None):
-        buf = codec.encode(x, rng)
-        sizes.append(buf.numel())
-        return buf
-    return dataclasses.replace(codec, encode=encode)
+    """``codec`` with an ``encode_rows`` that also appends the length of
+    each message of the block it encodes to ``sizes``."""
+    def encode_rows(tot):
+        bufs = codec.encode_rows(tot)
+        sizes.extend([bufs.shape[1]] * bufs.shape[0])
+        return bufs
+    return dataclasses.replace(codec, encode_rows=encode_rows)
 
 
 def phase_slice(rounds: int = 6):
@@ -605,6 +689,12 @@ def phase_slice(rounds: int = 6):
         counts = dict(ops.launches)
         for name in EXPECT[route]:
             check(counts[name] > 0, f"route {route}: {name} never launched")
+        if sim.codec is not None:   # one launch a round for all n clients
+            check(counts["pack_uint"] == rounds and
+                  counts["unpack_uint"] == rounds,
+                  f"route {route}: pack_uint/unpack_uint launched "
+                  f"{counts['pack_uint']}/{counts['unpack_uint']} times in "
+                  f"{rounds} rounds")
         if sim.codec is not None:
             nbytes = sim.codec.nbytes(d)
             check(len(sizes) == rounds * N_CLI and set(sizes) == {nbytes},
@@ -661,6 +751,9 @@ def main():
     for name, r in kern.items():
         print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
               f"{r['plain_ms']:.4f} ms), max_abs_err {r['max_abs_err']}")
+        if "ms_n11" in r:
+            print(f"  n=11 rows: {r['ms_n11']:.4f} ms (twin "
+                  f"{r['plain_ms_n11']:.4f} ms)")
         if "nearest_library_ms" in r:
             print(f"  nearest library call {r['nearest_library']}: "
                   f"{r['nearest_library_ms']:.4f} ms; selection blocks by "

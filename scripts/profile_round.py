@@ -9,7 +9,7 @@ m = 100, n = 10, K = 3, batch 20, TF32 off) on the named routes of
     a  blocktopk 1/64, track_gamma=False: topk_ef_sparse + fedams_ingest
     b  blocktopk 1/64, track_gamma=True: topk_ef_sparse + fedams_update
     c  sign, in memory: sign_ef + fedams_update
-    d  sign over the packed wire: pack_uint/unpack_uint (n = 1)
+    d  sign over the packed wire: pack_uint/unpack_uint (n = 1, fused)
     e  blocktopk 1/64, dense uplink: topk_ef + fedams_update
     f  as e over the packed wire: pack_uint/unpack_uint (n = 11)
 
@@ -53,8 +53,9 @@ import torch  # noqa: E402
 M, N_CLI, K_STEPS, BATCH = 100, 10, 3, 20
 #: the __global__ functions of src/repro_torch/kernels/csrc/
 PORT_KERNELS = ("topk_ef_sparse_kernel", "topk_ef_kernel", "sign_ef_kernel",
-                "pack_kernel", "unpack_kernel", "fedams_ingest_kernel",
-                "fedams_update_kernel")
+                "pack_bits_kernel", "pack_groups_kernel",
+                "unpack_bits_kernel", "unpack_groups_kernel",
+                "fedams_ingest_kernel", "fedams_update_kernel")
 WARMUP, TIMED, PROFILED = 1, 3, 3
 
 

@@ -24,12 +24,19 @@ Codecs:
     Scaled sign: one fp32 scale (‖x‖₁/d, or one per block when
     ``block > 0``) + 1 bit per coordinate — Table 1's 32 + d bits.
 
-The sub-word streams (the 1-bit signs, the 11-bit indices) go through
-:func:`pack_uint` / :func:`unpack_uint`, which dispatch per device like
-every kernel route: the CUDA kernel on a card, its twin on the CPU. The
-JAX codecs' ``pack_impl`` chooses between two routes on the chip (XLA or
-Pallas, byte-identical); the port has one, so its codecs take no such
-argument and ``FedConfig.wire_pack_impl`` changes nothing here.
+Every codec encodes and decodes a whole (c, ·) block of clients at once
+(``encode_rows`` / ``decode_rows``, what the JAX codecs do under
+``jax.vmap``): each of its steps runs once over the block, and the
+sub-word streams (the 1-bit signs, the 11-bit indices) are packed straight
+into, and unpacked straight from, the (c, nbytes) message block by one
+``kernels.ops.pack_uint_rows`` / ``unpack_uint_rows`` call, which
+dispatches per device like every kernel route: the CUDA kernel on a card,
+its twin on the CPU. The sign codec's ``>= 0`` predicate and its scaled
+decode run inside those calls. ``encode`` / ``decode`` of one message are
+the block of one row. The JAX codecs' ``pack_impl`` chooses between two
+routes on the chip (XLA or Pallas, byte-identical); the port has one, so
+its codecs take no such argument and ``FedConfig.wire_pack_impl`` changes
+nothing here.
 
 Selections use the port's stable-sort top-k (``core.compressors``), the
 same picks as ``lax.top_k``. The sign scale is summed by the fixed halving
@@ -52,10 +59,11 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.compressors import (Compressor, Selection, block_layout,
-                                          make_blocktopk, make_identity,
-                                          make_sign, make_topk)
+from repro_torch.core.compressors import (Compressor, Selection, _top_idx,
+                                          block_layout, make_blocktopk,
+                                          make_identity, make_sign, make_topk)
 from repro_torch.kernels import ops, ref
 
 HEADER_BYTES = 16
@@ -76,22 +84,27 @@ _VALUE_DTYPES = {
 # ---------------------------------------------------------------------------
 
 
-def _to_bytes(x) -> torch.Tensor:
-    """Reinterpret any tensor as a flat uint8 view (little-endian)."""
-    x = x.contiguous()
-    if x.dtype == torch.uint8:
-        return x.reshape(-1)
-    return x.reshape(-1).view(torch.uint8)
+def _row_bytes(x) -> torch.Tensor:
+    """A (c, n) tensor as its (c, n·itemsize) little-endian bytes."""
+    return x.contiguous().view(torch.uint8)
 
 
-def _from_bytes(buf, dtype, count: int):
-    """Inverse of ``_to_bytes``: read ``count`` items of ``dtype``. The
-    slice is copied first, since a view as a wider dtype needs an aligned
-    offset that a packed stream does not keep."""
-    if dtype == torch.uint8:
-        return buf[:count]
+def _cols(bufs, start: int, count: int, dtype):
+    """``count`` items of ``dtype`` from column ``start`` of each row of the
+    (c, W) uint8 block ``bufs`` → (c, count). The columns are copied first,
+    since a view as a wider dtype needs an aligned offset that a packed
+    message does not keep."""
     width = torch.empty((), dtype=dtype).element_size()
-    return buf[:count * width].clone().view(dtype)
+    part = bufs[:, start:start + count * width]
+    return part.clone(memory_format=torch.contiguous_format).view(dtype)
+
+
+def _message(c: int, nbytes: int, header):
+    """A fresh (c, nbytes) message block with every row's header filled
+    in; the codec writes the payload columns."""
+    out = torch.empty((c, nbytes), dtype=torch.uint8, device=header.device)
+    out[:, :HEADER_BYTES] = header
+    return out
 
 
 def pack_uint(vals, nbits: int) -> torch.Tensor:
@@ -155,12 +168,16 @@ def parse_header(buf) -> dict:
 class WireCodec:
     """A serializer for compressed deltas (``repro.comm.wire.WireCodec``).
 
-    ``encode(x, rng=None)`` maps a flat fp32 vector to a packed uint8
-    buffer; ``decode(buf, d)`` maps it back to the dense fp32
-    representation (``d`` must be the original length). ``nbytes(d)`` is
-    the exact buffer size. ``compressor`` is the dense-path
-    :class:`Compressor` this codec is the wire format of; ``exact`` states
-    whether ``decode(encode(x)) == compressor.compress(x)`` bit for bit.
+    ``encode_rows(tot)`` maps a (c, d) block of fp32 vectors to a (c,
+    nbytes) uint8 block of messages, each row encoded on its own, and
+    ``decode_rows(bufs, d)`` maps it back to the (c, d) dense fp32
+    representation — the JAX codec's ``encode``/``decode`` under
+    ``jax.vmap``, each codec step run once over the block. ``encode(x,
+    rng=None)`` / ``decode(buf, d)`` are the one-message case (``d`` must
+    be the original length). ``nbytes(d)`` is the exact message size.
+    ``compressor`` is the dense-path :class:`Compressor` this codec is the
+    wire format of; ``exact`` states whether ``decode(encode(x)) ==
+    compressor.compress(x)`` bit for bit.
 
     Codecs whose payload is (value, index) pairs also provide
     ``encode_from_selection(sel, d)`` (byte-identical to ``encode(x)``
@@ -170,8 +187,8 @@ class WireCodec:
     ``exact`` codecs, the value narrowing otherwise)."""
 
     name: str
-    encode: Callable
-    decode: Callable
+    encode_rows: Callable
+    decode_rows: Callable
     nbytes: Callable
     compressor: Compressor
     exact: bool = True
@@ -180,18 +197,27 @@ class WireCodec:
     decode_to_selection: Optional[Callable] = None
     roundtrip_selection: Optional[Callable] = None
 
+    def encode(self, x, rng=None):
+        return self.encode_rows(x.reshape(1, -1))[0]
+
+    def decode(self, buf, d: int):
+        return self.decode_rows(buf.reshape(1, -1), d)[0]
+
 
 def make_dense32_codec() -> WireCodec:
-    def encode(x, rng=None):
-        flat = x.reshape(-1).float()
-        return torch.cat([
-            _header("dense32", "float32", flat.numel(), 0, 0, flat.device),
-            _to_bytes(flat)])
+    def encode_rows(tot):
+        tot = tot.float()
+        c, d = tot.shape
+        out = _message(c, HEADER_BYTES + 4 * d,
+                       _header("dense32", "float32", d, 0, 0, tot.device))
+        out[:, HEADER_BYTES:] = _row_bytes(tot)
+        return out
 
-    def decode(buf, d: int):
-        return _from_bytes(buf[HEADER_BYTES:], torch.float32, d)
+    def decode_rows(bufs, d: int):
+        return _cols(bufs, HEADER_BYTES, d, torch.float32)
 
-    return WireCodec(name="dense32", encode=encode, decode=decode,
+    return WireCodec(name="dense32", encode_rows=encode_rows,
+                     decode_rows=decode_rows,
                      nbytes=lambda d: HEADER_BYTES + 4 * d,
                      compressor=make_identity())
 
@@ -205,27 +231,41 @@ def make_topk_codec(ratio: float, value_dtype: str = "float32") -> WireCodec:
     def k_of(d: int) -> int:
         return max(1, int(round(ratio * d)))
 
-    def encode_from_selection(sel: Selection, d: int):
-        return torch.cat([
-            _header("topk", value_dtype, d, k_of(d), 0, sel.vals.device),
-            _to_bytes(sel.idx.to(torch.int32)), _to_bytes(sel.vals.to(vdt))])
+    def nbytes(d: int) -> int:
+        return HEADER_BYTES + k_of(d) * (4 + vb)
 
-    def encode(x, rng=None):
-        flat = x.reshape(-1).float()
-        return encode_from_selection(comp.select(flat), flat.numel())
+    def message(idx, vals, d: int):
+        """(c, k) int32 positions and fp32 values → (c, nbytes) messages."""
+        k = k_of(d)
+        out = _message(idx.shape[0], nbytes(d),
+                       _header("topk", value_dtype, d, k, 0, vals.device))
+        out[:, HEADER_BYTES:HEADER_BYTES + 4 * k] = _row_bytes(idx)
+        out[:, HEADER_BYTES + 4 * k:] = _row_bytes(vals.to(vdt))
+        return out
+
+    def encode_rows(tot):
+        tot = tot.float()
+        idx = _top_idx(tot, k_of(tot.shape[1]))        # lax.top_k's picks
+        return message(idx.to(torch.int32), tot.gather(1, idx), tot.shape[1])
+
+    def encode_from_selection(sel: Selection, d: int):
+        return message(sel.idx.reshape(1, -1).to(torch.int32),
+                       sel.vals.reshape(1, -1), d)[0]
+
+    def fields(bufs, d: int):
+        k = k_of(d)
+        return (_cols(bufs, HEADER_BYTES, k, torch.int32),
+                _cols(bufs, HEADER_BYTES + 4 * k, k, vdt).float())
+
+    def decode_rows(bufs, d: int):
+        idx, vals = fields(bufs, d)
+        out = torch.zeros((bufs.shape[0], d), dtype=torch.float32,
+                          device=bufs.device)
+        return out.scatter_(1, idx.long(), vals)
 
     def decode_to_selection(buf, d: int) -> Selection:
-        k = k_of(d)
-        off = HEADER_BYTES
-        idx = _from_bytes(buf[off:], torch.int32, k)
-        vals = _from_bytes(buf[off + 4 * k:], vdt, k).float()
-        return Selection(vals=vals, idx=idx)
-
-    def decode(buf, d: int):
-        sel = decode_to_selection(buf, d)
-        out = torch.zeros(d, dtype=torch.float32, device=buf.device)
-        out[sel.idx.long()] = sel.vals
-        return out
+        idx, vals = fields(buf.reshape(1, -1), d)
+        return Selection(vals=vals[0], idx=idx[0])
 
     def roundtrip_selection(sel: Selection, d: int) -> Selection:
         if value_dtype == "float32":
@@ -233,8 +273,8 @@ def make_topk_codec(ratio: float, value_dtype: str = "float32") -> WireCodec:
         return Selection(vals=sel.vals.to(vdt).float(), idx=sel.idx)
 
     return WireCodec(
-        name=f"topk_{ratio:g}_{value_dtype}", encode=encode, decode=decode,
-        nbytes=lambda d: HEADER_BYTES + k_of(d) * (4 + vb),
+        name=f"topk_{ratio:g}_{value_dtype}", encode_rows=encode_rows,
+        decode_rows=decode_rows, nbytes=nbytes,
         compressor=comp, exact=value_dtype == "float32",
         encode_from_selection=encode_from_selection,
         decode_to_selection=decode_to_selection,
@@ -254,60 +294,84 @@ def make_blocktopk_codec(ratio: float, block: int = 2048,
         return bs, nb, kb, ib
 
     def _quantize(vals):
-        """Per-block int8 quantization of (nb, kb) kept values; returns
-        (scale (nb,), q (nb, kb) int8)."""
-        amax = vals.abs().amax(dim=1)
+        """Per-block int8 quantization of (..., nb, kb) kept values; returns
+        (scale (..., nb), q (..., nb, kb) int8)."""
+        amax = vals.abs().amax(dim=-1)
         scale = ref.div_rn(torch.maximum(amax, amax.new_tensor(1e-30)),
                            127.0)
-        return scale, torch.round(vals / scale[:, None]).to(torch.int8)
+        return scale, torch.round(vals / scale[..., None]).to(torch.int8)
 
     def _bases(nb: int, bs: int, device):
         return (torch.arange(nb, dtype=torch.int32, device=device)
                 * bs)[:, None]
 
-    def encode_from_selection(sel: Selection, d: int):
+    def nbytes(d: int) -> int:
         bs, nb, kb, ib = layout(d)
-        # Selection carries padded-domain global positions in block order;
-        # the wire packs block-local offsets at ib bits each
-        dev = sel.vals.device
-        idx = sel.idx.reshape(nb, kb).to(torch.int32) - _bases(nb, bs, dev)
-        vals = sel.vals.reshape(nb, kb)
-        parts = [_header("blocktopk", value_dtype, d, kb, bs, dev),
-                 pack_uint(idx.contiguous(), ib)]
+        n = HEADER_BYTES + (nb * kb * ib + 7) // 8
+        return n + (4 * nb + nb * kb if int8 else nb * kb * vb)
+
+    def message(li, vals, d: int):
+        """(c, nb, kb) int32 block-local offsets and fp32 values → (c,
+        nbytes) messages: the offsets packed at ib bits each, straight
+        into the block, then the values."""
+        bs, nb, kb, ib = layout(d)
+        c = li.shape[0]
+        out = _message(c, nbytes(d), _header("blocktopk", value_dtype, d, kb,
+                                             bs, vals.device))
+        ops.pack_uint_rows(li.reshape(c, -1).contiguous(), ib, out,
+                           HEADER_BYTES)
+        off = HEADER_BYTES + (nb * kb * ib + 7) // 8
         if int8:
             scale, q = _quantize(vals)
-            parts += [_to_bytes(scale), _to_bytes(q)]
+            out[:, off:off + 4 * nb] = _row_bytes(scale)
+            out[:, off + 4 * nb:] = _row_bytes(q.reshape(c, -1))
         else:
-            parts.append(_to_bytes(vals.to(vdt)))
-        return torch.cat(parts)
+            out[:, off:] = _row_bytes(vals.reshape(c, -1).to(vdt))
+        return out
 
-    def encode(x, rng=None):
-        flat = x.reshape(-1).float()
-        return encode_from_selection(comp.select(flat), flat.numel())
+    def encode_rows(tot):
+        tot = tot.float()
+        c, d = tot.shape
+        bs, nb, kb, ib = layout(d)
+        xb = F.pad(tot, (0, nb * bs - d)).view(c, nb, bs)
+        li = _top_idx(xb, kb)           # (c, nb, kb): lax.top_k's picks
+        return message(li.to(torch.int32), xb.gather(2, li), d)
+
+    def encode_from_selection(sel: Selection, d: int):
+        # Selection carries padded-domain global positions in block order;
+        # the wire packs block-local offsets at ib bits each
+        bs, nb, kb, ib = layout(d)
+        dev = sel.vals.device
+        li = sel.idx.reshape(nb, kb).to(torch.int32) - _bases(nb, bs, dev)
+        return message(li[None], sel.vals.reshape(1, nb, kb), d)[0]
+
+    def fields(bufs, d: int):
+        """(c, nb, kb) global int32 positions and fp32 values of each
+        message of the block."""
+        bs, nb, kb, ib = layout(d)
+        c = bufs.shape[0]
+        li = ops.unpack_uint_rows(bufs, HEADER_BYTES, ib, nb * kb)
+        off = HEADER_BYTES + (nb * kb * ib + 7) // 8
+        if int8:
+            scale = _cols(bufs, off, nb, torch.float32)
+            q = _cols(bufs, off + 4 * nb, nb * kb, torch.int8)
+            vals = q.view(c, nb, kb).float() * scale[..., None]
+        else:
+            vals = _cols(bufs, off, nb * kb, vdt).view(c, nb, kb).float()
+        return li.view(c, nb, kb) + _bases(nb, bs, bufs.device), vals
+
+    def decode_rows(bufs, d: int):
+        bs, nb, kb, ib = layout(d)
+        c = bufs.shape[0]
+        gidx, vals = fields(bufs, d)
+        out = torch.zeros((c, nb * bs), dtype=torch.float32,
+                          device=bufs.device)
+        out.scatter_(1, gidx.view(c, -1).long(), vals.view(c, -1))
+        return out[:, :d]
 
     def decode_to_selection(buf, d: int) -> Selection:
-        bs, nb, kb, ib = layout(d)
-        off = HEADER_BYTES
-        nidx = (nb * kb * ib + 7) // 8
-        idx = unpack_uint(buf[off:off + nidx], ib, nb * kb).reshape(nb, kb)
-        off += nidx
-        if int8:
-            scale = _from_bytes(buf[off:], torch.float32, nb)
-            off += 4 * nb
-            q = _from_bytes(buf[off:], torch.int8, nb * kb)
-            vals = q.reshape(nb, kb).float() * scale[:, None]
-        else:
-            vals = _from_bytes(buf[off:], vdt, nb * kb)
-            vals = vals.reshape(nb, kb).float()
-        gidx = idx + _bases(nb, bs, buf.device)
+        gidx, vals = fields(buf.reshape(1, -1), d)
         return Selection(vals=vals.reshape(-1), idx=gidx.reshape(-1))
-
-    def decode(buf, d: int):
-        bs, nb, kb, ib = layout(d)
-        sel = decode_to_selection(buf, d)
-        out = torch.zeros(nb * bs, dtype=torch.float32, device=buf.device)
-        out[sel.idx.long()] = sel.vals
-        return out[:d]
 
     def roundtrip_selection(sel: Selection, d: int) -> Selection:
         if value_dtype == "float32":
@@ -321,14 +385,9 @@ def make_blocktopk_codec(ratio: float, block: int = 2048,
             vals = vals.to(vdt).float()
         return Selection(vals=vals.reshape(-1), idx=sel.idx)
 
-    def nbytes(d: int) -> int:
-        bs, nb, kb, ib = layout(d)
-        n = HEADER_BYTES + (nb * kb * ib + 7) // 8
-        return n + (4 * nb + nb * kb if int8 else nb * kb * vb)
-
     return WireCodec(
-        name=f"blocktopk_{ratio:g}_{value_dtype}", encode=encode,
-        decode=decode, nbytes=nbytes, compressor=comp,
+        name=f"blocktopk_{ratio:g}_{value_dtype}", encode_rows=encode_rows,
+        decode_rows=decode_rows, nbytes=nbytes, compressor=comp,
         exact=value_dtype == "float32",
         encode_from_selection=encode_from_selection,
         decode_to_selection=decode_to_selection,
@@ -339,40 +398,45 @@ def make_sign_codec(block: int = 0) -> WireCodec:
     """1 bit/coordinate + fp32 scale(s). ``block=0``: one global ‖x‖₁/d
     scale — the paper's Table 1 format and bit-exact vs ``make_sign``.
     ``block>0``: one scale per block of that size (mean |x| over the
-    block's real elements)."""
+    block's real elements). Encode is the scales, then one fused pack of
+    the ``>= 0`` predicate from the fp32 totals; decode is one fused unpack
+    that multiplies each row's scale(s), read from the message, by ±1."""
 
     def nb_of(d: int) -> int:
         return 1 if block <= 0 else -(-d // block)
 
-    def scales_of(flat, d: int):
+    def scales_of(tot):
+        """(c, d) → (c, nb) fp32 scales."""
+        c, d = tot.shape
         if block <= 0:
-            return ref.sign_scale(flat.reshape(1, -1))
+            return ref.sign_scale(tot)[:, None]
         nb = nb_of(d)
-        xb = torch.nn.functional.pad(flat.abs(), (0, nb * block - d))
-        counts = (d - torch.arange(nb, device=flat.device) * block).clamp(
+        xb = F.pad(tot.abs(), (0, nb * block - d)).view(c, nb, block)
+        counts = (d - torch.arange(nb, device=tot.device) * block).clamp(
             0, block).float()
-        return ref.tree_sum(xb.view(nb, block)) / counts
+        return ref.tree_sum(xb) / counts
 
-    def encode(x, rng=None):
-        flat = x.reshape(-1).float()
-        d = flat.numel()
-        return torch.cat([
-            _header("sign", "float32", d, 0, max(block, 0), flat.device),
-            _to_bytes(scales_of(flat, d)),
-            pack_uint((flat >= 0).to(torch.uint8), 1)])
+    def nbytes(d: int) -> int:
+        return HEADER_BYTES + 4 * nb_of(d) + (d + 7) // 8
 
-    def decode(buf, d: int):
+    def encode_rows(tot):
+        tot = tot.float().contiguous()
+        c, d = tot.shape
         nb = nb_of(d)
-        scales = _from_bytes(buf[HEADER_BYTES:], torch.float32, nb)
-        bits = unpack_uint(buf[HEADER_BYTES + 4 * nb:], 1, d, torch.uint8)
-        sgn = bits.float() * 2.0 - 1.0
-        if block <= 0:
-            return scales[0] * sgn
-        return torch.repeat_interleave(scales, block)[:d] * sgn
+        out = _message(c, nbytes(d), _header("sign", "float32", d, 0,
+                                             max(block, 0), tot.device))
+        out[:, HEADER_BYTES:HEADER_BYTES + 4 * nb] = _row_bytes(
+            scales_of(tot))
+        return ops.pack_uint_rows(tot, 1, out, HEADER_BYTES + 4 * nb)
+
+    def decode_rows(bufs, d: int):
+        return ops.unpack_uint_rows(bufs, HEADER_BYTES + 4 * nb_of(d), 1, d,
+                                    torch.float32, scale_col=HEADER_BYTES,
+                                    scale_block=max(block, 0))
 
     def dense_compress(x, rng=None):
-        flat = x.reshape(-1).float()
-        return decode(encode(flat), flat.numel()).reshape(x.shape)
+        flat = x.reshape(1, -1)
+        return decode_rows(encode_rows(flat), flat.shape[1]).reshape(x.shape)
 
     base = make_sign()
     comp = base if block <= 0 else Compressor(
@@ -381,8 +445,7 @@ def make_sign_codec(block: int = 0) -> WireCodec:
 
     return WireCodec(
         name="sign" if block <= 0 else f"sign_b{block}",
-        encode=encode, decode=decode,
-        nbytes=lambda d: HEADER_BYTES + 4 * nb_of(d) + (d + 7) // 8,
+        encode_rows=encode_rows, decode_rows=decode_rows, nbytes=nbytes,
         compressor=comp)
 
 

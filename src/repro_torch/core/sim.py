@@ -19,8 +19,9 @@ One round (``_round_impl``):
     ``stages.client_uplink`` compresses ``delta + e`` per client and keeps
     ``tot − hat`` in the rows — in memory through the ``sign_ef`` /
     ``topk_ef`` kernels for sign and blocktopk, or, in wire mode, through
-    the codec's encode→decode (the ``pack_uint``/``unpack_uint`` kernels,
-    whatever ``wire_pack_impl`` says); the server averages the hats;
+    the codec's ``encode_rows``→``decode_rows`` over all n clients at once
+    (one ``pack_uint`` and one ``unpack_uint`` launch, whatever
+    ``wire_pack_impl`` says); the server averages the hats;
 
 * the server either ingests the selections in one fused pass
   (``fused_ingest`` resolves to ``"kernel"``/``"jnp"``: the

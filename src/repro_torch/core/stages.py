@@ -29,11 +29,12 @@ def stage(name: str):
 
 def _wire_roundtrip(codec, d: int, tot):
     """What the server decodes from each row of ``tot`` sent through
-    ``codec``: encode every client, then decode every buffer."""
+    ``codec``: the (c, nbytes) block of every client's message, encoded in
+    one pass over the block and decoded in one."""
     with stage("encode"):
-        bufs = [codec.encode(t) for t in tot]
+        bufs = codec.encode_rows(tot)
     with stage("decode"):
-        return torch.stack([codec.decode(b, d) for b in bufs])
+        return codec.decode_rows(bufs, d)
 
 
 def client_uplink(comp: Optional[Compressor], codec, d: int, delta, errors,
@@ -45,8 +46,9 @@ def client_uplink(comp: Optional[Compressor], codec, d: int, delta, errors,
     when ``comp`` is None. Returns the (c, d) hats. Four cases, as in
     ``repro.core.stages.client_uplink``:
 
-    * comp + codec — wire mode: the EF total really goes through
-      encode→decode, client by client; EF tracks the *decoded* value;
+    * comp + codec — wire mode: the EF totals really go through
+      encode→decode, all c clients' messages as one block; EF tracks the
+      *decoded* value;
     * comp only — in-memory EF compression (``ef_compress_rows``: the
       ``sign_ef``/``topk_ef`` kernels for sign and blocktopk);
     * codec only — an uncompressed algorithm over a dense32 wire;

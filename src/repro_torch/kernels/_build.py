@@ -44,8 +44,9 @@ SIGNATURES = {
     "fedams_update": [_P] * 9 + [_LL, _F, _F, _F, _F, _F, _F, _I, _P],
     "topk_ef": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "sign_ef": [_P] * 6 + [_LL, _I, _I, _P],
-    "pack_uint": [_P, _P, _LL, _I, _I, _P],
-    "unpack_uint": [_P, _LL, _P, _LL, _I, _I, _P],
+    "pack_uint": [_P, _LL, _I, _P, _LL, _LL, _LL, _I, _I, _P],
+    "unpack_uint": [_P, _LL, _LL, _LL, _P, _LL, _I, _LL, _I, _I, _LL, _LL,
+                    _P],
 }
 
 #: kernel name → the ``csrc/<source>.cu`` that holds its entry point, where

@@ -208,7 +208,55 @@ def sign_ef_cuda(x, err, rows, *, check_rows: bool = True):
 
 # -- wire: n-bit packing -----------------------------------------------------
 
-_PACK_IN = {torch.uint8: 1, torch.int32: 4}
+#: value dtype → the bitpack entry points' kind code
+_PACK_KIND = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
+
+
+def _check_nbits(what: str, nbits: int):
+    if not 1 <= nbits <= 32:
+        raise ValueError(f"{what}: nbits must be in [1, 32], got {nbits}")
+
+
+def _check_pack_vals(vals, nbits: int, what: str, fused: bool):
+    kinds = (torch.uint8, torch.int32) + ((torch.float32,) if fused else ())
+    if not isinstance(vals, torch.Tensor) or vals.dtype not in kinds:
+        names = "uint8, int32 or float32" if fused else "uint8 or int32"
+        raise TypeError(f"{what}: values must be a {names} tensor, got "
+                        f"{getattr(vals, 'dtype', type(vals))}")
+    _check(vals, f"{what} vals", vals.dtype)
+    _check_nbits(what, nbits)
+    if vals.dtype == torch.float32 and nbits != 1:
+        raise ValueError(f"{what}: float32 totals pack their sign predicate "
+                         f"at nbits=1, got nbits={nbits}")
+
+
+def _check_unpack_dtype(what: str, nbits: int, dtype, fused: bool):
+    if dtype == torch.float32 and fused:
+        if nbits != 1:
+            raise ValueError(f"{what}: float32 (scaled signs) needs nbits=1, "
+                             f"got {nbits}")
+        return
+    if dtype not in (torch.uint8, torch.int32) or (
+            dtype == torch.uint8 and nbits > 8):
+        raise TypeError(f"{what}: dtype {dtype} cannot hold {nbits}-bit "
+                        f"values")
+
+
+def _check_block(buf, what: str, col: int, nbytes: int):
+    """A (c, W) uint8 block whose rows are contiguous (any row stride) and
+    hold ``nbytes`` from column ``col``."""
+    if not isinstance(buf, torch.Tensor) or buf.dim() != 2:
+        raise ValueError(f"{what}: expected a (c, W) uint8 tensor")
+    if not buf.is_cuda:
+        raise RuntimeError(f"{what}: the CUDA kernel needs a CUDA tensor, "
+                           f"got one on {buf.device}")
+    if buf.dtype != torch.uint8:
+        raise TypeError(f"{what}: dtype {buf.dtype}, expected torch.uint8")
+    if buf.stride(1) != 1 or buf.stride(0) < buf.shape[1]:
+        raise ValueError(f"{what}: rows must be contiguous and apart")
+    if col < 0 or col + nbytes > buf.shape[1]:
+        raise ValueError(f"{what}: columns [{col}, {col + nbytes}) do not "
+                         f"fit rows of {buf.shape[1]} bytes")
 
 
 def pack_uint(vals, nbits: int):
@@ -221,18 +269,44 @@ def pack_uint(vals, nbits: int):
 
 
 def pack_uint_cuda(vals, nbits: int):
-    if not isinstance(vals, torch.Tensor) or vals.dtype not in _PACK_IN:
-        raise TypeError(f"pack_uint: values must be a uint8 or int32 "
-                        f"tensor, got {getattr(vals, 'dtype', type(vals))}")
-    _check(vals, "pack_uint vals", vals.dtype)
-    if not 1 <= nbits <= 32:
-        raise ValueError(f"pack_uint: nbits must be in [1, 32], got {nbits}")
+    """One row of :func:`pack_uint_rows_cuda`."""
+    _check_pack_vals(vals, nbits, "pack_uint", fused=False)
     count = vals.numel()
-    out = torch.empty(((count * nbits + 7) // 8,), dtype=torch.uint8,
+    out = torch.empty((1, (count * nbits + 7) // 8), dtype=torch.uint8,
                       device=vals.device)
     if count:
-        _launch("pack_uint", vals.device, _ptr(vals), _ptr(out), count,
-                nbits, _PACK_IN[vals.dtype])
+        _launch("pack_uint", vals.device, _ptr(vals), count,
+                _PACK_KIND[vals.dtype], _ptr(out), out.shape[1], 0, count,
+                nbits, 1)
+    return out[0]
+
+
+def pack_uint_rows(vals, nbits: int, out, col: int = 0):
+    """Each row of ``vals`` (c, count) packed on its own into
+    ``out[r, col:col + ceil(count·nbits/8)]`` of the (c, W) uint8 block
+    ``out``, IN PLACE (no other byte of ``out`` changes); returns ``out``.
+    The contract of :func:`repro_torch.kernels.ref.pack_uint_rows`: uint8
+    or int32 values, or, at ``nbits=1``, float32 totals packed as their
+    ``>= 0`` predicate."""
+    if vals.is_cuda:
+        return pack_uint_rows_cuda(vals, nbits, out, col)
+    return ref.pack_uint_rows(vals, nbits, out, col)
+
+
+def pack_uint_rows_cuda(vals, nbits: int, out, col: int = 0):
+    """One launch for all c rows."""
+    _check_pack_vals(vals, nbits, "pack_uint_rows", fused=True)
+    if vals.dim() != 2:
+        raise ValueError("pack_uint_rows: vals is (c, count)")
+    c, count = vals.shape
+    _check_block(out, "pack_uint_rows out", col, (count * nbits + 7) // 8)
+    if out.shape[0] != c or out.device != vals.device:
+        raise ValueError(f"pack_uint_rows: out is {tuple(out.shape)} on "
+                         f"{out.device}, expected {c} rows on {vals.device}")
+    if c and count:
+        _launch("pack_uint", vals.device, _ptr(vals), count,
+                _PACK_KIND[vals.dtype], _ptr(out), out.stride(0), col, count,
+                nbits, c)
     return out
 
 
@@ -246,17 +320,57 @@ def unpack_uint(buf, nbits: int, count: int, dtype=torch.int32):
 
 
 def unpack_uint_cuda(buf, nbits: int, count: int, dtype=torch.int32):
+    """One row of :func:`unpack_uint_rows_cuda`; bytes past the end of
+    ``buf`` read as 0."""
     _check(buf, "unpack_uint buf", torch.uint8)
-    if not 1 <= nbits <= 32:
-        raise ValueError(f"unpack_uint: nbits must be in [1, 32], got "
-                         f"{nbits}")
-    if dtype not in _PACK_IN or (dtype == torch.uint8 and nbits > 8):
-        raise TypeError(f"unpack_uint: dtype {dtype} cannot hold "
-                        f"{nbits}-bit values")
-    out = torch.empty((count,), dtype=dtype, device=buf.device)
+    _check_nbits("unpack_uint", nbits)
+    _check_unpack_dtype("unpack_uint", nbits, dtype, fused=False)
+    out = torch.empty((1, count), dtype=dtype, device=buf.device)
     if count:
-        _launch("unpack_uint", buf.device, _ptr(buf), buf.numel(),
-                _ptr(out), count, nbits, _PACK_IN[dtype])
+        _launch("unpack_uint", buf.device, _ptr(buf), buf.numel(), 0,
+                buf.numel(), _ptr(out), count, _PACK_KIND[dtype], count,
+                nbits, 1, 0, 0)
+    return out[0]
+
+
+def unpack_uint_rows(buf, col: int, nbits: int, count: int,
+                     dtype=torch.int32, *, scale_col=None,
+                     scale_block: int = 0):
+    """Inverse of :func:`pack_uint_rows`: ``count`` values from
+    ``buf[r, col:]`` of each row of the (c, W) uint8 block → (c, count)
+    int32 or (nbits <= 8) uint8; or, at ``nbits=1`` with ``dtype=float32``,
+    the scaled signs ``scale_r · (bit ? 1 : -1)``, ``scale_r`` the fp32 at
+    ``buf[r, scale_col:scale_col + 4]`` (with ``scale_block > 0``, value i
+    takes the scale at ``scale_col + 4·(i // scale_block)``). The contract
+    of :func:`repro_torch.kernels.ref.unpack_uint_rows`."""
+    if buf.is_cuda:
+        return unpack_uint_rows_cuda(buf, col, nbits, count, dtype,
+                                     scale_col=scale_col,
+                                     scale_block=scale_block)
+    return ref.unpack_uint_rows(buf, col, nbits, count, dtype,
+                                scale_col=scale_col, scale_block=scale_block)
+
+
+def unpack_uint_rows_cuda(buf, col: int, nbits: int, count: int,
+                          dtype=torch.int32, *, scale_col=None,
+                          scale_block: int = 0):
+    """One launch for all c rows."""
+    _check_nbits("unpack_uint_rows", nbits)
+    _check_unpack_dtype("unpack_uint_rows", nbits, dtype, fused=True)
+    nbytes = (count * nbits + 7) // 8
+    _check_block(buf, "unpack_uint_rows buf", col, nbytes)
+    c = buf.shape[0]
+    if dtype == torch.float32:
+        if scale_col is None or scale_block < 0:
+            raise ValueError("unpack_uint_rows: float32 needs scale_col and "
+                             "scale_block >= 0")
+        nsc = 1 if scale_block == 0 else -(-count // scale_block)
+        _check_block(buf, "unpack_uint_rows scales", scale_col, 4 * nsc)
+    out = torch.empty((c, count), dtype=dtype, device=buf.device)
+    if c and count:
+        _launch("unpack_uint", buf.device, _ptr(buf), buf.stride(0), col,
+                nbytes, _ptr(out), count, _PACK_KIND[dtype], count, nbits, c,
+                scale_col or 0, scale_block)
     return out
 
 

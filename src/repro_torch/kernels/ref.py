@@ -26,7 +26,9 @@ XLA:CPU contract the moment updates into FMAs and sit one rounding away.
   is unspecified.
 * :func:`pack_uint` / :func:`unpack_uint` — ``repro.kernels.bitpack``'s
   MSB-first n-bit packing, byte-identical to ``pack_uint_words`` /
-  ``unpack_uint_words``.
+  ``unpack_uint_words``; :func:`pack_uint_rows` / :func:`unpack_uint_rows`
+  are the same over each row of a (c, ·) block (``vmap`` of them), with
+  the sign codec's predicate and its scaled decode fused in.
 * :func:`fedams_update_ref` — ``repro.kernels.fedams_update`` (and
   ``repro.kernels.ref.fedams_update_ref``): the elementwise FedAMS step.
 * :func:`fedams_ingest_ref` — ``repro.kernels.fedams_ingest`` (and
@@ -296,48 +298,98 @@ def _shl(x, sh: int):
     return x << sh if sh >= 0 else x >> -sh
 
 
+def _pack_last(v, nbits: int):
+    """Masked int64 values (..., count) → (..., ceil(count·nbits/8)) uint8,
+    each row of the last axis packed on its own. Word-wise shift/or, one
+    column per byte of a group."""
+    count = v.shape[-1]
+    gv, gb = group_shape(nbits)
+    groups = -(-count // gv)
+    v = F.pad(v, (0, groups * gv - count)).view(*v.shape[:-1], groups, gv)
+    cols = []
+    for pairs in pack_pairs(nbits):
+        acc = torch.zeros_like(v[..., 0])
+        for s, sh in pairs:
+            acc = acc | _shl(v[..., s], sh)
+        cols.append(acc & 0xFF)
+    out = torch.stack(cols, dim=-1).flatten(-2).to(torch.uint8)
+    return out[..., :(count * nbits + 7) // 8]
+
+
+def _unpack_last(b, nbits: int, count: int, dtype):
+    """int64 bytes (..., n) → (..., count) values of ``dtype``, each row of
+    the last axis on its own; bytes past n read as 0."""
+    gv, gb = group_shape(nbits)
+    groups = -(-count // gv)
+    need = groups * gb
+    b = F.pad(b[..., :need], (0, max(need - b.shape[-1], 0)))
+    b = b.view(*b.shape[:-1], groups, gb)
+    mask = (1 << nbits) - 1
+    cols = []
+    for pairs in unpack_pairs(nbits):
+        acc = torch.zeros_like(b[..., 0])
+        for k, sh in pairs:
+            acc = acc | _shl(b[..., k], -sh)
+        cols.append(acc & mask)
+    out = torch.stack(cols, dim=-1).flatten(-2)[..., :count]
+    if dtype == torch.int32:   # uint32 bit patterns: wrap the top half
+        out = torch.where(out >= 1 << 31, out - (1 << 32), out)
+    return out.to(dtype)
+
+
 def pack_uint(vals, nbits: int):
     """``vals`` (any shape, uint8 or int32 holding uint32 bit patterns,
     only the low ``nbits`` bits are kept) → ceil(count·nbits/8) uint8
     bytes, MSB first (slot 0 lands in bit 7 of byte 0, as
-    ``np.packbits``), the last byte zero-padded. Word-wise shift/or in
-    int64, one column per byte of a group."""
-    v = vals.reshape(-1).to(torch.int64) & ((1 << nbits) - 1)
-    count = v.numel()
-    gv, gb = group_shape(nbits)
-    groups = -(-count // gv)
-    v = torch.cat([v, v.new_zeros(groups * gv - count)]).view(groups, gv)
-    cols = []
-    for pairs in pack_pairs(nbits):
-        acc = v.new_zeros(groups)
-        for s, sh in pairs:
-            acc = acc | _shl(v[:, s], sh)
-        cols.append(acc & 0xFF)
-    out = torch.stack(cols, dim=1).reshape(-1).to(torch.uint8)
-    return out[:(count * nbits + 7) // 8]
+    ``np.packbits``), the last byte zero-padded."""
+    return _pack_last(vals.reshape(-1).to(torch.int64) & ((1 << nbits) - 1),
+                      nbits)
 
 
 def unpack_uint(buf, nbits: int, count: int, dtype=torch.int32):
     """Inverse of :func:`pack_uint`: read ``count`` values of ``nbits``
     from the uint8 stream ``buf`` (missing trailing bytes read as 0).
     ``dtype``: int32 (uint32 bit patterns) or, for nbits ≤ 8, uint8."""
-    b = buf.reshape(-1).to(torch.int64)
-    gv, gb = group_shape(nbits)
-    groups = -(-count // gv)
-    need = groups * gb
-    b = torch.cat([b[:need], b.new_zeros(max(need - b.numel(), 0))])
-    b = b.view(groups, gb)
-    mask = (1 << nbits) - 1
-    cols = []
-    for pairs in unpack_pairs(nbits):
-        acc = b.new_zeros(groups)
-        for k, sh in pairs:
-            acc = acc | _shl(b[:, k], -sh)
-        cols.append(acc & mask)
-    out = torch.stack(cols, dim=1).reshape(-1)[:count]
-    if dtype == torch.int32:   # uint32 bit patterns: wrap the top half
-        out = torch.where(out >= 1 << 31, out - (1 << 32), out)
-    return out.to(dtype)
+    return _unpack_last(buf.reshape(-1).to(torch.int64), nbits, count,
+                        dtype)
+
+
+def pack_uint_rows(vals, nbits: int, out, col: int = 0):
+    """The rows kernel's contract: row r of ``vals`` (c, count), packed as
+    :func:`pack_uint` packs it, written to ``out[r, col:col + nbytes]`` of
+    the (c, W) uint8 block ``out`` IN PLACE; returns ``out``. Float32
+    totals (``nbits=1``) pack their predicate ``vals >= 0`` (-0.0 → 1,
+    NaN → 0): the sign codec's ``pack_uint((flat >= 0).to(uint8), 1)``."""
+    if vals.dtype == torch.float32:
+        if nbits != 1:
+            raise ValueError("float32 totals pack at nbits=1")
+        vals = (vals >= 0).to(torch.uint8)
+    packed = _pack_last(vals.to(torch.int64) & ((1 << nbits) - 1), nbits)
+    out[:, col:col + packed.shape[-1]] = packed
+    return out
+
+
+def unpack_uint_rows(buf, col: int, nbits: int, count: int,
+                     dtype=torch.int32, *, scale_col=None,
+                     scale_block: int = 0):
+    """Inverse of :func:`pack_uint_rows`: ``count`` values of each row's
+    stream at ``buf[r, col:]`` → (c, count). With ``dtype=float32``
+    (``nbits=1``), the sign codec's decode: ``scale_r · (bits·2 − 1)``, the
+    row's fp32 scale read from ``buf[r, scale_col:scale_col + 4]`` (per
+    block of ``scale_block`` values, when it is > 0)."""
+    nbytes = (count * nbits + 7) // 8
+    raw = buf[:, col:col + nbytes].to(torch.int64)
+    if dtype != torch.float32:
+        return _unpack_last(raw, nbits, count, dtype)
+    if nbits != 1:
+        raise ValueError("scaled signs unpack at nbits=1")
+    sgn = _unpack_last(raw, 1, count, torch.uint8).float() * 2.0 - 1.0
+    nsc = 1 if scale_block <= 0 else -(-count // scale_block)
+    scales = buf[:, scale_col:scale_col + 4 * nsc].clone(
+        memory_format=torch.contiguous_format).view(torch.float32)
+    if scale_block <= 0:
+        return scales * sgn
+    return torch.repeat_interleave(scales, scale_block, dim=1)[:, :count] * sgn
 
 
 def div_rn(a, s):

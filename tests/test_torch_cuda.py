@@ -320,3 +320,146 @@ def test_new_kernels_count_launches_and_check_arguments(card):
     with pytest.raises(TypeError, match="cannot hold"):
         ops.unpack_uint(buf, 9, 9, torch.uint8)
     assert ops.launches["sign_ef"] == 1 and ops.launches["pack_uint"] == 1
+
+
+def _rows_case(card, c, count, nbits, col, seed):
+    """(c, count) int32 values and a (c, W) block of random bytes, W odd,
+    so that with ``col`` the rows' streams start at many alignments mod
+    16."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    v = torch.randint(-2**31, 2**31 - 1, (c, count), generator=g,
+                      device=card, dtype=torch.int32)
+    nbytes = (count * nbits + 7) // 8
+    width = col + nbytes + 5
+    width += 1 - width % 2
+    block = torch.randint(0, 256, (c, width), generator=g, device=card,
+                          dtype=torch.uint8)
+    return v, block
+
+
+@pytest.mark.parametrize("c", [1, 3, 10])
+@pytest.mark.parametrize("nbits", range(1, 33))
+def test_pack_unpack_rows_kernels_match_twins(card, nan_fill, nbits, c):
+    """Bitwise to the twins, whole blocks compared (bytes outside a row's
+    stream must stay), at a ragged count and at a count of whole 16-byte
+    rows (the 16-byte loads), at column offsets that with an odd row
+    stride put the streams at every alignment mod 16; one launch a call
+    whatever c is."""
+    mask = (1 << nbits) - 1
+    for count in (1000 + nbits, 1024):
+        for col in (0, 3, 8, 13):
+            v, block = _rows_case(card, c, count, nbits, col,
+                                  seed=nbits * 97 + count + col)
+            ops.reset_launches()
+            got = ops.pack_uint_rows(v, nbits, block.clone(), col)
+            back = ops.unpack_uint_rows(got, col, nbits, count)
+            assert ops.launches["pack_uint"] == 1
+            assert ops.launches["unpack_uint"] == 1
+            want = ref.pack_uint_rows(v, nbits, block.clone(), col)
+            back_r = ref.unpack_uint_rows(want, col, nbits, count)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert torch.equal(back, back_r)
+            assert torch.equal(back.long() & mask, v.long() & mask)
+            if nbits <= 8:
+                u8 = (v & mask).to(torch.uint8)
+                assert torch.equal(
+                    ops.pack_uint_rows(u8, nbits, block.clone(), col), want)
+                assert torch.equal(
+                    ops.unpack_uint_rows(got, col, nbits, count,
+                                         torch.uint8),
+                    ref.unpack_uint_rows(want, col, nbits, count,
+                                         torch.uint8))
+
+
+def _special_totals(card, c, d, seed):
+    """(c, d) fp32 totals, 60 % of them -0.0, +0.0, NaNs of several
+    payloads, ±inf or denormals of both signs."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(c, d, generator=g, device=card)
+    specials = torch.tensor(
+        [0x80000000, 0x00000000, 0x7FC00000, 0xFFC00001, 0x7FFFFFFF,
+         0x7F800000, 0xFF800000, 0x00000001, 0x807FFFFF, 0x80000001],
+        dtype=torch.int64, device=card)
+    specials = torch.where(specials >= 2**31, specials - 2**32,
+                           specials).to(torch.int32)
+    pick = torch.rand(c, d, generator=g, device=card) < 0.6
+    which = torch.randint(0, specials.numel(), (c, d), generator=g,
+                          device=card)
+    bits = torch.where(pick, specials[which], x.view(torch.int32))
+    return bits.view(torch.float32)
+
+
+#: sign scales planted in the messages: NaNs, ±inf, ±0, a denormal, 0.2
+SCALE_BITS = (0x7FC00000, 0xFFC00001 - 2**32, 0x7F800000, 0xFF800000 - 2**32,
+              0, -2**31, 3, 0x3E4CCCCD)
+
+
+@pytest.mark.parametrize("c,d,block", [
+    (1, 704266, 0), (3, 1001, 0), (10, 704266, 0), (10, 8, 0),
+    (3, 1001, 300), (10, 600, 300)])
+def test_fused_sign_rows_kernels_match_twins(card, nan_fill, c, d, block):
+    """The sign codec's fused forms, bitwise (NaN payloads included) to
+    the twins: the ``>= 0`` predicate packed from fp32 totals with -0.0,
+    NaNs, ±inf and denormals, into messages of 16 + 4·nsc + ceil(d/8)
+    bytes (at d = 704,266 row r's stream starts at 6r + 4 mod 16); and the
+    scaled unpack, each row's scale(s) read from the message, with NaN,
+    ±inf, ±0 and denormal scales."""
+    nsc = 1 if block == 0 else -(-d // block)
+    col = 16 + 4 * nsc
+    x = _special_totals(card, c, d, seed=c * d + block)
+    width = col + (d + 7) // 8
+    g = torch.Generator(device=card).manual_seed(d)
+    msgs = torch.randint(0, 256, (c, width), generator=g, device=card,
+                         dtype=torch.uint8)
+    scales = torch.tensor(SCALE_BITS, dtype=torch.int32, device=card)
+    pick = (torch.arange(c * nsc, device=card) % len(SCALE_BITS)).view(c, nsc)
+    msgs[:, 16:col] = scales[pick].view(torch.uint8).view(c, 4 * nsc)
+    ops.reset_launches()
+    got = ops.pack_uint_rows(x, 1, msgs.clone(), col)
+    hat = ops.unpack_uint_rows(got, col, 1, d, torch.float32, scale_col=16,
+                               scale_block=block)
+    assert ops.launches["pack_uint"] == 1 and ops.launches["unpack_uint"] == 1
+    want = ref.pack_uint_rows(x, 1, msgs.clone(), col)
+    hat_r = ref.unpack_uint_rows(want, col, 1, d, torch.float32,
+                                 scale_col=16, scale_block=block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(hat.view(torch.int32), hat_r.view(torch.int32))
+    bits = ref.unpack_uint_rows(got, col, 1, d, torch.uint8)
+    assert torch.equal(bits.bool(), x >= 0)      # -0.0 → 1, NaN → 0
+
+
+def test_wire_codecs_rows_on_the_card_match_the_cpu(card):
+    """``encode_rows`` / ``decode_rows`` of the sign and blocktopk codecs
+    at the main path's shapes (10 clients × d = 704,266): the card's bytes
+    and hats equal the CPU's (the twins) bit for bit."""
+    from repro_torch.comm.wire import make_wire_codec
+    g = torch.Generator(device=card).manual_seed(5)
+    tot = torch.randn(10, 704266, generator=g, device=card) * 0.01
+    for name in ("sign", "blocktopk"):
+        codec = make_wire_codec(name, 1 / 64, 2048)
+        bufs = codec.encode_rows(tot)
+        hats = codec.decode_rows(bufs, tot.shape[1])
+        bufs_c = codec.encode_rows(tot.cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(bufs.cpu(), bufs_c)
+        assert torch.equal(hats.cpu(), codec.decode_rows(bufs_c,
+                                                         tot.shape[1]))
+
+
+def test_rows_wrappers_check_arguments_on_the_card(card):
+    ops.reset_launches()
+    vals = torch.zeros(2, 9, device=card)
+    out = torch.zeros(2, 30, dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="nbits=1"):
+        ops.pack_uint_rows(vals, 2, out, 20)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.pack_uint_rows(vals, 1, out, 29)
+    with pytest.raises(ValueError, match="rows"):
+        ops.pack_uint_rows(vals, 1, out[:1], 20)
+    with pytest.raises(ValueError, match="scale_col"):
+        ops.unpack_uint_rows(out, 20, 1, 9, torch.float32)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.unpack_uint_rows(out, 20, 1, 9, torch.float32, scale_col=28)
+    assert all(n == 0 for n in ops.launches.values())
