@@ -29,10 +29,15 @@ then, on the card:
    that put the streams at every alignment mod 16 (uint8 values too where
    n <= 8); and one-row calls with their round trip;
    ``fedams_ingest`` at fp32, bf16 and int8 state for both options and with
-   a NaN delta; ``fedams_update`` for both options at a ragged N, also with
-   NaN deltas. All bitwise (a NaN must meet a NaN). Each kernel is timed
-   with CUDA events (median of 30 launches, L2 flushed before each) beside
-   its twin and its bound;
+   a NaN delta, and on ``ref.INGEST_HARD_CASES`` (d = block - 1, block,
+   block + 1 and every d mod 4 near the main path's; blocks of 128, 384,
+   2048 and 4096; n = 1 and 64; k = 1, 33 and block; every client on the
+   same coordinates with values that only a client-major sum gets right;
+   an int8 block of zeros; state at an odd offset) at each dtype and
+   option, its time and bound at each dtype; ``fedams_update`` for both
+   options at a ragged N, also with NaN deltas. All bitwise (a NaN must
+   meet a NaN). Each kernel is timed with CUDA events (median of 30
+   launches, L2 flushed before each) beside its twin and its bound;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
    small MLP problem, every route below;
@@ -50,7 +55,11 @@ then, on the card:
    (f) as (e) over the packed wire → ``pack_uint``/``unpack_uint``
        (n = 11) + ``fedams_update``.
    Every kernel launch counter is reset before a route and read after it;
-   a route whose kernels never launched fails. Wire routes also check that
+   a route whose kernels never launched fails. Each route's final params,
+   EF buffer and server state are hashed (``state_sha256``); route a runs
+   3 more rounds with deterministic algorithms, whose final state two
+   builds can be held equal on to the bit (local training on the card is
+   not bit-reproducible otherwise). Wire routes also check that
    ``pack_uint`` and ``unpack_uint`` launched once a round for all n
    clients, that every encoded message is ``codec.nbytes(d)`` long and
    that each round bills n of them uplink.
@@ -63,6 +72,7 @@ without CUDA or when any check fails. Longer output goes to
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -393,20 +403,36 @@ def phase_kernels(dev, d: int):
                   f"{bool(vhat.float().isnan().any())}")
             worst = max(worst, max(max_abs(a.float(), b.float())
                                    for a, b in zip(got, want)))
-        timed[sd] = (args, sbytes)
-    args, sbytes = timed["float32"]
-    ms = time_ms(lambda: ops.fedams_ingest_cuda(*args, option=1, **kw),
-                 evict)
+        # the hard cases: ragged d, every d mod 4, blocks of 128 to 4096,
+        # n = 1 and 64, k = 1, 33 and block, all clients on the same
+        # coordinates, an int8 block of zeros, state at an odd offset
+        for name, hd, hblock, hn, hk, kind in ref.INGEST_HARD_CASES:
+            ha = ref.ingest_case(hd, hblock, hn, hk, sd, kind, device=dev)
+            for option in (1, 2):
+                hkw = dict(kw, n_div=hn, block=hblock, option=option,
+                           state_dtype=sd)
+                got = ops.fedams_ingest_cuda(*ha, **hkw)
+                want = ref.fedams_ingest_ref(*ha, **hkw)
+                torch.cuda.synchronize()
+                same(f"fedams_ingest[{sd}, option {option}, {name}]", got,
+                     want)
+                worst = max(worst, max(max_abs(a.float(), b.float())
+                                       for a, b in zip(got, want)))
+        timed[sd] = (args, 2 * (2 * d * 4) + 2 * sbytes + vals.numel() * 8)
+    ms = {sd: time_ms(lambda a=a: ops.fedams_ingest_cuda(
+        *a, option=1, state_dtype=sd, **kw), evict)
+        for sd, (a, _) in timed.items()}
+    args, nbytes = timed["float32"]
     plain = time_ms(lambda: ref.fedams_ingest_ref(*args, option=1, **kw),
                     evict, iters=10)
-    extra = {sd: time_ms(lambda a=a: ops.fedams_ingest_cuda(
-        *a, option=1, state_dtype=sd, **kw), evict)
-        for sd, (a, _) in timed.items() if sd != "float32"}
-    nbytes = 2 * (2 * d * 4) + 2 * sbytes + vals.numel() * 8
     out["fedams_ingest"] = dict(
-        ms=ms, plain_ms=plain, max_abs_err=worst, bytes=nbytes,
+        ms=ms["float32"], plain_ms=plain, max_abs_err=worst, bytes=nbytes,
         flops=d * 14 + vals.numel(), library_ms=None,
-        ms_bf16=extra["bfloat16"], ms_int8=extra["int8"],
+        ms_bf16=ms["bfloat16"], ms_int8=ms["int8"],
+        bytes_bf16=timed["bfloat16"][1], bytes_int8=timed["int8"][1],
+        bound_ms_by_dtype={sd: b / PEAK_BYTES_S * 1e3
+                           for sd, (_, b) in timed.items()},
+        cases=3 * (3 + 2 * len(ref.INGEST_HARD_CASES)),
         shapes=f"d={d}, vals/idx ({N_CLI},{nb},{k}), fp32 state "
                f"(bf16/int8 timed too)")
 
@@ -642,7 +668,23 @@ def _recording(codec, sizes: list):
     return dataclasses.replace(codec, encode_rows=encode_rows)
 
 
-def phase_slice(rounds: int = 6):
+def state_digest(st) -> dict:
+    """SHA-256 of each part of the final state (the params x, the EF
+    buffer, the server's m, v and v-hat), to hold two runs of a route equal
+    to the bit."""
+    parts = {"x": st.params, "ef": st.errors, "m": st.opt.m, "v": st.opt.v,
+             "vhat": st.opt.vhat}
+    out = {}
+    for name, t in parts.items():
+        h = hashlib.sha256()
+        for part in (t if isinstance(t, tuple) else (t,)):
+            h.update(part.detach().reshape(-1).contiguous()
+                     .view(torch.uint8).cpu().numpy().tobytes())
+        out[name] = h.hexdigest()[:16]
+    return out
+
+
+def phase_slice(rounds: int = 6, routes=ROUTES):
     from repro_torch.core.sampling import sample_clients
     from repro_torch.core.sim import FedSim
     from repro_torch.data.synthetic import FederatedClassification
@@ -659,7 +701,7 @@ def phase_slice(rounds: int = 6):
     loss = lambda p, b: cm.convmixer_loss(p, b, cfg)
     p0 = init_params(defs, torch.Generator().manual_seed(0))
     res = {}
-    for route in ROUTES:
+    for route in routes:
         sim = FedSim(loss, _route_cfg(route, M, N_CLI, K_STEPS))
         check(sim._fused == ("kernel" if route == "a" else "off"),
               f"route {route}: resolved fused_ingest={sim._fused}")
@@ -715,10 +757,12 @@ def phase_slice(rounds: int = 6):
               f"route {route}: non-finite EF buffer")
         res[route] = dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses,
                           gamma=gammas, launches=counts, wire=wire,
-                          ef_buffer_mb=st.errors.numel() * 4 / 1e6)
+                          ef_buffer_mb=st.errors.numel() * 4 / 1e6,
+                          state_sha256=state_digest(st))
         print(f"route {route}: round ms (round 0 excluded) "
               f"{[round(t, 2) for t in ms[1:]]}, median "
-              f"{np.median(ms[1:]):.2f}; loss {losses}; launches {counts}")
+              f"{np.median(ms[1:]):.2f}; loss {losses}; launches {counts}; "
+              f"final state sha256 {res[route]['state_sha256']}")
     return res
 
 
@@ -751,6 +795,10 @@ def main():
     for name, r in kern.items():
         print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
               f"{r['plain_ms']:.4f} ms), max_abs_err {r['max_abs_err']}")
+        if "ms_int8" in r:
+            print("  bf16 / int8 state: "
+                  f"{r['ms_bf16']:.4f} / {r['ms_int8']:.4f} ms; bound by "
+                  f"dtype {r['bound_ms_by_dtype']}")
         if "ms_n11" in r:
             print(f"  n=11 rows: {r['ms_n11']:.4f} ms (twin "
                   f"{r['plain_ms_n11']:.4f} ms)")
@@ -765,6 +813,12 @@ def main():
     t_phase = time.perf_counter()
     sl = phase_slice()
     print(f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
+    # route a again with deterministic algorithms: local training on the
+    # card is not bit-reproducible otherwise, so only this run's final
+    # state can be held equal to another build's to the bit
+    torch.use_deterministic_algorithms(True)
+    det = phase_slice(rounds=3, routes=("a",))["a"]
+    torch.use_deterministic_algorithms(False)
 
     rows = []
     for name, r in kern.items():
@@ -788,7 +842,8 @@ def main():
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__,
          "build_s": build_s, "kernels": kern, "kernel_rows": rows,
-         "reference": refcheck, "slice": sl}, indent=1))
+         "reference": refcheck, "slice": sl,
+         "route_a_deterministic": det}, indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -484,3 +484,89 @@ def fedams_ingest_ref(x, m, v, vhat, vals, idx, v_scale=None, vh_scale=None,
         return x2, m2, qv, qvh, sv, svh
     dt = torch.bfloat16 if state_dtype == "bfloat16" else torch.float32
     return x2, m2, v2[:d].to(dt), vh2[:d].to(dt)
+
+
+#: the inputs on which a fused ingest kernel can go wrong, as ``(name, d,
+#: block, n, k, kind)`` for :func:`ingest_case`: ragged d around one block
+#: and at every d mod 4 near the main path's 704,266; blocks of 128 to 4096
+#: (4096: more than one 2048-element round a CTA); one client and 64; k of
+#: 1, 33 and the whole block (more entries than one staging pass holds);
+#: every client on the same coordinates; an int8 block of all-zero moments;
+#: a NaN delta; state at an odd offset from an aligned base
+INGEST_HARD_CASES = (
+    ("main path", 704266, 2048, 10, 32, ""),
+    ("d = 1 mod 4", 704265, 2048, 10, 32, ""),
+    ("d = 3 mod 4", 704267, 2048, 10, 32, ""),
+    ("d = block - 1", 2047, 2048, 4, 32, ""),
+    ("d = block", 2048, 2048, 4, 32, ""),
+    ("d = block + 1", 2049, 2048, 4, 32, ""),
+    ("block 128", 1000, 128, 4, 33, ""),
+    ("block 384", 5000, 384, 4, 33, ""),
+    ("block 4096", 20000, 4096, 4, 33, ""),
+    ("n = 1", 5000, 2048, 1, 32, ""),
+    ("n = 64", 5000, 2048, 64, 32, ""),
+    ("k = 1", 5000, 2048, 4, 1, ""),
+    ("k = block", 5000, 2048, 4, 2048, ""),
+    ("k = block = 4096", 9000, 4096, 3, 4096, ""),
+    ("n = 64, k = block = 128", 1000, 128, 64, 128, ""),
+    ("all clients collide", 5000, 2048, 10, 32, "collide"),
+    ("all 64 clients collide, k = block", 1000, 128, 64, 128, "collide"),
+    ("int8 block of zeros", 5000, 2048, 4, 32, "zero block"),
+    ("NaN delta", 5000, 2048, 4, 32, "nan"),
+    ("state at an offset", 704266, 2048, 10, 32, "offset"),
+    ("state at an offset, block 384", 5000, 384, 4, 33, "offset"),
+)
+
+
+def ingest_case(d: int, block: int, n: int, k: int, state_dtype: str,
+                kind: str = "", seed: int = 0, device="cpu"):
+    """The arguments ``(x, m, v, vhat, vals, idx)`` (int8: and ``v_scale,
+    vh_scale``) of :func:`fedams_ingest_ref` for one case, from a numpy
+    seed: each client picks k distinct positions of each padded block.
+    ``kind``: ``"collide"`` — every client picks the same positions, client
+    j adding ``(1e8, 1, -1e8, 1)[(j + t) % 4]`` at its t-th, so any order
+    but client-major changes the sums; ``"zero block"`` — block 1 gets zero
+    deltas and zero moments (int8: its new scales are 1e-30 where the max
+    is 0); ``"nan"`` — a diverged client's NaNs; ``"offset"`` — x, m, v and
+    vhat are contiguous views one element past an aligned base."""
+    r = np.random.default_rng(seed)
+    nb = -(-d // block)
+    N = nb * block
+    keys = r.random((1 if kind == "collide" else n, nb, block))
+    pos = np.argpartition(keys, k - 1, axis=-1)[..., :k]
+    idx = np.broadcast_to(pos + (np.arange(nb) * block)[:, None], (n, nb, k))
+    if kind == "collide":
+        seq = np.array([1e8, 1.0, -1e8, 1.0], np.float32)
+        vals = seq[(np.arange(n)[:, None, None] + np.arange(k)) % 4]
+        vals = np.broadcast_to(vals, (n, nb, k))
+    else:
+        vals = r.normal(size=(n, nb, k)).astype(np.float32) * 0.05
+    vals = np.array(vals, np.float32)
+    x = r.normal(size=d).astype(np.float32)
+    m = (r.normal(size=d) * 1e-3).astype(np.float32)
+    if state_dtype == "int8":
+        v = r.integers(0, 128, size=N).astype(np.int8)
+        vh = r.integers(0, 128, size=N).astype(np.int8)
+        s = (r.random(nb) * 1e-5 + 1e-7).astype(np.float32)
+        scales = [s, (s * 1.5).astype(np.float32)]
+    else:
+        v = (r.random(d) * 1e-4).astype(np.float32)
+        vh = (v + r.random(d) * 1e-4).astype(np.float32)
+        scales = []
+    if kind == "zero block" and nb > 1:
+        vals[:, 1] = 0.0
+        v[block:2 * block] = 0
+        vh[block:2 * block] = 0
+    if kind == "nan":
+        vals[1, 0, :3] = np.nan
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for a in (x, m, v, vh, vals, idx.astype(np.int32), *scales)]
+    if state_dtype == "bfloat16":
+        t[2], t[3] = t[2].bfloat16(), t[3].bfloat16()
+    if kind == "offset":
+        for i in range(4):
+            base = torch.empty(t[i].numel() + 1, dtype=t[i].dtype,
+                               device=device)
+            base[1:].copy_(t[i])
+            t[i] = base[1:]
+    return tuple(t)

@@ -91,6 +91,35 @@ def test_fedams_ingest_kernel_matches_twin(card, dtype, option, nan):
     assert bool(vhat.float().isnan().any()) == nan
 
 
+@pytest.mark.parametrize("case", ref.INGEST_HARD_CASES, ids=lambda c: c[0])
+def test_fedams_ingest_kernel_matches_twin_on_hard_cases(card, case):
+    """Every case of ``ref.INGEST_HARD_CASES``, one launch a call, bitwise
+    at each state dtype and both options."""
+    name, d, block, n, k, kind = case
+    for dtype in ("float32", "bfloat16", "int8"):
+        args = ref.ingest_case(d, block, n, k, dtype, kind, device=card)
+        if kind == "offset":
+            assert args[0].data_ptr() % 16 == 4
+        for option in (1, 2):
+            kw = dict(n_div=n, option=option, block=block, state_dtype=dtype,
+                      **HP)
+            n0 = ops.launches["fedams_ingest"]
+            got = ops.fedams_ingest(*args, **kw)
+            assert ops.launches["fedams_ingest"] == n0 + 1
+            want = ref.fedams_ingest_ref(*args, **kw)
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert _same(a, b), f"{name}, {dtype}, option {option}: " \
+                                    f"output {i}"
+            if kind == "zero block" and dtype == "int8":   # scale 1e-30
+                tiny = float(torch.tensor(1e-30))
+                assert float(got[4][1]) == tiny
+                assert option == 1 or float(got[5][1]) == tiny
+            if kind == "nan":
+                vhat = got[5] if dtype == "int8" else got[3]
+                assert bool(vhat.float().isnan().any())
+
+
 @pytest.mark.parametrize("option", [1, 2])
 @pytest.mark.parametrize("n", [704266, 4096, 1])
 def test_fedams_update_kernel_matches_twin(card, option, n):

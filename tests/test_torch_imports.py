@@ -49,6 +49,26 @@ def test_import_loads_no_jax_and_no_repro():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_chip_scripts_load_no_jax_and_no_repro():
+    """chip_smoke.py and the scripts that time the port on the card run
+    where there is no jax: importing them loads neither jax nor repro."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    scripts = ["chip_smoke", "ingest_floor", "pack_floor", "sign_floor",
+               "topk_floor", "profile_round"]
+    code = ("import importlib, sys\n"
+            f"for m in {scripts!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('jaxlib') "
+            "or m == 'repro' or m.startswith('repro.'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC, root, os.path.join(root, "scripts")]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
 def test_fedconfig_fields_and_defaults_match():
     ours = {f.name: f.default for f in dataclasses.fields(FedConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxFedConfig)}

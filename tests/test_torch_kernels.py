@@ -277,12 +277,24 @@ def _state(seed, dtype, N, nb):
     return v, vh
 
 
+@pytest.mark.parametrize("selections", ["topk", "collide"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("option", [1, 2])
-def test_fedams_ingest_twin_matches_ref_and_pallas_bitwise(dtype, option):
+def test_fedams_ingest_twin_matches_ref_and_pallas_bitwise(dtype, option,
+                                                          selections):
+    """``collide``: every client picks the same k coordinates of each block,
+    adding (1e8, 1, -1e8, 1) in turn (``ref.ingest_case``), so a sum in any
+    order but client-major differs: this pins the twin's add order, which
+    the CUDA kernel is held to bitwise on the card, to the JAX oracle's
+    and the Pallas kernel's."""
     n, nb, block, k = 4, 3, 256, 8
     N = nb * block
-    vals, idx = _selections(option, n, N, block, k)
+    if selections == "collide":
+        case = ref.ingest_case(N, block, n, k, "float32", "collide", seed=3)
+        vals, idx = case[4].numpy(), case[5].numpy()
+        assert (idx == idx[:1]).all()
+    else:
+        vals, idx = _selections(option, n, N, block, k)
     r = np.random.default_rng(5)
     x = r.normal(size=N).astype(np.float32)
     m = (r.normal(size=N) * 1e-3).astype(np.float32)
@@ -314,6 +326,40 @@ def test_fedams_ingest_twin_matches_ref_and_pallas_bitwise(dtype, option):
         else:
             np.testing.assert_allclose(wp, g, rtol=4 * 2**-23,
                                        atol=4 * 2**-23 * scale, err_msg=name)
+
+
+SMALL_HARD_CASES = [c for c in ref.INGEST_HARD_CASES if c[1] <= 20000]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", SMALL_HARD_CASES, ids=lambda c: c[0])
+def test_fedams_ingest_twin_matches_jax_oracle_on_hard_cases(case, dtype):
+    """The inputs the CUDA kernel is held to its twin on
+    (``ref.INGEST_HARD_CASES``, at the sizes a CPU run takes): the twin
+    equals ``repro.kernels.ref.fedams_ingest_ref`` bit for bit at both
+    options. The JAX oracle runs over the padded (nb·block,) domain, so x,
+    m and fp32/bf16 v, v̂ are zero-padded for it and its x, m, v, v̂ cut
+    back to d."""
+    name, d, block, n, k, kind = case
+    args = ref.ingest_case(d, block, n, k, dtype, kind)
+    nb = -(-d // block)
+    pad = lambda a, w: np.pad(a, (0, nb * block - a.shape[0])) if w else a
+    jargs = [jnp.asarray(pad(_np(t), i < 2 or dtype != "int8"))
+             for i, t in enumerate(args[:4])]
+    if dtype == "bfloat16":
+        jargs[2:4] = [a.astype(jnp.bfloat16) for a in jargs[2:4]]
+    jargs += [jnp.asarray(t.numpy()) for t in args[4:]]
+    for option in (1, 2):
+        kw = dict(n_div=n, option=option, block=block, state_dtype=dtype,
+                  **HP)
+        got = ops.fedams_ingest(*args, **kw)
+        want = jref.fedams_ingest_ref(*jargs[:6], *jargs[6:], **kw)
+        assert len(got) == len(want)
+        for i, (w, g) in enumerate(zip(want, got)):
+            w = _jnp(w)
+            if i < 2 or dtype != "int8" and i < 4:
+                w = w[:d]
+            np.testing.assert_array_equal(w, _np(g), err_msg=f"output {i}")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])

@@ -13,6 +13,7 @@ per process (``PYTHONHASHSEED``), so every process drew another init, and
 an init that puts two coordinates of one block in a near-tie lets the two
 packages' last-bit differences pick different coordinates
 (test_staged_init_is_the_same_in_every_process)."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -93,11 +94,15 @@ EXACT_KEYS = ("bits", "wire_up_bytes", "wire_up_bytes_attempted",
               "wire_bytes", "round_time_s", "sim_time_s")
 
 
-def _run_both(model, kw, rounds):
+def _run_both(model, kw, rounds, port_hook=None):
+    """``port_hook(ts)``, if given, sees the port's FedSim before the first
+    round."""
     defs, jloss, data = make_problem(model, M)
     p0 = staged_init(defs)
     js = JaxSim(jloss, JaxFedConfig(**kw))
     ts = FedSim(_port_loss(model), FedConfig(**kw), device="cpu")
+    if port_hook is not None:
+        port_hook(ts)
     jstate = js.init(p0)
     tstate = ts.init(params_from_jax(jax.device_get(p0)))
     hist = []
@@ -173,6 +178,54 @@ def test_fedsim_dense_uplink_and_wire_track_jax_fedsim(model, name):
     np.testing.assert_allclose(tstate.params.numpy(), jflat,
                                atol=1e-3 if name == "int8" else 1e-4)
     assert tstate.round == 10 and int(tstate.opt.t) == 10
+
+
+def test_fedsim_sparse_int8_wire_tracks_jax_fedsim():
+    """The sparse uplink over the int8 wire (``wire_value_dtype="int8"``,
+    ROADMAP Queue 3 item 6), 10 MLP rounds: per-round loss within
+    ``LOSS_RTOL`` and the host counters equal, as for the other wires; the
+    final params within a bound argued from the measured cause of their
+    drift.
+
+    The cause: the port's codec is the eager JAX codec byte for byte
+    (test_torch_wire_rows.py::test_blocktopk_int8_codec_is_the_eager_jax_
+    codec), but the two packages' local training differs in the last bits,
+    and a total that close to a half step of its block's int8 grid rounds
+    to the neighbouring step. Measured in this run: round 2, client 0, the
+    total at coordinate 930 is -6.2762052e-03 on the JAX side and
+    -6.2762201e-03 in the port, and they decode one step (1.93e-4) apart;
+    x is then 4.8e-5 apart there and nowhere else over 1e-6. (The jitted
+    JAX scale's one-ulp differences moved no quantized value on the codec
+    test's 360 blocks, nor at coordinate 930 here.)
+
+    The bound: a flip moves a coordinate's mean delta by s/n for a step s,
+    so n flips a round move it by at most s_max, the largest step of the
+    run (max |selected value| / 127, recorded here). To first order the
+    FedAMS step passes a change δ of the mean delta on to x as at most
+    η·δ/√ε over the following rounds (the momentum passes on (1-β₁)·Σβ₁ᵗ ≤ 1
+    of it, and v̂ ≥ ε under option 1), and as much again through v̂; over T
+    rounds, 2·η·T·s_max/√ε. Measured: 3.5e-3 against a bound of 0.14."""
+    steps = []
+
+    def record(ts):
+        roundtrip = ts.codec.roundtrip_selection
+
+        def recorded(sel, d):
+            steps.append(float(sel.vals.abs().max()) / 127)
+            return roundtrip(sel, d)
+        ts.codec = dataclasses.replace(ts.codec,
+                                       roundtrip_selection=recorded)
+
+    kw = _cfg("b", wire=True, wire_value_dtype="int8")
+    rounds = 10
+    hist, jflat, tstate, ts = _run_both("mlp", kw, rounds, port_hook=record)
+    assert ts.sparse and len(steps) == rounds * N
+    np.testing.assert_allclose(hist[:, 1], hist[:, 0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(hist[:, 3], hist[:, 2], rtol=1e-3, atol=1e-6)
+    bound = 2 * kw["eta"] * rounds * max(steps) / np.sqrt(kw["eps"])
+    np.testing.assert_allclose(tstate.params.numpy(), jflat, rtol=0,
+                               atol=bound)
+    assert tstate.round == rounds and int(tstate.opt.t) == rounds
 
 
 def test_staged_init_is_the_same_in_every_process():

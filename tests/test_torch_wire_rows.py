@@ -126,6 +126,45 @@ def _flush(t):
     return torch.where(den, torch.copysign(torch.zeros_like(t), t), t)
 
 
+def test_blocktopk_int8_codec_is_the_eager_jax_codec():
+    """ROADMAP Queue 3 item 6. The port's int8 blocktopk codec quantizes
+    with true divisions, as the JAX ``_quantize`` does when it runs
+    eagerly: on totals flushed of denormals (what XLA:CPU would read them
+    as) the port's messages equal the eager JAX encode's byte for byte.
+    Under ``jax.jit``, XLA:CPU turns the block scale's ``/ 127.0`` into a
+    multiply by fl(1/127): the jitted scale is exactly that product, at
+    most one ulp from the port's (14 of 360 blocks here), the offsets are
+    the same and a quantized value moves by at most one step, and only in
+    a block whose scale moved."""
+    d, nb, kb, ib = 2048 * 8 + 37, 9, 32, 11
+    r = np.random.default_rng(7)
+    x = _flush(torch.from_numpy(
+        (r.normal(size=(40, d)) * 0.1).astype(np.float32))).numpy()
+    jc = jw.make_blocktopk_codec(1 / 64, 2048, "int8")
+    tc = tw.make_blocktopk_codec(1 / 64, 2048, "int8")
+    eager = np.stack([np.asarray(jc.encode(jnp.asarray(row))) for row in x])
+    enc = jax.jit(jc.encode)
+    jitted = np.stack([np.asarray(enc(jnp.asarray(row))) for row in x])
+    port = tc.encode_rows(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(port, eager)
+    s0 = tw.HEADER_BYTES + (nb * kb * ib + 7) // 8
+    s1 = s0 + 4 * nb
+    np.testing.assert_array_equal(jitted[:, :s0], port[:, :s0])
+    se = port[:, s0:s1].copy().view(np.float32)
+    sj = jitted[:, s0:s1].copy().view(np.float32)
+    amax = np.abs(np.pad(x, ((0, 0), (0, nb * 2048 - d)))).reshape(
+        40, nb, 2048).max(axis=-1)
+    amax = np.maximum(amax, np.float32(1e-30))
+    np.testing.assert_array_equal(se, amax / np.float32(127))
+    np.testing.assert_array_equal(sj, amax * np.float32(1 / 127))
+    assert max(_ulps(a, b) for a, b in zip(se.ravel(), sj.ravel())) <= 1
+    assert (se != sj).any()
+    qe = port[:, s1:].view(np.int8).astype(int).reshape(40, nb, kb)
+    qj = jitted[:, s1:].view(np.int8).astype(int).reshape(40, nb, kb)
+    assert (np.abs(qe - qj) <= 1).all()
+    assert (qe[se == sj] == qj[se == sj]).all()
+
+
 def _special_totals(d, seed=0):
     """(4, d) fp32 totals: -0.0 and +0.0, NaNs of several payloads (sign
     bit set or not), ±inf, denormals of both signs, normal values."""
