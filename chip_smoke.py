@@ -40,7 +40,8 @@ then, on the card:
    launches, L2 flushed before each) beside its twin and its bound;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
-   small MLP problem, every route below;
+   small MLP problem, every route below (route g through the trainer),
+   with the fault verdicts of routes h and i equal;
 3. runs the FedCAMS round on ConvMixer-256-8 (random weights from a seed,
    synthetic CIFAR-shaped data), 6 rounds on each route:
    (a) blocktopk, ``track_gamma=False``, fused ingest → ``topk_ef_sparse``
@@ -53,7 +54,28 @@ then, on the card:
    (e) blocktopk 1/64 over the dense uplink (``sparse_uplink=False``) →
        ``topk_ef`` + ``fedams_update``;
    (f) as (e) over the packed wire → ``pack_uint``/``unpack_uint``
-       (n = 11) + ``fedams_update``.
+       (n = 11) + ``fedams_update``;
+   (g) ``examples/quickstart_wire.py``'s configuration through
+       ``FederatedTrainer.run``: sign over the wire with the two-way
+       compressed downlink and its network (10/50 Mbit/s, 5 % stragglers),
+       ``checkpoint_every=3``, then ``trainer.save`` and ``load_pytree`` →
+       ``pack_uint``/``unpack_uint`` twice a round (the uplink block and
+       the downlink message) + ``fedams_update``; the restored state
+       equals the trainer's to the bit;
+   (h) blocktopk 1/64 over the wire, ``track_gamma=False``, with crashes
+       (p = 0.1), bit flips (p = 0.2) and a round deadline → the survivor-
+       masked two-pass server: ``topk_ef_sparse`` + ``fedams_update``,
+       ``fedams_ingest`` never; the deadline (the 85th percentile of the
+       cohorts' simulated client times) and the fault seed (the first
+       whose plans hold a crash, a rejection and a cut in the 6 rounds)
+       are chosen on the host before the round and printed;
+   (i) sign in memory with a scheduled crash of round 0's first client
+       (rounds 0-2), NaN payloads (p = 0.3) and a norm clip at the median
+       norm of a probe round's payloads → ``sign_ef`` + ``fedams_update``;
+       the share of payloads clipped is printed.
+   On h and i every round has survivors + rejected + crashed +
+   deadline_cut = n, the EF rows of the clients the server did not ingest
+   equal their pre-round rows to the bit, and the state stays finite.
    Every kernel launch counter is reset before a route and read after it;
    a route whose kernels never launched fails. Each route's final params,
    EF buffer and server state are hashed (``state_sha256``); route a runs
@@ -71,12 +93,14 @@ without CUDA or when any check fails. Longer output goes to
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -100,13 +124,21 @@ REPLACES = {
     "pack_uint": "src/repro/kernels/bitpack.py:184",
     "unpack_uint": "src/repro/kernels/bitpack.py:210",
 }
-ROUTES = ("a", "b", "c", "d", "e", "f")
+ROUTES = ("a", "b", "c", "d", "e", "f", "g", "h", "i")
 EXPECT = {"a": ("topk_ef_sparse", "fedams_ingest"),
           "b": ("topk_ef_sparse", "fedams_update"),
           "c": ("sign_ef", "fedams_update"),
           "d": ("pack_uint", "unpack_uint", "fedams_update"),
           "e": ("topk_ef", "fedams_update"),
-          "f": ("pack_uint", "unpack_uint", "fedams_update")}
+          "f": ("pack_uint", "unpack_uint", "fedams_update"),
+          "g": ("pack_uint", "unpack_uint", "fedams_update"),
+          "h": ("topk_ef_sparse", "fedams_update"),
+          "i": ("sign_ef", "fedams_update")}
+#: the fault models of routes h and i (the deadline, seed, crashed client
+#: and clip norm are chosen per run: h_fault, i_fault)
+FAULT_H = dict(crash_prob=0.1, corrupt_prob=0.2, corrupt_mode="bitflip")
+FAULT_I = dict(corrupt_prob=0.3, corrupt_mode="nan")
+VERDICTS = ("survivors", "rejected", "crashed", "deadline_cut")
 
 # the slice: ConvMixer-256-8, fedcams + blocktopk 1/64, m=100, n=10, K=3, B=20
 M, N_CLI, K_STEPS, BATCH, RATIO, BLOCK = 100, 10, 3, 20, 1 / 64, 2048
@@ -601,7 +633,7 @@ def phase_kernels(dev, d: int):
 # ---------------------------------------------------------------------------
 
 
-def _route_cfg(route: str, m: int, n: int, k: int):
+def _route_cfg(route: str, m: int, n: int, k: int, fault=None):
     from repro_torch.configs.base import FedConfig
     kw = dict(algorithm="fedcams", eta=0.1, eps=1e-4, eta_l=0.05,
               local_steps=k, num_clients=m, participating=n,
@@ -614,42 +646,173 @@ def _route_cfg(route: str, m: int, n: int, k: int):
         "d": dict(compressor="sign", wire=True),
         "e": dict(sparse_uplink=False),
         "f": dict(sparse_uplink=False, wire=True),
+        "g": dict(compressor="sign", wire=True, two_way=True),
+        "h": dict(wire=True, track_gamma=False, fault=fault),
+        "i": dict(compressor="sign", track_gamma=False, fault=fault),
     }[route])
     return FedConfig(**kw)
+
+
+def wire_network(m: int):
+    """``examples/quickstart_wire.py``'s network: an uplink-constrained WAN
+    with 5 % stragglers."""
+    from repro_torch.comm.transport import NetworkConfig, SimulatedNetwork
+    return SimulatedNetwork(NetworkConfig(uplink_mbps=10, downlink_mbps=50,
+                                          straggler_prob=0.05, seed=0), m)
+
+
+def h_fault(plan, m: int, d: int):
+    """Route h's ``FaultConfig``: the deadline is the 85th percentile of the
+    client times the simulated network gives route h's messages over this
+    run's cohorts, the seed the first whose plans over those rounds hold a
+    crash, a corrupted delivered payload (a bit flip knocks an index out of
+    range, so it is rejected) and a deadline cut. Host-side numpy only: the
+    planner sees the same timings in the round."""
+    from repro_torch.comm.faults import FaultConfig, FaultInjector
+    from repro_torch.comm.transport import NetworkConfig, SimulatedNetwork
+    from repro_torch.comm.wire import make_dense32_codec, make_wire_codec
+    net = SimulatedNetwork(NetworkConfig(), m)
+    up = make_wire_codec("blocktopk", RATIO, BLOCK).nbytes(d)
+    down = make_dense32_codec().nbytes(d)
+    timings = [net.round(ids, up, down, r) for r, (ids, _) in enumerate(plan)]
+    deadline = float(np.quantile(np.concatenate(
+        [t.client_times_s for t in timings]), 0.85))
+    for seed in range(1000):
+        cfg = FaultConfig(deadline_s=deadline, seed=seed, **FAULT_H)
+        inj = FaultInjector(cfg, m)
+        events = np.zeros(3)
+        for r, ((ids, _), t) in enumerate(zip(plan, timings)):
+            fp, info = inj.plan(ids, r, t)
+            events += (info["crashed"], fp.corrupt.sum(),
+                       info["deadline_cut"])
+        if events.all():
+            return cfg
+    fail("route h: no fault seed below 1000 gives a crash, a rejection and "
+         "a deadline cut")
+
+
+@contextlib.contextmanager
+def recording_norms(norms: list):
+    """FedSim's dense validation, wrapped to append the L2 norms of the
+    payloads it passes (before any clip) to ``norms``, one tensor a
+    round."""
+    from repro_torch.core import sim as simmod
+    validate = simmod.validate_dense
+
+    def recorded(hats, max_norm=0.0, truncated=None):
+        out, valid = validate(hats, max_norm, truncated)
+        norms.append(torch.linalg.vector_norm(hats[valid > 0], dim=-1).cpu())
+        return out, valid
+
+    simmod.validate_dense = recorded
+    try:
+        yield
+    finally:
+        simmod.validate_dense = validate
+
+
+def i_fault(plan, m: int, n: int, k: int, loss, p0, dev):
+    """Route i's ``FaultConfig``: round 0's first client crashes in rounds
+    0-2, and the clip norm is the median norm of the payloads that a probe
+    of round 0 (the same fault model, no clip) validates."""
+    from repro_torch.comm.faults import FaultConfig
+    from repro_torch.core.sim import FedSim
+    trace = ((int(plan[0][0][0]), 0, 3),)
+    sim = FedSim(loss, _route_cfg("i", m, n, k, FaultConfig(
+        crash_trace=trace, **FAULT_I)), device=dev)
+    norms = []
+    with recording_norms(norms):
+        sim.round(sim.init(p0), plan[0][1], plan[0][0])
+    return FaultConfig(crash_trace=trace,
+                       max_update_norm=float(torch.cat(norms).median()),
+                       **FAULT_I)
+
+
+def route_fault(route, plan, m, n, k, d, loss, p0, dev):
+    if route == "h":
+        return h_fault(plan, m, d)
+    if route == "i":
+        return i_fault(plan, m, n, k, loss, p0, dev)
+    return None
+
+
+def _reference_trainer(loss, p0, data):
+    """Route g on both devices through ``FederatedTrainer.run``: the same
+    client ids (drawn on the host), losses and params within phase 2's
+    bounds, every wire counter equal."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.api import FederatedTrainer
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = FederatedTrainer(fed=_route_cfg("g", 20, 4, 2),
+                              train=TrainConfig(seed=0), loss_fn=loss,
+                              init_params=p0, network=wire_network(20),
+                              device=dev)
+        tr.data = data
+        runs[dev] = (tr.run(4, batch_size=8, log=None), tr._state)
+    (hc, sc), (hg, sg) = runs["cpu"], runs["cuda"]
+    rel = max(abs(g["loss"] - c["loss"]) / abs(c["loss"])
+              for c, g in zip(hc, hg))
+    wire = [k for k in hc[0] if k.startswith("wire") or k in (
+        "bits", "round_time_s", "sim_time_s")]
+    check(all(c[k] == g[k] for c, g in zip(hc, hg) for k in wire),
+          "route g: the trainer's wire counters differ between card and CPU")
+    dx = max_abs(sg.params.cpu(), sc.params)
+    check(rel < 1e-4 and dx < 1e-4,
+          f"route g: card vs CPU loss rel {rel}, params {dx}")
+    return {"loss_rel": rel, "params_max_abs": dx}
 
 
 def phase_reference():
     from repro_torch.core.sim import FedSim
     from repro_torch.data.synthetic import FederatedClassification
     from repro_torch.models import convmixer as cm
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import count_params, init_params
 
     cfg = cm.MLPConfig(in_dim=32, hidden=64, depth=2, num_classes=10)
     data = FederatedClassification(num_clients=20, feature_dim=32, seed=0)
     loss = lambda p, b: cm.mlp_loss(p, b, cfg)
-    p0 = init_params(cm.mlp_defs(cfg), torch.Generator().manual_seed(0))
+    defs = cm.mlp_defs(cfg)
+    p0 = init_params(defs, torch.Generator().manual_seed(0))
     worst = {}
     for route in ROUTES:
-        fed = _route_cfg(route, 20, 4, 2)
+        if route == "g":
+            worst[route] = _reference_trainer(loss, p0, data)
+            continue
+        gen = torch.Generator().manual_seed(1)
+        plan = []
+        for r in range(4):
+            idx = torch.randperm(20, generator=gen)[:4].numpy()
+            plan.append((idx, data.round_batches(idx, r, 2, 8)))
+        fault = route_fault(route, plan, 20, 4, 2, count_params(defs), loss,
+                            p0, "cpu")
+        fed = _route_cfg(route, 20, 4, 2, fault)
         sims = {dev: FedSim(loss, fed, device=dev) for dev in ("cpu", "cuda")}
         check(sims["cuda"]._fused == ("kernel" if route == "a" else "off"),
               f"route {route}: resolved fused_ingest={sims['cuda']._fused}")
         sts = {dev: s.init(p0) for dev, s in sims.items()}
-        gen = torch.Generator().manual_seed(1)
         rel = 0.0
-        for r in range(4):
-            idx = torch.randperm(20, generator=gen)[:4].numpy()
-            b = data.round_batches(idx, r, 2, 8)
-            losses = {}
+        verdicts = []
+        for idx, b in plan:
+            mets = {}
             for dev, s in sims.items():
-                sts[dev], met = s.round(sts[dev], b, idx)
-                losses[dev] = float(met["loss"])
-            rel = max(rel, abs(losses["cuda"] - losses["cpu"])
-                      / abs(losses["cpu"]))
+                sts[dev], mets[dev] = s.round(sts[dev], b, idx)
+            rel = max(rel, abs(float(mets["cuda"]["loss"])
+                               - float(mets["cpu"]["loss"]))
+                      / abs(float(mets["cpu"]["loss"])))
+            if fault is not None:
+                v = {dev: [float(m[k]) for k in VERDICTS]
+                     for dev, m in mets.items()}
+                check(v["cuda"] == v["cpu"],
+                      f"route {route}: fault verdicts {VERDICTS} on the card "
+                      f"{v['cuda']}, on the CPU {v['cpu']}")
+                verdicts.append(v["cuda"])
         dx = max_abs(sts["cuda"].params.cpu(), sts["cpu"].params)
         check(rel < 1e-4 and dx < 1e-4,
               f"route {route}: card vs CPU loss rel {rel}, params {dx}")
         worst[route] = {"loss_rel": rel, "params_max_abs": dx}
+        if fault is not None:
+            worst[route]["verdicts"] = verdicts
     return worst
 
 
@@ -684,6 +847,137 @@ def state_digest(st) -> dict:
     return out
 
 
+def same_state(a, b) -> list:
+    """The parts of two ``SimState`` that differ in any bit."""
+    bad = []
+    parts = {"params": (a.params, b.params), "errors": (a.errors, b.errors),
+             "server_error": (a.server_error, b.server_error),
+             "x_client": (a.x_client, b.x_client), "m": (a.opt.m, b.opt.m),
+             "v": (a.opt.v, b.opt.v), "vhat": (a.opt.vhat, b.opt.vhat),
+             "t": (a.opt.t, b.opt.t)}
+    for name, (x, y) in parts.items():
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.reshape(-1).view(torch.uint8),
+                y.reshape(-1).view(torch.uint8)):
+            bad.append(name)
+    if (a.bits, a.round) != (b.bits, b.round):
+        bad.append("bits/round")
+    return bad
+
+
+def route_g(loss, p0, data, d: int, rounds: int):
+    """Route g through ``FederatedTrainer.run`` in a scratch working
+    directory (the trainer writes ``ckpt_round3`` there), then ``save`` and
+    ``load_pytree`` of the final state."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import state_from_jax, state_to_jax
+    from repro_torch.core.api import FederatedTrainer
+    from repro_torch.kernels import ops
+
+    tr = FederatedTrainer(
+        fed=_route_cfg("g", M, N_CLI, K_STEPS),
+        train=TrainConfig(rounds=rounds, checkpoint_every=3,
+                          log_every=rounds), loss_fn=loss, init_params=p0,
+        network=wire_network(M))
+    tr.data = data
+    sizes, ms = [], []
+    tr._sim.codec = _recording(tr._sim.codec, sizes)
+    sim_round = tr._sim.round
+
+    def timed_round(*args, **kw):
+        t0 = time.perf_counter()
+        out = sim_round(*args, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr._sim.round = timed_round
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            hist = tr.run(rounds, batch_size=BATCH, log=None)
+            counts = dict(ops.launches)
+            ckpts = {c: json.loads((Path(tmp) / c / "manifest.json")
+                                   .read_text())["meta"]
+                     for c in os.listdir(tmp)}
+            tr.save("final")
+            tree, meta = load_pytree("final", state_to_jax(
+                tr._state, tr._sim.unravel))
+        finally:
+            os.chdir(cwd)
+    restored = state_from_jax(tree, "cuda")
+    check(ckpts == {"ckpt_round3": {"round": 4, "algo": "fedcams"}},
+          f"route g: checkpoints {ckpts}, expected ckpt_round3 only")
+    check(meta == {"round": rounds, "algo": "fedcams"},
+          f"route g: saved meta {meta}")
+    diff = same_state(restored, tr._state)
+    check(not diff, f"route g: the restored state differs in {diff}")
+    check(counts["pack_uint"] == counts["unpack_uint"] == 2 * rounds,
+          f"route g: pack_uint/unpack_uint launched {counts['pack_uint']}/"
+          f"{counts['unpack_uint']} times in {rounds} rounds (2 a round)")
+    check(counts["fedams_update"] == rounds,
+          f"route g: fedams_update launched {counts['fedams_update']} times")
+    nbytes = tr._sim.codec.nbytes(d)
+    check(len(sizes) == rounds * (N_CLI + 1) and set(sizes) == {nbytes},
+          f"route g: encoded sizes {sorted(set(sizes))} over {len(sizes)} "
+          f"messages, codec.nbytes(d)={nbytes}")
+    check(all(h["wire_up_bytes"] == h["wire_down_bytes"] == N_CLI * nbytes
+              for h in hist), "route g: a round did not bill n compressed "
+          "messages each way")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"route g: losses {losses}")
+    st = tr._state
+    check(not torch.equal(st.x_client, st.params),
+          "route g: the clients see the server's exact model")
+    for name, t in (("params", st.params), ("x_client", st.x_client),
+                    ("errors", st.errors)):
+        check(bool(torch.isfinite(t).all()), f"route g: non-finite {name}")
+    wire = [{k: h[k] for k in ("wire_up_bytes", "wire_down_bytes",
+                               "wire_bytes", "round_time_s", "sim_time_s")}
+            for h in hist]
+    return dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses,
+                gamma=[h["gamma"] for h in hist], launches=counts, wire=wire,
+                checkpoints=ckpts, ef_buffer_mb=st.errors.numel() * 4 / 1e6,
+                state_sha256=state_digest(st))
+
+
+def check_fault_round(route, sim, st, met, before, fplan):
+    """Route h or i after one round: the verdicts add up to n, the rows of
+    the clients the server did not ingest (crashed, cut, or corrupted —
+    bit flips of an index and NaNs are always rejected) equal their
+    pre-round rows to the bit and the others moved, the state is finite,
+    and the round's wall-clock keeps the deadline."""
+    n = len(fplan.survivors)
+    v = {k: float(met[k]) for k in VERDICTS}
+    check(sum(v.values()) == n, f"route {route}: verdicts {v} do not add "
+          f"up to n = {n}")
+    dead = (fplan.survivors == 0) | (fplan.corrupt > 0)
+    check(int(dead.sum()) == n - v["survivors"],
+          f"route {route}: {int(dead.sum())} clients planned out, "
+          f"{n - v['survivors']} not ingested")
+    after = st.errors[before[0]].view(torch.int32)
+    old = before[1].view(torch.int32)
+    for p in range(n):
+        kept = torch.equal(after[p], old[p])
+        check(kept == bool(dead[p]),
+              f"route {route}: client {int(before[0][p])}: ingested "
+              f"{not dead[p]}, its EF row kept {kept}")
+    for name, t in (("x", st.params), ("m", st.opt.m), ("v", st.opt.v),
+                    ("vhat", st.opt.vhat), ("errors", st.errors)):
+        check(bool(torch.isfinite(t).all()),
+              f"route {route}: non-finite {name} after round {st.round}")
+    cap = sim.faults.cfg.deadline_s
+    if cap:
+        check(met["round_time_s"] <= cap, f"route {route}: round_time_s "
+              f"{met['round_time_s']} past the deadline {cap}")
+    return v
+
+
 def phase_slice(rounds: int = 6, routes=ROUTES):
     from repro_torch.core.sampling import sample_clients
     from repro_torch.core.sim import FedSim
@@ -702,49 +996,90 @@ def phase_slice(rounds: int = 6, routes=ROUTES):
     p0 = init_params(defs, torch.Generator().manual_seed(0))
     res = {}
     for route in routes:
-        sim = FedSim(loss, _route_cfg(route, M, N_CLI, K_STEPS))
+        if route == "g":
+            res[route] = route_g(loss, p0, data, d, rounds)
+            r = res[route]
+            print(f"route g: round ms (round 0 excluded) "
+                  f"{[round(t, 2) for t in r['round_ms']]}, median "
+                  f"{np.median(r['round_ms']):.2f}; loss {r['loss']}; "
+                  f"launches {r['launches']}; checkpoints "
+                  f"{sorted(r['checkpoints'])}; the restored state equals "
+                  f"the trainer's; final state sha256 {r['state_sha256']}")
+            continue
+        gen = torch.Generator().manual_seed(1)
+        plan = []
+        for r in range(rounds):
+            idx = sample_clients(gen, M, N_CLI).numpy()
+            plan.append((idx, data.round_batches(idx, r, K_STEPS, BATCH)))
+        fault = route_fault(route, plan, M, N_CLI, K_STEPS, d, loss, p0,
+                            "cuda")
+        sim = FedSim(loss, _route_cfg(route, M, N_CLI, K_STEPS, fault))
         check(sim._fused == ("kernel" if route == "a" else "off"),
               f"route {route}: resolved fused_ingest={sim._fused}")
         sizes = []
         if sim.codec is not None:
             sim.codec = _recording(sim.codec, sizes)
         st = sim.init(p0)
-        gen = torch.Generator().manual_seed(1)
-        plan = []
-        for r in range(rounds):
-            idx = sample_clients(gen, M, N_CLI).numpy()
-            plan.append((idx, data.round_batches(idx, r, K_STEPS, BATCH)))
+        norms, verdicts = [], []
+        record = (recording_norms(norms) if route == "i"
+                  else contextlib.nullcontext())
         torch.cuda.synchronize()
         ops.reset_launches()
         ms, losses, gammas, wire = [], [], [], []
-        for idx, b in plan:
-            t0 = time.perf_counter()
-            st, met = sim.round(st, b, idx)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(met["loss"]))
-            gammas.append(float(met["gamma"]))
-            if sim.codec is not None:
-                wire.append({key: met[key] for key in (
-                    "wire_up_bytes", "wire_down_bytes", "wire_bytes",
-                    "round_time_s", "sim_time_s")})
+        with record:
+            for idx, b in plan:
+                if fault is not None:
+                    rows = torch.as_tensor(idx, device="cuda")
+                    before = (rows, st.errors[rows])
+                    fplan, _ = sim.faults.plan(idx, st.round,
+                                               sim._round_timing(idx,
+                                                                 st.round))
+                t0 = time.perf_counter()
+                st, met = sim.round(st, b, idx)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"]))
+                gammas.append(float(met["gamma"]))
+                if sim.codec is not None:
+                    wire.append({key: met[key] for key in (
+                        "wire_up_bytes", "wire_down_bytes", "wire_bytes",
+                        "round_time_s", "sim_time_s")})
+                if fault is not None:
+                    verdicts.append(check_fault_round(route, sim, st, met,
+                                                      before, fplan))
         counts = dict(ops.launches)
         for name in EXPECT[route]:
             check(counts[name] > 0, f"route {route}: {name} never launched")
-        if sim.codec is not None:   # one launch a round for all n clients
+        if fault is not None:
+            check(counts["fedams_ingest"] == 0,
+                  f"route {route}: fedams_ingest launched under faults")
+            for name in EXPECT[route]:
+                check(counts[name] == rounds, f"route {route}: {name} "
+                      f"launched {counts[name]} times in {rounds} rounds")
+        # the dense wire routes encode the (n, d) block: one launch of each
+        # a round for all n clients (route h's sparse fp32 wire skips the
+        # byte shuffle: its selections go through as what decoding gives)
+        packed = sim.codec is not None and not sim.sparse
+        if packed:
             check(counts["pack_uint"] == rounds and
                   counts["unpack_uint"] == rounds,
                   f"route {route}: pack_uint/unpack_uint launched "
                   f"{counts['pack_uint']}/{counts['unpack_uint']} times in "
                   f"{rounds} rounds")
-        if sim.codec is not None:
             nbytes = sim.codec.nbytes(d)
             check(len(sizes) == rounds * N_CLI and set(sizes) == {nbytes},
                   f"route {route}: encoded buffer sizes {sorted(set(sizes))}"
                   f" over {len(sizes)} messages, codec.nbytes(d)={nbytes}")
-            check(all(w["wire_up_bytes"] == N_CLI * nbytes for w in wire),
+        if sim.codec is not None:
+            nbytes = sim.codec.nbytes(d)
+            delivered = [N_CLI - v["crashed"] - v["deadline_cut"]
+                         for v in verdicts] if fault else [N_CLI] * rounds
+            check([w["wire_up_bytes"] for w in wire]
+                  == [k * nbytes for k in delivered],
                   f"route {route}: uplink bytes per round "
-                  f"{[w['wire_up_bytes'] for w in wire]} != n × {nbytes}")
+                  f"{[w['wire_up_bytes'] for w in wire]}, delivered "
+                  f"{delivered} × {nbytes}")
+        if sim.codec is not None and fault is None:
             down = N_CLI * (4 * d + 16)
             check([w["wire_bytes"] for w in wire] == [
                 (r + 1) * (N_CLI * nbytes + down) for r in range(rounds)],
@@ -759,6 +1094,19 @@ def phase_slice(rounds: int = 6, routes=ROUTES):
                           gamma=gammas, launches=counts, wire=wire,
                           ef_buffer_mb=st.errors.numel() * 4 / 1e6,
                           state_sha256=state_digest(st))
+        if fault is not None:
+            res[route].update(fault=dataclasses.asdict(fault),
+                              verdicts=verdicts)
+            print(f"route {route}: {fault}; verdicts {VERDICTS} per round "
+                  f"{[list(v.values()) for v in verdicts]}")
+        if route == "i":
+            cap = fault.max_update_norm
+            seen = torch.cat(norms)
+            share = float((seen > cap).float().mean())
+            check(0 < share, f"route i: no payload clipped at {cap}")
+            res[route].update(clip_norm=cap, clipped_share=share)
+            print(f"route i: clip norm {cap:.6g}, {share:.3f} of "
+                  f"{seen.numel()} validated payloads clipped")
         print(f"route {route}: round ms (round 0 excluded) "
               f"{[round(t, 2) for t in ms[1:]]}, median "
               f"{np.median(ms[1:]):.2f}; loss {losses}; launches {counts}; "

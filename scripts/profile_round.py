@@ -4,7 +4,9 @@
 
 Runs the configuration of ``chip_smoke.py`` (ConvMixer-256-8, fedcams,
 m = 100, n = 10, K = 3, batch 20, TF32 off) on the named routes of
-``chip_smoke.py`` (default: all of them):
+``chip_smoke.py`` (default: all of them), each built by its
+``_route_cfg`` (and, for h and i, its ``route_fault``, from this run's
+cohorts):
 
     a  blocktopk 1/64, track_gamma=False: topk_ef_sparse + fedams_ingest
     b  blocktopk 1/64, track_gamma=True: topk_ef_sparse + fedams_update
@@ -12,6 +14,16 @@ m = 100, n = 10, K = 3, batch 20, TF32 off) on the named routes of
     d  sign over the packed wire: pack_uint/unpack_uint (n = 1, fused)
     e  blocktopk 1/64, dense uplink: topk_ef + fedams_update
     f  as e over the packed wire: pack_uint/unpack_uint (n = 11)
+    g  sign over the wire with the two-way downlink and
+       ``examples/quickstart_wire.py``'s network: pack_uint/unpack_uint
+       twice a round (uplink block, downlink message). ``chip_smoke.py``
+       drives it through ``FederatedTrainer.run``; here its FedSim rounds
+       are driven directly (the trainer adds the host-side draw of the ids
+       and batches, outside the round)
+    h  blocktopk 1/64 over the wire with crashes, bit flips and a deadline:
+       topk_ef_sparse + the survivor-masked aggregate + fedams_update
+    i  sign in memory with a scheduled crash, NaN payloads and a norm
+       clip: sign_ef + validation + fedams_update
 
 After a warm-up round:
 
@@ -47,10 +59,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-M, N_CLI, K_STEPS, BATCH = 100, 10, 3, 20
+import chip_smoke  # noqa: E402
+
+M, N_CLI, K_STEPS, BATCH = (chip_smoke.M, chip_smoke.N_CLI, chip_smoke.K_STEPS,
+                            chip_smoke.BATCH)
 #: the __global__ functions of src/repro_torch/kernels/csrc/
 PORT_KERNELS = ("topk_ef_sparse_kernel", "topk_ef_kernel", "sign_ef_kernel",
                 "pack_bits_kernel", "pack_groups_kernel",
@@ -59,30 +75,19 @@ PORT_KERNELS = ("topk_ef_sparse_kernel", "topk_ef_kernel", "sign_ef_kernel",
 WARMUP, TIMED, PROFILED = 1, 3, 3
 
 
-ROUTES = {
-    "a": dict(track_gamma=False),
-    "b": {},
-    "c": dict(compressor="sign"),
-    "d": dict(compressor="sign", wire=True),
-    "e": dict(sparse_uplink=False),
-    "f": dict(sparse_uplink=False, wire=True),
-}
-
-
-def _sim(route: str):
-    from repro_torch.configs.base import FedConfig
+def _sim(route: str, plan):
     from repro_torch.core.sim import FedSim
     from repro_torch.models import convmixer as cm
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import count_params, init_params
     cfg = cm.ConvMixerConfig()
-    kw = dict(algorithm="fedcams", eta=0.1, eps=1e-4, eta_l=0.05,
-              local_steps=K_STEPS, num_clients=M, participating=N_CLI,
-              compressor="blocktopk", compress_ratio=1 / 64)
-    kw.update(ROUTES[route])
-    sim = FedSim(lambda p, b: cm.convmixer_loss(p, b, cfg), FedConfig(**kw))
-    st = sim.init(init_params(cm.convmixer_defs(cfg),
-                              torch.Generator().manual_seed(0)))
-    return sim, st
+    defs = cm.convmixer_defs(cfg)
+    loss = lambda p, b: cm.convmixer_loss(p, b, cfg)
+    p0 = init_params(defs, torch.Generator().manual_seed(0))
+    fault = chip_smoke.route_fault(route, plan, M, N_CLI, K_STEPS,
+                                   count_params(defs), loss, p0, "cuda")
+    sim = FedSim(loss, chip_smoke._route_cfg(route, M, N_CLI, K_STEPS, fault),
+                 network=chip_smoke.wire_network(M) if route == "g" else None)
+    return sim, sim.init(p0), fault
 
 
 def _trace_events(prof):
@@ -155,18 +160,21 @@ def main():
     data = FederatedClassification(num_clients=M, image_shape=(32, 32, 3),
                                    alpha=0.3, seed=0)
     gen = torch.Generator().manual_seed(1)
-    routes = sys.argv[1:] or list(ROUTES)
-    unknown = [r for r in routes if r not in ROUTES]
+    routes = sys.argv[1:] or list(chip_smoke.ROUTES)
+    unknown = [r for r in routes if r not in chip_smoke.ROUTES]
     if unknown:
         sys.exit(f"profile_round.py: unknown route(s) {unknown}; "
-                 f"routes are {sorted(ROUTES)}")
-    out = {"card": torch.cuda.get_device_name(0)}
+                 f"routes are {list(chip_smoke.ROUTES)}")
+    out = {"card": chip_smoke.card_line()}
+    print(out["card"])
     for route in routes:
-        sim, st = _sim(route)
         plan = []
         for r in range(WARMUP + TIMED + PROFILED):
             idx = sample_clients(gen, M, N_CLI).numpy()
             plan.append((idx, data.round_batches(idx, r, K_STEPS, BATCH)))
+        sim, st, fault = _sim(route, plan)
+        if fault is not None:
+            print(f"route {route}: {fault}")
         for idx, b in plan[:WARMUP]:
             st, _ = sim.round(st, b, idx)
         torch.cuda.synchronize()

@@ -5,18 +5,26 @@ This package is the PyTorch port of the JAX package ``repro``. It mirrors
 ``repro``'s module names so each counterpart is easy to find, and imports
 neither ``jax`` nor anything of ``repro``:
 
-    repro_torch.configs.base      — ``FedConfig`` (a copy, same fields)
+    repro_torch.configs.base      — ``FedConfig``, ``TrainConfig`` (copies,
+                                    same fields)
     repro_torch.data.synthetic    — ``FederatedClassification`` (a copy)
     repro_torch.models            — ``ParamDef``/ravel order, ConvMixer, MLP
     repro_torch.core              — compressors, error feedback, server
                                     optimizers, local rules, sampling,
-                                    round stages, FedSim
+                                    round stages, FedSim (faults, two-way
+                                    downlink), ``FederatedTrainer``
+                                    (``core.api``), the ``core.rounds``
+                                    façade
     repro_torch.comm              — wire codecs, simulated network,
-                                    ``CommLog``
+                                    ``CommLog``, fault model and
+                                    validation (``comm.faults``)
+    repro_torch.checkpoint        — ``save_pytree``/``load_pytree`` (the
+                                    JAX package's file format)
     repro_torch.kernels           — CUDA kernels (``csrc/``), their plain
                                     PyTorch twins (``ref``) and the
                                     per-call dispatch (``ops``)
-    repro_torch.convert           — JAX params/state (as numpy) → the port
+    repro_torch.convert           — JAX params/state (as numpy) → the port,
+                                    and the port's state → the JAX layout
 
 Entry points take ``device=`` and default to CUDA; without a card they
 raise unless the caller asks for ``device="cpu"``.

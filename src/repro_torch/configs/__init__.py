@@ -1,1 +1,1 @@
-from repro_torch.configs.base import FedConfig  # noqa: F401
+from repro_torch.configs.base import FedConfig, TrainConfig  # noqa: F401

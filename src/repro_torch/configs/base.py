@@ -1,12 +1,12 @@
-"""``FedConfig``: the federated algorithm family, selectable per run.
+"""``FedConfig`` (the federated algorithm family, selectable per run) and
+``TrainConfig`` (the training loop's settings).
 
-A copy of ``repro.configs.base.FedConfig`` with identical field names,
-defaults and validation, so a config means the same thing in both packages
-(tests/test_torch_imports.py holds the two side by side). The port does not
-import ``repro``, so the class is copied rather than shared.
-
-One difference: the fault model (``repro.comm.faults.FaultConfig``) is not
-ported yet, so a non-None ``fault`` is refused with ``NotImplementedError``.
+Copies of ``repro.configs.base.FedConfig`` and ``TrainConfig`` with
+identical field names, defaults and validation, so a config means the same
+thing in both packages (tests/test_torch_imports.py and
+tests/test_torch_faults.py hold the two side by side). The port does not
+import ``repro``, so the classes are copied rather than shared; ``fault``
+takes the port's own ``repro_torch.comm.faults.FaultConfig``.
 """
 from __future__ import annotations
 
@@ -175,7 +175,7 @@ class FedConfig:
     # aggregate is a masked scatter/mean over survivors and the server
     # validates decoded payloads (NaN/Inf, index range, optional norm
     # clip) before they can touch the FedAMS m/v/v̂ state.
-    fault: Optional[object] = None  # no FaultConfig in the port yet
+    fault: Optional[object] = None   # comm.faults.FaultConfig
     client_axes: Tuple[str, ...] = ("data",)   # mesh axes that enumerate clients
     use_kernels: bool = False      # use Pallas kernels for compress+server update
     # ZeRO-style sharding of the server optimizer state (m, v, v_hat) over
@@ -245,14 +245,22 @@ class FedConfig:
         if self.deadline_s < 0:
             raise ValueError(
                 f"FedConfig.deadline_s={self.deadline_s} must be >= 0")
-        if self.fault is not None:
-            # the fault model (repro.comm.faults) is not ported yet: there is
-            # no FaultConfig to validate, so any fault plan is refused here
-            raise NotImplementedError(
-                "FedConfig.fault: fault injection is not ported to "
-                "repro_torch yet")
-        if self.deadline_s > 0:
-            if not self.wire:
+        if self.fault is not None or self.deadline_s > 0:
+            from repro_torch.comm.faults import FaultConfig
+            if self.fault is not None and not isinstance(self.fault,
+                                                         FaultConfig):
+                raise ValueError(
+                    f"FedConfig.fault must be a comm.faults.FaultConfig, "
+                    f"got {type(self.fault).__name__}")
+            if self.deadline_s > 0 and self.fault is not None \
+                    and self.fault.deadline_s > 0:
+                raise ValueError(
+                    f"both FedConfig.deadline_s={self.deadline_s} and "
+                    f"FedConfig.fault.deadline_s="
+                    f"{self.fault.deadline_s} are set — pick one")
+            deadline = self.deadline_s or (
+                self.fault.deadline_s if self.fault is not None else 0.0)
+            if deadline > 0 and not self.wire:
                 raise ValueError(
                     "a round deadline (deadline_s > 0) needs the simulated "
                     "transport clock — set FedConfig(wire=True); the mesh "
@@ -315,8 +323,29 @@ class FedConfig:
                     "FedConfig.async_buffer is incompatible with "
                     "agg_groups/client_chunk/ef_store — the buffered "
                     "flush is a flat fixed-shape (buffer, k) batch")
-            if self.deadline_s > 0:
+            deadline = self.deadline_s or (
+                self.fault.deadline_s if self.fault is not None else 0.0)
+            if deadline > 0:
                 raise ValueError(
                     "FedConfig.async_buffer and a round deadline are "
                     "competing straggler strategies (reweight late work "
                     "vs drop it) — set one")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The training loop's settings (a copy of
+    ``repro.configs.base.TrainConfig``, same fields and defaults). The
+    simulation backend's ``FederatedTrainer`` reads ``rounds``,
+    ``log_every``, ``checkpoint_every`` and ``seed``; the rest configure the
+    mesh backend, not ported yet."""
+
+    global_batch: int = 256
+    seq_len: int = 4096
+    rounds: int = 100
+    microbatch: int = 0           # 0 = no microbatching within a local step
+    remat_policy: str = "full"    # full | dots | none
+    tp_collective: str = "psum"   # psum | rs_ag (see ParallelContext)
+    log_every: int = 10
+    checkpoint_every: int = 0
+    seed: int = 0

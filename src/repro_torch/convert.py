@@ -7,7 +7,12 @@ pytrees), so this module needs neither ``jax`` nor ``repro``:
   nested dict of fp32 tensors in the same, JAX, shapes);
 * :func:`flat_from_jax` — the same, raveled in ``ravel_pytree`` order;
 * :func:`server_state_from_jax` — a FedSim ``ServerState`` over the flat
-  vector (fp32, bf16 or int8 ``QuantState`` storage) → the port's.
+  vector (fp32, bf16 or int8 ``QuantState`` storage) → the port's;
+* :func:`state_to_jax` — the port's ``SimState`` → the JAX ``SimState``'s
+  layout (what ``FederatedTrainer.save`` writes), and
+  :func:`state_from_jax`, its inverse: a JAX FedSim's state (a restored
+  checkpoint, or ``jax.device_get(state._asdict())``) → the port's
+  ``SimState``.
 """
 from __future__ import annotations
 
@@ -15,12 +20,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.server_opt import QuantState, ServerState
+from repro_torch.core.sim import SimState
 from repro_torch.models.params import ravel
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     """An array (numpy, or anything ``np.asarray`` takes, including the
-    ``ml_dtypes`` bfloat16 JAX uses) → a tensor of the same dtype."""
+    ``ml_dtypes`` bfloat16 JAX uses, or a tensor) → a tensor of the same
+    dtype, copied."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(
@@ -55,3 +64,49 @@ def server_state_from_jax(opt, device="cpu") -> ServerState:
         vhat=_second_moment(opt.vhat, device),
         t=torch.tensor(int(np.asarray(opt.t)), dtype=torch.int32,
                        device=device))
+
+
+def state_to_jax(state, unravel) -> dict:
+    """The port's ``SimState`` in the JAX ``SimState._asdict()`` layout:
+    ``params`` a nested dict in JAX shapes (``unravel`` is the FedSim's),
+    ``opt`` a ``ServerState`` (int8 v/v̂ as ``QuantState``), ``errors``,
+    ``server_error``, ``x_client``, and ``bits``/``round`` as Python ints.
+    Array leaves are copies on the CPU, as tensors: numpy has no bfloat16
+    (``t.numpy()`` gives the array for every other state dtype)."""
+    host = lambda t: t.detach().to("cpu", copy=True)
+
+    def second(s):
+        if isinstance(s, QuantState):
+            return QuantState(q=host(s.q), scale=host(s.scale))
+        return host(s)
+
+    def tree(p):
+        return ({k: tree(v) for k, v in p.items()} if isinstance(p, dict)
+                else host(p))
+
+    opt = state.opt
+    return {
+        "params": tree(unravel(state.params)),
+        "opt": ServerState(m=host(opt.m), v=second(opt.v),
+                           vhat=second(opt.vhat), t=host(opt.t)),
+        "errors": host(state.errors),
+        "server_error": host(state.server_error),
+        "x_client": host(state.x_client),
+        "bits": int(state.bits),
+        "round": int(state.round),
+    }
+
+
+def state_from_jax(tree, device="cpu"):
+    """A JAX FedSim state in the ``SimState._asdict()`` layout (numpy
+    arrays, or tensors as :func:`state_to_jax` gives them) → the port's
+    ``SimState`` on ``device``: the params raveled in ``ravel_pytree``
+    order, every other array copied with its dtype."""
+    return SimState(
+        params=flat_from_jax(tree["params"], device),
+        opt=server_state_from_jax(tree["opt"], device),
+        errors=tensor_from_numpy(tree["errors"], device),
+        server_error=tensor_from_numpy(tree["server_error"], device),
+        x_client=tensor_from_numpy(tree["x_client"], device),
+        bits=int(np.asarray(tree["bits"])),
+        round=int(np.asarray(tree["round"])))

@@ -34,6 +34,15 @@ With ``fed.wire=True`` every delta is serialized to packed bytes
 host-side numpy keyed by (seed, round, client)) and decoded; the round's
 metrics then carry the measured ``wire_*`` bytes, ``round_time_s`` and
 ``sim_time_s`` (``comm.metrics.CommLog``) next to the analytic ``bits``.
+With ``fed.two_way`` the server's update goes down compressed too, with
+its own EF (``stages.server_downlink``; in wire mode through the codec).
+
+With ``fed.fault`` (or a bare ``fed.deadline_s``) a round runs
+:meth:`FedSim._fault_round`: a host-side ``comm.faults.FaultInjector``
+plans crashes, deadline cuts and payload corruption before the round, the
+server validates every payload before ingest and aggregates the survivors
+only, and the metrics gain ``survivors``, ``rejected``, ``crashed`` and
+``deadline_cut``.
 
 Differences from the JAX class: the state holds the FLAT (d,) model
 (``FedSim.unravel`` gives the dict of views in JAX shapes); a round updates
@@ -42,17 +51,21 @@ only the returned state; per-client local training is a loop of
 ``torch.autograd`` steps; ``run_rounds`` is a plain loop.
 
 Knobs outside this slice raise ``NotImplementedError`` naming the knob:
-``fault``/``deadline_s``, ``async_buffer``, ``ef_store``,
-``client_chunk``, ``agg_groups > 1`` and ``two_way``.
+``async_buffer``, ``ef_store``, ``client_chunk`` and ``agg_groups > 1``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.comm.faults import (FaultConfig, FaultInjector,
+                                     corrupt_dense, corrupt_selection,
+                                     plan_to_device, validate_dense,
+                                     validate_selection)
 from repro_torch.comm.metrics import CommLog
 from repro_torch.comm.transport import NetworkConfig, SimulatedNetwork
 from repro_torch.comm.wire import make_dense32_codec, make_wire_codec
@@ -66,8 +79,9 @@ from repro_torch.core.server_opt import (FUSED_INGEST_GROUPS_DETAIL,
                                          server_update)
 from repro_torch.core.stages import (client_uplink, client_uplink_sparse,
                                      gamma_diagnostic, resolve_fused_ingest,
-                                     server_aggregate_sparse, server_downlink,
-                                     stage)
+                                     server_aggregate_sparse,
+                                     server_aggregate_sparse_masked,
+                                     server_downlink, stage)
 from repro_torch.models.params import ravel
 
 
@@ -83,12 +97,10 @@ class SimState(NamedTuple):
 
 def _refuse_unported(fed: FedConfig) -> None:
     unported = {
-        "deadline_s": fed.deadline_s > 0,
         "async_buffer": fed.async_buffer > 0,
         "ef_store": fed.ef_store,
         "client_chunk": fed.client_chunk > 0,
         "agg_groups": fed.agg_groups > 1,
-        "two_way": fed.two_way,
     }
     for knob, on in unported.items():
         if on:
@@ -126,14 +138,23 @@ class FedSim:
             raise ValueError(
                 "sparse_uplink=True needs a compressor with a .select "
                 "(topk/blocktopk family); this one has none")
+        # a bare fed.deadline_s means "deadline cutoff, no injected faults"
+        fcfg = fed.fault
+        if fed.deadline_s > 0:
+            fcfg = (FaultConfig(deadline_s=fed.deadline_s) if fcfg is None
+                    else dataclasses.replace(fcfg, deadline_s=fed.deadline_s))
+        self.faults = (FaultInjector(fcfg, fed.num_clients)
+                       if fcfg is not None else None)
         eligible = (self.sparse and self.comp.name.startswith("blocktopk")
-                    and not fed.track_gamma)
+                    and not fed.track_gamma and self.faults is None)
         self._fused = resolve_fused_ingest(
             fed, eligible=eligible, have_kernel=True,
             compiled=self.device.type == "cuda",
             detail="FedSim fuses only the sparse blocktopk uplink with "
                    "track_gamma=False (the γ diagnostic consumes a dense "
-                   "aggregate)" + FUSED_INGEST_GROUPS_DETAIL)
+                   "aggregate) and no fault injection (the masked survivor "
+                   "aggregate needs the unfused scatter path)"
+                   + FUSED_INGEST_GROUPS_DETAIL)
         self.unravel = None
         self.codec = self.network = self.comm_log = None
         if network is not None and not fed.wire:
@@ -145,7 +166,8 @@ class FedSim:
             name = fed.compressor if self.comp is not None else "dense32"
             self.codec = make_wire_codec(name, fed.compress_ratio,
                                          fed.wire_block, fed.wire_value_dtype)
-            self._down_codec = make_dense32_codec()   # two_way is refused
+            self._down_codec = (self.codec if fed.two_way
+                                else make_dense32_codec())
             self.network = network or SimulatedNetwork(NetworkConfig(),
                                                        fed.num_clients)
             self.comm_log = CommLog()
@@ -156,7 +178,11 @@ class FedSim:
         flat = flat.to(self.device, torch.float32).clone()
         d = flat.numel()
         self._d = d
-        self._ingest_block = block_layout(d, self.fed.wire_block)[0]
+        bs, nb = block_layout(d, self.fed.wire_block)
+        self._ingest_block = bs
+        # selections carry padded-tail indices in [d, nb·bs), which the
+        # scatter drops: validation accepts the padded domain, not [0, d)
+        self._sel_domain = bs * nb
         return SimState(
             params=flat,
             opt=init_server_state(flat, self.fed.server_state_dtype,
@@ -184,10 +210,18 @@ class FedSim:
         return self.network.round(ids, self.codec.nbytes(self._d),
                                   self._down_codec.nbytes(self._d), round_idx)
 
-    def _record_timing(self, timing) -> dict:
+    def _record_timing(self, timing, finfo) -> dict:
         """Book one round's timing into the CommLog and return its metric
-        entries (every client's payload is delivered: no faults here)."""
-        return self.comm_log.record(timing)
+        entries. A fault round books the planner's deadline-truncated
+        wall-clock (so ``sim_time_s == Σ round_time_s``) and bills uplink
+        bytes only for the clients whose payload arrived — delivered but
+        rejected clients count (the wire carried their bytes)."""
+        eff_time = delivered = None
+        if finfo is not None:
+            eff_time = finfo["round_time_s"]
+            delivered = int(finfo["survivors"]) * self.codec.nbytes(self._d)
+        return self.comm_log.record(timing, round_time_s=eff_time,
+                                    delivered_uplink_bytes=delivered)
 
     # -- one round ---------------------------------------------------------
     def round(self, state: SimState, client_batches, client_idx,
@@ -201,18 +235,28 @@ class FedSim:
         ids = np.array(client_idx, dtype=np.int64)
         if np.unique(ids).size != ids.size:
             raise ValueError("client_idx must hold distinct client ids")
+        # the network's timing and the fault plan are host-side numpy,
+        # drawn before the round: the deadline cut needs the client times
+        timing = self._round_timing(ids, state.round)
+        fplan = finfo = None
+        if self.faults is not None:
+            fplan, finfo = self.faults.plan(ids, state.round, timing)
         with stage("host_to_device"):
             idx = torch.as_tensor(ids, device=self.device)
             batches = {k: torch.as_tensor(v).to(self.device)
                        for k, v in client_batches.items()}
+            if fplan is not None:
+                fplan = plan_to_device(fplan, self.device)
         k_all = hetero_step_counts(self.fed, rng, ids.size)
-        timing = self._round_timing(ids, state.round)
         new_state, met = self._round_impl(state, batches, idx, state.round,
-                                          k_all)
+                                          k_all, fplan)
         bits = state.bits + self._bits_per_round(ids.size)
         met["bits"] = bits
         if timing is not None:
-            met.update(self._record_timing(timing))
+            met.update(self._record_timing(timing, finfo))
+        if finfo is not None:
+            met["crashed"] = finfo["crashed"]
+            met["deadline_cut"] = finfo["deadline_cut"]
         return new_state._replace(bits=bits, round=state.round + 1), met
 
     def run_rounds(self, state: SimState, client_batches, client_idx,
@@ -247,8 +291,87 @@ class FedSim:
             losses.append(loss)
         return torch.stack(deltas), torch.stack(losses)
 
+    def _fault_round(self, state: SimState, batches, client_idx, round_idx,
+                     k_all, fplan):
+        """Fault-tolerant round: every client trains and uplinks as usual —
+        the damage is in transit — then the server masks the aggregate down
+        to the validated survivors.
+
+        * The client books its EF residual against the CLEAN decoded value
+          it sent; corruption comes after. The uplink updates the cohort's
+          EF rows in place, so their pre-round copy is taken first, and the
+          rows of clients the server does not ingest (crashed, cut at the
+          deadline, rejected) are restored from it — the stale residual
+          they repay on rejoin, ``where(surv, new_rows, old_rows)`` in JAX.
+        * Validation runs before ingest: NaN/Inf and out-of-range indices
+          zero the offender's contribution and drop it from the survivor
+          count, so one poisoned payload cannot reach m/v/v̂.
+        * With an all-ones plan this is bitwise the fault-free round on the
+          two-pass server path.
+        """
+        fed = self.fed
+        fcfg = self.faults.cfg
+        mode = fcfg.corrupt_mode
+        corrupting = fcfg.corrupt_prob > 0
+        flat0 = state.x_client
+        d = flat0.numel()
+        with stage("local_training"):
+            delta, losses = self._train_block(flat0, batches,
+                                              local_lr(fed, round_idx), k_all)
+            # the cohort mean: every client trained, delivered or not
+            loss = losses.mean()
+        errors = state.errors
+        with stage("uplink"):
+            old_rows = (errors[client_idx] if self.comp is not None
+                        else None)
+            if self.sparse:
+                vals, sidx = client_uplink_sparse(self.comp, errors,
+                                                  client_idx, delta,
+                                                  self._ingest_block,
+                                                  self.codec)
+            else:
+                hats = client_uplink(self.comp, self.codec, d, delta, errors,
+                                     client_idx)
+        with stage("validate"):
+            if self.sparse:
+                rx, ridx = (corrupt_selection(vals, sidx, fplan, mode)
+                            if corrupting else (vals, sidx))
+                rx, valid = validate_selection(rx, ridx, self._sel_domain,
+                                               fcfg.max_update_norm)
+            else:
+                rx = corrupt_dense(hats, fplan, mode) if corrupting else hats
+                truncated = (fplan.corrupt
+                             if corrupting and mode == "truncate" else None)
+                rx, valid = validate_dense(rx, fcfg.max_update_norm,
+                                           truncated)
+            surv = fplan.survivors * valid
+            if old_rows is not None:
+                errors.index_copy_(0, client_idx, torch.where(
+                    surv[:, None] > 0, errors[client_idx], old_rows))
+        with stage("server_aggregate"):
+            if self.sparse:
+                agg = server_aggregate_sparse_masked(rx, ridx, d, surv)
+            else:
+                agg = (torch.where(surv[:, None] > 0, rx, 0.0).sum(dim=0)
+                       / surv.sum().clamp_min(1.0))
+        with stage("server_update"):
+            new_flat, opt = server_update(fed, state.opt, state.params, agg)
+        with stage("downlink"):
+            x_client, server_error = server_downlink(
+                fed, self.comp, self.codec, new_flat, state.x_client,
+                state.server_error)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        met = {"loss": loss, "gamma": zero, "survivors": surv.sum(),
+               "rejected": (fplan.survivors * (1.0 - valid)).sum()}
+        return (state._replace(params=new_flat, opt=opt, errors=errors,
+                               server_error=server_error, x_client=x_client),
+                met)
+
     def _round_impl(self, state: SimState, batches, client_idx, round_idx,
-                    k_all):
+                    k_all, fplan=None):
+        if fplan is not None:
+            return self._fault_round(state, batches, client_idx, round_idx,
+                                     k_all, fplan)
         fed = self.fed
         n = client_idx.numel()
         flat0 = state.x_client
@@ -293,7 +416,8 @@ class FedSim:
                                               agg)
         with stage("downlink"):
             x_client, server_error = server_downlink(
-                fed, self.comp, new_flat, state.x_client, state.server_error)
+                fed, self.comp, self.codec, new_flat, state.x_client,
+                state.server_error)
         return (state._replace(params=new_flat, opt=opt, errors=errors,
                                server_error=server_error, x_client=x_client),
                 {"loss": loss, "gamma": gamma})

@@ -1,6 +1,6 @@
 """Round stages of the simulation backend: the dense EF→compress→wire
-uplink, the select-once sparse uplink, the server aggregate, the downlink
-and the γ diagnostic.
+uplink, the select-once sparse uplink, the server aggregates (plain and
+survivor-masked), the two-way downlink and the γ diagnostic.
 
 Counterpart of the simulation-side half of ``repro.core.stages``. The
 mesh-side stages are not ported yet. The uplinks work on the resident
@@ -130,16 +130,44 @@ def server_aggregate_sparse(vals, idx, d: int, n: int):
     return ref.scatter_mean_padded(vals, safe, d + 1, n)[:d]
 
 
-def server_downlink(fed: FedConfig, comp: Optional[Compressor], new_flat,
-                    x_client, server_error):
-    """The model clients see next round, and the carried server error.
-    With ``two_way`` off (the only case ported) clients see the exact new
-    model and the error passes through."""
-    if fed.two_way and comp is not None:
-        raise NotImplementedError(
-            "FedConfig.two_way: the compressed downlink is not ported to "
-            "repro_torch yet")
-    return new_flat, server_error
+def server_aggregate_sparse_masked(vals, idx, d: int, surv):
+    """Survivor-masked sibling of :func:`server_aggregate_sparse`: the mean
+    of the sparse client messages over the SURVIVORS only — ``surv`` (n,)
+    f32 is a fault round's survivor mask (delivered and validated).
+    Non-survivors' entries become 0 by ``where`` (never a multiply: a
+    poisoned NaN times 0.0 is still NaN) and the divisor is the 0-d tensor
+    ``max(Σsurv, 1)``, so an all-dead round yields a zero aggregate, not a
+    NaN. Client-major, as ``ref.scatter_mean_padded``; indices outside
+    ``[0, d)`` (a padded tail, ``INVALID_IDX``, a flipped index) land in
+    the dead slot past d. With an all-ones mask this is bitwise
+    :func:`server_aggregate_sparse`."""
+    contrib = torch.where(surv[:, None] > 0, vals, 0.0)
+    safe = torch.where((idx >= 0) & (idx < d), idx, d)
+    acc = torch.zeros(d + 1, dtype=torch.float32, device=vals.device)
+    for j in range(vals.shape[0]):
+        acc.index_add_(0, safe[j].long(), contrib[j])
+    return (acc / surv.sum().clamp_min(1.0))[:d]
+
+
+def server_downlink(fed: FedConfig, comp: Optional[Compressor], codec,
+                    new_flat, x_client, server_error):
+    """Two-way (server→client) EF compression, paper appendix D.
+
+    Returns ``(new_x_client, new_server_error)``: the model as clients will
+    see it next round plus the carried server-side error. With ``two_way``
+    off the clients see the exact new model and the error passes through.
+    With it on, the server compresses ``(new − x_client) + error``: in wire
+    mode as ``decode(encode(tot))`` through ``codec`` (the batched codec on
+    a (1, d) block — on the card one ``pack_uint`` and one ``unpack_uint``
+    launch for the packed codecs), else with ``comp.compress``."""
+    if not (fed.two_way and comp is not None):
+        return new_flat, server_error
+    tot = (new_flat - x_client) + server_error
+    if codec is not None:
+        hat = _wire_roundtrip(codec, tot.numel(), tot[None])[0]
+    else:
+        hat = comp.compress(tot)
+    return x_client + hat, tot - hat
 
 
 def gamma_diagnostic(comp: Optional[Compressor], mean_tot, agg, mean_delta):

@@ -13,10 +13,11 @@ import torch
 from repro.comm import metrics as jmetrics
 from repro.comm import transport as jtransport
 from repro.configs.base import FedConfig as JaxFedConfig
+from repro.configs.base import TrainConfig as JaxTrainConfig
 from repro.data.synthetic import FederatedClassification as JaxData
 from repro_torch.comm import metrics as tmetrics
 from repro_torch.comm import transport as ttransport
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import FedConfig, TrainConfig
 from repro_torch.data.synthetic import FederatedClassification
 
 torch.set_num_threads(1)
@@ -32,12 +33,17 @@ MODULES = [
     "repro_torch.comm.transport", "repro_torch.comm.metrics",
     "repro_torch.kernels.ref", "repro_torch.kernels._build",
     "repro_torch.kernels.ops", "repro_torch.convert",
+    "repro_torch.comm.faults", "repro_torch.comm", "repro_torch.configs",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+    "repro_torch.core", "repro_torch.core.api", "repro_torch.core.rounds",
 ]
 
 
 def test_import_loads_no_jax_and_no_repro():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "import repro_torch.core as c\n"
+            "for name in c.__all__: getattr(c, name)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib') "
             "or m == 'repro' or m.startswith('repro.'))\n"
@@ -96,9 +102,11 @@ def test_fedconfig_validation_matches(kw):
     assert str(port_err.value) == str(jax_err.value)
 
 
-def test_fedconfig_refuses_fault_plans():
-    with pytest.raises(NotImplementedError, match="fault"):
-        FedConfig(fault=object())
+def test_trainconfig_fields_and_defaults_match():
+    ours = [(f.name, f.default) for f in dataclasses.fields(TrainConfig)]
+    theirs = [(f.name, f.default)
+              for f in dataclasses.fields(JaxTrainConfig)]
+    assert ours == theirs
 
 
 @pytest.mark.parametrize("kw", [dict(feature_dim=32, alpha=0.3),
@@ -118,13 +126,11 @@ def test_federated_classification_draws_the_same_batches(kw):
 
 
 @pytest.mark.parametrize("knob,kw", [
-    ("deadline_s", dict(wire=True, deadline_s=1.0, track_gamma=False)),
     ("async_buffer", dict(wire=True, async_buffer=2, participating=4,
                           track_gamma=False, compressor="blocktopk")),
     ("ef_store", dict(ef_store=True)),
     ("client_chunk", dict(client_chunk=2, participating=4)),
     ("agg_groups", dict(agg_groups=2, participating=4)),
-    ("two_way", dict(two_way=True)),
 ])
 def test_fedsim_refuses_unported_knobs_by_name(knob, kw):
     from repro_torch.core.sim import FedSim
@@ -200,6 +206,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         FedSim(lambda p, b: None, FedConfig())
+    from repro_torch.core.api import FederatedTrainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FederatedTrainer(fed=FedConfig(), loss_fn=lambda p, b: None,
+                         init_params={"w": torch.zeros(3)})
     assert resolve_device("cpu") == torch.device("cpu")
 
 
