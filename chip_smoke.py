@@ -34,14 +34,18 @@ then, on the card:
    2048 and 4096; n = 1 and 64; k = 1, 33 and block; every client on the
    same coordinates with values that only a client-major sum gets right;
    an int8 block of zeros; state at an odd offset) at each dtype and
-   option, its time and bound at each dtype; ``fedams_update`` for both
+   option, its time and bound at each dtype, and on route j's partial
+   flush (B = 5 rows, pre-scaled by staleness weights: two empty slots of
+   k copies of index 0 and +0.0, one rejected row with a flipped index
+   and zeroed values); ``fedams_update`` for both
    options at a ragged N, also with NaN deltas. All bitwise (a NaN must
    meet a NaN). Each kernel is timed with CUDA events (median of 30
    launches, L2 flushed before each) beside its twin and its bound;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
-   small MLP problem, every route below (route g through the trainer),
-   with the fault verdicts of routes h and i equal;
+   small MLP problem, every route below (route g through the trainer, j
+   through the async engine, l on randk positions drawn on the host), with
+   the fault verdicts of routes h and i and j's flushes equal;
 3. runs the FedCAMS round on ConvMixer-256-8 (random weights from a seed,
    synthetic CIFAR-shaped data), 6 rounds on each route:
    (a) blocktopk, ``track_gamma=False``, fused ingest → ``topk_ef_sparse``
@@ -73,6 +77,25 @@ then, on the card:
        (rounds 0-2), NaN payloads (p = 0.3) and a norm clip at the median
        norm of a probe round's payloads → ``sign_ef`` + ``fedams_update``;
        the share of payloads clipped is printed.
+   (j) blocktopk 1/64 over the wire, ``track_gamma=False``, the async
+       buffered engine (``async_buffer=5``, ``inv_sqrt`` staleness) over
+       wire_network's links, 6 cohorts → ``topk_ef_sparse`` once a cohort,
+       ``fedams_ingest`` once a flush (⌈60 / 5⌉ = 12, the straggler share
+       raised from 0.05 until a flush ingests stale work); the flushes'
+       staleness and weight sums are printed. Then ``async_buffer=10``,
+       ``uniform``, 3 cohorts under deterministic algorithms, held equal
+       to 3 sync rounds of the same configuration to the bit (params, m,
+       v, v-hat, EF rows);
+   (k) blocktopk 1/64 over the wire, ``track_gamma=False``, m = 1,000
+       with the host-side EF store (``ef_store``), ``client_chunk=5`` and
+       ``agg_groups=2`` → ``topk_ef_sparse`` twice a round, ``fedams_update``
+       once, ``fedams_ingest`` never; the device holds a (10, d) EF block,
+       the store's materialized bytes and the tier-2 bytes are printed.
+       Under deterministic algorithms 3 rounds equal the resident (1,000,
+       d) buffer's to the bit: params and every client's EF row;
+   (l) randk 1/64 in memory, γ on (the default), ``client_chunk=5`` →
+       ``fedams_update`` once a round; each round's drawn sets hold k
+       distinct positions.
    On h and i every round has survivors + rejected + crashed +
    deadline_cut = n, the EF rows of the clients the server did not ingest
    equal their pre-round rows to the bit, and the state stays finite.
@@ -124,7 +147,7 @@ REPLACES = {
     "pack_uint": "src/repro/kernels/bitpack.py:184",
     "unpack_uint": "src/repro/kernels/bitpack.py:210",
 }
-ROUTES = ("a", "b", "c", "d", "e", "f", "g", "h", "i")
+ROUTES = ("a", "b", "c", "d", "e", "f", "g", "h", "i", "j", "k", "l")
 EXPECT = {"a": ("topk_ef_sparse", "fedams_ingest"),
           "b": ("topk_ef_sparse", "fedams_update"),
           "c": ("sign_ef", "fedams_update"),
@@ -133,7 +156,10 @@ EXPECT = {"a": ("topk_ef_sparse", "fedams_ingest"),
           "f": ("pack_uint", "unpack_uint", "fedams_update"),
           "g": ("pack_uint", "unpack_uint", "fedams_update"),
           "h": ("topk_ef_sparse", "fedams_update"),
-          "i": ("sign_ef", "fedams_update")}
+          "i": ("sign_ef", "fedams_update"),
+          "j": ("topk_ef_sparse", "fedams_ingest"),
+          "k": ("topk_ef_sparse", "fedams_update"),
+          "l": ("fedams_update",)}
 #: the fault models of routes h and i (the deadline, seed, crashed client
 #: and clip norm are chosen per run: h_fault, i_fault)
 FAULT_H = dict(crash_prob=0.1, corrupt_prob=0.2, corrupt_mode="bitflip")
@@ -142,6 +168,8 @@ VERDICTS = ("survivors", "rejected", "crashed", "deadline_cut")
 
 # the slice: ConvMixer-256-8, fedcams + blocktopk 1/64, m=100, n=10, K=3, B=20
 M, N_CLI, K_STEPS, BATCH, RATIO, BLOCK = 100, 10, 3, 20, 1 / 64, 2048
+M_K = 1000      # route k's client count (its EF rows live in the host store)
+ROUNDS = 6      # rounds (cohorts on route j) a route runs in phase 3
 
 
 def fail(msg: str):
@@ -401,6 +429,21 @@ def phase_kernels(dev, d: int):
     vh32 = v32 + torch.rand(d, generator=g, device=dev) * 1e-4
     kw = dict(n_div=N_CLI, eta=0.1, beta1=0.9, beta2=0.99, eps=1e-4,
               block=BLOCK)
+    # route j's partial flush of B = 5 slots, pre-scaled as
+    # FedSim._async_flush scales them (w·B/max(Σw, 1); w = inv_sqrt of τ = 0
+    # and 1 on the two live slots): slot 2 rejected (the bit-flip fault
+    # knocks entry 0's index out of the domain; validation zeroes its
+    # values), slots 3 and 4 empty as the engine leaves them — k copies of
+    # index 0 in block 0 with +0.0, which the kernel's lanes add at once
+    bp = 5
+    w = torch.tensor([1.0, float(np.float32(1 / np.sqrt(2.0))), 0.0, 0.0,
+                      0.0], device=dev)
+    scale = w * (torch.full((), bp, dtype=torch.float32, device=dev)
+                 / w.sum().clamp_min(1.0))
+    partial = (torch.where(w[:, None, None] > 0, vals[:bp], 0.0)
+               * scale[:, None, None], idx[:bp].clone())
+    partial[1][2].view(-1)[0] ^= 1 << 29
+    partial[1][3:] = 0
     worst = 0.0
     timed = {}
     for sd in ("float32", "bfloat16", "int8"):
@@ -450,6 +493,17 @@ def phase_kernels(dev, d: int):
                      want)
                 worst = max(worst, max(max_abs(a.float(), b.float())
                                        for a, b in zip(got, want)))
+        part_args = list(args)
+        part_args[4:6] = partial
+        for option in (1, 2):
+            pkw = dict(kw, n_div=bp, option=option, state_dtype=sd)
+            got = ops.fedams_ingest_cuda(*part_args, **pkw)
+            want = ref.fedams_ingest_ref(*part_args, **pkw)
+            torch.cuda.synchronize()
+            same(f"fedams_ingest[{sd}, option {option}, route j's partial "
+                 f"flush]", got, want)
+            worst = max(worst, max(max_abs(a.float(), b.float())
+                                   for a, b in zip(got, want)))
         timed[sd] = (args, 2 * (2 * d * 4) + 2 * sbytes + vals.numel() * 8)
     ms = {sd: time_ms(lambda a=a: ops.fedams_ingest_cuda(
         *a, option=1, state_dtype=sd, **kw), evict)
@@ -464,7 +518,7 @@ def phase_kernels(dev, d: int):
         bytes_bf16=timed["bfloat16"][1], bytes_int8=timed["int8"][1],
         bound_ms_by_dtype={sd: b / PEAK_BYTES_S * 1e3
                            for sd, (_, b) in timed.items()},
-        cases=3 * (3 + 2 * len(ref.INGEST_HARD_CASES)),
+        cases=3 * (3 + 2 * len(ref.INGEST_HARD_CASES) + 2),
         shapes=f"d={d}, vals/idx ({N_CLI},{nb},{k}), fp32 state "
                f"(bf16/int8 timed too)")
 
@@ -633,7 +687,10 @@ def phase_kernels(dev, d: int):
 # ---------------------------------------------------------------------------
 
 
-def _route_cfg(route: str, m: int, n: int, k: int, fault=None):
+def _route_cfg(route: str, m: int, n: int, k: int, fault=None, **over):
+    """Route ``route``'s ``FedConfig`` at m clients, n a round, K steps;
+    ``over`` replaces knobs (route j's sync twin, route k's resident
+    twin)."""
     from repro_torch.configs.base import FedConfig
     kw = dict(algorithm="fedcams", eta=0.1, eps=1e-4, eta_l=0.05,
               local_steps=k, num_clients=m, participating=n,
@@ -649,16 +706,44 @@ def _route_cfg(route: str, m: int, n: int, k: int, fault=None):
         "g": dict(compressor="sign", wire=True, two_way=True),
         "h": dict(wire=True, track_gamma=False, fault=fault),
         "i": dict(compressor="sign", track_gamma=False, fault=fault),
+        "j": dict(wire=True, track_gamma=False, async_buffer=n // 2,
+                  staleness_weight="inv_sqrt"),
+        "k": dict(wire=True, track_gamma=False, ef_store=True,
+                  client_chunk=n // 2, agg_groups=2),
+        "l": dict(compressor="randk", client_chunk=n // 2),
     }[route])
+    kw.update(over)
     return FedConfig(**kw)
 
 
-def wire_network(m: int):
+def wire_network(m: int, straggler_prob: float = 0.05):
     """``examples/quickstart_wire.py``'s network: an uplink-constrained WAN
-    with 5 % stragglers."""
+    with 5 % stragglers (route j raises the share)."""
     from repro_torch.comm.transport import NetworkConfig, SimulatedNetwork
     return SimulatedNetwork(NetworkConfig(uplink_mbps=10, downlink_mbps=50,
-                                          straggler_prob=0.05, seed=0), m)
+                                          straggler_prob=straggler_prob,
+                                          seed=0), m)
+
+
+@contextlib.contextmanager
+def host_draws():
+    """randk's positions drawn on the host and moved to the round's device,
+    so a card and a CPU FedSim given equally seeded generators train on the
+    same positions."""
+    from repro_torch.core import compressors, sim as simmod
+    draw = compressors.randk_positions
+    simmod.randk_positions = (lambda rng, d, k, count, device: draw(
+        rng, d, k, count, "cpu").to(device))
+    try:
+        yield
+    finally:
+        simmod.randk_positions = draw
+
+
+def stacked(plan):
+    """A plan's (ids, batches) rounds stacked as ``run_rounds`` takes them."""
+    return (np.stack([ids for ids, _ in plan]),
+            {key: np.stack([b[key] for _, b in plan]) for key in plan[0][1]})
 
 
 def h_fault(plan, m: int, d: int):
@@ -788,15 +873,33 @@ def phase_reference():
                             p0, "cpu")
         fed = _route_cfg(route, 20, 4, 2, fault)
         sims = {dev: FedSim(loss, fed, device=dev) for dev in ("cpu", "cuda")}
-        check(sims["cuda"]._fused == ("kernel" if route == "a" else "off"),
+        check(sims["cuda"]._fused == ("kernel" if route in ("a", "j")
+                                       else "off"),
               f"route {route}: resolved fused_ingest={sims['cuda']._fused}")
         sts = {dev: s.init(p0) for dev, s in sims.items()}
         rel = 0.0
         verdicts = []
-        for idx, b in plan:
+        if route == "j":      # the async engine consumes the staged plan
+            ids, batches = stacked(plan)
             mets = {}
             for dev, s in sims.items():
-                sts[dev], mets[dev] = s.round(sts[dev], b, idx)
+                sts[dev], mets[dev] = s.run_rounds(sts[dev], batches, ids)
+            keys = ("staleness_max", "buffer_fill", "bits", "wire_up_bytes",
+                    "round_time_s", "sim_time_s")
+            check(len(mets["cuda"]) == len(mets["cpu"]) and all(
+                g[key] == c[key] for g, c in zip(mets["cuda"], mets["cpu"])
+                for key in keys), f"route j: flushes differ between card "
+                f"and CPU in {keys}")
+            plan = []
+            rel = max(abs(float(g["loss"]) - float(c["loss"]))
+                      / abs(float(c["loss"]))
+                      for g, c in zip(mets["cuda"], mets["cpu"]))
+        for r, (idx, b) in enumerate(plan):
+            mets = {}
+            with host_draws():
+                for dev, s in sims.items():
+                    sts[dev], mets[dev] = s.round(
+                        sts[dev], b, idx, torch.Generator().manual_seed(r))
             rel = max(rel, abs(float(mets["cuda"]["loss"])
                                - float(mets["cpu"]["loss"]))
                       / abs(float(mets["cpu"]["loss"])))
@@ -978,8 +1081,216 @@ def check_fault_round(route, sim, st, met, before, fplan):
     return v
 
 
-def phase_slice(rounds: int = 6, routes=ROUTES):
+def _plan(data, m: int, rounds: int):
+    """``rounds`` cohorts of N_CLI ids of m (host generator, seed 1) and
+    their batches."""
     from repro_torch.core.sampling import sample_clients
+    gen = torch.Generator().manual_seed(1)
+    plan = []
+    for r in range(rounds):
+        idx = sample_clients(gen, m, N_CLI).numpy()
+        plan.append((idx, data.round_batches(idx, r, K_STEPS, BATCH)))
+    return plan
+
+
+def check_finite(route, st, losses):
+    check(all(np.isfinite(losses)), f"route {route}: losses {losses}")
+    for name, t in (("params", st.params), ("m", st.opt.m), ("v", st.opt.v),
+                    ("vhat", st.opt.vhat), ("errors", st.errors)):
+        check(bool(torch.isfinite(t).all()), f"route {route}: non-finite "
+              f"{name}")
+
+
+@contextlib.contextmanager
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def route_j(loss, p0, data, d: int, rounds: int):
+    """Route j: the async engine over the staged cohorts, its launches
+    counted per cohort and per flush; then B = n, uniform weights, 3
+    cohorts against 3 sync rounds, bitwise, under deterministic
+    algorithms."""
+    from repro_torch.core.sim import FedSim
+    from repro_torch.kernels import ops
+    ids, batches = stacked(_plan(data, M, rounds))
+    bsz = N_CLI // 2
+    for p in (0.05, 0.2, 0.5):      # stragglers until some work is stale
+        sim = FedSim(loss, _route_cfg("j", M, N_CLI, K_STEPS),
+                     network=wire_network(M, p))
+        check(sim._fused == "kernel" and sim._async is not None,
+              f"route j: fused_ingest={sim._fused}, engine {sim._async}")
+        st = sim.init(p0)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        st, mets = sim.run_rounds(st, batches, ids)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(ops.launches)
+        if max(m["staleness_max"] for m in mets) > 0:
+            break
+    else:
+        fail("route j: no flush ingested stale work at straggler_prob 0.5")
+    flushes = -(-rounds * N_CLI // bsz)
+    check(len(mets) == flushes and st.round == flushes,
+          f"route j: {len(mets)} flushes, expected {flushes}")
+    check(counts["topk_ef_sparse"] == rounds and
+          counts["fedams_ingest"] == flushes and
+          counts["fedams_update"] == 0,
+          f"route j: launches {counts} for {rounds} cohorts and {flushes} "
+          f"flushes")
+    check(any(m["buffer_fill"] < bsz or m["staleness_max"] > 0
+              for m in mets), "route j: no flush partial or stale")
+    losses = [float(m["loss"]) for m in mets]
+    check_finite("j", st, losses)
+    per_flush = [{"staleness_mean": m["staleness_mean"],
+                  "staleness_max": m["staleness_max"],
+                  "weight_sum": float(m["weight_sum"]),
+                  "buffer_fill": m["buffer_fill"],
+                  "round_time_s": m["round_time_s"]} for m in mets]
+    print(f"route j: straggler_prob {p}: {len(mets)} flushes of "
+          f"{rounds} cohorts in {ms:.1f} ms; per flush (staleness max, "
+          f"weight_sum): {[(m['staleness_max'], round(m['weight_sum'], 4)) for m in per_flush]}")
+    # B = n, unit weights: every flush is the sync round, to the bit
+    with deterministic():
+        cfg = dict(async_buffer=N_CLI, staleness_weight="uniform")
+        sa = FedSim(loss, _route_cfg("j", M, N_CLI, K_STEPS, **cfg),
+                    network=wire_network(M, p))
+        ss = FedSim(loss, _route_cfg("j", M, N_CLI, K_STEPS, async_buffer=0),
+                    network=wire_network(M, p))
+        a, _ = sa.run_rounds(sa.init(p0), {k: v[:3] for k, v in
+                                           batches.items()}, ids[:3])
+        b = ss.init(p0)
+        for r in range(3):
+            b, _ = ss.round(b, {k: v[r] for k, v in batches.items()}, ids[r])
+        diff = same_state(a, b)
+    check(not diff, f"route j: async at B = n differs from the sync rounds "
+          f"in {diff}")
+    print("route j: B = n, uniform weights, 3 cohorts under deterministic "
+          "algorithms: equal to 3 sync rounds to the bit")
+    return dict(cohorts=rounds, flushes=len(mets), run_ms=ms, loss=losses,
+                straggler_prob=p, per_flush=per_flush, launches=counts,
+                anchor_bitwise=True, state_sha256=state_digest(st))
+
+
+def route_k(loss, p0, d: int, rounds: int):
+    """Route k: m = 1,000 with the EF store, chunks of 5 and 2 groups; then
+    3 rounds against the resident buffer, bitwise, under deterministic
+    algorithms."""
+    from repro_torch.core.sim import FedSim
+    from repro_torch.data.synthetic import FederatedClassification
+    from repro_torch.kernels import ops
+    data = FederatedClassification(num_clients=M_K, image_shape=(32, 32, 3),
+                                   alpha=0.3, seed=0)
+    plan = _plan(data, M_K, rounds)
+    sim = FedSim(loss, _route_cfg("k", M_K, N_CLI, K_STEPS))
+    check(sim._fused == "off", f"route k: fused_ingest={sim._fused}")
+    st = sim.init(p0)
+    block = tuple(st.errors.shape)
+    check(block == (N_CLI, d), f"route k: device EF block {block}")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ms, losses, tier2, nbytes = [], [], [], []
+    for r, (idx, b) in enumerate(plan):
+        t0 = time.perf_counter()
+        st, met = sim.round(st, b, idx, prefetch_idx=plan[r + 1][0]
+                            if r + 1 < rounds else None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        tier2.append(met["wire_tier2_bytes"])
+        nbytes.append(sim._efs.nbytes)
+    counts = dict(ops.launches)
+    check(counts["topk_ef_sparse"] == 2 * rounds and
+          counts["fedams_update"] == rounds and counts["fedams_ingest"] == 0,
+          f"route k: launches {counts} in {rounds} rounds")
+    check(tier2 == [2 * 4 * d] * rounds, f"route k: tier-2 bytes {tier2}")
+    check_finite("k", st, losses)
+    print(f"route k: device EF block {block} ({st.errors.numel() * 4 / 1e6:.1f}"
+          f" MB; resident would be {M_K * d * 4 / 1e9:.2f} GB); host store "
+          f"materialized bytes by round {nbytes}; wire_tier2_bytes {tier2[0]}")
+    with deterministic():
+        runs = {}
+        for ef in (True, False):
+            s = FedSim(loss, _route_cfg("k", M_K, N_CLI, K_STEPS,
+                                        ef_store=ef))
+            ids3, b3 = stacked(plan[:3])
+            runs[ef] = (s, s.run_rounds(s.init(p0), b3, ids3)[0])
+        (s_store, a), (_, b) = runs[True], runs[False]
+        diff = [name for name in ("params", "x_client", "server_error")
+                if not torch.equal(getattr(a, name), getattr(b, name))]
+        diff += [name for name in ("m", "v", "vhat")
+                 if not torch.equal(getattr(a.opt, name),
+                                    getattr(b.opt, name))]
+        for c0 in range(0, M_K, 100):   # every client's row, 100 at a time
+            rows = torch.from_numpy(s_store._efs.gather(
+                np.arange(c0, c0 + 100))).cuda()
+            if not torch.equal(rows.view(torch.int32),
+                               b.errors[c0:c0 + 100].view(torch.int32)):
+                diff.append(f"EF rows {c0}..{c0 + 99}")
+    check(not diff, f"route k: the EF store differs from the resident "
+          f"buffer in {diff}")
+    print(f"route k: 3 rounds under deterministic algorithms: params, server "
+          f"state and all {M_K} EF rows equal the resident buffer's to the bit")
+    return dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses,
+                launches=counts, ef_block=list(block),
+                store_nbytes=nbytes, wire_tier2_bytes=tier2[0],
+                resident_bitwise=True, state_sha256=state_digest(st))
+
+
+def route_l(loss, p0, data, d: int, rounds: int):
+    """Route l: randk 1/64 with γ on, chunks of 5; each round's drawn sets
+    hold k distinct positions."""
+    from repro_torch.core import sim as simmod
+    from repro_torch.kernels import ops
+    draw = simmod.randk_positions
+    drawn = []
+
+    def recorded(*args):
+        out = draw(*args)
+        drawn.append(out)
+        return out
+
+    sim = simmod.FedSim(loss, _route_cfg("l", M, N_CLI, K_STEPS))
+    st = sim.init(p0)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ms, losses, gammas = [], [], []
+    simmod.randk_positions = recorded
+    try:
+        for r, (idx, b) in enumerate(_plan(data, M, rounds)):
+            t0 = time.perf_counter()
+            st, met = sim.round(st, b, idx, torch.Generator().manual_seed(r))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            gammas.append(float(met["gamma"]))
+    finally:
+        simmod.randk_positions = draw
+    counts = dict(ops.launches)
+    check(counts["fedams_update"] == rounds and sum(counts.values()) ==
+          rounds, f"route l: launches {counts} in {rounds} rounds")
+    k = max(1, int(round(RATIO * d)))
+    for sets in drawn:
+        srt = sets.sort(dim=1).values
+        check(sets.shape == (N_CLI + 2, k) and bool(
+            (srt[:, 1:] != srt[:, :-1]).all()) and 0 <= int(srt.min())
+            and int(srt.max()) < d,
+            f"route l: drawn sets of shape {tuple(sets.shape)} are not k = "
+            f"{k} distinct positions in [0, {d})")
+    check(len(drawn) == rounds, f"route l: {len(drawn)} draws")
+    check_finite("l", st, losses)
+    check(all(np.isfinite(gammas)), f"route l: gamma {gammas}")
+    return dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses, gamma=gammas,
+                launches=counts, k=k, state_sha256=state_digest(st))
+
+
+def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
     from repro_torch.core.sim import FedSim
     from repro_torch.data.synthetic import FederatedClassification
     from repro_torch.kernels import ops
@@ -1006,11 +1317,20 @@ def phase_slice(rounds: int = 6, routes=ROUTES):
                   f"{sorted(r['checkpoints'])}; the restored state equals "
                   f"the trainer's; final state sha256 {r['state_sha256']}")
             continue
-        gen = torch.Generator().manual_seed(1)
-        plan = []
-        for r in range(rounds):
-            idx = sample_clients(gen, M, N_CLI).numpy()
-            plan.append((idx, data.round_batches(idx, r, K_STEPS, BATCH)))
+        if route in ("j", "k", "l"):
+            r = (route_k(loss, p0, d, rounds) if route == "k" else
+                 {"j": route_j, "l": route_l}[route](loss, p0, data, d,
+                                                      rounds))
+            res[route] = r
+            timing = (f"run ms {r['run_ms']:.1f}" if route == "j" else
+                      f"round ms (round 0 excluded) "
+                      f"{[round(t, 2) for t in r['round_ms']]}, median "
+                      f"{np.median(r['round_ms']):.2f}")
+            print(f"route {route}: {timing}; loss {r['loss']}; launches "
+                  f"{r['launches']}; final state sha256 "
+                  f"{r['state_sha256']}")
+            continue
+        plan = _plan(data, M, rounds)
         fault = route_fault(route, plan, M, N_CLI, K_STEPS, d, loss, p0,
                             "cuda")
         sim = FedSim(loss, _route_cfg(route, M, N_CLI, K_STEPS, fault))
@@ -1136,9 +1456,8 @@ def main():
             print(log.read_text().strip())
 
     t_phase = time.perf_counter()
-    torch.use_deterministic_algorithms(True)
-    kern = phase_kernels(dev, 704266)
-    torch.use_deterministic_algorithms(False)
+    with deterministic():
+        kern = phase_kernels(dev, 704266)
     print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
     for name, r in kern.items():
         print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
@@ -1164,17 +1483,15 @@ def main():
     # route a again with deterministic algorithms: local training on the
     # card is not bit-reproducible otherwise, so only this run's final
     # state can be held equal to another build's to the bit
-    torch.use_deterministic_algorithms(True)
-    det = phase_slice(rounds=3, routes=("a",))["a"]
-    torch.use_deterministic_algorithms(False)
+    with deterministic():
+        det = phase_slice(rounds=3, routes=("a",))["a"]
 
     rows = []
     for name, r in kern.items():
         runs = [(route, sl[route]["launches"][name]) for route in ROUTES]
-        per_round = {route: n / (len(sl[route]["round_ms"]) + 1)
-                     for route, n in runs if n}
+        per_round = {route: n / ROUNDS for route, n in runs if n}
         print(f"kernel {name}: {r['ms']:.4f} ms median of 30, {r['bytes']} "
-              f"bytes, launches per round {per_round}")
+              f"bytes, launches per round (per cohort on j) {per_round}")
         b_ms, b_by = bound(r["bytes"], r["flops"])
         rows.append({
             "name": name, "route": "cuda",

@@ -24,6 +24,15 @@ cohorts):
        topk_ef_sparse + the survivor-masked aggregate + fedams_update
     i  sign in memory with a scheduled crash, NaN payloads and a norm
        clip: sign_ef + validation + fedams_update
+    j  blocktopk 1/64 over the wire through the async buffered engine
+       (B = 5 of n = 10): topk_ef_sparse once a cohort, fedams_ingest once
+       a flush. Each step here is a ``run_rounds`` call over the step's
+       cohorts, which drains them, so per-round numbers are per cohort
+    k  blocktopk 1/64 over the wire, m = 1,000 with the host-side EF
+       store, client_chunk=5 and agg_groups=2: topk_ef_sparse twice a
+       round, the grouped scatter + fedams_update; the store's gather and
+       scatter run in the ``ef_store`` ranges
+    l  randk 1/64 in memory, γ on, client_chunk=5: fedams_update
 
 After a warm-up round:
 
@@ -75,7 +84,7 @@ PORT_KERNELS = ("topk_ef_sparse_kernel", "topk_ef_kernel", "sign_ef_kernel",
 WARMUP, TIMED, PROFILED = 1, 3, 3
 
 
-def _sim(route: str, plan):
+def _sim(route: str, plan, m: int):
     from repro_torch.core.sim import FedSim
     from repro_torch.models import convmixer as cm
     from repro_torch.models.params import count_params, init_params
@@ -83,11 +92,27 @@ def _sim(route: str, plan):
     defs = cm.convmixer_defs(cfg)
     loss = lambda p, b: cm.convmixer_loss(p, b, cfg)
     p0 = init_params(defs, torch.Generator().manual_seed(0))
-    fault = chip_smoke.route_fault(route, plan, M, N_CLI, K_STEPS,
+    fault = chip_smoke.route_fault(route, plan, m, N_CLI, K_STEPS,
                                    count_params(defs), loss, p0, "cuda")
-    sim = FedSim(loss, chip_smoke._route_cfg(route, M, N_CLI, K_STEPS, fault),
-                 network=chip_smoke.wire_network(M) if route == "g" else None)
+    sim = FedSim(loss, chip_smoke._route_cfg(route, m, N_CLI, K_STEPS, fault),
+                 network=chip_smoke.wire_network(m) if route in ("g", "j")
+                 else None)
     return sim, sim.init(p0), fault
+
+
+def _run(sim, st, plan):
+    """The rounds of ``plan`` from ``st``: one ``run_rounds`` call through
+    the async engine on route j, else a ``FedSim.round`` a round with a
+    generator (randk's draws) and the next round's ids (the EF store's
+    prefetch)."""
+    if sim._async is not None:
+        ids, batches = chip_smoke.stacked(plan)
+        return sim.run_rounds(st, batches, ids)[0]
+    for r, (idx, b) in enumerate(plan):
+        st, _ = sim.round(st, b, idx, torch.Generator().manual_seed(r),
+                          prefetch_idx=plan[r + 1][0] if r + 1 < len(plan)
+                          else None)
+    return st
 
 
 def _trace_events(prof):
@@ -157,8 +182,10 @@ def main():
     from repro_torch.data.synthetic import FederatedClassification
     torch.backends.cudnn.allow_tf32 = False     # as chip_smoke.py runs it
     torch.backends.cuda.matmul.allow_tf32 = False
-    data = FederatedClassification(num_clients=M, image_shape=(32, 32, 3),
-                                   alpha=0.3, seed=0)
+    datasets = {m: FederatedClassification(num_clients=m,
+                                           image_shape=(32, 32, 3),
+                                           alpha=0.3, seed=0)
+                for m in (M, chip_smoke.M_K)}
     gen = torch.Generator().manual_seed(1)
     routes = sys.argv[1:] or list(chip_smoke.ROUTES)
     unknown = [r for r in routes if r not in chip_smoke.ROUTES]
@@ -168,27 +195,27 @@ def main():
     out = {"card": chip_smoke.card_line()}
     print(out["card"])
     for route in routes:
+        m = chip_smoke.M_K if route == "k" else M
         plan = []
         for r in range(WARMUP + TIMED + PROFILED):
-            idx = sample_clients(gen, M, N_CLI).numpy()
-            plan.append((idx, data.round_batches(idx, r, K_STEPS, BATCH)))
-        sim, st, fault = _sim(route, plan)
+            idx = sample_clients(gen, m, N_CLI).numpy()
+            plan.append((idx, datasets[m].round_batches(idx, r, K_STEPS,
+                                                        BATCH)))
+        sim, st, fault = _sim(route, plan, m)
         if fault is not None:
             print(f"route {route}: {fault}")
-        for idx, b in plan[:WARMUP]:
-            st, _ = sim.round(st, b, idx)
+        st = _run(sim, st, plan[:WARMUP])
         torch.cuda.synchronize()
         wall = []
-        for idx, b in plan[WARMUP:WARMUP + TIMED]:
+        for step in plan[WARMUP:WARMUP + TIMED]:
             t0 = time.perf_counter()
-            st, _ = sim.round(st, b, idx)
+            st = _run(sim, st, [step])
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for idx, b in plan[WARMUP + TIMED:]:
-                st, _ = sim.round(st, b, idx)
+            st = _run(sim, st, plan[WARMUP + TIMED:])
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3 / PROFILED
         stage_ms, busy, top, port = _breakdown(_trace_events(prof), PROFILED)

@@ -9,17 +9,22 @@ neither ``jax`` nor anything of ``repro``:
                                     same fields)
     repro_torch.data.synthetic    — ``FederatedClassification`` (a copy)
     repro_torch.models            — ``ParamDef``/ravel order, ConvMixer, MLP
-    repro_torch.core              — compressors, error feedback, server
-                                    optimizers, local rules, sampling,
-                                    round stages, FedSim (faults, two-way
-                                    downlink), ``FederatedTrainer``
-                                    (``core.api``), the ``core.rounds``
-                                    façade
+    repro_torch.core              — compressors (randk included), error
+                                    feedback, server optimizers, local
+                                    rules, sampling, round stages, FedSim
+                                    (faults, two-way downlink, the EF
+                                    store, client chunks, grouped
+                                    aggregation, async rounds),
+                                    ``FederatedTrainer`` (``core.api``),
+                                    the ``core.rounds`` façade
     repro_torch.comm              — wire codecs, simulated network,
                                     ``CommLog``, fault model and
-                                    validation (``comm.faults``)
+                                    validation (``comm.faults``), the
+                                    async buffered engine
+                                    (``comm.async_engine``)
     repro_torch.checkpoint        — ``save_pytree``/``load_pytree`` (the
-                                    JAX package's file format)
+                                    JAX package's file format) and the
+                                    host-side ``EFStore``
     repro_torch.kernels           — CUDA kernels (``csrc/``), their plain
                                     PyTorch twins (``ref``) and the
                                     per-call dispatch (``ops``)

@@ -17,13 +17,23 @@ Writes are atomic (tmp + rename), so an interrupted save never corrupts
 the previous checkpoint. A restore checks the structure, each shape, and
 each dtype against the manifest and against the restore target before it
 returns anything, with the reference's messages.
+
+Also home to :class:`EFStore`, a verbatim copy of the reference's
+host-side sharded error-feedback store behind ``FedConfig.ef_store``
+(numpy and ``threading`` only): per-client EF rows live in lazily
+materialized numpy shards with a background prefetch, so FedSim's device
+holds the participating cohort's rows, not (m, d). A shard of
+``shard_clients`` rows is allocated whole when the first of its clients
+is written: at d = 704,266 that is 721 MB a shard, so host memory grows
+with the shards touched, up to 256 times the rows ever written.
 """
 from __future__ import annotations
 
 import json
 import os
 import tempfile
-from typing import Any, Dict, Iterator, Tuple
+import threading
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,3 +145,124 @@ def load_pytree(path: str, like) -> Tuple[Any, Dict[str, Any]]:
                 arr = torch.from_numpy(arr).to(like_leaf.device)
             leaves.append(arr)
     return _rebuild(like, iter(leaves)), manifest["meta"]
+
+
+# ===========================================================================
+# Host-side sharded error-feedback store (FedConfig.ef_store)
+# ===========================================================================
+
+
+class _Prefetch:
+    """One in-flight async gather: ``buf`` is filled by ``thread``."""
+
+    __slots__ = ("idx", "buf", "thread")
+
+    def __init__(self, idx: np.ndarray):
+        self.idx = idx
+        self.buf: Optional[np.ndarray] = None
+        self.thread: Optional[threading.Thread] = None
+
+
+class EFStore:
+    """Host-side sharded (m, d) error-feedback store (DESIGN.md §scale-out).
+
+    Rows (one fp32 error vector per client) live host-side in fixed-size
+    numpy shards of ``shard_clients`` rows each, **lazily materialized**: a
+    shard allocates only once one of its clients is first written, so a
+    m=10^6 store costs O(clients ever selected)·d, not m·d — untouched
+    clients read as the zeros they would hold anyway.
+
+    Per round the driver calls :meth:`gather` for the participating rows
+    (-> a dense (n, d) block the jitted round consumes), :meth:`scatter` to
+    write the updated rows back, and optionally :meth:`prefetch` to
+    assemble the *next* round's rows on a background thread while the
+    device computes. A scatter that lands while a prefetch is in flight
+    patches the overlapping rows in the prefetched buffer, so a client
+    participating in consecutive rounds never reads a stale row
+    (property-tested in tests/test_scale_out.py).
+    """
+
+    def __init__(self, num_clients: int, d: int, shard_clients: int = 256):
+        if shard_clients < 1:
+            raise ValueError(f"shard_clients={shard_clients} must be >= 1")
+        self.num_clients = int(num_clients)
+        self.d = int(d)
+        self.shard_clients = int(shard_clients)
+        self._shards: Dict[int, np.ndarray] = {}
+        self._lock = threading.Lock()
+        self._pf: Optional[_Prefetch] = None
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes actually materialized (lazy shards only)."""
+        return sum(s.nbytes for s in self._shards.values())
+
+    def _shard_rows(self, s: int) -> int:
+        return min(self.shard_clients,
+                   self.num_clients - s * self.shard_clients)
+
+    def _gather_locked(self, idx: np.ndarray) -> np.ndarray:
+        out = np.zeros((idx.size, self.d), np.float32)
+        for j, c in enumerate(idx):
+            s, r = divmod(int(c), self.shard_clients)
+            shard = self._shards.get(s)
+            if shard is not None:
+                out[j] = shard[r]
+        return out
+
+    def gather(self, idx) -> np.ndarray:
+        """Rows for this round's cohort as a dense (n, d) fp32 block.
+
+        Consumes a matching in-flight :meth:`prefetch` (a non-matching one
+        stays queued for the round it was issued for)."""
+        idx = np.asarray(idx, np.int64)
+        pf = self._pf
+        if pf is not None and np.array_equal(pf.idx, idx):
+            self._pf = None
+            pf.thread.join()
+            return pf.buf
+        with self._lock:
+            return self._gather_locked(idx)
+
+    def prefetch(self, idx) -> None:
+        """Start assembling ``gather(idx)`` on a background thread. At most
+        one prefetch is in flight; issuing another replaces it."""
+        idx = np.asarray(idx, np.int64)
+        old = self._pf
+        if old is not None and old.thread is not None:
+            old.thread.join()
+        pf = _Prefetch(idx)
+
+        def work():
+            with self._lock:
+                pf.buf = self._gather_locked(idx)
+
+        pf.thread = threading.Thread(target=work, daemon=True)
+        self._pf = pf
+        pf.thread.start()
+
+    def scatter(self, idx, rows) -> None:
+        """Write the cohort's updated rows back (allocating shards on first
+        touch) and patch any overlapping rows in an in-flight prefetch."""
+        idx = np.asarray(idx, np.int64)
+        rows = np.asarray(rows, np.float32)
+        if rows.shape != (idx.size, self.d):
+            raise ValueError(f"scatter rows shape {rows.shape} != "
+                             f"({idx.size}, {self.d})")
+        pf = self._pf
+        if pf is not None:
+            pf.thread.join()  # buf is complete before we patch it
+        with self._lock:
+            for j, c in enumerate(idx):
+                s, r = divmod(int(c), self.shard_clients)
+                shard = self._shards.get(s)
+                if shard is None:
+                    shard = self._shards[s] = np.zeros(
+                        (self._shard_rows(s), self.d), np.float32)
+                shard[r] = rows[j]
+            if pf is not None and pf.buf is not None:
+                pos = {int(c): j for j, c in enumerate(pf.idx)}
+                for j, c in enumerate(idx):
+                    p = pos.get(int(c))
+                    if p is not None:
+                        pf.buf[p] = rows[j]

@@ -1,7 +1,11 @@
 """Wire formats, transport and faults for FedCAMS messages (counterpart of
 ``repro.comm``): ``wire`` (packed byte codecs), ``transport`` (the
-simulated network), ``metrics`` (``CommLog``) and ``faults`` (the fault
-model, its planner and the server's validation before ingest)."""
+simulated network), ``metrics`` (``CommLog``), ``faults`` (the fault
+model, its planner and the server's validation before ingest) and
+``async_engine`` (the event-driven buffered rounds)."""
+from repro_torch.comm.async_engine import (STALENESS_WEIGHTS,  # noqa: F401
+                                           AsyncRoundEngine,
+                                           resolve_staleness_weight)
 from repro_torch.comm.faults import (FAULT_CORRUPT_MODES,  # noqa: F401
                                      FaultConfig, FaultInjector, FaultPlan)
 from repro_torch.comm.metrics import CommLog  # noqa: F401

@@ -11,7 +11,8 @@ import importlib
 _EXPORTS = {
     "FederatedTrainer": "api",
     "Compressor": "compressors", "Selection": "compressors",
-    "make_compressor": "compressors", "selection_to_dense": "compressors",
+    "make_compressor": "compressors", "randk_positions": "compressors",
+    "selection_to_dense": "compressors",
     "ef_compress": "error_feedback", "ef_compress_masked": "error_feedback",
     "LocalUpdate": "local", "make_local_update": "local",
     "sample_clients": "sampling",

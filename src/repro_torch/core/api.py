@@ -4,7 +4,7 @@ the examples and users drive.
 
 Counterpart of ``repro.core.api.FederatedTrainer`` with its simulation
 backend (``mesh=None``: FedSim, any client count, the paper's semantics,
-one device). The mesh backend is not ported: a non-None ``mesh`` raises.
+one device; the async buffered engine and the EF store included). The mesh backend is not ported: a non-None ``mesh`` raises.
 ``device`` picks where the state and the rounds run; ``None`` means CUDA
 and raises without a card (pass ``device="cpu"`` to run on the CPU).
 
@@ -86,7 +86,10 @@ class FederatedTrainer:
         """Train for ``rounds``. With ``scan_rounds=R > 1`` the trainer
         stages R rounds of client ids and batches at a time and runs them
         through ``FedSim.run_rounds`` (the same history as the per-round
-        loop); otherwise one ``FedSim.round`` call a round. With
+        loop; with ``fed.ef_store`` its loop prefetches each next round's
+        EF rows); otherwise one ``FedSim.round`` call a round. With
+        ``fed.async_buffer`` the whole run is staged at once and the
+        history holds one row a flush. With
         ``train.checkpoint_every`` the state is saved to ``ckpt_round{r}``
         (in the working directory) where the JAX trainer saves it: after
         round r when r is a positive multiple, and under ``scan_rounds``
@@ -96,6 +99,13 @@ class FederatedTrainer:
         gen = torch.Generator().manual_seed(self.train.seed + 1)
         ce = self.train.checkpoint_every
         t0 = time.time()
+        if self.fed.async_buffer:
+            # the async engine consumes ALL staged cohorts in one run_rounds
+            # call — its flush count need not equal the cohort count — so
+            # the whole run is one chunk; ``rounds`` then counts dispatched
+            # cohorts and the history rows are flushes (max(·, 2) keeps a
+            # single round on the staged path, which the engine needs)
+            scan_rounds = max(rounds, 2)
 
         def record(met, r):
             rec = {k: float(v) for k, v in met.items()}
@@ -138,6 +148,8 @@ class FederatedTrainer:
         """Checkpoint the state in the JAX trainer's layout
         (``convert.state_to_jax``): ``repro.checkpoint.load_pytree`` reads
         it into a JAX trainer's state, and this package's ``load_pytree``
-        reads a JAX trainer's checkpoint."""
+        reads a JAX trainer's checkpoint. With ``fed.ef_store`` the
+        ``errors`` leaf is the (n, d) cohort block of the last round, as
+        the JAX trainer writes it."""
         save_pytree(path, state_to_jax(self._state, self._sim.unravel),
                     {"round": len(self.history), "algo": self.fed.algorithm})

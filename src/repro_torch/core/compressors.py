@@ -19,14 +19,18 @@ Counterpart of ``repro.core.compressors``:
   ``compress`` equals the kernel bitwise and ``jnp.mean``'s scale within a
   few ulp;
 * ``int8`` (absmax scale, round half to even) and ``none``/``identity``,
-  bitwise the JAX compressors.
+  bitwise the JAX compressors;
+* ``randk``: k coordinates drawn uniformly at random. The JAX compressor
+  draws them from its PRNG key (``jax.random.permutation(rng, d)[:k]``), a
+  stream the port does not reproduce, so the port's ``compress(x, idx)``
+  takes the k drawn positions as its second argument, and
+  :func:`randk_positions` draws a round's sets from a generator on the
+  round's device. Bitwise the JAX compressor on the same positions.
 
 In the FedSim round the blocktopk selection runs through the
 ``topk_ef_sparse`` kernel, and the dense uplink's error feedback through
 ``topk_ef`` and ``sign_ef`` (:mod:`repro_torch.core.error_feedback`).
 
-``randk`` draws its coordinates from a JAX PRNG stream the port cannot
-reproduce; :func:`make_compressor` refuses it by name.
 """
 from __future__ import annotations
 
@@ -65,7 +69,9 @@ def selection_to_dense(sel: Selection, d: int) -> torch.Tensor:
 @dataclass(frozen=True)
 class Compressor:
     name: str
-    compress: Callable                      # (x, rng=None) -> x_hat (dense)
+    # (x, rng=None) -> x_hat (dense); randk's second argument is its drawn
+    # positions (make_randk)
+    compress: Callable
     bits_per_message: Callable              # d -> wire bits
     q_bound: Callable                       # (x,) -> q (Assumption 4.14)
     ratio: float = 1.0
@@ -183,6 +189,46 @@ def make_sign() -> Compressor:
     )
 
 
+def make_randk(ratio: float) -> Compressor:
+    """Keep k = max(1, round(ratio·d)) coordinates at positions drawn
+    outside: ``compress(x, idx)`` with ``idx`` the (k,) drawn positions
+    (distinct, in [0, d)) returns ``x`` on them and zeros elsewhere."""
+    def compress(x, idx=None):
+        if idx is None:
+            raise ValueError("randk needs its drawn positions: "
+                             "compress(x, idx) (see randk_positions)")
+        flat = x.reshape(-1)
+        out = torch.zeros_like(flat)
+        out[idx] = flat[idx]
+        return out.reshape(x.shape)
+
+    return Compressor(
+        name=f"randk_{ratio:g}",
+        compress=compress,
+        bits_per_message=lambda d: 64 * max(1, int(round(ratio * d))),
+        q_bound=lambda x: 1.0,   # only contractive in expectation
+        ratio=ratio,
+    )
+
+
+def randk_positions(rng: Optional[torch.Generator], d: int, k: int,
+                    count: int, device) -> torch.Tensor:
+    """``count`` sets of k distinct positions of [0, d), each the first k of
+    a uniform random permutation: (count, k) int64 on ``device``. They are
+    drawn on the device from a generator there, seeded by one draw from
+    ``rng`` (the round's host generator), so a round's sets depend on its
+    ``rng`` alone. FedSim asks for a round's n client sets, γ's set and the
+    two-way downlink's in one call (the JAX round folds its key with the
+    client position, 999983 and 10⁶)."""
+    if rng is None:
+        raise ValueError("compressor 'randk' draws its positions every "
+                         "round: pass a torch.Generator")
+    seed = int(torch.randint(0, 2 ** 62, (), generator=rng))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keys = torch.rand((count, d), generator=gen, device=device)
+    return keys.argsort(dim=1)[:, :k]
+
+
 def make_int8() -> Compressor:
     def compress(x, rng=None):
         scale = ref.div_rn(x.abs().amax(), 127.0)
@@ -225,8 +271,5 @@ def make_compressor(name: str, ratio: float = 1 / 64,
     if name == "int8":
         return make_int8()
     if name == "randk":
-        raise NotImplementedError(
-            "compressor 'randk' is not ported to repro_torch yet: its JAX "
-            "draw cannot be reproduced, so it waits for a slice that takes "
-            "the draw as an input")
+        return make_randk(ratio)
     raise ValueError(f"unknown compressor {name!r}")

@@ -13,10 +13,11 @@ runs).
 The kernel route is per call, as ``repro.kernels.ops.KernelImpl.
 ef_compress_leaf`` is per leaf: sign/packedsign go through
 ``kernels.ops.sign_ef`` and blocktopk through ``kernels.ops.topk_ef`` (the
-CUDA kernels on the card, their twins on the CPU). Global top-k, int8 and
-identity run ``comp.compress`` per client as plain torch — the kernel
-route's ``"topk"`` is blockwise, a different function from the global
-top-k that ``make_topk`` computes.
+CUDA kernels on the card, their twins on the CPU). Global top-k, int8,
+randk and identity run ``comp.compress`` per client as plain torch — the
+kernel route's ``"topk"`` is blockwise, a different function from the
+global top-k that ``make_topk`` computes. randk takes its drawn positions
+(``draws``, one row a client) where the JAX functions take a PRNG key.
 """
 from __future__ import annotations
 
@@ -26,12 +27,13 @@ from repro_torch.core.compressors import Compressor, block_layout
 from repro_torch.kernels import ops
 
 
-def ef_compress_rows(comp: Compressor, delta, errors, rows):
+def ef_compress_rows(comp: Compressor, delta, errors, rows, draws=None):
     """EF compression for ``c`` clients on the resident buffer.
 
     ``delta``: (c, d) fp32; ``errors``: (m, d) fp32 EF buffer whose rows
-    ``rows`` ((c,) int64, distinct) become ``delta + e − Δ̂`` IN PLACE.
-    Returns the (c, d) hats Δ̂."""
+    ``rows`` ((c,) int64, distinct) become ``delta + e − Δ̂`` IN PLACE;
+    ``draws``: randk's (c, k) drawn positions, else None. Returns the (c, d)
+    hats Δ̂."""
     if comp.name in ("sign", "packedsign"):
         return ops.sign_ef(delta, errors, rows)
     if comp.name.startswith("blocktopk"):
@@ -39,20 +41,24 @@ def ef_compress_rows(comp: Compressor, delta, errors, rows):
         k = max(1, int(round(comp.ratio * bs)))
         return ops.topk_ef(delta, errors, rows, k=k, block=bs)
     tot = errors[rows] + delta
-    hat = torch.stack([comp.compress(t) for t in tot])
+    if draws is None:
+        draws = [None] * tot.shape[0]
+    hat = torch.stack([comp.compress(t, r) for t, r in zip(tot, draws)])
     errors[rows] = tot - hat
     return hat
 
 
 def ef_compress(comp: Compressor, delta, error, rng=None):
     """Returns ``(delta_hat, new_error)`` for (c, d) — or (d,) — ``delta``
-    and ``error``; ``error`` is not modified. ``rng`` is accepted for the
-    JAX signature; no ported compressor draws."""
+    and ``error``; ``error`` is not modified. ``rng`` stands where the JAX
+    function takes its key: randk's drawn positions, (c, k) — or (k,) —,
+    and unused by every other compressor."""
     one = delta.dim() == 1
     d2 = delta.reshape(1, -1) if one else delta
     new_err = error.reshape(d2.shape).clone()
     rows = torch.arange(d2.shape[0], device=d2.device)
-    hat = ef_compress_rows(comp, d2, new_err, rows)
+    draws = None if rng is None else rng.reshape(d2.shape[0], -1)
+    hat = ef_compress_rows(comp, d2, new_err, rows, draws)
     if one:
         return hat.reshape(delta.shape), new_err.reshape(delta.shape)
     return hat, new_err

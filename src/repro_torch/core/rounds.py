@@ -4,7 +4,8 @@
 * ``core/local.py``  — local-update rules, the per-round local LR
   schedule, heterogeneous per-client step counts;
 * ``core/stages.py`` — the simulation-side EF→compress→wire stages, the
-  server aggregates and the two-way downlink;
+  server aggregates (plain, grouped, masked, weighted) and the two-way
+  downlink;
 * ``core/sim.py``    — ``FedSim``, the simulation backend.
 
 The mesh backend's names (``build_fed_round`` and the mesh strategies) wait
@@ -17,5 +18,7 @@ from repro_torch.core.sim import FedSim, SimState  # noqa: F401
 from repro_torch.core.stages import (client_uplink,  # noqa: F401
                                      client_uplink_sparse, gamma_diagnostic,
                                      server_aggregate_sparse,
+                                     server_aggregate_sparse_grouped,
                                      server_aggregate_sparse_masked,
+                                     server_aggregate_sparse_weighted,
                                      server_downlink)

@@ -44,14 +44,31 @@ server validates every payload before ingest and aggregates the survivors
 only, and the metrics gain ``survivors``, ``rejected``, ``crashed`` and
 ``deadline_cut``.
 
+Scale-out: ``fed.ef_store`` keeps the (m, d) EF rows host-side in a
+``checkpoint.store.EFStore`` and the device holds the cohort's (n, d)
+block (gathered before the round, scattered back after it, the next
+round's rows prefetched meanwhile); ``fed.client_chunk`` trains and uplinks
+the cohort in chunks of that many clients (one ``topk_ef_sparse`` launch a
+chunk on the sparse path), summing into a running aggregate; and
+``fed.agg_groups`` aggregates in two tiers (a dense partial per group,
+then their sum), billing the g partials as tier-2 wire bytes.
+
+With ``fed.async_buffer`` the rounds are event-driven
+(``comm.async_engine.AsyncRoundEngine``): :meth:`FedSim.run_rounds`
+dispatches the staged cohorts (:meth:`FedSim._async_dispatch`) and flushes
+every B deliveries (:meth:`FedSim._async_flush`); :meth:`FedSim.round`
+refuses.
+
+randk draws its positions every round (``compressors.randk_positions``,
+from the round's generator): the n clients' sets, γ's and the two-way
+downlink's.
+
 Differences from the JAX class: the state holds the FLAT (d,) model
 (``FedSim.unravel`` gives the dict of views in JAX shapes); a round updates
 the input state's EF buffer in place, as the JAX round donates it, so keep
 only the returned state; per-client local training is a loop of
-``torch.autograd`` steps; ``run_rounds`` is a plain loop.
-
-Knobs outside this slice raise ``NotImplementedError`` naming the knob:
-``async_buffer``, ``ef_store``, ``client_chunk`` and ``agg_groups > 1``.
+``torch.autograd`` steps; ``run_rounds`` is a plain loop; randk takes
+drawn positions where the JAX compressor takes a PRNG key.
 """
 from __future__ import annotations
 
@@ -62,6 +79,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.store import EFStore
+from repro_torch.comm.async_engine import AsyncRoundEngine
 from repro_torch.comm.faults import (FaultConfig, FaultInjector,
                                      corrupt_dense, corrupt_selection,
                                      plan_to_device, validate_dense,
@@ -71,7 +90,7 @@ from repro_torch.comm.transport import NetworkConfig, SimulatedNetwork
 from repro_torch.comm.wire import make_dense32_codec, make_wire_codec
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.compressors import (Compressor, block_layout,
-                                          make_compressor)
+                                          make_compressor, randk_positions)
 from repro_torch.core.local import (hetero_step_counts, local_lr,
                                     make_local_update, run_local_steps)
 from repro_torch.core.server_opt import (FUSED_INGEST_GROUPS_DETAIL,
@@ -79,34 +98,26 @@ from repro_torch.core.server_opt import (FUSED_INGEST_GROUPS_DETAIL,
                                          server_update)
 from repro_torch.core.stages import (client_uplink, client_uplink_sparse,
                                      gamma_diagnostic, resolve_fused_ingest,
+                                     scatter_add_clients,
                                      server_aggregate_sparse,
+                                     server_aggregate_sparse_grouped,
                                      server_aggregate_sparse_masked,
+                                     server_aggregate_sparse_weighted,
                                      server_downlink, stage)
+from repro_torch.kernels import ref
 from repro_torch.models.params import ravel
 
 
 class SimState(NamedTuple):
     params: torch.Tensor        # (d,) flat model (ravel_pytree order)
     opt: object                 # ServerState over the flat vector
-    errors: torch.Tensor        # (m, d) per-client EF errors
+    errors: torch.Tensor        # (m, d) per-client EF errors — or, with
+    # fed.ef_store, the (n, d) cohort rows of the last round (the full store
+    # lives host-side)
     server_error: torch.Tensor  # (d,) server-side EF error (two-way mode)
     x_client: torch.Tensor      # (d,) model as clients see it
     bits: int                   # cumulative one-way communicated bits
     round: int
-
-
-def _refuse_unported(fed: FedConfig) -> None:
-    unported = {
-        "async_buffer": fed.async_buffer > 0,
-        "ef_store": fed.ef_store,
-        "client_chunk": fed.client_chunk > 0,
-        "agg_groups": fed.agg_groups > 1,
-    }
-    for knob, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"FedConfig.{knob}={getattr(fed, knob)!r}: not ported to "
-                f"repro_torch's FedSim yet")
 
 
 class FedSim:
@@ -121,7 +132,6 @@ class FedSim:
     def __init__(self, loss_fn: Callable, fed: FedConfig,
                  compressor: Optional[Compressor] = None,
                  network: Optional[SimulatedNetwork] = None, *, device=None):
-        _refuse_unported(fed)
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.fed = fed
@@ -138,6 +148,28 @@ class FedSim:
             raise ValueError(
                 "sparse_uplink=True needs a compressor with a .select "
                 "(topk/blocktopk family); this one has none")
+        n_round = fed.participating or fed.num_clients
+        if fed.client_chunk and 0 < fed.client_chunk < n_round \
+                and n_round % fed.client_chunk:
+            raise ValueError(
+                f"client_chunk={fed.client_chunk} must divide the "
+                f"per-round client count n={n_round} — a silent fallback "
+                f"to the full (n, d) vmap would defeat the memory bound")
+        if fed.agg_groups > 1:
+            # groups merge compacted selections: the dense paths can't
+            if not self.sparse:
+                raise ValueError(
+                    "FedConfig.agg_groups > 1 needs the select-once sparse "
+                    "(vals, idx) uplink — this config resolved the dense "
+                    "reference path (no compacted selection to group-merge)")
+            if fed.client_chunk and 0 < fed.client_chunk < n_round \
+                    and fed.client_chunk != n_round // fed.agg_groups:
+                raise ValueError(
+                    f"client_chunk={fed.client_chunk} and agg_groups="
+                    f"{fed.agg_groups} both set: the chunk must equal the "
+                    f"group size n//g={n_round // fed.agg_groups} so each "
+                    f"scan step is exactly one group's tier-1 merge")
+        chunked = bool(fed.client_chunk) and 0 < fed.client_chunk < n_round
         # a bare fed.deadline_s means "deadline cutoff, no injected faults"
         fcfg = fed.fault
         if fed.deadline_s > 0:
@@ -146,15 +178,20 @@ class FedSim:
         self.faults = (FaultInjector(fcfg, fed.num_clients)
                        if fcfg is not None else None)
         eligible = (self.sparse and self.comp.name.startswith("blocktopk")
-                    and not fed.track_gamma and self.faults is None)
+                    and not fed.track_gamma and not chunked
+                    and fed.agg_groups <= 1 and self.faults is None)
         self._fused = resolve_fused_ingest(
             fed, eligible=eligible, have_kernel=True,
             compiled=self.device.type == "cuda",
-            detail="FedSim fuses only the sparse blocktopk uplink with "
-                   "track_gamma=False (the γ diagnostic consumes a dense "
-                   "aggregate) and no fault injection (the masked survivor "
-                   "aggregate needs the unfused scatter path)"
+            detail="FedSim fuses only the unchunked sparse blocktopk "
+                   "uplink with track_gamma=False (the γ diagnostic and "
+                   "the client_chunk scan both consume a dense aggregate) "
+                   "and no fault injection (the masked survivor aggregate "
+                   "needs the unfused scatter path)"
                    + FUSED_INGEST_GROUPS_DETAIL)
+        self._randk = (self.comp is not None
+                       and self.comp.name.startswith("randk"))
+        self._efs = None   # EFStore, made in init() once d is known
         self.unravel = None
         self.codec = self.network = self.comm_log = None
         if network is not None and not fed.wire:
@@ -171,6 +208,9 @@ class FedSim:
             self.network = network or SimulatedNetwork(NetworkConfig(),
                                                        fed.num_clients)
             self.comm_log = CommLog()
+        # event-driven buffered rounds: FedConfig has already pinned the
+        # slice they run (wire, sparse uplink, no deadline/groups/ef_store)
+        self._async = AsyncRoundEngine(self) if fed.async_buffer else None
 
     def init(self, params) -> SimState:
         """``params``: a nested dict of tensors in JAX shapes."""
@@ -183,11 +223,18 @@ class FedSim:
         # selections carry padded-tail indices in [d, nb·bs), which the
         # scatter drops: validation accepts the padded domain, not [0, d)
         self._sel_domain = bs * nb
+        m = self.fed.num_clients
+        err_rows = m
+        if self.fed.ef_store:
+            # the (m, d) store lives host-side in lazy numpy shards; the
+            # device holds the participating cohort's rows
+            self._efs = EFStore(m, d)
+            err_rows = self.fed.participating or m
         return SimState(
             params=flat,
             opt=init_server_state(flat, self.fed.server_state_dtype,
                                   self._ingest_block),
-            errors=torch.zeros((self.fed.num_clients, d), dtype=torch.float32,
+            errors=torch.zeros((err_rows, d), dtype=torch.float32,
                                device=self.device),
             server_error=torch.zeros(d, dtype=torch.float32,
                                      device=self.device),
@@ -212,26 +259,68 @@ class FedSim:
 
     def _record_timing(self, timing, finfo) -> dict:
         """Book one round's timing into the CommLog and return its metric
-        entries. A fault round books the planner's deadline-truncated
-        wall-clock (so ``sim_time_s == Σ round_time_s``) and bills uplink
-        bytes only for the clients whose payload arrived — delivered but
-        rejected clients count (the wire carried their bytes)."""
+        entries. With two-level aggregation the uplink is billed per tier:
+        n client messages (tier 1) plus g dense fp32 group partials pushed
+        to the root (tier 2). A fault round books the planner's
+        deadline-truncated wall-clock (so ``sim_time_s == Σ round_time_s``)
+        and bills uplink bytes only for the clients whose payload arrived —
+        delivered but rejected clients count (the wire carried their
+        bytes)."""
         eff_time = delivered = None
         if finfo is not None:
             eff_time = finfo["round_time_s"]
             delivered = int(finfo["survivors"]) * self.codec.nbytes(self._d)
-        return self.comm_log.record(timing, round_time_s=eff_time,
+        g = self.fed.agg_groups
+        return self.comm_log.record(timing,
+                                    tier2_bytes=g * 4 * self._d if g > 1
+                                    else 0,
+                                    round_time_s=eff_time,
                                     delivered_uplink_bytes=delivered)
+
+    def _host_to_device(self, client_batches, ids, fplan):
+        """A round's batches (host arrays or tensors), its ids (host int64)
+        and fault plan (or None) on the round's device."""
+        with stage("host_to_device"):
+            batches = {k: torch.as_tensor(v).to(self.device)
+                       for k, v in client_batches.items()}
+            rows = torch.as_tensor(ids, device=self.device)
+            if fplan is not None:
+                fplan = plan_to_device(fplan, self.device)
+        return batches, rows, fplan
+
+    def _draws(self, rng, n: int):
+        """randk's positions for one round — (n + 2, k): the n clients'
+        sets, γ's and the two-way downlink's — or None for every other
+        compressor."""
+        if not self._randk:
+            return None
+        k = max(1, int(round(self.comp.ratio * self._d)))
+        return randk_positions(rng, self._d, k, n + 2, self.device)
 
     # -- one round ---------------------------------------------------------
     def round(self, state: SimState, client_batches, client_idx,
-              rng: Optional[torch.Generator] = None):
+              rng: Optional[torch.Generator] = None, *, prefetch_idx=None):
         """``client_batches``: dict of arrays with leading (n, K, ...);
         ``client_idx``: (n,) distinct client ids (host array or tensor);
-        ``rng``: a ``torch.Generator``, needed only for heterogeneous step
-        counts. The input state's EF buffer is updated in place."""
+        ``rng``: a ``torch.Generator``, needed for heterogeneous step counts
+        and randk's draws. The input state's EF buffer is updated in place.
+
+        With ``fed.ef_store`` the round gathers the cohort's rows from the
+        host store into an (n, d) device block, runs over row *positions*
+        (per-client batches and draws key off position already, so every
+        row's math is bitwise the resident buffer's), and scatters the rows
+        back; ``prefetch_idx`` (the NEXT round's ids) starts the background
+        gather for round r+1 before this round's rows come back."""
+        if self._async is not None:
+            raise ValueError(
+                "fed.async_buffer routes training through the event-driven "
+                "buffered engine, which consumes ALL staged cohorts in one "
+                "call — use run_rounds(...) (FederatedTrainer.run stages "
+                "this automatically)")
         if isinstance(client_idx, torch.Tensor):
             client_idx = client_idx.cpu().numpy()
+        if isinstance(prefetch_idx, torch.Tensor):
+            prefetch_idx = prefetch_idx.cpu().numpy()
         ids = np.array(client_idx, dtype=np.int64)
         if np.unique(ids).size != ids.size:
             raise ValueError("client_idx must hold distinct client ids")
@@ -241,15 +330,26 @@ class FedSim:
         fplan = finfo = None
         if self.faults is not None:
             fplan, finfo = self.faults.plan(ids, state.round, timing)
-        with stage("host_to_device"):
-            idx = torch.as_tensor(ids, device=self.device)
-            batches = {k: torch.as_tensor(v).to(self.device)
-                       for k, v in client_batches.items()}
-            if fplan is not None:
-                fplan = plan_to_device(fplan, self.device)
+        batches, idx, fplan = self._host_to_device(client_batches, ids, fplan)
         k_all = hetero_step_counts(self.fed, rng, ids.size)
-        new_state, met = self._round_impl(state, batches, idx, state.round,
-                                          k_all, fplan)
+        draws = self._draws(rng, ids.size)
+        if self._efs is None:
+            new_state, met = self._round_impl(state, batches, idx,
+                                              state.round, k_all, fplan,
+                                              draws)
+        else:
+            with stage("ef_store"):
+                rows = torch.from_numpy(self._efs.gather(ids))
+                cohort = state._replace(errors=rows.to(self.device))
+            pos = torch.arange(ids.size, device=self.device)
+            new_state, met = self._round_impl(cohort, batches, pos,
+                                              state.round, k_all, fplan,
+                                              draws)
+            with stage("ef_store"):
+                if prefetch_idx is not None:
+                    self._efs.prefetch(np.asarray(prefetch_idx))
+                # the copy back waits for the round; the prefetch overlaps
+                self._efs.scatter(ids, new_state.errors.cpu().numpy())
         bits = state.bits + self._bits_per_round(ids.size)
         met["bits"] = bits
         if timing is not None:
@@ -263,12 +363,19 @@ class FedSim:
                    rngs=None):
         """R rounds as a loop of :meth:`round`. ``client_batches``: leading
         (R, n, K, ...); ``client_idx``: (R, n); ``rngs``: R generators or
-        None. Returns ``(new_state, mets)``."""
+        None. Returns ``(new_state, mets)``. With ``fed.ef_store`` each
+        round prefetches the next round's rows. With ``fed.async_buffer``
+        the async engine consumes all R cohorts and returns one metric dict
+        per FLUSH — ``ceil(deliveries / B)`` of them, not R."""
+        if self._async is not None:
+            return self._async.run(state, client_batches, client_idx, rngs)
         mets = []
-        for r in range(len(client_idx)):
+        R = len(client_idx)
+        for r in range(R):
             b_r = {k: v[r] for k, v in client_batches.items()}
-            state, met = self.round(state, b_r, client_idx[r],
-                                    None if rngs is None else rngs[r])
+            state, met = self.round(
+                state, b_r, client_idx[r], None if rngs is None else rngs[r],
+                prefetch_idx=client_idx[r + 1] if r + 1 < R else None)
             mets.append(met)
         return state, mets
 
@@ -292,7 +399,7 @@ class FedSim:
         return torch.stack(deltas), torch.stack(losses)
 
     def _fault_round(self, state: SimState, batches, client_idx, round_idx,
-                     k_all, fplan):
+                     k_all, fplan, draws=None):
         """Fault-tolerant round: every client trains and uplinks as usual —
         the damage is in transit — then the server masks the aggregate down
         to the validated survivors.
@@ -315,6 +422,7 @@ class FedSim:
         corrupting = fcfg.corrupt_prob > 0
         flat0 = state.x_client
         d = flat0.numel()
+        n = client_idx.numel()
         with stage("local_training"):
             delta, losses = self._train_block(flat0, batches,
                                               local_lr(fed, round_idx), k_all)
@@ -331,7 +439,8 @@ class FedSim:
                                                   self.codec)
             else:
                 hats = client_uplink(self.comp, self.codec, d, delta, errors,
-                                     client_idx)
+                                     client_idx,
+                                     None if draws is None else draws[:n])
         with stage("validate"):
             if self.sparse:
                 rx, ridx = (corrupt_selection(vals, sidx, fplan, mode)
@@ -359,7 +468,7 @@ class FedSim:
         with stage("downlink"):
             x_client, server_error = server_downlink(
                 fed, self.comp, self.codec, new_flat, state.x_client,
-                state.server_error)
+                state.server_error, None if draws is None else draws[n + 1])
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         met = {"loss": loss, "gamma": zero, "survivors": surv.sum(),
                "rejected": (fplan.survivors * (1.0 - valid)).sum()}
@@ -367,57 +476,224 @@ class FedSim:
                                server_error=server_error, x_client=x_client),
                 met)
 
+    def _chunked_clients(self, errors, batches, client_idx, flat0, eta_l,
+                         k_all, draws):
+        """The client half of a ``client_chunk`` round: the cohort trains
+        and uplinks ``client_chunk`` clients at a time, so the deltas, hats
+        and EF totals in flight are (cc, d), not (n, d). The sparse path
+        scatters each chunk's ``(vals, idx)`` into a running (d + 1,) sum in
+        client order (bitwise the unchunked scatter-mean), or, with
+        ``agg_groups > 1`` (chunk == group), into a fresh partial per chunk
+        that the running sum then adds (bitwise
+        ``server_aggregate_sparse_grouped``); the dense path sums the
+        chunks' hats. Returns ``(agg, losses, mean_tot, mean_delta)``; the
+        means of the EF totals and of the deltas (for γ) are summed chunk
+        by chunk under ``track_gamma`` only, else None."""
+        fed = self.fed
+        n = client_idx.numel()
+        cc = fed.client_chunk
+        d = flat0.numel()
+        zeros = lambda size: torch.zeros(size, dtype=torch.float32,
+                                         device=flat0.device)
+        track = fed.track_gamma and self.comp is not None
+        s_hat = zeros(d + 1 if self.sparse else d)
+        s_tot, s_delta = (zeros(d), zeros(d)) if track else (None, None)
+        losses = []
+        for c0 in range(0, n, cc):
+            part = slice(c0, c0 + cc)
+            rows = client_idx[part]
+            with stage("local_training"):
+                delta, loss_c = self._train_block(
+                    flat0, {k: v[part] for k, v in batches.items()}, eta_l,
+                    None if k_all is None else k_all[part])
+            with stage("uplink"):
+                if track:
+                    s_tot += (errors[rows] + delta).sum(dim=0)
+                    s_delta += delta.sum(dim=0)
+                if self.sparse:
+                    vals, sidx = client_uplink_sparse(
+                        self.comp, errors, rows, delta, self._ingest_block,
+                        self.codec)
+                else:
+                    hats = client_uplink(
+                        self.comp, self.codec, d, delta, errors, rows,
+                        None if draws is None else draws[part])
+            with stage("server_aggregate"):
+                if not self.sparse:
+                    s_hat += hats.sum(dim=0)
+                elif fed.agg_groups > 1:
+                    s_hat += scatter_add_clients(zeros(d + 1), vals, sidx)
+                else:
+                    scatter_add_clients(s_hat, vals, sidx)
+            losses.append(loss_c)
+        agg = ref.div_rn(s_hat, n)[:d]
+        if not track:
+            return agg, torch.cat(losses), None, None
+        return (agg, torch.cat(losses), ref.div_rn(s_tot, n),
+                ref.div_rn(s_delta, n))
+
     def _round_impl(self, state: SimState, batches, client_idx, round_idx,
-                    k_all, fplan=None):
+                    k_all, fplan=None, draws=None):
         if fplan is not None:
             return self._fault_round(state, batches, client_idx, round_idx,
-                                     k_all, fplan)
+                                     k_all, fplan, draws)
         fed = self.fed
         n = client_idx.numel()
         flat0 = state.x_client
         d = flat0.numel()
-        with stage("local_training"):
-            delta, losses = self._train_block(flat0, batches,
-                                              local_lr(fed, round_idx), k_all)
-            loss = losses.mean()
+        eta_l = local_lr(fed, round_idx)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         errors = state.errors
-        mean_tot = None
-        with stage("uplink"):
-            if fed.track_gamma and self.comp is not None:
-                # the diagnostic needs the EF totals before the uplink
-                mean_tot = (errors[client_idx] + delta).mean(dim=0)
-            if self.sparse:
-                vals, sidx = client_uplink_sparse(self.comp, errors,
-                                                  client_idx, delta,
-                                                  self._ingest_block,
-                                                  self.codec)
-            else:
-                hats = client_uplink(self.comp, self.codec, d, delta, errors,
-                                     client_idx)
-        if self.sparse and self._fused != "off":
-            # one-pass fused ingest: the selections go straight into the
-            # m/v/v̂/x update, no dense mean delta
-            with stage("server_ingest"):
-                new_flat, opt = server_ingest(
-                    fed, state.opt, state.params, vals, sidx, n,
-                    block=self._ingest_block, impl=self._fused)
-            gamma = zero
+        cc = fed.client_chunk
+        if cc and 0 < cc < n and n % cc:   # n may differ from the
+            # configured count __init__ checked against
+            raise ValueError(
+                f"client_chunk={cc} does not divide this round's client "
+                f"count n={n} — refusing to silently fall back to the "
+                f"full (n, d) vmap")
+        if cc and 0 < cc < n:
+            agg, losses, mean_tot, mean_delta = self._chunked_clients(
+                errors, batches, client_idx, flat0, eta_l, k_all, draws)
+            loss = losses.mean()
         else:
+            with stage("local_training"):
+                delta, losses = self._train_block(flat0, batches, eta_l,
+                                                  k_all)
+                loss = losses.mean()
+            mean_tot = mean_delta = None
+            with stage("uplink"):
+                if fed.track_gamma and self.comp is not None:
+                    # the diagnostic needs the EF totals before the uplink
+                    mean_tot = (errors[client_idx] + delta).mean(dim=0)
+                    mean_delta = delta.mean(dim=0)
+                if self.sparse:
+                    vals, sidx = client_uplink_sparse(self.comp, errors,
+                                                      client_idx, delta,
+                                                      self._ingest_block,
+                                                      self.codec)
+                else:
+                    hats = client_uplink(self.comp, self.codec, d, delta,
+                                         errors, client_idx,
+                                         None if draws is None
+                                         else draws[:n])
+            if self.sparse and self._fused != "off":
+                # one-pass fused ingest: the selections go straight into
+                # the m/v/v̂/x update, no dense mean delta
+                with stage("server_ingest"):
+                    new_flat, opt = server_ingest(
+                        fed, state.opt, state.params, vals, sidx, n,
+                        block=self._ingest_block, impl=self._fused)
+                with stage("downlink"):
+                    x_client, server_error = server_downlink(
+                        fed, self.comp, self.codec, new_flat, state.x_client,
+                        state.server_error)
+                return (state._replace(params=new_flat, opt=opt,
+                                       errors=errors,
+                                       server_error=server_error,
+                                       x_client=x_client),
+                        {"loss": loss, "gamma": zero})
             with stage("server_aggregate"):
-                agg = (server_aggregate_sparse(vals, sidx, d, n)
-                       if self.sparse else hats.mean(dim=0))
-            with stage("gamma"):
-                gamma = (gamma_diagnostic(self.comp, mean_tot, agg,
-                                          delta.mean(dim=0))
-                         if fed.track_gamma else zero)
-            with stage("server_update"):
-                new_flat, opt = server_update(fed, state.opt, state.params,
-                                              agg)
+                if not self.sparse:
+                    agg = hats.mean(dim=0)
+                elif fed.agg_groups > 1:
+                    agg = server_aggregate_sparse_grouped(vals, sidx, d, n,
+                                                          fed.agg_groups)
+                else:
+                    agg = server_aggregate_sparse(vals, sidx, d, n)
+        with stage("gamma"):
+            gamma = (gamma_diagnostic(self.comp, mean_tot, agg, mean_delta,
+                                      None if draws is None else draws[n])
+                     if fed.track_gamma else zero)
+        with stage("server_update"):
+            new_flat, opt = server_update(fed, state.opt, state.params, agg)
         with stage("downlink"):
             x_client, server_error = server_downlink(
                 fed, self.comp, self.codec, new_flat, state.x_client,
-                state.server_error)
+                state.server_error, None if draws is None else draws[n + 1])
         return (state._replace(params=new_flat, opt=opt, errors=errors,
                                server_error=server_error, x_client=x_client),
                 {"loss": loss, "gamma": gamma})
+
+    # -- async buffered engine steps ------------------------------------------
+    def _async_dispatch(self, errors, x_client, batches, client_idx,
+                        round_idx, k_all, fplan=None):
+        """Client side of one async cohort: train and take the select-once
+        sparse uplink against the CURRENT server model, EF booked at
+        dispatch in the resident buffer (in place). Without faults this is
+        the sync round's client half; with them it is
+        :meth:`_fault_round`'s: the damage comes after the EF books the
+        clean residual, and a client whose payload will be rejected (or who
+        crashed) gets its pre-dispatch row back, to repay on its next
+        dispatch — the verdict is a function of the payload, so the flush's
+        re-validation agrees with it. Returns ``(vals, idx, losses)``, the
+        payloads the engine schedules for delivery (validated at the
+        flush)."""
+        fed = self.fed
+        with stage("local_training"):
+            delta, losses = self._train_block(x_client, batches,
+                                              local_lr(fed, round_idx), k_all)
+        with stage("uplink"):
+            old_rows = errors[client_idx] if fplan is not None else None
+            vals, sidx = client_uplink_sparse(self.comp, errors, client_idx,
+                                              delta, self._ingest_block,
+                                              self.codec)
+        if fplan is None:
+            return vals, sidx, losses
+        fcfg = self.faults.cfg
+        with stage("validate"):
+            if fcfg.corrupt_prob > 0:
+                vals, sidx = corrupt_selection(vals, sidx, fplan,
+                                               fcfg.corrupt_mode)
+            _, valid = validate_selection(vals, sidx, self._sel_domain,
+                                          fcfg.max_update_norm)
+            surv = fplan.survivors * valid
+            errors.index_copy_(0, client_idx, torch.where(
+                surv[:, None] > 0, errors[client_idx], old_rows))
+        return vals, sidx, losses
+
+    def _async_flush(self, state: SimState, vals, idx, w, fill, losses):
+        """Server side of one buffered flush: ingest a fixed-shape (B, k)
+        buffer. ``w``: (B,) staleness weight × fill; ``fill``: (B,) 1.0 on
+        occupied slots (a partial flush's empty slots hold idx = 0, vals =
+        +0.0, w = 0). With faults armed the buffer is validated again
+        (NaN/Inf or out-of-range payloads get weight 0). The fused path
+        folds the weighted mean into the ingest's ``/B`` by the pre-scale
+        ``w·B/max(Σw, 1)`` — exactly 1.0 at unit weights, so the
+        buffer == cohort anchor stays bitwise on the fused path too — and
+        runs ``fedams_ingest``; otherwise the weighted scatter-mean and
+        ``server_update`` (``fedams_update``). Returns ``(state, met)``."""
+        fed = self.fed
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        rejected = zero
+        if self.faults is not None:
+            fcfg = self.faults.cfg
+            with stage("validate"):
+                vals, valid = validate_selection(vals, idx, self._sel_domain,
+                                                 fcfg.max_update_norm)
+                rejected = torch.where(w > 0, 1.0 - valid, 0.0).sum()
+                w = w * valid
+        # the loss over ingested entries only (fill-masked mean)
+        loss = (losses * fill).sum() / fill.sum().clamp_min(1.0)
+        if self._fused != "off":
+            b = vals.shape[0]
+            with stage("server_ingest"):
+                scale = w * (torch.full((), b, dtype=torch.float32,
+                                        device=w.device)
+                             / w.sum().clamp_min(1.0))
+                svals = torch.where(w[:, None] > 0, vals, 0.0) * scale[:, None]
+                new_flat, opt = server_ingest(fed, state.opt, state.params,
+                                              svals, idx, b,
+                                              block=self._ingest_block,
+                                              impl=self._fused)
+        else:
+            with stage("server_aggregate"):
+                agg = server_aggregate_sparse_weighted(vals, idx, self._d, w)
+            with stage("server_update"):
+                new_flat, opt = server_update(fed, state.opt, state.params,
+                                              agg)
+        # two_way is refused with async (FedConfig): the clients see the
+        # exact new model
+        met = {"loss": loss, "gamma": zero, "rejected": rejected,
+               "weight_sum": w.sum()}
+        return state._replace(params=new_flat, opt=opt,
+                              x_client=new_flat), met

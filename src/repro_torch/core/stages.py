@@ -1,6 +1,7 @@
 """Round stages of the simulation backend: the dense EF→compress→wire
-uplink, the select-once sparse uplink, the server aggregates (plain and
-survivor-masked), the two-way downlink and the γ diagnostic.
+uplink, the select-once sparse uplink, the server aggregates (plain,
+two-level grouped, survivor-masked and staleness-weighted), the two-way
+downlink and the γ diagnostic.
 
 Counterpart of the simulation-side half of ``repro.core.stages``. The
 mesh-side stages are not ported yet. The uplinks work on the resident
@@ -38,13 +39,14 @@ def _wire_roundtrip(codec, d: int, tot):
 
 
 def client_uplink(comp: Optional[Compressor], codec, d: int, delta, errors,
-                  rows):
+                  rows, draws=None):
     """Local delta → what the server receives, for a block of clients.
 
     ``delta``: (c, d) flat deltas; ``errors``: the (m, d) EF buffer, whose
     rows ``rows`` ((c,) int64, distinct) are updated IN PLACE — untouched
-    when ``comp`` is None. Returns the (c, d) hats. Four cases, as in
-    ``repro.core.stages.client_uplink``:
+    when ``comp`` is None; ``draws``: randk's (c, k) drawn positions (the
+    JAX stage's per-client keys), else None. Returns the (c, d) hats. Four
+    cases, as in ``repro.core.stages.client_uplink``:
 
     * comp + codec — wire mode: the EF totals really go through
       encode→decode, all c clients' messages as one block; EF tracks the
@@ -56,7 +58,7 @@ def client_uplink(comp: Optional[Compressor], codec, d: int, delta, errors,
     """
     if comp is not None:
         if codec is None:
-            return ef_compress_rows(comp, delta, errors, rows)
+            return ef_compress_rows(comp, delta, errors, rows, draws)
         tot = errors[rows] + delta
         hat = _wire_roundtrip(codec, d, tot)
         errors[rows] = tot - hat
@@ -121,13 +123,44 @@ def ef_update_sparse(errors, rows, idx, sel_vals, rx_vals):
     errors[r[keep], idx[keep].long()] = (sel_vals - rx_vals)[keep]
 
 
+def scatter_add_clients(acc, vals, idx):
+    """Add n clients' ``(vals, idx)`` (n, k) into ``acc`` ((d + 1,) fp32, in
+    place) client by client: one ``index_add_`` a client, whose indices are
+    distinct, so collisions add in client order on any device and no float
+    atomics race. Indices outside ``[0, d)`` (a padded tail,
+    ``INVALID_IDX``, a flipped index) land in the dead slot ``acc[d]``."""
+    d = acc.numel() - 1
+    safe = torch.where((idx >= 0) & (idx < d), idx, d).long()
+    for j in range(vals.shape[0]):
+        acc.index_add_(0, safe[j].reshape(-1), vals[j].reshape(-1))
+    return acc
+
+
 def server_aggregate_sparse(vals, idx, d: int, n: int):
     """Mean of n sparse client messages as a scatter-add over the (n·k)
-    received entries, client by client (``ref.scatter_mean_padded``: no
+    received entries, client by client (:func:`scatter_add_clients`: no
     atomics race, collisions add in client order). Out-of-range padded
     indices land in a dead slot past d and are dropped."""
-    safe = torch.where(idx < d, idx, d)
-    return ref.scatter_mean_padded(vals, safe, d + 1, n)[:d]
+    acc = torch.zeros(d + 1, dtype=torch.float32, device=vals.device)
+    return ref.div_rn(scatter_add_clients(acc, vals, idx), n)[:d]
+
+
+def server_aggregate_sparse_grouped(vals, idx, d: int, n: int, groups: int):
+    """Two-tier mean of n sparse client messages: the clients split into
+    ``groups`` contiguous groups of n/g; each group scatters its members'
+    entries client-major into a FRESH dense partial (tier 1), and the root
+    sums the g partials in group order (tier 2), then divides by n.
+    Against :func:`server_aggregate_sparse` only coordinates picked in two
+    or more groups can reassociate, by at most 1 ulp each (the reference's
+    own analysis)."""
+    per = vals.shape[0] // groups
+    total = None
+    for g in range(groups):
+        part = scatter_add_clients(
+            torch.zeros(d + 1, dtype=torch.float32, device=vals.device),
+            vals[g * per:(g + 1) * per], idx[g * per:(g + 1) * per])
+        total = part if total is None else total + part
+    return ref.div_rn(total, n)[:d]
 
 
 def server_aggregate_sparse_masked(vals, idx, d: int, surv):
@@ -142,15 +175,30 @@ def server_aggregate_sparse_masked(vals, idx, d: int, surv):
     the dead slot past d. With an all-ones mask this is bitwise
     :func:`server_aggregate_sparse`."""
     contrib = torch.where(surv[:, None] > 0, vals, 0.0)
-    safe = torch.where((idx >= 0) & (idx < d), idx, d)
-    acc = torch.zeros(d + 1, dtype=torch.float32, device=vals.device)
-    for j in range(vals.shape[0]):
-        acc.index_add_(0, safe[j].long(), contrib[j])
+    acc = scatter_add_clients(
+        torch.zeros(d + 1, dtype=torch.float32, device=vals.device), contrib,
+        idx)
     return (acc / surv.sum().clamp_min(1.0))[:d]
 
 
+def server_aggregate_sparse_weighted(vals, idx, d: int, w):
+    """Weighted sibling of :func:`server_aggregate_sparse_masked` for the
+    async buffered flush: ``w`` (n,) f32 is each buffer entry's staleness
+    weight × validity × fill, and the aggregate is ``Σ w_i·vals_i /
+    max(Σw, 1)``. Zero-weight entries become 0 by ``where`` BEFORE the
+    multiply (a rejected payload's NaN times 0.0 is still NaN); the divisor
+    is a 0-d tensor. With all-ones ``w`` this is bitwise
+    :func:`server_aggregate_sparse` (``vals * 1.0`` is exact and the scatter
+    order is the same)."""
+    contrib = torch.where(w[:, None] > 0, vals, 0.0) * w[:, None]
+    acc = scatter_add_clients(
+        torch.zeros(d + 1, dtype=torch.float32, device=vals.device), contrib,
+        idx)
+    return (acc / w.sum().clamp_min(1.0))[:d]
+
+
 def server_downlink(fed: FedConfig, comp: Optional[Compressor], codec,
-                    new_flat, x_client, server_error):
+                    new_flat, x_client, server_error, draw=None):
     """Two-way (server→client) EF compression, paper appendix D.
 
     Returns ``(new_x_client, new_server_error)``: the model as clients will
@@ -159,24 +207,26 @@ def server_downlink(fed: FedConfig, comp: Optional[Compressor], codec,
     With it on, the server compresses ``(new − x_client) + error``: in wire
     mode as ``decode(encode(tot))`` through ``codec`` (the batched codec on
     a (1, d) block — on the card one ``pack_uint`` and one ``unpack_uint``
-    launch for the packed codecs), else with ``comp.compress``."""
+    launch for the packed codecs), else with ``comp.compress`` (``draw``:
+    randk's drawn positions, else None)."""
     if not (fed.two_way and comp is not None):
         return new_flat, server_error
     tot = (new_flat - x_client) + server_error
     if codec is not None:
         hat = _wire_roundtrip(codec, tot.numel(), tot[None])[0]
     else:
-        hat = comp.compress(tot)
+        hat = comp.compress(tot, draw)
     return x_client + hat, tot - hat
 
 
-def gamma_diagnostic(comp: Optional[Compressor], mean_tot, agg, mean_delta):
+def gamma_diagnostic(comp: Optional[Compressor], mean_tot, agg, mean_delta,
+                     draw=None):
     """Assumption 4.17 diagnostic (paper Fig. 6):
     γ = ‖C(mean(Δ+e)) − mean(C(Δ+e))‖ / ‖mean(Δ)‖ — zero when
-    uncompressed."""
+    uncompressed. ``draw``: randk's drawn positions for C, else None."""
     if comp is None:
         return torch.zeros((), dtype=torch.float32, device=agg.device)
-    c_of_mean = comp.compress(mean_tot)
+    c_of_mean = comp.compress(mean_tot, draw)
     return (torch.linalg.vector_norm(c_of_mean - agg)
             / torch.linalg.vector_norm(mean_delta).clamp_min(1e-12))
 

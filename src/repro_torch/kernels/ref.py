@@ -469,7 +469,11 @@ def fedams_ingest_ref(x, m, v, vhat, vals, idx, v_scale=None, vh_scale=None,
     N = nb * block
     d = x.shape[0]
     pad = lambda a: F.pad(a, (0, N - a.shape[0]))
-    dm = scatter_mean_padded(vals, idx, N, n_div)
+    # an index outside the padded domain (a rejected payload's flipped
+    # index, zero-valued) adds nothing: the kernel drops it with every entry
+    # outside its block
+    safe = torch.where((idx >= 0) & (idx < N), idx, N)
+    dm = scatter_mean_padded(vals, safe, N + 1, n_div)[:N]
     if state_dtype == "int8":
         vv, vh = dequant(v, v_scale), dequant(vhat, vh_scale)
     else:

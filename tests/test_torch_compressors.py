@@ -1,7 +1,9 @@
 """The top-k compressors against ``repro.core.compressors``, bitwise:
 ``select`` and ``compress`` for topk and blocktopk, on ties, at k = 1, and
-with a padded last block. The dense compressors (sign, int8, identity) are
-held in tests/test_torch_dense_uplink.py."""
+with a padded last block; randk on the positions the JAX compressor draws.
+The dense compressors (sign, int8, identity) are held in
+tests/test_torch_dense_uplink.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,12 +85,73 @@ def test_block_layout_matches(d, block):
     assert block_layout(d, block) == jax_block_layout(d, block)
 
 
-@pytest.mark.parametrize("name", ["randk"])
-def test_unported_compressors_are_refused_by_name(name):
-    with pytest.raises(NotImplementedError, match=name):
-        make_compressor(name)
+def test_unknown_compressors_are_refused():
     with pytest.raises(ValueError, match="unknown"):
         make_compressor("topq")
+
+
+def _jax_randk_draw(key, d, k):
+    """The positions the JAX randk draws from ``key``."""
+    return np.array(jax.random.permutation(key, d)[:k])
+
+
+@pytest.mark.parametrize("ratio,d", [(1 / 64, 5000), (1 / 8, 37),
+                                     (1 / 1000, 900), (1.0, 100)])
+def test_randk_compress_is_bitwise_on_staged_positions(ratio, d):
+    """Given the positions the JAX compressor draws from its key, the port's
+    ``compress(x, idx)`` is the JAX ``compress(x, key)`` to the bit
+    (NaN and -0.0 kept); name, bits and q_bound equal."""
+    x = _nan_vec(d, d, 3)
+    x[::7] = -0.0
+    jc, tc = jax_make("randk", ratio), make_compressor("randk", ratio)
+    assert tc.name == jc.name and tc.select is None
+    assert tc.bits_per_message(d) == jc.bits_per_message(d)
+    assert tc.q_bound(None) == jc.q_bound(None)
+    k = max(1, int(round(ratio * d)))
+    for seed in range(3):
+        key = jax.random.PRNGKey(seed)
+        want = np.asarray(jc.compress(jnp.asarray(x), key))
+        got = tc.compress(torch.from_numpy(x), torch.from_numpy(
+            _jax_randk_draw(key, d, k)).long()).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+def test_randk_ef_compress_takes_the_draws_where_jax_takes_keys():
+    """``ef_compress`` on (c, d) rows with randk: the JAX function on one
+    row and the key the FedSim round hands it, the port's on the positions
+    drawn from that key — the leaf key ``fold_in(key, 0)`` — bitwise."""
+    from repro.core.error_feedback import ef_compress as jax_ef
+    from repro_torch.core.error_feedback import ef_compress
+    d, c, ratio = 3000, 3, 1 / 32
+    r = np.random.default_rng(0)
+    delta = r.standard_normal((c, d)).astype(np.float32)
+    err = r.standard_normal((c, d)).astype(np.float32) * 0.1
+    k = max(1, int(round(ratio * d)))
+    keys = [jax.random.fold_in(jax.random.PRNGKey(5), i) for i in range(c)]
+    draws = torch.from_numpy(np.stack([_jax_randk_draw(
+        jax.random.fold_in(key, 0), d, k) for key in keys])).long()
+    hat, new_err = ef_compress(make_compressor("randk", ratio),
+                               torch.from_numpy(delta), torch.from_numpy(err),
+                               draws)
+    for i, key in enumerate(keys):
+        jh, je = jax_ef(jax_make("randk", ratio), jnp.asarray(delta[i]),
+                        jnp.asarray(err[i]), key)
+        np.testing.assert_array_equal(hat[i].numpy(), np.asarray(jh))
+        np.testing.assert_array_equal(new_err[i].numpy(), np.asarray(je))
+
+
+def test_randk_positions_are_distinct_and_follow_the_generator():
+    """``randk_positions``: (count, k) distinct positions of [0, d) a row,
+    the same for equally seeded generators, and a generator is required."""
+    from repro_torch.core.compressors import randk_positions
+    a = randk_positions(torch.Generator().manual_seed(3), 1000, 40, 6, "cpu")
+    b = randk_positions(torch.Generator().manual_seed(3), 1000, 40, 6, "cpu")
+    assert a.shape == (6, 40) and torch.equal(a, b)
+    assert all(row.unique().numel() == 40 for row in a)
+    assert 0 <= int(a.min()) and int(a.max()) < 1000
+    with pytest.raises(ValueError, match="torch.Generator"):
+        randk_positions(None, 1000, 40, 6, "cpu")
 
 
 NAN_PAYLOADS = (0x7FC00000, 0x7FFFFFFF, 0xFFC00001)

@@ -1,6 +1,7 @@
 """The PyTorch port's package boundary: no jax, no repro; the copied config,
-data generator, transport and comm log agree with the originals; unported
-knobs and missing CUDA raise instead of falling back."""
+data generator, transport and comm log agree with the originals; FedSim
+refuses bad scale-out knobs as the JAX FedSim does; missing CUDA raises
+instead of falling back."""
 import dataclasses
 import os
 import subprocess
@@ -36,6 +37,7 @@ MODULES = [
     "repro_torch.comm.faults", "repro_torch.comm", "repro_torch.configs",
     "repro_torch.checkpoint", "repro_torch.checkpoint.store",
     "repro_torch.core", "repro_torch.core.api", "repro_torch.core.rounds",
+    "repro_torch.comm.async_engine",
 ]
 
 
@@ -125,18 +127,38 @@ def test_federated_classification_draws_the_same_batches(kw):
             np.testing.assert_array_equal(ja[key], pb[key])
 
 
-@pytest.mark.parametrize("knob,kw", [
-    ("async_buffer", dict(wire=True, async_buffer=2, participating=4,
-                          track_gamma=False, compressor="blocktopk")),
-    ("ef_store", dict(ef_store=True)),
-    ("client_chunk", dict(client_chunk=2, participating=4)),
-    ("agg_groups", dict(agg_groups=2, participating=4)),
-])
-def test_fedsim_refuses_unported_knobs_by_name(knob, kw):
+@pytest.mark.parametrize("kw", [
+    dict(client_chunk=3, participating=4),
+    dict(client_chunk=3, participating=8, compressor="sign"),
+    dict(agg_groups=2, participating=4, sparse_uplink=False,
+         compressor="blocktopk"),
+    dict(agg_groups=2, participating=8, client_chunk=2),
+    dict(agg_groups=4, participating=8, client_chunk=4),
+], ids=["chunk-not-dividing", "chunk-not-dividing-dense",
+        "groups-dense-path", "chunk-not-group-size", "chunk-not-group-size-4"])
+def test_fedsim_refuses_bad_scale_out_knobs_as_jax_does(kw):
+    """FedConfig accepts these; FedSim's constructor refuses each with the
+    JAX FedSim's ValueError, message for message."""
+    from repro.core.sim import FedSim as JaxSim
     from repro_torch.core.sim import FedSim
-    fed = FedConfig(num_clients=8, **kw)
-    with pytest.raises(NotImplementedError, match=knob):
-        FedSim(lambda p, b: None, fed, device="cpu")
+    kw = dict(num_clients=8, **kw)
+    with pytest.raises(ValueError) as jax_err:
+        JaxSim(lambda p, b: None, JaxFedConfig(**kw))
+    with pytest.raises(ValueError) as port_err:
+        FedSim(lambda p, b: None, FedConfig(**kw), device="cpu")
+    assert str(port_err.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ef_store=True),
+    dict(client_chunk=2, participating=4, agg_groups=2),
+    dict(wire=True, async_buffer=2, participating=4, track_gamma=False,
+         compressor="blocktopk"),
+    dict(compressor="randk"),
+])
+def test_fedsim_accepts_the_knobs_the_jax_fedsim_accepts(kw):
+    from repro_torch.core.sim import FedSim
+    FedSim(lambda p, b: None, FedConfig(num_clients=8, **kw), device="cpu")
 
 
 def test_fedsim_wire_needs_a_codec_and_wire_mode_for_a_network():

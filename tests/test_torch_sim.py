@@ -228,6 +228,46 @@ def test_fedsim_sparse_int8_wire_tracks_jax_fedsim():
     assert tstate.round == rounds and int(tstate.opt.t) == rounds
 
 
+def _jax_randk_draws(key, n: int, d: int, k: int) -> torch.Tensor:
+    """The positions a JAX FedSim round with key ``key`` draws for randk,
+    in ``randk_positions``' layout: client i's from ``fold_in(fold_in(key,
+    i), 0)`` (the round's per-client key, then ``ef_compress``'s leaf key),
+    γ's from ``fold_in(key, 999983)``, the downlink's from
+    ``fold_in(key, 10**6)``."""
+    keys = [jax.random.fold_in(jax.random.fold_in(key, i), 0)
+            for i in range(n)]
+    keys += [jax.random.fold_in(key, 999983), jax.random.fold_in(key, 10**6)]
+    return torch.from_numpy(np.stack([
+        np.array(jax.random.permutation(kk, d)[:k]) for kk in keys])).long()
+
+
+@pytest.mark.parametrize("extra", [dict(), dict(client_chunk=2),
+                                   dict(two_way=True)],
+                         ids=["in-memory", "chunked", "two-way"])
+def test_fedsim_randk_tracks_jax_fedsim(extra, monkeypatch):
+    """randk 1/8 with γ on: the port's round draws its positions through
+    ``randk_positions``, patched here to return what the JAX round draws
+    from its key (``_jax_randk_draws``), so both packages keep the same
+    coordinates. 10 MLP rounds: per-round loss and γ within ``LOSS_RTOL``,
+    ``bits`` equal, final params within 1e-4 (the ROADMAP gate)."""
+    from repro_torch.core import sim as simmod
+    rounds = 10
+    _, _, data = make_problem("mlp", M)
+    keys = iter([s[2] for s in _staged_rounds(data, rounds)])
+    monkeypatch.setattr(simmod, "randk_positions",
+                        lambda rng, d, k, count, device: _jax_randk_draws(
+                            next(keys), count - 2, d, k))
+    kw = _cfg("b", compressor="randk", compress_ratio=1 / 8, **extra)
+    hist, jflat, tstate, ts = _run_both("mlp", kw, rounds)
+    assert ts._randk and not ts.sparse
+    np.testing.assert_allclose(hist[:, 1], hist[:, 0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(hist[:, 3], hist[:, 2], rtol=LOSS_RTOL)
+    assert (hist[:, 3] > 0).all()
+    np.testing.assert_allclose(tstate.params.numpy(), jflat, atol=1e-4)
+    if extra.get("two_way"):
+        assert not torch.equal(tstate.x_client, tstate.params)
+
+
 def test_staged_init_is_the_same_in_every_process():
     """The trajectory tests' init is drawn from numpy, so it is the same
     under any ``PYTHONHASHSEED``; the reference's ``init_params`` is not
