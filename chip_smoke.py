@@ -38,7 +38,13 @@ then, on the card:
    flush (B = 5 rows, pre-scaled by staleness weights: two empty slots of
    k copies of index 0 and +0.0, one rejected row with a flipped index
    and zeroed values); ``fedams_update`` for both
-   options at a ragged N, also with NaN deltas. All bitwise (a NaN must
+   options at a ragged N, also with NaN deltas. Then every kernel at each
+   shape route m launches it (``phase_mesh_shapes``): for each
+   ConvMixer-256-8 leaf size and the flat d a (1, d) row at the leaf's
+   block layout (blocks of 128, 256 and 2048, ragged last blocks) and k,
+   on random and hard inputs; ``fedams_update`` at every leaf and ZeRO
+   shard size; ``fedams_ingest`` on 4 gathered clients (one of them a
+   non-participant) and on 1. All bitwise (a NaN must
    meet a NaN). Each kernel is timed with CUDA events (median of 30
    launches, L2 flushed before each) beside its twin and its bound;
 2. checks the round on the card against the same round on the CPU (the
@@ -107,7 +113,19 @@ then, on the card:
    not bit-reproducible otherwise). Wire routes also check that
    ``pack_uint`` and ``unpack_uint`` launched once a round for all n
    clients, that every encoded message is ``codec.nbytes(d)`` long and
-   that each round bills n of them uplink.
+   that each round bills n of them uplink;
+4. runs the mesh backend (``core.mesh``): route m on four gloo ranks
+   sharing the card — ConvMixer-256-8 as one flat leaf, 3 rounds of
+   blocktopk ``sparse_topk`` fused and two-pass, equal to the port's
+   FedSim to the bit; then the model's 52-leaf tree, 6 rounds each of
+   sparse at n = 3 of 4, hierarchical (2 × 2), packed sign, dense
+   blocktopk, dense sign, ZeRO-sharded server state, crashes with bit
+   flips, and 3 rounds through ``FederatedTrainer(mesh=...).run`` — and
+   route m1, the sparse fused round on one NCCL rank. Each job checks its
+   kernels' launches a round, finite losses, ``wire_up_bytes`` against
+   ``mesh_wire_bytes_tiers``, and that every shape at which a rank
+   launched a kernel (``record_launch_shapes``) is one phase 1 held
+   against the twin.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
@@ -679,6 +697,163 @@ def phase_kernels(dev, d: int):
                    f"fp32 <-> ({N_CLI},{sign_w}) messages, stream at column "
                    f"20 (timed row); n=11: ({N_CLI},{nb * k}) int32 offsets "
                    f"<-> ({N_CLI},{topk_w}) messages at column 16 (ms_n11)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 1, continued: each kernel at every shape route m launches it
+# ---------------------------------------------------------------------------
+
+#: a launch's shape signature, per kernel, from the arguments of its CUDA
+#: entry point: what phase 1 holds against the twin and route m records
+SIGS = {
+    "topk_ef_sparse": lambda x, err, rows, *, k, block, **_: (
+        tuple(x.shape), tuple(err.shape), k, block),
+    "topk_ef": lambda x, err, rows, *, k, block, **_: (
+        tuple(x.shape), tuple(err.shape), k, block),
+    "sign_ef": lambda x, err, rows, **_: (tuple(x.shape), tuple(err.shape)),
+    "fedams_update": lambda x, *_, option=1, **__: (x.numel(), option),
+    "fedams_ingest": lambda x, m, v, vh, vals, *_, block=2048,
+    state_dtype="float32", option=1, **__: (
+        x.numel(), tuple(vals.shape), block, state_dtype, option),
+}
+
+
+def record_launch_shapes() -> dict:
+    """Wrap each kernel's CUDA entry point in ``kernels.ops`` (in this
+    process) so that it also records its launch's :data:`SIGS` signature;
+    returns kernel name -> the set of signatures seen. The functions of
+    ``ops`` look their entry points up at call time, so every path to a
+    kernel is recorded; the launch counts are untouched."""
+    from repro_torch.kernels import ops
+    seen = {}
+    for name, sig in SIGS.items():
+        fn = getattr(ops, f"{name}_cuda")
+        got = seen[name] = set()
+
+        def recorded(*a, _fn=fn, _sig=sig, _got=got, **kw):
+            _got.add(_sig(*a, **kw))
+            return _fn(*a, **kw)
+
+        setattr(ops, f"{name}_cuda", recorded)
+    return seen
+
+
+def mesh_kernel_shapes():
+    """The sizes route m runs its kernels at, derived from
+    ConvMixer-256-8's defs as the mesh derives them: each leaf's size (one
+    (1, d_leaf) row a leaf) and the flat anchor's d; the slices that
+    ``shard_server_state`` updates (``state_shard_dim`` at M_MESH shards);
+    and the client counts the fused ingest gathers (M_MESH ranks, m1's
+    one)."""
+    from repro_torch.core.mesh import state_shard_dim
+    from repro_torch.models import convmixer as cm
+    from repro_torch.models.params import tree_leaves
+    defs = tree_leaves(cm.convmixer_defs(cm.ConvMixerConfig()))
+    sizes = [int(np.prod(dref.shape)) for dref in defs]
+    leaves = sorted(set(sizes) | {sum(sizes)})
+    shards = sorted({n // M_MESH for n, dref in zip(sizes, defs)
+                     if state_shard_dim(dref, M_MESH) is not None})
+    return leaves, shards, (M_MESH, 1)
+
+
+def phase_mesh_shapes(dev) -> dict:
+    """Every kernel at each shape route m launches it
+    (:func:`mesh_kernel_shapes`), bitwise against its twin: for each leaf
+    size d a (1, d) row at the leaf's block layout and k, on random
+    inputs and on ``ref.topk_hard_cases`` (a leaf narrower than their six
+    2048-value segments takes the first d values of each segment in
+    turn); ``fedams_update`` at every leaf and shard size;
+    ``fedams_ingest`` on the gathered selections of n clients (n = M_MESH,
+    once more with one of them a non-participant's zeros and n_div =
+    M_MESH - 1; n = 1); both FedAMS options. Returns kernel name ->
+    [cases, worst |error|, the :data:`SIGS` signatures held]."""
+    from repro_torch.core.compressors import block_layout
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    leaves, shards, gathered = mesh_kernel_shapes()
+    out = {name: [0, 0.0, set()] for name in SIGS}
+    rows = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def hold(name, what, kern, twin, args, kw, inplace=None):
+        """The kernel and its twin on the same inputs, bitwise; both
+        update argument ``inplace`` (a copy each), compared after."""
+        a_k, a_r = list(args), list(args)
+        if inplace is not None:
+            a_k[inplace] = args[inplace].clone()
+            a_r[inplace] = args[inplace].clone()
+        got, want = kern(*a_k, **kw), twin(*a_r, **kw)
+        got = list(got) if isinstance(got, tuple) else [got]
+        want = list(want) if isinstance(want, tuple) else [want]
+        if inplace is not None:
+            got.append(a_k[inplace])
+            want.append(a_r[inplace])
+        torch.cuda.synchronize()
+        same(f"{name}[route m, {what}]", got, want)
+        rec = out[name]
+        rec[0] += 1
+        rec[1] = max([rec[1]] + [max_abs(a.float(), b.float()) for a, b in
+                                 zip(got, want) if a.is_floating_point()])
+        rec[2].add(SIGS[name](*a_k, **kw))
+
+    seg = 2048
+    hard_all = ref.topk_hard_cases(1, 12 * seg, seed=3).to(dev)
+    for d in leaves:
+        bs, _ = block_layout(d, BLOCK)
+        k = max(1, int(round(RATIO * bs)))
+        negz = torch.full((1, d), -0.0, device=dev)
+        inputs = [("random", torch.randn(1, d, generator=g, device=dev) * 0.01,
+                   torch.randn(1, d, generator=g, device=dev) * 0.003)]
+        if d >= 6 * seg:
+            inputs.append(("hard", ref.topk_hard_cases(1, d, seed=d).to(dev),
+                           negz))
+        else:
+            inputs += [(f"hard segment {i}", hard_all[:, i * seg:i * seg + d]
+                        .contiguous(), negz) for i in range(6)]
+        for what, x, e in inputs:
+            what = f"d={d}, block={bs}, k={k}, {what}"
+            hold("topk_ef_sparse", what, ops.topk_ef_sparse_cuda,
+                 ref.topk_ef_sparse, (x, e, rows), dict(k=k, block=bs), 1)
+            hold("topk_ef", what, ops.topk_ef_cuda, ref.topk_ef, (x, e, rows),
+                 dict(k=k, block=bs), 1)
+            hold("sign_ef", what, ops.sign_ef_cuda, ref.sign_ef, (x, e, rows),
+                 {}, 1)
+    kw = dict(eta=0.1, beta1=0.9, beta2=0.99, eps=1e-4)
+    for n in sorted(set(leaves) | set(shards)):
+        ins = (torch.randn(n, generator=g, device=dev),
+               torch.randn(n, generator=g, device=dev) * 1e-3,
+               torch.rand(n, generator=g, device=dev) * 1e-4,
+               torch.rand(n, generator=g, device=dev) * 2e-4,
+               torch.randn(n, generator=g, device=dev) * 1e-2)
+        for option in (1, 2):
+            hold("fedams_update", f"N={n}, option {option}",
+                 ops.fedams_update_cuda, ref.fedams_update_ref, ins,
+                 dict(kw, option=option))
+    for d in leaves:
+        bs, _ = block_layout(d, BLOCK)
+        k = max(1, int(round(RATIO * bs)))
+        v = torch.rand(d, generator=g, device=dev) * 1e-4
+        st = (torch.randn(d, generator=g, device=dev),
+              torch.randn(d, generator=g, device=dev) * 1e-3, v,
+              v + torch.rand(d, generator=g, device=dev) * 1e-4)
+        for n in gathered:
+            vals, idx = ref.topk_ef_sparse(
+                torch.randn(n, d, generator=g, device=dev),
+                torch.zeros(n, d, device=dev), torch.arange(n, device=dev),
+                k=k, block=bs)
+            cohorts = [(n, vals * 0.01)]
+            if n > 1:
+                cohorts.append((n - 1, cohorts[0][1].clone()))
+                cohorts[1][1][-1] = 0.0          # a non-participant's zeros
+            for n_div, vv in cohorts:
+                for option in (1, 2):
+                    hold("fedams_ingest",
+                         f"d={d}, block={bs}, k={k}, n={n}, n_div={n_div}, "
+                         f"option {option}", ops.fedams_ingest_cuda,
+                         ref.fedams_ingest_ref, (*st, vv, idx),
+                         dict(kw, n_div=float(n_div), block=bs, option=option,
+                              state_dtype="float32"))
     return out
 
 
@@ -1434,6 +1609,444 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
     return res
 
 
+# ---------------------------------------------------------------------------
+# route m: the mesh backend, four ranks sharing the card over gloo; m1: one
+# NCCL rank
+# ---------------------------------------------------------------------------
+
+M_MESH = 4          # route m's ranks, one client each
+ANCHOR_ROUNDS = 3   # the flat model's rounds held to FedSim's to the bit
+#: ConvMixer-256-8's leaves: the mesh selects, ingests and updates per leaf
+LEAVES = 52
+
+
+class ConvMixerModel:
+    """ConvMixer-256-8 as a mesh model (``core.mesh``'s duck type): its own
+    per-leaf param tree."""
+
+    tp = 1
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def defs(self):
+        from repro_torch.models import convmixer as cm
+        return cm.convmixer_defs(self.cfg)
+
+    def loss(self, p, b, ctx, remat_policy="none", chunk=0):
+        from repro_torch.models import convmixer as cm
+        return cm.convmixer_loss(p, b, self.cfg)
+
+    def train_batch_defs(self, global_batch, seq_len):
+        from repro_torch.models.params import ParamDef
+        c = self.cfg
+        return {"x": ParamDef((global_batch, c.image, c.image, c.channels)),
+                "y": ParamDef((global_batch,), dtype="int32")}
+
+
+class FlatConvMixer(ConvMixerModel):
+    """The same model with its params as ONE leaf ``{"w": (d,)}`` in ravel
+    order — FedSim's flat vector, so the mesh's per-leaf blocks are
+    FedSim's blocks and the two rounds can be held equal to the bit."""
+
+    def __init__(self, cfg, unravel, d: int):
+        super().__init__(cfg)
+        self.unravel, self.d = unravel, d
+
+    def defs(self):
+        from repro_torch.models.params import ParamDef
+        return {"w": ParamDef((self.d,))}
+
+    def loss(self, p, b, ctx, remat_policy="none", chunk=0):
+        from repro_torch.models import convmixer as cm
+        return cm.convmixer_loss(self.unravel(p["w"]), b, self.cfg)
+
+
+class ClientBatches:
+    """``lm_data`` for the mesh: round r's global batch, client-major —
+    client i's K steps of B rows at rows [i·B, (i+1)·B), what
+    ``FederatedClassification.round_batches`` gives FedSim's cohort
+    [0, m)."""
+
+    def __init__(self, data, m: int):
+        self.data, self.m = data, m
+
+    def mesh_batch(self, r, local_steps, global_batch, seq_len):
+        b = global_batch // self.m
+        rb = self.data.round_batches(np.arange(self.m), r, local_steps, b)
+        return {k: np.ascontiguousarray(np.swapaxes(v, 0, 1).reshape(
+            (local_steps, global_batch) + v.shape[3:])) for k, v in
+            rb.items()}
+
+
+def mesh_cfg(**over):
+    """Route m's ``FedConfig``: fedcams, blocktopk 1/64 over the sparse
+    client-axis collective, M_MESH clients on ("data",), K = 3."""
+    from repro_torch.configs.base import FedConfig
+    kw = dict(algorithm="fedcams", eta=0.1, eps=1e-4, eta_l=0.05,
+              local_steps=K_STEPS, num_clients=M_MESH, compressor="blocktopk",
+              compress_ratio=RATIO, aggregation="sparse",
+              client_axes=("data",), track_gamma=False)
+    kw.update(over)
+    return FedConfig(**kw)
+
+
+def mesh_jobs():
+    """name → the mesh run: its config overrides, mesh shape and axes, the
+    flat model or the per-leaf tree, rounds, deterministic algorithms, and
+    the launches a round each rank must make (every other kernel: none)."""
+    from repro_torch.comm.faults import FaultConfig
+    per_leaf = lambda **k: {n: LEAVES for n in k["kernels"]}
+    flat = dict(shape=(M_MESH,), axes=("data",), flat=True,
+                rounds=ANCHOR_ROUNDS, det=True, gather=True)
+    leaf = dict(shape=(M_MESH,), axes=("data",), flat=False, rounds=ROUNDS,
+                det=False, gather=False)
+    return {
+        "anchor-fused": dict(flat, cfg={}, expect={"topk_ef_sparse": 1,
+                                                   "fedams_ingest": 1}),
+        "anchor-twopass": dict(flat, cfg=dict(fused_ingest="off"),
+                               expect={"topk_ef_sparse": 1,
+                                       "fedams_update": 1}),
+        "sparse-3of4": dict(leaf, cfg=dict(participating=3), expect=per_leaf(
+            kernels=("topk_ef_sparse", "fedams_ingest"))),
+        "hier": dict(leaf, shape=(2, 2), axes=("cgroup", "data"),
+                     cfg=dict(agg_groups=2, client_axes=("cgroup", "data")),
+                     expect=per_leaf(kernels=("topk_ef_sparse",
+                                              "fedams_update"))),
+        "packed-sign": dict(leaf, cfg=dict(compressor="packedsign"),
+                            expect=per_leaf(kernels=("fedams_update",))),
+        "dense-blocktopk": dict(leaf, cfg=dict(aggregation="dense"),
+                                expect=per_leaf(kernels=("topk_ef",
+                                                         "fedams_update"))),
+        "dense-sign": dict(leaf, cfg=dict(compressor="sign",
+                                          aggregation="dense"),
+                           expect=per_leaf(kernels=("sign_ef",
+                                                    "fedams_update"))),
+        "shard": dict(leaf, cfg=dict(shard_server_state=True,
+                                     state_shards=M_MESH),
+                      expect=per_leaf(kernels=("topk_ef_sparse",
+                                               "fedams_update"))),
+        "faults": dict(leaf, cfg=dict(fault=FaultConfig(
+            crash_prob=0.25, corrupt_prob=0.25)), expect=per_leaf(
+                kernels=("topk_ef_sparse", "fedams_update"))),
+        # the user's entry point: FederatedTrainer(mesh=...).run
+        "trainer": dict(leaf, cfg={}, rounds=ANCHOR_ROUNDS, trainer=True,
+                        expect=per_leaf(kernels=("topk_ef_sparse",
+                                                 "fedams_ingest"))),
+    }
+
+
+def _mesh_job(job: dict) -> dict:
+    """One mesh run on this rank: build the round with a CUDA KernelImpl,
+    stage its batches, then — launch counters at 0 — drive ``rounds``
+    rounds and read the counters. Returns the per-round metrics, round ms,
+    the launches, the wire bytes ``mesh_wire_bytes_tiers`` bills, and
+    (``gather``) the global state."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import mesh as meshmod
+    from repro_torch.data.synthetic import FederatedClassification
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import convmixer as cm
+    from repro_torch.models.params import init_params, ravel, tree_leaves
+    from repro_torch.sharding.rules import ParallelContext
+
+    fed = mesh_cfg(**job["cfg"])
+    m = fed.num_clients
+    cfg = cm.ConvMixerConfig()
+    p0 = init_params(cm.convmixer_defs(cfg), torch.Generator().manual_seed(0),
+                     "cuda")
+    flat0, unravel = ravel(p0)
+    model = (FlatConvMixer(cfg, unravel, flat0.numel()) if job["flat"]
+             else ConvMixerModel(cfg))
+    data = ClientBatches(FederatedClassification(
+        num_clients=M, image_shape=(32, 32, 3), alpha=0.3, seed=0), m)
+    mesh = make_mesh(job["shape"], job["axes"], "cuda")
+    ctx = ParallelContext(client_axes=fed.client_axes, num_clients=m,
+                          mesh=mesh)
+    train = TrainConfig(global_batch=m * BATCH, seq_len=1,
+                        remat_policy="none")
+    rnd = meshmod.build_fed_round(model, fed, train, ctx,
+                                  kernel_impl=ops.KernelImpl())
+    state = meshmod.init_fed_state(model, fed,
+                                   torch.Generator().manual_seed(0), ctx,
+                                   "cuda")
+    if job["flat"]:
+        state = state._replace(params={"w": flat0})
+    if job.get("trainer"):
+        return _trainer_job(job, fed, model, data, mesh, train)
+    batches = [meshmod.shard_batch(data.mesh_batch(r, K_STEPS, m * BATCH, 1),
+                                   model, fed, train, ctx, "cuda")
+               for r in range(job["rounds"])]
+    tiers = meshmod.mesh_wire_bytes_tiers(fed, model.defs())
+    res = {"loss": [], "wire_up_bytes": [], "survivors": [], "rejected": [],
+           "round_ms": [], "expected_wire": float(np.float32(
+               m * tiers["tier1"] + fed.agg_groups * tiers["tier2"])),
+           "tiers": tiers}
+    # the last ``profile_last`` rounds run under torch.profiler (m1: its
+    # NCCL kernels; scripts/profile_round.py m: rank 0's trace)
+    from torch.profiler import ProfilerActivity, profile
+    prof = None
+    with (deterministic() if job["det"] else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        for r, b in enumerate(batches):
+            if r == len(batches) - job.get("profile_last", 0):
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+            t0 = time.perf_counter()
+            state, met = rnd(state, b, r)
+            torch.cuda.synchronize()
+            res["round_ms"].append((time.perf_counter() - t0) * 1e3)
+            for k in ("loss", "wire_up_bytes", "survivors", "rejected"):
+                if k in met:
+                    res[k].append(float(met[k]))
+        if prof is not None:
+            prof.stop()
+        res["launches"] = dict(ops.launches)
+    if prof is not None:
+        res["nccl_device_events"] = sorted(
+            e.key for e in prof.key_averages() if "nccl" in e.key.lower()
+            and max(getattr(e, "device_time_total", 0),
+                    getattr(e, "cuda_time_total", 0)) > 0)
+        if job.get("trace") and dist.get_rank() == 0:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    res["trace"] = json.load(f)["traceEvents"]
+    if job["gather"]:
+        full = meshmod.gather_fed_state(state, model, fed, ctx)
+        res["state"] = {f: {k: v.detach().cpu() for k, v in
+                            getattr(full, f).items()}
+                        for f in ("params", "m", "v", "vhat", "errors")}
+    res["finite"] = all(bool(torch.isfinite(t).all()) for part in (
+        state.params, state.m, state.v, state.vhat, state.errors)
+        for t in tree_leaves(part))
+    return res
+
+
+def _trainer_job(job, fed, model, data, mesh, train) -> dict:
+    """``FederatedTrainer(mesh=...)`` on the card: ``rounds`` rounds of
+    ``run`` (the round the trainer builds, with its CUDA KernelImpl), the
+    launch counters at 0 just before."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mesh as meshmod
+    from repro_torch.core.api import FederatedTrainer
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import tree_leaves
+
+    trainer = FederatedTrainer(fed=fed, train=dc.replace(
+        train, rounds=job["rounds"]), model=model, lm_data=data, mesh=mesh,
+        device="cuda")
+    tiers = meshmod.mesh_wire_bytes_tiers(fed, model.defs())
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.run(log=None)
+    torch.cuda.synchronize()
+    st = trainer._state
+    return {"loss": [h["loss"] for h in hist],
+            "wire_up_bytes": [h["wire_up_bytes"] for h in hist],
+            "survivors": [], "rejected": [], "tiers": tiers,
+            "round_ms": [(time.perf_counter() - t0) * 1e3 / len(hist)],
+            "expected_wire": float(np.float32(fed.num_clients
+                                              * tiers["tier1"])),
+            "launches": dict(ops.launches),
+            "finite": all(bool(torch.isfinite(t).all()) for part in (
+                st.params, st.m, st.v, st.vhat, st.errors)
+                for t in tree_leaves(part))}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_rank(rank, world, port, outdir, backend, jobs, fn, record):
+    """One rank: on the card (one card: every rank's device 0), TF32 off,
+    the host's cores split among the ranks, the process group over
+    ``backend``; runs ``fn`` on each of ``jobs`` (with ``record``, also
+    the shapes of the kernels each launched, :func:`record_launch_shapes`,
+    under ``"shapes"``) and writes the results to
+    ``outdir/rank{rank}.pt``."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    seen = record_launch_shapes() if record else None
+    try:
+        out = {}
+        for name, job in jobs.items():
+            out[name] = fn(job)
+            if record:
+                out[name]["shapes"] = {k: set(v) for k, v in seen.items()}
+                for v in seen.values():
+                    v.clear()
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(world: int, backend: str, jobs: dict, fn=None,
+              timeout: float = 600) -> list:
+    """``fn`` (default :func:`_mesh_job`, a module-level function) on each
+    of ``jobs`` on ``world`` spawned ranks (``torch.multiprocessing``);
+    each rank's results, in rank order, those of :func:`_mesh_job` with
+    the shapes its kernels were launched at. A rank that fails or outlives
+    ``timeout`` fails the run (the others are stopped)."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _mesh_rank, args=(world, _free_port(), tmp, backend, jobs,
+                              fn or _mesh_job, fn is None),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.time() + timeout
+        try:
+            while not ctx.join(timeout=5):
+                if time.time() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    fail(f"{backend} ranks still running after {timeout} s")
+        except Exception as e:   # a rank raised or died: ctx stopped the rest
+            fail(f"a {backend} rank failed: {e}")
+        codes = [p.exitcode for p in ctx.processes]
+        check(codes == [0] * world, f"{backend} rank exit codes {codes}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+
+def _anchor_fedsim(loss, p0, data, fused: bool):
+    """FedSim on route m's flat anchor: m = n = 4 (cohort [0, 4)), the
+    fused round (``track_gamma=False``) or the two-pass one (γ on),
+    ANCHOR_ROUNDS rounds under deterministic algorithms."""
+    from repro_torch.core.sim import FedSim
+    fed = mesh_cfg(client_axes=(), track_gamma=not fused, wire_block=BLOCK)
+    sim = FedSim(loss, fed)
+    check(sim._fused == ("kernel" if fused else "off"),
+          f"route m anchor: FedSim resolved fused_ingest={sim._fused}")
+    st = sim.init(p0)
+    ids = np.arange(M_MESH)
+    losses = []
+    with deterministic():
+        for r in range(ANCHOR_ROUNDS):
+            st, met = sim.round(st, data.round_batches(ids, r, K_STEPS,
+                                                       BATCH), ids)
+            losses.append(float(met["loss"]))
+    return st, losses
+
+
+def check_shapes_held(route: str, results: list, held: dict) -> dict:
+    """Fail unless every shape at which ``results`` (the ranks' results
+    of one job) launched a kernel was held against the twin by
+    :func:`phase_mesh_shapes` (``held``); returns kernel -> the count of
+    distinct shapes launched."""
+    shapes = {k: set().union(*(r["shapes"][k] for r in results))
+              for k in SIGS}
+    unheld = {k: sorted(v - held[k][2]) for k, v in shapes.items()
+              if v - held[k][2]}
+    check(not unheld, f"route {route}: kernels launched at shapes phase 1 "
+          f"did not hold against their twins: {unheld}")
+    return {k: len(v) for k, v in shapes.items() if v}
+
+
+def route_m(loss, p0, data, held) -> dict:
+    """Route m: every mesh job on four gloo ranks sharing the card (every
+    shape a kernel is launched at held by phase 1, ``held``), then the
+    flat anchors against FedSim in this process, bitwise."""
+    jobs = mesh_jobs()
+    ranks = run_ranks(M_MESH, "gloo", jobs)
+    res = {}
+    for name, job in jobs.items():
+        r0 = ranks[0][name]
+        n_shapes = check_shapes_held(f"m {name}",
+                                     [rk[name] for rk in ranks], held)
+        launches = {k: sum(rk[name]["launches"][k] for rk in ranks)
+                    for k in r0["launches"]}
+        want = {k: job["expect"].get(k, 0) * M_MESH * job["rounds"]
+                for k in launches}
+        check(launches == want, f"route m {name}: launches {launches}, "
+              f"expected {want}")
+        check(all(rk[name]["loss"] == r0["loss"] for rk in ranks),
+              f"route m {name}: the ranks' losses differ")
+        check(all(np.isfinite(r0["loss"])) and all(
+            rk[name]["finite"] for rk in ranks),
+              f"route m {name}: losses {r0['loss']} or a non-finite state")
+        check(r0["wire_up_bytes"] == [r0["expected_wire"]] * job["rounds"],
+              f"route m {name}: wire_up_bytes {r0['wire_up_bytes']}, "
+              f"mesh_wire_bytes_tiers bills {r0['expected_wire']}")
+        per_round = {k: v / job["rounds"] for k, v in launches.items() if v}
+        res[name] = {k: v for k, v in r0.items()
+                     if k not in ("state", "shapes")}
+        res[name]["launches"] = launches
+        res[name]["shapes_held"] = n_shapes
+        print(f"route m {name}: loss {r0['loss']}; wire_up_bytes "
+              f"{r0['wire_up_bytes'][0]:.0f} a round (tiers {r0['tiers']}); "
+              f"launches a round, all ranks {per_round}; round ms "
+              f"{[round(t, 1) for t in r0['round_ms']]}; distinct launch "
+              f"shapes, each held by phase 1: {n_shapes}")
+        if r0["survivors"]:
+            check(sum(r0["rejected"]) > 0 and min(r0["survivors"]) < M_MESH,
+                  f"route m {name}: no crash or no rejection in "
+                  f"{job['rounds']} rounds")
+            print(f"route m {name}: survivors {r0['survivors']}, rejected "
+                  f"{r0['rejected']} per round")
+    for name, fused in (("anchor-fused", True), ("anchor-twopass", False)):
+        st, losses = _anchor_fedsim(loss, p0, data, fused)
+        mesh = ranks[0][name]["state"]
+        want = {"params": st.params, "m": st.opt.m, "v": st.opt.v,
+                "vhat": st.opt.vhat, "errors": st.errors}
+        bad = [f for f, t in want.items() if not torch.equal(
+            mesh[f]["w"].view(torch.int32), t.cpu().view(torch.int32))]
+        check(not bad and ranks[0][name]["loss"] == losses,
+              f"route m {name}: the mesh differs from FedSim in {bad}; "
+              f"losses {ranks[0][name]['loss']} vs {losses}")
+        res[name]["equals_fedsim"] = True
+        print(f"route m {name}: {ANCHOR_ROUNDS} rounds equal FedSim's to the "
+              f"bit (params, m, v, v-hat, the {M_MESH} EF rows, losses)")
+    return res
+
+
+def route_m1(held) -> dict:
+    """Route m1: the sparse fused per-leaf round on ONE NCCL rank (NCCL
+    refuses two ranks on one card): the production backend starts, and
+    the profiler sees its collectives run on the card. Every shape a
+    kernel is launched at is held by phase 1 (``held``)."""
+    job = dict(mesh_jobs()["sparse-3of4"], cfg=dict(num_clients=1),
+               shape=(1,), rounds=ANCHOR_ROUNDS, profile_last=ANCHOR_ROUNDS,
+               expect={"topk_ef_sparse": LEAVES, "fedams_ingest": LEAVES})
+    r0 = run_ranks(1, "nccl", {"m1": job})[0]["m1"]
+    r0["shapes_held"] = check_shapes_held("m1", [r0], held)
+    del r0["shapes"]
+    want = {k: job["expect"].get(k, 0) * job["rounds"]
+            for k in r0["launches"]}
+    check(r0["launches"] == want, f"route m1: launches {r0['launches']}, "
+          f"expected {want}")
+    check(all(np.isfinite(r0["loss"])) and r0["finite"],
+          f"route m1: losses {r0['loss']}")
+    check(r0["wire_up_bytes"] == [r0["expected_wire"]] * job["rounds"],
+          f"route m1: wire_up_bytes {r0['wire_up_bytes']}")
+    check(bool(r0["nccl_device_events"]),
+          "route m1: no NCCL kernel ran on the card")
+    print(f"route m1 (nccl, 1 rank): loss {r0['loss']}; NCCL device events "
+          f"{r0['nccl_device_events']}; round ms "
+          f"{[round(t, 1) for t in r0['round_ms']]}")
+    return r0
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False — this script needs a card")
@@ -1458,7 +2071,13 @@ def main():
     t_phase = time.perf_counter()
     with deterministic():
         kern = phase_kernels(dev, 704266)
+        mesh_held = phase_mesh_shapes(dev)
     print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
+    for name, (cases, worst, sigs) in mesh_held.items():
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
+        kern[name]["cases_route_m"] = cases
+        print(f"kernel {name} vs twin at route m's shapes: {cases} cases, "
+              f"{len(sigs)} shapes, bitwise")
     for name, r in kern.items():
         print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
               f"{r['plain_ms']:.4f} ms), max_abs_err {r['max_abs_err']}")
@@ -1485,11 +2104,30 @@ def main():
     # state can be held equal to another build's to the bit
     with deterministic():
         det = phase_slice(rounds=3, routes=("a",))["a"]
+    t_phase = time.perf_counter()
+    from repro_torch.data.synthetic import FederatedClassification
+    from repro_torch.models import convmixer as cm
+    from repro_torch.models.params import init_params
+    cmc = cm.ConvMixerConfig()
+    mesh_res = route_m(lambda p, b: cm.convmixer_loss(p, b, cmc),
+                       init_params(cm.convmixer_defs(cmc),
+                                   torch.Generator().manual_seed(0)),
+                       FederatedClassification(num_clients=M,
+                                               image_shape=(32, 32, 3),
+                                               alpha=0.3, seed=0),
+                       mesh_held)
+    m1 = route_m1(mesh_held)
+    print(f"routes m and m1 took {time.perf_counter() - t_phase:.1f} s")
 
     rows = []
     for name, r in kern.items():
         runs = [(route, sl[route]["launches"][name]) for route in ROUTES]
         per_round = {route: n / ROUNDS for route, n in runs if n}
+        mesh_n = sum(j["launches"][name] for j in mesh_res.values())
+        runs += [("m", mesh_n), ("m1", m1["launches"][name])]
+        if mesh_n or m1["launches"][name]:
+            per_round["m (all jobs, all ranks)"] = mesh_n
+            per_round["m1"] = m1["launches"][name]
         print(f"kernel {name}: {r['ms']:.4f} ms median of 30, {r['bytes']} "
               f"bytes, launches per round (per cohort on j) {per_round}")
         b_ms, b_by = bound(r["bytes"], r["flops"])
@@ -1508,7 +2146,8 @@ def main():
         {"card": card, "torch": torch.__version__,
          "build_s": build_s, "kernels": kern, "kernel_rows": rows,
          "reference": refcheck, "slice": sl,
-         "route_a_deterministic": det}, indent=1))
+         "route_a_deterministic": det, "mesh": mesh_res, "mesh_m1": m1},
+        indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,17 @@ cohorts):
        round, the grouped scatter + fedams_update; the store's gather and
        scatter run in the ``ef_store`` ranges
     l  randk 1/64 in memory, γ on, client_chunk=5: fedams_update
+    m  the mesh backend: chip_smoke.py's route m job ``sparse-3of4``
+       (ConvMixer-256-8's per-leaf tree, fedcams blocktopk 1/64 over the
+       sparse client-axis collective, n = 3 of m = 4, topk_ef_sparse +
+       fedams_ingest per leaf) on four gloo ranks sharing the card; the
+       stages are the round's ``mesh.<stage>`` ranges, with every
+       collective in a nested ``mesh.collective`` range whose host time is
+       what the gloo collectives block for; reported for rank 0. Before
+       the rounds, the same four ranks time gloo's collectives on CUDA
+       tensors alone: a list ``all_gather`` and an ``all_reduce`` of 11,008
+       (a ConvMixer leaf's selections on the flat model) and 704,266 fp32
+       (the whole model), and whether ``all_gather_into_tensor`` is taken
 
 After a warm-up round:
 
@@ -123,14 +134,15 @@ def _trace_events(prof):
             return json.load(f)["traceEvents"]
 
 
-def _breakdown(events, rounds: int):
-    """Per stage: summed device time of the kernels launched inside it (the
-    innermost range open at the launch) and the host time of its range;
-    per kernel name: count and device time. All per round."""
-    stages = sorted((e["ts"], e["ts"] + e["dur"], e["name"][len("fedsim."):])
+def _breakdown(events, rounds: int, prefix: str = "fedsim."):
+    """Per stage (a ``<prefix><stage>`` range): summed device time of the
+    kernels launched inside it (the innermost range open at the launch) and
+    the host time of its range; per kernel name: count and device time.
+    All per round."""
+    stages = sorted((e["ts"], e["ts"] + e["dur"], e["name"][len(prefix):])
                     for e in events if e.get("ph") == "X"
                     and e.get("cat") == "user_annotation"
-                    and e["name"].startswith("fedsim."))
+                    and e["name"].startswith(prefix))
     starts = [s[0] for s in stages]
 
     def innermost(ts):
@@ -187,14 +199,21 @@ def main():
                                            alpha=0.3, seed=0)
                 for m in (M, chip_smoke.M_K)}
     gen = torch.Generator().manual_seed(1)
-    routes = sys.argv[1:] or list(chip_smoke.ROUTES)
-    unknown = [r for r in routes if r not in chip_smoke.ROUTES]
+    known = list(chip_smoke.ROUTES) + ["m"]
+    routes = sys.argv[1:] or known
+    unknown = [r for r in routes if r not in known]
     if unknown:
         sys.exit(f"profile_round.py: unknown route(s) {unknown}; "
-                 f"routes are {list(chip_smoke.ROUTES)}")
+                 f"routes are {known}")
     out = {"card": chip_smoke.card_line()}
     print(out["card"])
+    if "m" in routes:
+        from repro_torch.kernels import _build
+        _build.build_all()    # before the ranks start, which load it
     for route in routes:
+        if route == "m":
+            out[route] = _mesh()
+            continue
         m = chip_smoke.M_K if route == "k" else M
         plan = []
         for r in range(WARMUP + TIMED + PROFILED):
@@ -218,31 +237,94 @@ def main():
             st = _run(sim, st, plan[WARMUP + TIMED:])
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3 / PROFILED
-        stage_ms, busy, top, port = _breakdown(_trace_events(prof), PROFILED)
-        round_ms = statistics.median(wall)
-        out[route] = {
-            "round_ms": wall, "round_ms_median": round_ms,
-            "rounds_profiled": PROFILED, "profiled_round_wall_ms": prof_wall,
-            "stage_ms": stage_ms, "device_busy_ms": busy,
-            "device_busy_share_of_unprofiled_round": busy / round_ms,
-            "top_kernels": top, "port_kernels": port}
-        print(f"route {route}: unprofiled round ms {wall} (median "
-              f"{round_ms:.1f}); profiled {prof_wall:.1f} ms")
-        for name, t in stage_ms.items():
-            print(f"  stage {name:22s} device {t['device_ms']:9.3f} ms  "
-                  f"host {t['host_ms']} ms")
-        print(f"route {route}: device busy {busy:.1f} ms per round, "
-              f"{100 * busy / round_ms:.1f} % of the unprofiled round")
-        for row in top:
-            print(f"  {row['device_ms']:9.3f} ms  x{row['count']:<7g} "
-                  f"{row['name']}")
-        print(f"route {route}: the port's own kernels, per round")
-        for row in port:
-            print(f"  {row['device_ms']:9.4f} ms  x{row['count']:<7g} "
-                  f"{row['name']}")
+        out[route] = _print_breakdown(route, _trace_events(prof), wall,
+                                      prof_wall)
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "profile_round.json").write_text(json.dumps(out, indent=1))
+
+
+def _collective_probe(job):
+    """Rank side of the gloo probe: each collective on fp32 CUDA tensors
+    over the world, median host ms of 10 (after 3 warm-ups and a
+    barrier, synchronized after each), and whether
+    ``all_gather_into_tensor`` is taken."""
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    res = {}
+    for n in job["sizes"]:
+        x = torch.randn(n, device="cuda")
+        parts = [torch.empty_like(x) for _ in range(world)]
+        for name, fn in (("all_gather", lambda: dist.all_gather(parts, x)),
+                         ("all_reduce", lambda: dist.all_reduce(x))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            ts = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            res[f"{name} {n} fp32 ms"] = statistics.median(ts)
+    out = torch.empty(world * 4, device="cuda")
+    try:
+        dist.all_gather_into_tensor(out, torch.zeros(4, device="cuda"))
+        res["all_gather_into_tensor"] = "taken"
+    except RuntimeError as e:
+        res["all_gather_into_tensor"] = f"refused: {str(e)[:160]}"
+    return res
+
+
+def _mesh():
+    """Route m: the gloo probe, then WARMUP + TIMED + PROFILED rounds on
+    four gloo ranks, the last PROFILED under the profiler; rank 0's trace
+    and round times."""
+    probe = chip_smoke.run_ranks(chip_smoke.M_MESH, "gloo", {"probe": {
+        "sizes": (11008, 704266)}}, fn=_collective_probe)[0]["probe"]
+    print(f"route m: gloo on CUDA tensors, {chip_smoke.M_MESH} ranks on one "
+          f"card: {probe}")
+    job = dict(chip_smoke.mesh_jobs()["sparse-3of4"],
+               rounds=WARMUP + TIMED + PROFILED, profile_last=PROFILED,
+               trace=True)
+    r0 = chip_smoke.run_ranks(chip_smoke.M_MESH, "gloo", {"m": job})[0]["m"]
+    wall = r0["round_ms"][WARMUP:WARMUP + TIMED]
+    prof_wall = sum(r0["round_ms"][WARMUP + TIMED:]) / PROFILED
+    res = _print_breakdown("m", r0["trace"], wall, prof_wall, prefix="mesh.")
+    coll = res["stage_ms"].get("collective", {})
+    print(f"route m: the gloo collectives block rank 0's host "
+          f"{coll.get('host_ms')} ms a round (device time inside them "
+          f"{coll.get('device_ms')} ms)")
+    res["gloo_probe"] = probe
+    return res
+
+
+def _print_breakdown(route, events, wall, prof_wall, prefix="fedsim."):
+    """Print and return one route's breakdown (see ``_breakdown``) beside
+    its unprofiled round times ``wall`` and profiled round ``prof_wall``."""
+    stage_ms, busy, top, port = _breakdown(events, PROFILED, prefix)
+    round_ms = statistics.median(wall)
+    res = {"round_ms": wall, "round_ms_median": round_ms,
+           "rounds_profiled": PROFILED, "profiled_round_wall_ms": prof_wall,
+           "stage_ms": stage_ms, "device_busy_ms": busy,
+           "device_busy_share_of_unprofiled_round": busy / round_ms,
+           "top_kernels": top, "port_kernels": port}
+    print(f"route {route}: unprofiled round ms {wall} (median "
+          f"{round_ms:.1f}); profiled {prof_wall:.1f} ms")
+    for name, t in stage_ms.items():
+        print(f"  stage {name:22s} device {t['device_ms']:9.3f} ms  "
+              f"host {t['host_ms']} ms")
+    print(f"route {route}: device busy {busy:.1f} ms per round, "
+          f"{100 * busy / round_ms:.1f} % of the unprofiled round")
+    for row in top:
+        print(f"  {row['device_ms']:9.3f} ms  x{row['count']:<7g} "
+              f"{row['name']}")
+    print(f"route {route}: the port's own kernels, per round")
+    for row in port:
+        print(f"  {row['device_ms']:9.4f} ms  x{row['count']:<7g} "
+              f"{row['name']}")
+    return res
 
 
 if __name__ == "__main__":

@@ -2,8 +2,7 @@
 host-side planner, the wire damage and the server's validation before
 ingest.
 
-Counterpart of ``repro.comm.faults`` (FedSim's half; the mesh's in-trace
-draws wait for the port's mesh):
+Counterpart of ``repro.comm.faults``:
 
 * :class:`FaultConfig`, :class:`FaultPlan` and :class:`FaultInjector` are
   copies of the originals — numpy and the standard library only — so a
@@ -16,7 +15,13 @@ draws wait for the port's mesh):
   the server's gate: NaN/Inf and index-range rejection and the optional
   per-client norm clip. Non-survivors are replaced by ``where`` before any
   multiply (a NaN times 0 is still NaN), so one poisoned payload cannot
-  reach the FedAMS m/v/v̂ state.
+  reach the FedAMS m/v/v̂ state;
+* :func:`mesh_fault_mask` / :func:`mesh_corruption_plan` are the mesh
+  round's shared draws: every rank draws the same (m,) arrays from the
+  round seed (:func:`mesh_draw`, one CPU generator per fold of the seed —
+  JAX's ``0xFA017``–``0xFA01A`` folds, not its streams), so all ranks agree
+  on who crashed and whose payload is damaged with no collective;
+  :func:`mesh_draw` is the one function to patch to replay JAX's draws.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.sampling import round_generator
 from repro_torch.kernels import ref
 
 #: Known payload corruption modes (validated at FaultConfig construction).
@@ -307,3 +313,54 @@ def validate_dense(hats, max_norm: float = 0.0, truncated=None):
     if max_norm > 0:
         hats = _clip(hats, max_norm)
     return hats, valid
+
+
+# ---------------------------------------------------------------------------
+# The mesh's shared draws
+# ---------------------------------------------------------------------------
+
+
+def mesh_draw(seed: int, fold: int, m: int, kind: str = "uniform"):
+    """One of mesh round ``seed``'s shared fault draws, from
+    ``round_generator(seed, fold)`` on the CPU: (m,) float32 uniforms in
+    [0, 1) (``kind="uniform"``) or (m,) uint32 bit patterns held as int32
+    (``kind="bits"``, the form ``corrupt_selection`` XORs with)."""
+    gen = round_generator(seed, fold)
+    if kind == "bits":
+        u = torch.randint(0, 2 ** 32, (m,), generator=gen,
+                          dtype=torch.int64)
+        return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+    return torch.rand(m, generator=gen, dtype=torch.float32)
+
+
+def mesh_fault_mask(cfg: FaultConfig, seed: int, m: int, round_idx: int):
+    """(m,) f32 alive-mask for the mesh round, the same on every rank:
+    crashes drawn with probability ``crash_prob`` (fold ``0xFA017``), and
+    ``crash_trace`` windows evaluated against ``round_idx``. Semantics
+    match the FedSim injector (different streams — the backends share the
+    fault *model*, not the draws)."""
+    alive = torch.ones(m, dtype=torch.float32)
+    if cfg.crash_prob > 0:
+        u = mesh_draw(seed, 0xFA017, m)
+        alive = alive * (u >= cfg.crash_prob).float()
+    for cid, r0, r1 in cfg.crash_trace:
+        if r0 <= int(round_idx) < r1:
+            alive[cid] = 0.0
+    return alive
+
+
+def mesh_corruption_plan(cfg: FaultConfig, seed: int, m: int) -> FaultPlan:
+    """The mesh round's shared corruption draws as a :func:`plan_to_device`
+    style plan of (m,) CPU tensors: every rank computes the same flag /
+    xor / cut arrays (folds ``0xFA018``–``0xFA01A``); rank i damages its own
+    payload with row i before the client-axis gather, so the server — and
+    client i itself, for the NACK — sees the corrupted copy."""
+    corrupt = (mesh_draw(seed, 0xFA018, m) < cfg.corrupt_prob).float()
+    xor = mesh_draw(seed, 0xFA019, m, "bits")
+    keep = mesh_draw(seed, 0xFA01A, m)
+    return FaultPlan(
+        survivors=torch.ones(m, dtype=torch.float32),
+        corrupt=corrupt,
+        xor_bits=torch.where(corrupt > 0, xor, 0),
+        trunc_keep=torch.where(corrupt > 0, keep, 1.0),
+    )

@@ -337,8 +337,9 @@ class TrainConfig:
     """The training loop's settings (a copy of
     ``repro.configs.base.TrainConfig``, same fields and defaults). The
     simulation backend's ``FederatedTrainer`` reads ``rounds``,
-    ``log_every``, ``checkpoint_every`` and ``seed``; the rest configure the
-    mesh backend, not ported yet."""
+    ``log_every``, ``checkpoint_every`` and ``seed``; the mesh backend
+    also ``global_batch``, ``seq_len`` and ``remat_policy``. The rest
+    configure the model zoo, not ported yet."""
 
     global_batch: int = 256
     seq_len: int = 4096

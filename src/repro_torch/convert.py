@@ -12,7 +12,12 @@ pytrees), so this module needs neither ``jax`` nor ``repro``:
   layout (what ``FederatedTrainer.save`` writes), and
   :func:`state_from_jax`, its inverse: a JAX FedSim's state (a restored
   checkpoint, or ``jax.device_get(state._asdict())``) → the port's
-  ``SimState``.
+  ``SimState``;
+* :func:`mesh_state_to_jax` / :func:`mesh_state_from_jax` — the mesh's
+  ``FedMeshState`` in the global layout (``core.mesh.gather_fed_state``)
+  to and from the JAX ``FedMeshState._asdict()`` layout (what the mesh
+  trainer's ``save`` writes; both packages start a parity run from one
+  staged state with them).
 """
 from __future__ import annotations
 
@@ -110,3 +115,33 @@ def state_from_jax(tree, device="cpu"):
         x_client=tensor_from_numpy(tree["x_client"], device),
         bits=int(np.asarray(tree["bits"])),
         round=int(np.asarray(tree["round"])))
+
+
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def mesh_state_to_jax(state) -> dict:
+    """A global-layout ``core.mesh.FedMeshState`` → the JAX
+    ``FedMeshState._asdict()`` layout: ``params``, ``m``, ``v``, ``vhat``
+    and ``errors`` nested dicts (``errors`` leaves (m, ...)) and ``round``,
+    every leaf a CPU tensor copy (bf16 kept: numpy has none)."""
+    return {name: _host_tree(getattr(state, name))
+            for name in state._fields}
+
+
+def mesh_state_from_jax(tree, device="cpu"):
+    """A JAX ``FedMeshState`` (``jax.device_get(state._asdict())``, numpy
+    leaves, or :func:`mesh_state_to_jax`'s) → the port's global-layout
+    ``FedMeshState`` on ``device``, every leaf copied with its dtype."""
+    from repro_torch.core.mesh import FedMeshState
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return tensor_from_numpy(t, device)
+
+    return FedMeshState(**{name: conv(tree[name])
+                           for name in FedMeshState._fields})

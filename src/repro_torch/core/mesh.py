@@ -1,0 +1,609 @@
+"""The mesh backend on ``torch.distributed``.
+
+Counterpart of ``repro.core.mesh``. ``build_fed_round`` returns the
+per-rank round body ``fed_round(state, batch, seed)``: every rank is one
+process, each index of the client axes IS one client (one client per
+client-axis rank, as in JAX), and FedCAMS compression applies to the
+client-axis collective (dense psum, or the sparse / packed aggregation of
+``core.stages.mesh_uplink``). Each rank holds its client's EF row; the
+server state is replicated, or sharded ZeRO-style over the state-shard
+axes (``shard_server_state``). The local phase runs the configured
+``core.local`` rule with plain per-rank autograd: nothing reduces
+gradients across clients (no DDP, no hook), which is what JAX's ``pvary``
+of the params achieves; with ``"data"`` not a client axis (within-client
+data parallelism) the gradient is all-reduced over the data axis
+explicitly and divided by ``dp``, as JAX's automatic psum over ``"data"``.
+
+Every rank calls ``fed_round`` with the same ``seed``: the round's shared
+draws (participation, heterogeneous step counts, fault masks, randk
+positions) come from CPU generators seeded by it
+(``core.sampling.round_generator``), so every rank draws the same numbers
+with no collective — the role of JAX's shared per-round key, not its
+streams. The state is per rank (``FedMeshState``: the params, this rank's
+slices of m/v/v̂ and its client's EF row); :func:`shard_fed_state` and
+:func:`gather_fed_state` convert to and from the global layout the JAX
+package holds (``convert.mesh_state_to_jax`` / ``mesh_state_from_jax``
+carry that across packages). ``tp > 1`` (a model axis) waits for the
+model zoo (ROADMAP Queue 1 item 8) and raises.
+
+A model is duck-typed as the JAX one: ``defs()`` (a nested dict of
+``ParamDef``), ``loss(p, b, ctx, remat_policy=..., chunk=...) -> (loss,
+aux)``, ``train_batch_defs(global_batch, seq_len)`` and ``tp``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.comm.faults import (FaultPlan, corrupt_selection,
+                                     mesh_corruption_plan, mesh_fault_mask)
+from repro_torch.configs.base import FedConfig, TrainConfig
+from repro_torch.core.compressors import (Selection, block_layout,
+                                          make_compressor)
+from repro_torch.core.local import (hetero_step_counts, local_lr,
+                                    make_local_update, run_local_steps)
+from repro_torch.core.sampling import participation_mask, round_generator
+from repro_torch.core.server_opt import (FUSED_INGEST_GROUPS_DETAIL,
+                                         ServerState, server_ingest_tree,
+                                         server_update_tree)
+from repro_torch.core.stages import (mesh_agg_strategy, mesh_select_tree,
+                                     mesh_uplink, resolve_fused_ingest,
+                                     resolve_mesh_sparse_impl,
+                                     sparse_topk_leaf_validated, stage)
+from repro_torch.models import params as pdefs
+from repro_torch.models.params import tree_leaves, tree_map, tree_unzip
+
+class FedMeshState(NamedTuple):
+    """One rank's federated state. In the global layout
+    (:func:`gather_fed_state`, the JAX package's ``FedMeshState``) every
+    leaf has its global shape: ``errors`` leaves lead with the client dim
+    (m, ...), ``m``/``v``/``vhat`` are whole."""
+    params: object     # nested dict, replicated (tp = 1)
+    m: object          # server momentum (fp32; this rank's shard if sharded)
+    v: object          # server variance (fp32 or bf16)
+    vhat: object       # max-stabilized variance
+    errors: object     # this rank's client's EF row: leaves (1, *shape)
+    round: torch.Tensor   # int32 0-d
+
+
+def client_batch_axes(fed: FedConfig) -> Tuple[str, ...]:
+    """Mesh axes the global batch is sharded over."""
+    axes = tuple(fed.client_axes)
+    if "data" not in axes:
+        axes = axes + ("data",)
+    return axes
+
+
+def state_shard_axes(fed: FedConfig):
+    """Mesh axes the server state shards over (ZeRO mode)."""
+    return tuple(fed.client_axes) if fed.client_axes else ("data",)
+
+
+def state_shard_dim(dref: pdefs.ParamDef, shards: int):
+    """First dim of a leaf that can host the server-state shard, or None."""
+    if shards <= 1:
+        return None
+    for i, (size, sp) in enumerate(zip(dref.shape, dref.dim_specs)):
+        if sp is None and size % shards == 0 and size >= shards:
+            return i
+    return None
+
+
+def _axes_spec(axes):
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def fed_state_defs(model, fed: FedConfig) -> FedMeshState:
+    """ParamDef tree for the full federated state (GLOBAL shapes)."""
+    par = model.defs()
+
+    def opt_leaf(dref: pdefs.ParamDef) -> pdefs.ParamDef:
+        dref = dataclasses.replace(dref, dtype="float32")
+        if fed.shard_server_state:
+            sd = state_shard_dim(dref, fed.state_shards)
+            if sd is not None:
+                spec = list(dref.dim_specs)
+                spec[sd] = _axes_spec(state_shard_axes(fed))
+                dref = dataclasses.replace(dref, spec=tuple(spec))
+        return dref
+
+    def client_stacked(dref: pdefs.ParamDef) -> pdefs.ParamDef:
+        ax = _axes_spec(fed.client_axes) if fed.client_axes else None
+        return dataclasses.replace(
+            dref, shape=(fed.num_clients,) + tuple(dref.shape),
+            spec=(ax,) + dref.dim_specs, dtype="float32")
+
+    opt = tree_map(opt_leaf, par)
+    # second-moment storage dtype (m always stays fp32): bf16 halves the
+    # v/v̂ residency; int8-blockscale has no mesh ParamDef form
+    if fed.server_state_dtype == "int8":
+        raise ValueError(
+            "FedConfig.server_state_dtype='int8' is simulation-only — the "
+            "blockscale QuantState layout has no mesh ParamDef form; use "
+            "'bfloat16' on the mesh backend")
+    if fed.server_state_dtype == "bfloat16":
+        second = tree_map(
+            lambda dref: dataclasses.replace(dref, dtype="bfloat16"), opt)
+    else:
+        second = opt
+    errors = tree_map(client_stacked, par)
+    return FedMeshState(
+        params=par, m=opt, v=second, vhat=second, errors=errors,
+        round=pdefs.ParamDef((), dtype="int32", init="zeros"))
+
+
+# -- global <-> per-rank layouts ---------------------------------------------
+
+
+def _dim_axes(sp) -> Tuple[str, ...]:
+    if sp is None:
+        return ()
+    return (sp,) if isinstance(sp, str) else tuple(sp)
+
+
+def local_shape(dref: pdefs.ParamDef, ctx) -> Tuple[int, ...]:
+    """This rank's shape of a leaf whose dims are sharded by its spec."""
+    return tuple(size // ctx.axis_size(_dim_axes(sp))
+                 for size, sp in zip(dref.shape, dref.dim_specs))
+
+
+def _take_local(t, dref: pdefs.ParamDef, ctx):
+    for dim, sp in enumerate(dref.dim_specs):
+        axes = _dim_axes(sp)
+        n = ctx.axis_size(axes)
+        if n > 1:
+            chunk = t.shape[dim] // n
+            t = t.narrow(dim, ctx.axis_index(axes) * chunk, chunk)
+    return t
+
+
+def _gather_global(t, dref: pdefs.ParamDef, ctx):
+    for dim, sp in enumerate(dref.dim_specs):
+        t = ctx.gather_axes(_dim_axes(sp), t, axis=dim)
+    return t
+
+
+def _state_map(fn, state: FedMeshState, defs: FedMeshState) -> FedMeshState:
+    return FedMeshState(*(tree_map(fn, s, d) for s, d in zip(state, defs)))
+
+
+def shard_fed_state(state: FedMeshState, model, fed: FedConfig, ctx,
+                    device=None) -> FedMeshState:
+    """A global-layout state (every rank holding the same one) → this
+    rank's state on ``device`` (None: CUDA): its client's EF row, its slice of each
+    sharded m/v/v̂ leaf."""
+    defs = fed_state_defs(model, fed)
+    device = resolve_device(device)
+    return _state_map(
+        lambda t, d: _take_local(t, d, ctx).to(
+            device=device, copy=True).contiguous(), state, defs)
+
+
+def gather_fed_state(state: FedMeshState, model, fed: FedConfig,
+                     ctx) -> FedMeshState:
+    """This rank's state → the global layout, on every rank (collective:
+    every rank calls it). EF rows come back client-major."""
+    defs = fed_state_defs(model, fed)
+    return _state_map(lambda t, d: _gather_global(t, d, ctx), state, defs)
+
+
+def init_fed_state(model, fed: FedConfig, generator: torch.Generator, ctx,
+                   device=None) -> FedMeshState:
+    """This rank's initial state: params from ``generator`` (the same on
+    every rank given the same seed; ``models.params.init_params``), zeros
+    elsewhere, each leaf in its per-rank shape, on ``device`` (None:
+    CUDA)."""
+    device = resolve_device(device)
+    defs = fed_state_defs(model, fed)
+    params = pdefs.init_params(defs.params, generator, device)
+    zeros = lambda t: tree_map(
+        lambda d: torch.zeros(local_shape(d, ctx), dtype=getattr(torch, d.dtype),
+                              device=device), t)
+    return FedMeshState(params=params, m=zeros(defs.m), v=zeros(defs.v),
+                        vhat=zeros(defs.vhat), errors=zeros(defs.errors),
+                        round=torch.zeros((), dtype=torch.int32,
+                                          device=device))
+
+
+def _sharded_server_update(fed: FedConfig, st: ServerState, params, agg,
+                           model, ctx):
+    """ZeRO-style server step: each index along the state-shard axes owns a
+    slice of (m, v, v̂); it updates its slice of x from its slice of the
+    aggregate and the refreshed params are all-gathered back along the
+    shard dim, client-major. Leaves too small to shard stay replicated and
+    update normally."""
+    axes = state_shard_axes(fed)
+    shards = fed.state_shards
+    idx = ctx.axis_index(axes)
+    dims = tree_map(lambda d: state_shard_dim(d, shards), model.defs())
+
+    def take(leaf, sd):
+        if sd is None:
+            return leaf
+        chunk = leaf.shape[sd] // shards
+        return leaf.narrow(sd, idx * chunk, chunk)
+
+    newp_sh, new_st = server_update_tree(fed, st, tree_map(take, params, dims),
+                                         tree_map(take, agg, dims))
+
+    def gather(newp, oldp, sd):
+        if sd is None:
+            return newp
+        return ctx.gather_axes(axes, newp, axis=sd).to(oldp.dtype)
+
+    return tree_map(gather, newp_sh, params, dims), new_st
+
+
+# -- the round ---------------------------------------------------------------
+
+
+def _itemsize(dtype: str) -> int:
+    return torch.empty((), dtype=getattr(torch, dtype)).element_size()
+
+
+def leaf_wire_bytes(fed: FedConfig, dl: int, block: int = 2048) -> int:
+    """Per-client collective payload bytes for ONE leaf of ``dl`` local
+    elements, resolved through the same ``mesh_agg_strategy`` the round
+    executes (every fallback billed as the dense psum it runs):
+
+    * ``sparse_topk`` / ``sparse_topk_hier`` — the gathered Selection: an
+      int32 index + fp32 value per kept coordinate (8 bytes each), ``nb·kb``
+      entries in the leaf's padded block layout (on the hierarchical
+      strategy the TIER-1 payload; the tier-2 partial is
+      :func:`leaf_tier2_bytes`);
+    * ``packed_sign``  — the 8→1 packed sign bits + one fp32 scale;
+    * ``dense``        — ``delta_dtype`` words for every element.
+    """
+    strategy = mesh_agg_strategy(fed)
+    if strategy in ("sparse_topk", "sparse_topk_hier"):
+        bs, nb = block_layout(dl, block)
+        kb = max(1, int(round(fed.compress_ratio * bs)))
+        return nb * kb * 8                # int32 index + fp32 value
+    if strategy == "packed_sign":
+        return (dl + 7) // 8 + 4          # 1 bit/coord + fp32 scale
+    return dl * _itemsize(fed.delta_dtype)
+
+
+def leaf_tier2_bytes(fed: FedConfig, dl: int) -> int:
+    """Per-GROUP root-collective payload bytes for one leaf: the dense fp32
+    group partial ``sparse_topk_hier_leaf`` gathers over the group axis.
+    Zero on every flat strategy."""
+    if mesh_agg_strategy(fed) == "sparse_topk_hier":
+        return dl * 4
+    return 0
+
+
+def _numels(delta_tree):
+    return [int(np.prod(tuple(leaf.shape))) for leaf in tree_leaves(delta_tree)]
+
+
+def mesh_wire_bytes(fed: FedConfig, delta_tree, block: int = 2048,
+                    tp: int = 1) -> int:
+    """Per-client contribution bytes for one mesh round's client-axis
+    collective: the sum of :func:`leaf_wire_bytes` over this rank's leaf
+    tree (``delta_tree``: tensors or arrays), × ``tp`` (each of a client's
+    model-parallel ranks pushes its own payload). On the hierarchical
+    strategy this is the TIER-1 contribution."""
+    return sum(leaf_wire_bytes(fed, n, block)
+               for n in _numels(delta_tree)) * max(tp, 1)
+
+
+def mesh_wire_bytes_tiers(fed: FedConfig, delta_tree, block: int = 2048,
+                          tp: int = 1) -> dict:
+    """Per-tier uplink bytes for one mesh round: ``tier1`` the per-CLIENT
+    payload (:func:`mesh_wire_bytes`, pushed by each of m clients),
+    ``tier2`` the per-GROUP dense partial (g pushes; 0 on flat
+    strategies). The round's ``wire_up_bytes`` is ``m·tier1 + g·tier2``."""
+    tier2 = sum(leaf_tier2_bytes(fed, n) for n in _numels(delta_tree))
+    return {"tier1": mesh_wire_bytes(fed, delta_tree, block, tp),
+            "tier2": tier2 * max(tp, 1)}
+
+
+def require_tp1(tp: int) -> None:
+    """Refuse a model axis > 1: the port's mesh runs at tp = 1."""
+    if tp > 1:
+        raise NotImplementedError(
+            "the mesh backend runs at tp = 1 in repro_torch: no model of "
+            "the port has tensor-parallel (model-axis) defs yet — that "
+            "waits for the model zoo, ROADMAP Queue 1 item 8")
+
+
+def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
+                    chunk: int = 2048, kernel_impl: Optional[object] = None):
+    """Returns ``fed_round(state, batch, seed) -> (state, metrics)``, this
+    rank's round body. ``batch``: this rank's shard of the round's batch
+    (:func:`shard_batch`), tensors with a leading K dim on the state's
+    device; ``seed``: the round's shared seed, the same on every rank.
+    ``kernel_impl``: a ``kernels.ops.KernelImpl`` (the selection and the
+    fused ingest through their kernels; the dense-hat EF and the two-pass
+    server step launch theirs on CUDA tensors without one)."""
+    require_tp1(max(ctx.tp, getattr(model, "tp", 1)))
+    # On the mesh "topk" means the blockwise kernel semantics (global top-k
+    # of a sharded leaf is ill-defined); exact global top-k is FedSim's.
+    comp_name = "blocktopk" if fed.compressor == "topk" else fed.compressor
+    if fed.ef_store:
+        raise ValueError(
+            "FedConfig.ef_store is FedSim-only — the mesh backend already "
+            "shards per-client EF state over the client axes (one row per "
+            "client-axis device); there is no resident (m, d) buffer to "
+            "stream")
+    strategy = mesh_agg_strategy(fed)
+    fcfg = fed.fault
+    if fed.deadline_s > 0 or (fcfg is not None and fcfg.deadline_s > 0):
+        raise ValueError(
+            "deadline_s is FedSim wire-mode only — the mesh backend has "
+            "no transport clock to cut against; model stragglers as "
+            "crashes (FaultConfig.crash_prob / crash_trace) on the mesh")
+    validating = fcfg is not None and (fcfg.corrupt_prob > 0
+                                       or fcfg.max_update_norm > 0)
+    if validating and strategy != "sparse_topk":
+        raise ValueError(
+            f"FaultConfig corruption/validation on the mesh needs the "
+            f"flat compacted-Selection collective (strategy "
+            f"'sparse_topk'), but this config resolves {strategy!r} — "
+            f"the validation-before-ingest gate inspects gathered "
+            f"(vals, idx) payloads, which the dense psum / hierarchical "
+            f"partials never materialize per client")
+    if fed.agg_groups > 1 and strategy != "sparse_topk_hier":
+        raise ValueError(
+            f"FedConfig.agg_groups={fed.agg_groups} but this config "
+            f"resolves the {strategy!r} aggregation strategy — the two-"
+            f"level collective only exists for the compacted-Selection "
+            f"path (fedcams + aggregation='sparse' + topk/blocktopk)")
+    if strategy == "sparse_topk_hier":
+        # the FIRST client axis is the group axis
+        if len(fed.client_axes) < 2:
+            raise ValueError(
+                f"agg_groups={fed.agg_groups} needs >= 2 client axes — "
+                f"the first enumerates the groups, the rest the members "
+                f"(e.g. client_axes=('cgroup', 'data')); got "
+                f"{fed.client_axes!r}")
+        if fed.num_clients % fed.agg_groups:
+            raise ValueError(
+                f"agg_groups={fed.agg_groups} must divide the client-axis "
+                f"size m={fed.num_clients} (the mesh reshapes the client "
+                f"axis into (groups, members))")
+    sharded = fed.shard_server_state and fed.state_shards > 1
+    if sharded and fed.state_shards != ctx.axis_size(state_shard_axes(fed)):
+        raise ValueError(
+            f"FedConfig.state_shards={fed.state_shards} must equal the "
+            f"ranks along the state-shard axes {state_shard_axes(fed)} "
+            f"({ctx.axis_size(state_shard_axes(fed))})")
+    fused = resolve_fused_ingest(
+        fed,
+        eligible=(strategy == "sparse_topk" and not sharded
+                  and fcfg is None),
+        have_kernel=kernel_impl is not None,
+        compiled=kernel_impl is not None and kernel_impl.compiled,
+        detail="the mesh fuses only the sparse_topk aggregation strategy "
+               "(fedcams + aggregation='sparse' + topk/blocktopk) without "
+               "shard_server_state or fault injection (the masked "
+               "survivor aggregate needs the unfused gather path)"
+               + FUSED_INGEST_GROUPS_DETAIL)
+    # one block layout for the whole sparse path: the kernels', when they
+    # select or ingest, so the wire metric and the selections agree
+    sparse_block = 2048
+    if strategy in ("sparse_topk", "sparse_topk_hier"):
+        if (resolve_mesh_sparse_impl(fed, kernel_impl) == "kernel"
+                or fused == "kernel"):
+            sparse_block = kernel_impl.block
+    comp = (make_compressor(comp_name, fed.compress_ratio, sparse_block)
+            if fed.algorithm == "fedcams" else None)
+    rule = make_local_update(fed)
+    m_clients = fed.num_clients
+    n_part = fed.participating or m_clients
+    hierarchical = "data" not in fed.client_axes  # within-client DP on "data"
+
+    def fed_round(state: FedMeshState, batch, seed):
+        seed = int(seed)
+        params = state.params
+        flat0, unravel = pdefs.ravel(params)
+        flat0 = flat0.float()
+        dev = flat0.device
+
+        def grad_fn(p, b):
+            p = p.detach().requires_grad_(True)
+            loss, _ = model.loss(unravel(p), b, ctx,
+                                 remat_policy=train.remat_policy, chunk=chunk)
+            (g,) = torch.autograd.grad(loss, p)
+            if hierarchical and ctx.data_axis:
+                g = ctx.psum_data(g) / torch.full((), ctx.dp,
+                                                  dtype=g.dtype, device=dev)
+            return loss.detach(), g
+
+        round_idx = int(state.round)
+        ci = ctx.client_index()
+        eta_l = local_lr(fed, round_idx)
+        k_all = hetero_step_counts(fed, round_generator(seed, 0), m_clients)
+        k_i = None if k_all is None else k_all[ci]
+        with stage("local_training", "mesh"):
+            local, loss_local = run_local_steps(rule, grad_fn, flat0, batch,
+                                                eta_l, k_i=k_i)
+            delta = unravel((local - flat0).float())
+
+        # participation: the same mask on every rank (shared draw)
+        mask = participation_mask(round_generator(seed, 1), m_clients,
+                                  n_part)
+        if fcfg is not None:
+            # crashed clients drop out of the round like non-participants:
+            # zero contribution, stale EF row
+            mask = mask * mesh_fault_mask(fcfg, seed, m_clients, round_idx)
+            mask = mask.to(dev)
+            n_eff = mask.sum().clamp_min(1.0)
+        else:
+            mask = mask.to(dev)
+            n_eff = float(n_part)
+        my_mask = mask[ci]
+
+        my_err = tree_map(lambda e: e[0], state.errors)
+        st = ServerState(m=state.m, v=state.v, vhat=state.vhat,
+                         t=state.round)
+
+        def _server_step(agg):
+            with stage("server_update", "mesh"):
+                if sharded:
+                    return _sharded_server_update(fed, st, params, agg,
+                                                  model, ctx)
+                return server_update_tree(fed, st, params, agg)
+
+        def select():
+            with stage("uplink", "mesh"):
+                return mesh_select_tree(fed, comp, kernel_impl, delta,
+                                        my_err, my_mask)
+
+        rejected = torch.zeros((), dtype=torch.float32, device=dev)
+        if fused != "off":
+            # one-pass fused ingest: select once, all_gather the compacted
+            # Selections (the same collective and payload as
+            # sparse_topk_leaf), scatter-mean + FedAMS step in one pass
+            sels, new_err = select()
+            gather = lambda a: ctx.all_gather_clients(a[None], axis=0)
+            with stage("server_ingest", "mesh"):
+                if fused == "kernel":
+                    new_params, new_st = kernel_impl.fedams_ingest_tree(
+                        fed, st, params, sels, n_eff, gather)
+                else:
+                    new_params, new_st = server_ingest_tree(
+                        fed, st, params, sels, n_eff, gather,
+                        block=sparse_block, impl="jnp")
+        elif validating:
+            # damage this rank's OWN payload in transit (every rank holds
+            # the same plan, so every gathered copy shows the damage),
+            # validate server-side, aggregate over alive ∧ valid; a
+            # rejected client's EF row rolls back to its pre-round value
+            sels, new_err = select()
+            plan = mesh_corruption_plan(fcfg, seed, m_clients)
+            myplan = FaultPlan(*(a[ci:ci + 1].to(dev) for a in plan))
+
+            def leaf_fault(s, lf):
+                cv, cidx = corrupt_selection(s.vals[None], s.idx[None],
+                                             myplan, fcfg.corrupt_mode)
+                bs, nb = block_layout(lf.numel(), sparse_block)
+                return sparse_topk_leaf_validated(
+                    Selection(vals=cv[0], idx=cidx[0]), lf, mask, ctx,
+                    bs * nb, fcfg.max_update_norm)
+
+            with stage("validate", "mesh"):
+                outs = tree_map(leaf_fault, sels, delta)
+            agg = tree_unzip(outs, 3)[0]
+            triples = tree_leaves(outs)
+            rejected = triples[0][2]
+            # a client survives only if EVERY leaf validated
+            my_valid = triples[0][1]
+            for t in triples[1:]:
+                my_valid = my_valid * t[1]
+            new_err = tree_map(
+                lambda ne, eo: torch.where(my_valid > 0, ne, eo),
+                new_err, my_err)
+            new_params, new_st = _server_step(agg)
+        else:
+            with stage("uplink", "mesh"):
+                agg, new_err = mesh_uplink(fed, comp, ctx, kernel_impl,
+                                           round_generator(seed, 2), delta,
+                                           my_err, my_mask, n_eff)
+            new_params, new_st = _server_step(agg)
+
+        errors = tree_map(lambda ne: ne.unsqueeze(0), new_err)
+        # the clients' losses in client order, averaged as FedSim averages
+        # its cohort's
+        loss = ctx.all_gather_clients(loss_local.reshape(1), axis=0).mean()
+        if hierarchical:
+            loss = ctx.pmean_data(loss)
+        new_state = FedMeshState(params=new_params, m=new_st.m, v=new_st.v,
+                                 vhat=new_st.vhat, errors=errors,
+                                 round=new_st.t)
+        # measured uplink bytes (a host constant, as JAX's trace-time one):
+        # all m clients feed the tier-1 collective (non-participants send
+        # masked zeros), the root tier one dense partial per GROUP
+        tiers = mesh_wire_bytes_tiers(fed, delta, block=sparse_block,
+                                      tp=ctx.tp)
+        wire = torch.tensor(float(m_clients * tiers["tier1"]
+                                  + fed.agg_groups * tiers["tier2"]),
+                            dtype=torch.float32, device=dev)
+        met = {"loss": loss, "wire_up_bytes": wire}
+        if fcfg is not None:
+            met["survivors"] = mask.sum()
+            met["rejected"] = rejected
+        return new_state, met
+
+    return fed_round
+
+
+def mesh_metric_specs(fed: FedConfig, *, scan: bool = False):
+    """The metrics ``build_fed_round`` emits, each with its layout: ``()``
+    a replicated scalar, ``(None,)`` the (R,) stack of
+    :func:`build_fed_rounds_scan` (``scan=True``) — the keys launch sites
+    read, so the fault-metric keys cannot drift from the round body."""
+    sp = (None,) if scan else ()
+    specs = {"loss": sp, "wire_up_bytes": sp}
+    if fed.fault is not None:
+        specs["survivors"] = sp
+        specs["rejected"] = sp
+    return specs
+
+
+def build_fed_rounds_scan(fed_round):
+    """Lift a per-round mesh body to the multi-round body
+    ``(state, batches[R], seeds[R]) -> (state, stacked metrics)`` — JAX's
+    ``lax.scan`` as a plain loop over the staged rounds."""
+
+    def rounds_fn(state, batches, seeds):
+        mets = []
+        for r in range(len(seeds)):
+            state, met = fed_round(state, {k: v[r] for k, v in batches.items()},
+                                   int(seeds[r]))
+            mets.append(met)
+        return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+
+    return rounds_fn
+
+
+def stage_mesh_rounds(lm_data, r0: int, count: int, local_steps: int,
+                      global_batch: int, seq_len: int):
+    """Host-side staging for ``count`` mesh rounds: the stacked (R, ...)
+    GLOBAL batch dict (numpy) + (R,) int32 seeds for
+    :func:`build_fed_rounds_scan` (cut to this rank with
+    :func:`shard_batch`)."""
+    raws = [lm_data.mesh_batch(r, local_steps, global_batch, seq_len)
+            for r in range(r0, r0 + count)]
+    batch = {k: np.stack([b[k] for b in raws]) for k in raws[0]}
+    return batch, torch.arange(r0, r0 + count, dtype=torch.int32)
+
+
+def fed_batch_defs(model, fed: FedConfig, train: TrainConfig):
+    """GLOBAL batch defs with client-axis sharding, leading K dim."""
+    b = model.train_batch_defs(train.global_batch, train.seq_len)
+    ax = _axes_spec(client_batch_axes(fed))
+
+    def stack_k(d: pdefs.ParamDef):
+        spec = list(d.dim_specs)
+        spec[0] = ax  # batch dim over client (+data) axes
+        return dataclasses.replace(
+            d, shape=(fed.local_steps,) + tuple(d.shape),
+            spec=(None,) + tuple(spec))
+
+    return tree_map(stack_k, b)
+
+
+def shard_batch(batch, model, fed: FedConfig, train: TrainConfig, ctx,
+                device=None, *, staged: bool = False):
+    """A round's GLOBAL batch (arrays or tensors, leading K; with
+    ``staged`` the (R, K, ...) stack of :func:`stage_mesh_rounds`) → this
+    rank's shard on ``device``, cut along the batch dim as
+    :func:`fed_batch_defs` shards it (client-major over the client, then
+    data, axes). ``device`` None means CUDA, as in :func:`init_fed_state`."""
+    device = resolve_device(device)
+    defs = fed_batch_defs(model, fed, train)
+
+    def cut(a, d):
+        t = torch.as_tensor(np.asarray(a))
+        if staged:
+            d = dataclasses.replace(d, shape=(t.shape[0],) + d.shape,
+                                    spec=(None,) + d.dim_specs)
+        return _take_local(t, d, ctx).to(device=device).contiguous()
+
+    return tree_map(cut, batch, defs)

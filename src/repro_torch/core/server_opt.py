@@ -22,6 +22,10 @@ int8-blockscale (:class:`QuantState`, padded to the block domain); the
 update math always runs in fp32. The one-pass fused ingest
 (:func:`server_ingest`) consumes the compacted ``(vals, idx)`` client
 selections directly.
+
+The mesh keeps its state per leaf (nested dicts in the params' shapes):
+:func:`server_update_tree` and :func:`server_ingest_tree` run the same
+functions leaf by leaf.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.compressors import block_layout
 from repro_torch.kernels import ops, ref
+from repro_torch.models.params import tree_map, tree_unzip
 
 
 class ServerState(NamedTuple):
@@ -195,3 +200,49 @@ def server_ingest(fed: FedConfig, state: ServerState, xflat, vals, idx,
         fed, xflat, state.m, state.v, state.vhat, vals, idx, n_div,
         block=block, impl=impl)
     return x2, ServerState(m=m2, v=v2, vhat=vh2, t=state.t + 1)
+
+
+# ===========================================================================
+# The mesh's per-leaf state
+# ===========================================================================
+
+
+def server_update_tree(fed: FedConfig, st: ServerState, params, agg):
+    """:func:`server_update` leaf by leaf over the mesh's state trees
+    (``st.m``/``st.v``/``st.vhat`` nested dicts like ``params``; bf16 v/v̂
+    allowed). Returns ``(new_params, new_state)``."""
+    def leaf(x, m, v, vh, d):
+        x2, s2 = server_update(
+            fed, ServerState(m.reshape(-1), v.reshape(-1), vh.reshape(-1),
+                             st.t), x.reshape(-1).float(), d.reshape(-1))
+        return (x2.reshape(x.shape).to(x.dtype), s2.m.reshape(x.shape),
+                s2.v.reshape(v.shape), s2.vhat.reshape(vh.shape))
+
+    xs, ms, vs, vhs = tree_unzip(
+        tree_map(leaf, params, st.m, st.v, st.vhat, agg), 4)
+    return xs, ServerState(m=ms, v=vs, vhat=vhs, t=st.t + 1)
+
+
+def server_ingest_tree(fed: FedConfig, st: ServerState, params, sels, n_div,
+                       gather, *, block: int, impl: str):
+    """Mesh entry point: per-leaf gather + fused ingest over the state
+    trees. ``sels`` has :class:`~repro_torch.core.compressors.Selection`
+    leaves (this rank's compacted uplink, ``idx`` in the leaf's padded
+    block domain); ``gather`` lifts one (nb·k,) tensor to the gathered
+    (n, nb·k) client-major stack (the client-axis all_gather — the same
+    collective ``stages.sparse_topk_leaf`` runs). Each leaf is ingested by
+    :func:`server_ingest_leaf` at its own block layout
+    (``block_layout(leaf size, block)``). Returns ``(new_params,
+    new_state)`` like :func:`server_update_tree`."""
+    def leaf(x, m, v, vh, sel):
+        bs, _ = block_layout(x.numel(), block)
+        x2, m2, v2, vh2 = server_ingest_leaf(
+            fed, x.reshape(-1).float(), m.reshape(-1), v.reshape(-1),
+            vh.reshape(-1), gather(sel.vals), gather(sel.idx), n_div,
+            block=bs, impl=impl)
+        return (x2.reshape(x.shape).to(x.dtype), m2.reshape(x.shape),
+                v2.reshape(v.shape), vh2.reshape(vh.shape))
+
+    xs, ms, vs, vhs = tree_unzip(
+        tree_map(leaf, params, st.m, st.v, st.vhat, sels), 4)
+    return xs, ServerState(m=ms, v=vs, vhat=vhs, t=st.t + 1)

@@ -1,12 +1,19 @@
-"""Round stages of the simulation backend: the dense EF→compress→wire
-uplink, the select-once sparse uplink, the server aggregates (plain,
-two-level grouped, survivor-masked and staleness-weighted), the two-way
-downlink and the γ diagnostic.
+"""Round stages of both backends.
 
-Counterpart of the simulation-side half of ``repro.core.stages``. The
-mesh-side stages are not ported yet. The uplinks work on the resident
-(m, d) EF buffer in place (the JAX stages return new error rows that the
-round scatters back).
+Counterpart of ``repro.core.stages``:
+
+* the simulation side — the dense EF→compress→wire uplink, the select-once
+  sparse uplink, the server aggregates (plain, two-level grouped,
+  survivor-masked and staleness-weighted), the two-way downlink and the γ
+  diagnostic. The uplinks work on the resident (m, d) EF buffer in place
+  (the JAX stages return new error rows that the round scatters back);
+* the mesh side — this rank's leaf tensors and the client-axis
+  collectives of ``sharding.rules.ParallelContext``: the dense psum, the
+  compacted-Selection gather (flat, validated and two-level) and the
+  packed-sign gather, dispatched by :func:`mesh_uplink`. The gathered
+  selections are summed by :func:`scatter_add_clients`, one
+  ``index_add_`` a client in client order, so the mesh's sparse aggregate
+  is FedSim's to the bit.
 """
 from __future__ import annotations
 
@@ -16,16 +23,20 @@ import torch
 
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.compressors import Compressor, Selection
-from repro_torch.core.error_feedback import ef_compress_rows
+from repro_torch.comm.faults import validate_selection
+from repro_torch.core.compressors import randk_positions
+from repro_torch.core.error_feedback import ef_compress_masked, ef_compress_rows
 from repro_torch.kernels import ops, ref
+from repro_torch.models.params import tree_map, tree_unzip
 
 
-def stage(name: str):
+def stage(name: str, backend: str = "fedsim"):
     """A ``torch.profiler`` range over one stage of a round, named
-    ``fedsim.<name>``; a profiled round reports its host and device time per
-    stage (``scripts/profile_round.py``; ranges nest, and a kernel counts
-    for the innermost one). Nearly free when no profiler runs."""
-    return torch.profiler.record_function(f"fedsim.{name}")
+    ``<backend>.<name>`` (``fedsim.`` for FedSim, ``mesh.`` for the mesh
+    round); a profiled round reports its host and device time per stage
+    (``scripts/profile_round.py``; ranges nest, and a kernel counts for the
+    innermost one). Nearly free when no profiler runs."""
+    return torch.profiler.record_function(f"{backend}.{name}")
 
 
 def _wire_roundtrip(codec, d: int, tot):
@@ -256,3 +267,267 @@ def resolve_fused_ingest(fed: FedConfig, *, eligible: bool,
     if knob in ("kernel", "jnp"):
         return knob
     return "kernel" if (have_kernel and compiled) else "jnp"
+
+
+# ===========================================================================
+# Mesh-side stages (this rank's leaf tensors, client-axis collectives)
+# ===========================================================================
+
+
+def _div(a, n):
+    """``a / n``, a true division, for a Python number or 0-d tensor n."""
+    if isinstance(n, torch.Tensor):
+        return a / n.to(a.device, a.dtype)
+    return ref.div_rn(a, float(n))
+
+
+def agg_dense(hat_tree, my_mask, n_eff, ctx, wire_dtype: str = "float32"):
+    """Paper-faithful: dense psum over the client axes. ``wire_dtype``
+    narrows the collective payload (bf16 halves client-axis bytes; the
+    caller keeps error feedback exact by tracking the narrowed value)."""
+    wd = getattr(torch, wire_dtype)
+
+    def leaf(h):
+        contrib = torch.where(my_mask > 0, h, 0.0).to(wd)
+        return _div(ctx.psum_clients(contrib).float(), n_eff)
+
+    return tree_map(leaf, hat_tree)
+
+
+def mesh_agg_strategy(fed: FedConfig) -> str:
+    """Which client-axis collective the mesh round actually runs for this
+    config: ``"sparse_topk"`` (compacted Selection all_gather),
+    ``"sparse_topk_hier"`` (two-level: member-axis Selection gather into a
+    dense group partial, then the root consumes the g partials —
+    ``agg_groups > 1``), ``"packed_sign"`` (1-bit packed gather), or
+    ``"dense"`` (psum — including every fallback: non-fedcams algorithms,
+    and sparse aggregation requested for a compressor with no compacted
+    form). ``mesh_uplink`` and ``mesh_wire_bytes`` both resolve through
+    here, so the wire accounting reports the path that executes."""
+    if fed.algorithm != "fedcams" or fed.aggregation != "sparse":
+        return "dense"
+    if fed.compressor in ("topk", "blocktopk"):
+        return "sparse_topk_hier" if fed.agg_groups > 1 else "sparse_topk"
+    if fed.compressor == "packedsign":
+        return "packed_sign"
+    return "dense"
+
+
+def resolve_mesh_sparse_impl(fed: FedConfig, kernel_impl) -> str:
+    """``fed.mesh_sparse_impl`` → the selection provider that will run:
+    ``"kernel"`` (``KernelImpl.topk_select_tree``: the ``topk_ef_sparse``
+    kernel on CUDA tensors, its twin on the CPU) or ``"jnp"``
+    (``Compressor.select``; the name is the JAX knob's). ``auto`` picks the
+    kernel only when a KernelImpl is supplied and its tensors are on CUDA
+    (``KernelImpl.compiled``), as the JAX rule picks it only where Pallas
+    compiles."""
+    impl = fed.mesh_sparse_impl
+    if impl == "kernel":
+        if kernel_impl is None:
+            raise ValueError(
+                "FedConfig.mesh_sparse_impl='kernel' but no kernel_impl "
+                "was supplied — pass KernelImpl() to build_fed_round")
+        return "kernel"
+    if impl == "jnp":
+        return "jnp"
+    return ("kernel" if kernel_impl is not None and kernel_impl.compiled
+            else "jnp")
+
+
+def select_tree(select_leaf, delta, err, mask):
+    """Shared select-once tree plumbing for both selection providers
+    (:func:`topk_select_tree` and ``KernelImpl.topk_select_tree``).
+    ``select_leaf(delta_leaf, err_leaf) -> (Selection, new_err_leaf)``;
+    this wrapper applies the participation mask — a non-participating
+    client (``mask == 0``) contributes zero values and keeps its error.
+    Returns ``(sel_tree, err_tree)`` with
+    :class:`~repro_torch.core.compressors.Selection` leaves (flat ``idx``
+    in each leaf's zero-padded block domain)."""
+    def leaf(dd, ee):
+        sel, ne = select_leaf(dd, ee)
+        return (Selection(vals=sel.vals * (mask > 0), idx=sel.idx),
+                torch.where(mask > 0, ne, ee))
+
+    return tree_unzip(tree_map(leaf, delta, err), 2)
+
+
+def topk_select_tree(comp: Compressor, delta, err, mask):
+    """Select-once uplink for every leaf of this rank's tree with
+    ``comp.select`` (the plain path, bit-identical to the kernel
+    provider): per leaf the EF total ``delta + err`` is selected once and
+    its residual is the total with the picks zeroed; padded-tail indices
+    (``idx >= d``) carry 0.0 and are dropped."""
+
+    def leaf(dd, ee):
+        tot = (dd + ee).reshape(-1)
+        sel = comp.select(tot)
+        keep = sel.idx < tot.numel()
+        res = tot.clone()
+        res[sel.idx[keep].long()] = 0.0
+        return sel, res.reshape(ee.shape)
+
+    return select_tree(leaf, delta, err, mask)
+
+
+def mesh_select_tree(fed: FedConfig, comp: Compressor, kernel_impl, delta,
+                     err, mask):
+    """The select-once uplink of this rank's tree through the provider
+    :func:`resolve_mesh_sparse_impl` picks: ``KernelImpl.topk_select_tree``
+    or :func:`topk_select_tree`. Returns ``(sel_tree, err_tree)``."""
+    if resolve_mesh_sparse_impl(fed, kernel_impl) == "kernel":
+        return kernel_impl.topk_select_tree(comp.ratio, delta, err, mask)
+    return topk_select_tree(comp, delta, err, mask)
+
+
+def sparse_topk_leaf(sel: Selection, leaf, n_eff, ctx):
+    """Aggregate one leaf from the clients' compacted Selections: the
+    client-axis all_gather carries the ``(vals, idx)`` pairs and the
+    server side is :func:`scatter_add_clients` over the gathered (m, nb·k)
+    stack, client by client — :func:`server_aggregate_sparse` exactly.
+    ``leaf`` supplies the output shape; padded-tail indices are dropped."""
+    d = leaf.numel()
+    g_vals = ctx.all_gather_clients(sel.vals[None], axis=0)
+    g_idx = ctx.all_gather_clients(sel.idx[None], axis=0)
+    acc = torch.zeros(d + 1, dtype=torch.float32, device=g_vals.device)
+    return _div(scatter_add_clients(acc, g_vals, g_idx),
+                n_eff)[:d].reshape(leaf.shape)
+
+
+def sparse_topk_leaf_validated(sel: Selection, leaf, mask, ctx, domain: int,
+                               max_norm: float):
+    """Fault-tolerant sibling of :func:`sparse_topk_leaf`: the gathered
+    ``(vals, idx)`` pass the server's validation-before-ingest gate
+    (NaN/Inf, index range against the leaf's padded block ``domain``, the
+    optional norm clip) and the scatter-mean runs over ``alive ∧ valid``
+    (:func:`server_aggregate_sparse_masked`, as FedSim's fault round).
+    ``mask``: (m,) f32 alive-mask on the leaf's device. Returns ``(agg,
+    my_valid, rejected)``: the aggregated leaf, THIS rank's own validity
+    (every rank sees the gathered copies, its own damaged payload
+    included) and the count of delivered-but-rejected clients."""
+    d = leaf.numel()
+    g_vals = ctx.all_gather_clients(sel.vals[None], axis=0)   # (m, k)
+    g_idx = ctx.all_gather_clients(sel.idx[None], axis=0)     # (m, k)
+    vvals, valid = validate_selection(g_vals, g_idx, domain, max_norm)
+    surv = mask * valid
+    agg = server_aggregate_sparse_masked(vvals, g_idx, d, surv)
+    rejected = (mask * (1.0 - valid)).sum()
+    return agg.reshape(leaf.shape), valid[ctx.client_index()], rejected
+
+
+def sparse_topk_hier_leaf(sel: Selection, leaf, n_eff, ctx):
+    """Two-level aggregation of one leaf. Tier 1: the member-axis
+    all_gather carries each group's compacted selections, and every group
+    scatters its members' entries, client-major, into a fresh dense
+    partial. Tier 2 — the root collective — gathers the g partials over
+    the group axis and adds them in group order, then divides:
+    :func:`server_aggregate_sparse_grouped` exactly."""
+    d = leaf.numel()
+    g_vals = ctx.all_gather_members(sel.vals[None], axis=0)
+    g_idx = ctx.all_gather_members(sel.idx[None], axis=0)
+    partial = scatter_add_clients(
+        torch.zeros(d + 1, dtype=torch.float32, device=g_vals.device),
+        g_vals, g_idx)
+    partials = ctx.all_gather_group_partials(partial[None], axis=0)
+    total = partials[0]
+    for j in range(1, partials.shape[0]):
+        total = total + partials[j]
+    return _div(total, n_eff)[:d].reshape(leaf.shape)
+
+
+def packbits(b):
+    """(…, n) 0/1 uint8 → (…, ⌈n/8⌉) bytes, MSB first (``jnp.packbits``)."""
+    n = b.shape[-1]
+    b = torch.nn.functional.pad(b, (0, -n % 8)).view(*b.shape[:-1], -1, 8)
+    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                     device=b.device)
+    return (b * w).sum(-1, dtype=torch.uint8)
+
+
+def unpackbits(b):
+    """Inverse of :func:`packbits`: (…, nb) bytes → (…, 8·nb) 0/1 uint8."""
+    sh = torch.arange(7, -1, -1, dtype=torch.uint8, device=b.device)
+    return ((b[..., None] >> sh) & 1).reshape(*b.shape[:-1], -1)
+
+
+def packed_sign_leaf(tot, my_mask, n_eff, ctx):
+    """Scaled sign with the sign bits packed 8→1 in uint8 for the
+    client-axis all_gather (1 bit/coordinate on the wire). The scale
+    ``‖tot‖₁/d`` is summed as the port's sign compressor sums it
+    (``ref.sign_scale``'s trees, within a few ulp of ``jnp.mean``).
+    Returns ``(agg, hat)``; ``hat`` carries sign(0) := +1, as the bits do."""
+    flat = tot.reshape(-1)
+    d = flat.numel()
+    s = ref.sign_scale(flat[None])[0]
+    scale = s * (my_mask > 0)
+    bits = packbits((flat >= 0).to(torch.uint8))
+    g_bits = ctx.all_gather_clients(bits[None], axis=0)       # (m, d/8)
+    g_scale = ctx.all_gather_clients(scale[None], axis=0)     # (m,)
+    signs = unpackbits(g_bits)[:, :d].float() * 2.0 - 1.0
+    agg = _div((g_scale[:, None] * signs).sum(0), n_eff)
+    hat = s * torch.where(flat >= 0, 1.0, -1.0)
+    return agg.reshape(tot.shape), hat.reshape(tot.shape)
+
+
+def ef_compress_tree(comp, delta, err, mask, draw):
+    """Dense-hat EF over this rank's tree: ``ef_compress_masked`` on each
+    flattened leaf, a (1, d_leaf) row (sign/packedsign and blocktopk
+    through ``ops.sign_ef``/``ops.topk_ef``: the kernels on CUDA, their
+    twins on the CPU); randk's positions come from ``draw``, a generator
+    every rank seeds alike (one set per leaf for all clients, as the JAX
+    round folds one shared key)."""
+    def leaf(dd, ee):
+        flat = dd.reshape(-1)
+        pos = None
+        if comp.name.startswith("randk"):
+            k = max(1, int(round(comp.ratio * flat.numel())))
+            pos = randk_positions(draw, flat.numel(), k, 1, flat.device)[0]
+        h, ne = ef_compress_masked(comp, flat, ee.reshape(-1), mask, pos)
+        return h.reshape(dd.shape), ne.reshape(ee.shape)
+
+    return tree_unzip(tree_map(leaf, delta, err), 2)
+
+
+def mesh_uplink(fed: FedConfig, comp: Optional[Compressor], ctx, kernel_impl,
+                draw, delta, my_err, my_mask, n_eff):
+    """This rank's delta tree → (aggregated update, next EF error).
+
+    Resolves the aggregation strategy (:func:`mesh_agg_strategy`) — dense
+    psum, compacted-Selection gather, or packed-sign gather — applies
+    masked error feedback, and narrows the dense collective to
+    ``fed.delta_dtype`` with EF tracking the narrowed value. On the sparse
+    top-k strategy each leaf is selected ONCE (``fed.mesh_sparse_impl``:
+    the ``topk_ef_sparse`` kernel through ``KernelImpl``, or
+    ``Compressor.select`` — bit-identical), and the collective carries
+    that Selection, never a dense hat. ``draw``: the generator randk's
+    positions come from (None for every other compressor)."""
+    if comp is None:
+        return agg_dense(delta, my_mask, n_eff, ctx, fed.delta_dtype), my_err
+
+    strategy = mesh_agg_strategy(fed)
+    if strategy == "packed_sign":
+        tot = tree_map(lambda dd, ee: dd + ee, delta, my_err)
+        agg, hat = tree_unzip(tree_map(
+            lambda t: packed_sign_leaf(t, my_mask, n_eff, ctx), tot), 2)
+        new_err = tree_map(
+            lambda t, h, eo: torch.where(my_mask > 0, t - h, eo),
+            tot, hat, my_err)
+        return agg, new_err
+
+    if strategy in ("sparse_topk", "sparse_topk_hier"):
+        sels, new_err = mesh_select_tree(fed, comp, kernel_impl, delta,
+                                         my_err, my_mask)
+        leaf_fn = (sparse_topk_hier_leaf if strategy == "sparse_topk_hier"
+                   else sparse_topk_leaf)
+        agg = tree_map(lambda s, lf: leaf_fn(s, lf, n_eff, ctx), sels,
+                       delta)
+        return agg, new_err
+
+    hat, new_err = ef_compress_tree(comp, delta, my_err, my_mask, draw)
+    if fed.delta_dtype != "float32":
+        # error feedback must track the value actually sent
+        wd = getattr(torch, fed.delta_dtype)
+        hat = tree_map(lambda h: h.to(wd).float(), hat)
+        new_err = tree_map(
+            lambda d, e, h: torch.where(my_mask > 0, d + e - h, e),
+            delta, my_err, hat)
+    return agg_dense(hat, my_mask, n_eff, ctx, fed.delta_dtype), new_err

@@ -11,10 +11,16 @@ device, dtype, shape and contiguity, allocate outputs with
 ``torch.empty``, launch on the current stream, raise on a nonzero
 ``cudaGetLastError()``, and count the launch in :data:`launches`. Called
 with CPU tensors they raise.
+
+:class:`KernelImpl` is the mesh round's kernel provider (the JAX package's
+``KernelImpl``): the per-leaf selection and fused ingest over the
+functions above, each leaf a (1, d_leaf) row with ``rows = [0]``.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -469,3 +475,81 @@ def fedams_update_cuda(x, m, v, vhat, delta, *, eta: float, beta1: float,
             float(1.0 - beta1), float(beta2), float(1.0 - beta2), float(eta),
             float(eps), int(option))
     return tuple(outs)
+
+
+# -- the mesh round's kernel provider ----------------------------------------
+
+
+@dataclass(frozen=True)
+class KernelImpl:
+    """Plugs into ``core.mesh.build_fed_round(kernel_impl=...)`` for the
+    two stages whose kernel computes a different function from the plain
+    path's: the select-once uplink (``topk_ef_sparse`` against
+    ``Compressor.select``, same contract, bit-identical) and the one-pass
+    fused ingest (``fedams_ingest``). A leaf is flattened to one
+    (1, d_leaf) row of an EF buffer that is a copy of its error (the
+    kernel updates its row in place; the mask decides afterwards whether
+    the copy is kept), ``rows = [0]``. The dense-hat EF and the two-pass
+    server step need no provider: ``ef_compress_masked`` and
+    ``server_update`` already launch ``topk_ef``/``sign_ef`` and
+    ``fedams_update`` on CUDA tensors.
+
+    ``device`` is where the round's tensors live (None: CUDA).
+    :attr:`compiled` — what ``mesh_sparse_impl="auto"`` and
+    ``fused_ingest="auto"`` key off — is true on CUDA, where the functions
+    above launch the kernels; on the CPU they run the twins, as the JAX
+    ``KernelImpl`` runs the Pallas interpreter off TPU."""
+
+    block: int = 2048
+    device: Optional[object] = None
+
+    @property
+    def compiled(self) -> bool:
+        return torch.device(self.device or "cuda").type == "cuda"
+
+    @staticmethod
+    def _row(x, err):
+        rows = torch.zeros(1, dtype=torch.int64, device=x.device)
+        return (x.reshape(1, -1).float().contiguous(),
+                err.reshape(1, -1).float().clone(), rows)
+
+    @staticmethod
+    def _call(fn, fn_cuda, x, *args, **kw):
+        """``fn`` on the CPU (the twin), ``fn_cuda`` on CUDA without the
+        host-synchronizing row check: ``rows = [0]`` of a one-row buffer
+        is valid by construction."""
+        if x.is_cuda:
+            return fn_cuda(x, *args, check_rows=False, **kw)
+        return fn(x, *args, **kw)
+
+    # -- the select-once uplink ---------------------------------------
+    def topk_select_leaf(self, ratio: float, x, err):
+        """Fused EF + compacted selection for one leaf (``topk_ef_sparse``):
+        returns ``(Selection, new_err)``, the Selection's ``idx`` flat
+        positions in the leaf's zero-padded block domain (entries past
+        ``x.numel()`` carry 0.0), ``new_err`` in ``err``'s shape."""
+        from repro_torch.core.compressors import Selection, block_layout
+        x1, e1, rows = self._row(x, err)
+        bs, _ = block_layout(x1.shape[1], self.block)
+        k = max(1, int(round(ratio * bs)))
+        vals, idx = self._call(topk_ef_sparse, topk_ef_sparse_cuda, x1, e1,
+                               rows, k=k, block=bs)
+        return (Selection(vals=vals.reshape(-1), idx=idx.reshape(-1)),
+                e1.reshape(err.shape))
+
+    def topk_select_tree(self, ratio: float, delta, err, mask):
+        """The kernel sibling of ``core.stages.topk_select_tree`` (same
+        contract, bit-identical selection and EF)."""
+        from repro_torch.core.stages import select_tree
+        return select_tree(
+            lambda d, e: self.topk_select_leaf(ratio, d, e), delta, err,
+            mask)
+
+    # -- server ----------------------------------------------------------
+    def fedams_ingest_tree(self, fed, st, params, sels, n_div, gather):
+        """Kernel-routed one-pass server ingest: per leaf, gather the
+        compacted client Selections and run ``fedams_ingest``
+        (``core.server_opt.server_ingest_tree`` with ``impl="kernel"``)."""
+        from repro_torch.core.server_opt import server_ingest_tree
+        return server_ingest_tree(fed, st, params, sels, n_div, gather,
+                                  block=self.block, impl="kernel")

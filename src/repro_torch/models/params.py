@@ -14,17 +14,46 @@ level, depth first, each leaf row-major in its JAX shape
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 
 @dataclass(frozen=True)
 class ParamDef:
+    """``spec`` names, per dim, the mesh axes the dim is sharded over (an
+    axis name, a tuple of names, or None) — JAX's ``PartitionSpec`` as a
+    tuple. ``None`` for the whole spec means replicated on every dim."""
     shape: Tuple[int, ...]
     scale: float = 1.0
     dtype: str = "float32"
     init: str = "normal"      # normal | zeros | ones
+    spec: Optional[Tuple] = None
+
+    @property
+    def dim_specs(self) -> Tuple:
+        """``spec`` padded with None to one entry per dim."""
+        spec = tuple(self.spec or ())
+        return spec + (None,) * (len(self.shape) - len(spec))
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure (what
+    ``jax.tree.map`` does on the port's param, def and state trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_unzip(tree, n: int) -> Tuple:
+    """A tree of n-tuple leaves → n trees of their parts."""
+    return tuple(tree_map(lambda t, i=i: t[i], tree) for i in range(n))
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of a nested dict in ``ravel_pytree`` order."""
+    return [leaf for _, leaf in leaves_with_paths(tree)]
 
 
 def leaves_with_paths(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -37,7 +66,7 @@ def leaves_with_paths(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
         yield prefix, tree
 
 
-def _unflatten(paths: List[Tuple[str, ...]], leaves: List) -> Dict:
+def unflatten(paths: List[Tuple[str, ...]], leaves: List) -> Dict:
     out: Dict = {}
     for path, leaf in zip(paths, leaves):
         node = out
@@ -64,7 +93,7 @@ def init_params(defs, generator: torch.Generator, device="cpu") -> Dict:
             arr = torch.randn(d.shape, generator=generator, dtype=dtype) * d.scale
         paths.append(path)
         leaves.append(arr.to(device))
-    return _unflatten(paths, leaves)
+    return unflatten(paths, leaves)
 
 
 def count_params(defs) -> int:
@@ -91,7 +120,7 @@ def ravel(params) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Dict]]:
 
     def unravel(vec: torch.Tensor) -> Dict:
         parts = torch.split(vec, sizes)
-        return _unflatten(paths, [p.view(s) for p, s in zip(parts, shapes)])
+        return unflatten(paths, [p.view(s) for p, s in zip(parts, shapes)])
 
     return flat, unravel
 

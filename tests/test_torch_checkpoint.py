@@ -23,9 +23,11 @@ from repro.core.sim import SimState as JaxSimState
 from repro_torch.checkpoint import load_pytree, save_pytree
 from repro_torch.checkpoint.store import _items
 from repro_torch.configs.base import FedConfig, TrainConfig
-from repro_torch.convert import params_from_jax, state_from_jax, state_to_jax
+from repro_torch.convert import (mesh_state_from_jax, params_from_jax,
+                                 state_from_jax, state_to_jax)
 from repro_torch.core.api import FederatedTrainer
 from repro_torch.models.params import ravel
+from test_torch_mesh import D, spawn, trainer_worker
 from test_torch_sim import M, _port_loss, staged_init
 
 torch.set_num_threads(1)
@@ -207,3 +209,24 @@ def test_writes_are_atomic(tmp_path):
     """A save leaves only the two files: the tmp names are renamed."""
     save_pytree(str(tmp_path), {"a": torch.ones(2)})
     assert sorted(os.listdir(tmp_path)) == ["arrays.npz", "manifest.json"]
+
+
+def test_mesh_save_is_read_by_the_jax_package(tmp_path):
+    """A mesh trainer's ``save`` at fp32 state (4 CPU ranks, rank 0
+    writes the gathered ``FedMeshState``): ``repro.checkpoint.load_pytree``
+    reads it with the port's leaves — keys, shapes, dtypes and bytes —
+    and what the JAX package saves back, the port reads as the same
+    ``FedMeshState`` to the bit."""
+    path = str(tmp_path / "mesh")
+    port = spawn(trainer_worker, 4, path)["state"]
+    like = jax.tree.map(lambda t: np.zeros(t.shape, t.numpy().dtype), port)
+    jtree, meta = jax_load(path, like)
+    _assert_same_tree(jtree, port)
+    assert meta["round"] == 4 and meta["algo"] == "fedcams"
+    assert np.asarray(jtree["errors"]["w"]).shape == (4, D)
+    jax_save(str(tmp_path / "back"), jtree, meta)
+    back, _ = load_pytree(str(tmp_path / "back"), port)
+    _assert_same_tree(back, port)
+    st = mesh_state_from_jax(back)
+    for name in st._fields:
+        _assert_same_tree(getattr(st, name), port[name])

@@ -1,11 +1,14 @@
 """The PyTorch port's package boundary: no jax, no repro; the copied config,
-data generator, transport and comm log agree with the originals; FedSim
+data generator, transport, comm log and sharding helpers agree with the
+originals, and so do the mesh's strategy and wire-byte functions; FedSim
 refuses bad scale-out knobs as the JAX FedSim does; missing CUDA raises
 instead of falling back."""
 import dataclasses
+import itertools
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -37,7 +40,9 @@ MODULES = [
     "repro_torch.comm.faults", "repro_torch.comm", "repro_torch.configs",
     "repro_torch.checkpoint", "repro_torch.checkpoint.store",
     "repro_torch.core", "repro_torch.core.api", "repro_torch.core.rounds",
-    "repro_torch.comm.async_engine",
+    "repro_torch.comm.async_engine", "repro_torch.core.mesh",
+    "repro_torch.sharding", "repro_torch.sharding.rules",
+    "repro_torch.launch", "repro_torch.launch.mesh",
 ]
 
 
@@ -221,7 +226,10 @@ def test_event_clock_and_commlog_copies_book_what_the_originals_book():
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     from repro_torch import resolve_device
+    from repro_torch.core import mesh as meshmod
     from repro_torch.core.sim import FedSim
+    from repro_torch.kernels.ops import KernelImpl
+    from repro_torch.sharding.rules import ParallelContext
     if torch.cuda.is_available():
         pytest.skip("a card is present: CUDA is available")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -232,6 +240,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="CUDA"):
         FederatedTrainer(fed=FedConfig(), loss_fn=lambda p, b: None,
                          init_params={"w": torch.zeros(3)})
+    model = SimpleNamespace(defs=lambda: {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        meshmod.init_fed_state(model, FedConfig(), torch.Generator(),
+                               ParallelContext())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        meshmod.shard_batch({}, model, FedConfig(), TrainConfig(),
+                            ParallelContext())
+    assert KernelImpl().compiled and not KernelImpl(device="cpu").compiled
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -262,3 +278,85 @@ def test_forced_kernels_raise_on_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA tensor"):
         ops.unpack_uint_cuda(torch.zeros(9, dtype=torch.uint8), 1, 70)
     assert all(n == 0 for n in ops.launches.values())
+
+
+def test_sharding_copies_match_the_originals():
+    """``pad_to``, ``padded_vocab`` and ``attn_dims`` (pure Python) are
+    copies: the same values over a grid of head counts and tp."""
+    from repro.sharding import rules as jr
+    from repro_torch.sharding import rules as tr
+    for n, mult in itertools.product(range(0, 40), (0, 1, 2, 3, 8)):
+        assert tr.pad_to(n, mult) == jr.pad_to(n, mult)
+        assert tr.padded_vocab(n, mult) == jr.padded_vocab(n, mult)
+    for h, kv, tp in itertools.product((1, 2, 3, 8, 12, 14), (1, 2, 4, 7),
+                                       (1, 2, 4, 8)):
+        if kv > h:
+            continue
+        assert (dataclasses.asdict(tr.attn_dims(h, kv, 64, tp))
+                == dataclasses.asdict(jr.attn_dims(h, kv, 64, tp)))
+
+
+MESH_CFGS = [
+    dict(),
+    dict(algorithm="fedcams", compressor="blocktopk", aggregation="sparse"),
+    dict(algorithm="fedcams", compressor="topk", aggregation="sparse",
+         compress_ratio=0.01),
+    dict(algorithm="fedcams", compressor="blocktopk", aggregation="sparse",
+         agg_groups=2, client_axes=("cgroup", "data")),
+    dict(algorithm="fedcams", compressor="packedsign", aggregation="sparse"),
+    dict(algorithm="fedcams", compressor="sign", aggregation="sparse"),
+    dict(algorithm="fedcams", compressor="blocktopk", delta_dtype="bfloat16"),
+    dict(algorithm="fedams", aggregation="sparse"),
+]
+
+
+@pytest.mark.parametrize("kw", MESH_CFGS)
+def test_mesh_strategy_and_wire_bytes_match_the_originals(kw):
+    """``mesh_agg_strategy``, ``leaf_wire_bytes``, ``leaf_tier2_bytes`` and
+    ``mesh_wire_bytes_tiers`` (what the round bills as ``wire_up_bytes``)
+    give the JAX package's values, leaf sizes with ragged blocks
+    included, and ``mesh_metric_specs`` names the same metrics."""
+    from repro.core import mesh as jm
+    from repro.core import stages as js
+    from repro_torch.core import mesh as tm
+    from repro_torch.core import stages as ts
+    jf, tf_ = JaxFedConfig(**kw), FedConfig(**kw)
+    assert ts.mesh_agg_strategy(tf_) == js.mesh_agg_strategy(jf)
+    for dl in (1, 7, 100, 300, 2048, 2176, 4097, 704266):
+        assert tm.leaf_wire_bytes(tf_, dl) == jm.leaf_wire_bytes(jf, dl)
+        assert tm.leaf_tier2_bytes(tf_, dl) == jm.leaf_tier2_bytes(jf, dl)
+    tree = {"w": np.zeros(2176, np.float32), "b": np.zeros((3, 100))}
+    for tp in (1, 2):
+        assert (tm.mesh_wire_bytes_tiers(tf_, tree, tp=tp)
+                == jm.mesh_wire_bytes_tiers(jf, tree, tp=tp))
+    if not kw:    # the fault metrics' keys, once
+        from repro.comm.faults import FaultConfig as JaxFaultConfig
+        from repro_torch.comm.faults import FaultConfig as PortFaultConfig
+        jf = JaxFedConfig(track_gamma=False,
+                          fault=JaxFaultConfig(crash_prob=0.1))
+        tf_ = FedConfig(track_gamma=False,
+                        fault=PortFaultConfig(crash_prob=0.1))
+    for scan in (False, True):
+        assert (set(tm.mesh_metric_specs(tf_, scan=scan))
+                == set(jm.mesh_metric_specs(jf, scan=scan)))
+
+
+def test_participation_masks_are_shared_draws():
+    """n of m ones (all ones at n in {0, m}); the same generator seed gives
+    the same mask, as every rank must draw; weighted sampling never picks
+    a zero-weight client."""
+    from repro_torch.core.sampling import (participation_mask,
+                                           round_generator,
+                                           weighted_participation_mask)
+    for seed in range(5):
+        a = participation_mask(round_generator(seed, 1), 10, 4)
+        b = participation_mask(round_generator(seed, 1), 10, 4)
+        assert torch.equal(a, b) and a.sum() == 4
+        assert set(a.tolist()) <= {0.0, 1.0}
+        w = torch.tensor([0.0, 1.0, 2.0, 0.0, 3.0, 1.0])
+        wm = weighted_participation_mask(round_generator(seed, 3), w, 3)
+        assert wm.sum() == 3 and wm[w == 0].sum() == 0
+    assert torch.equal(participation_mask(round_generator(0), 6, 0),
+                       torch.ones(6))
+    assert not torch.equal(participation_mask(round_generator(0, 1), 50, 9),
+                           participation_mask(round_generator(1, 1), 50, 9))

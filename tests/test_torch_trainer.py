@@ -8,6 +8,7 @@ import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -31,6 +32,7 @@ from repro_torch.core.api import FederatedTrainer
 from repro_torch.core.sampling import sample_clients
 from repro_torch.core.sim import FedSim
 from repro_torch.models.params import ravel
+from test_torch_mesh import ParityModel, TargetData, spawn, trainer_worker
 from test_torch_sim import LOSS_RTOL, M, N, _port_loss, staged_init
 
 torch.set_num_threads(1)
@@ -221,15 +223,38 @@ def test_trainer_tracks_the_jax_trainer(name, monkeypatch):
 
 
 def test_params_are_in_jax_shapes_and_mesh_is_refused():
+    """The simulation trainer's params are views in JAX shapes; the mesh
+    trainer refuses a model axis > 1 (tp = 1 only, until the model zoo)
+    before it touches the process group, and the simulation backend
+    without a loss or an init."""
     tt = _port_trainer("sparse")
     defs, _, _ = make_problem("mlp", M)
     shapes = {k: tuple(v.shape) for k, v in tt.params.items()}
     assert shapes == {k: tuple(d.shape) for k, d in defs.items()}
     assert torch.equal(ravel(tt.params)[0], tt._state.params)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FederatedTrainer(fed=FedConfig(), mesh=object())
+    tp2 = SimpleNamespace(mesh_dim_names=("data", "model"),
+                          mesh=torch.zeros(2, 2, dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="mesh backend runs at "
+                                                  "tp = 1"):
+        FederatedTrainer(fed=FedConfig(), mesh=tp2, model=ParityModel(),
+                         lm_data=TargetData(2), device="cpu")
     with pytest.raises(ValueError, match="loss_fn and init_params"):
         FederatedTrainer(fed=FedConfig(), device="cpu")
+
+
+def test_mesh_trainer_loop_equals_staged_rounds(tmp_path):
+    """``FederatedTrainer(mesh=...)`` on 4 CPU ranks: the per-round loop and
+    ``scan_rounds=3`` staging (a chunk of 3, then 1) give the same history
+    and the same final state, to the bit; the loss falls."""
+    out = spawn(trainer_worker, 4, str(tmp_path / "ckpt"))
+    assert len(out["loop"]) == len(out["staged"]) == 4
+    assert out["loop"] == out["staged"]
+    assert set(out["loop"][0]) == {"loss", "wire_up_bytes", "round"}
+    assert out["loop"][-1]["loss"] < out["loop"][0]["loss"]
+    for key, a in out["state"].items():
+        b = out["staged_state"][key]
+        for x, y in zip(_flat(a), _flat(b)):
+            assert torch.equal(x, y), key
 
 
 @pytest.mark.parametrize("example", ["quickstart_torch.py",
@@ -252,3 +277,9 @@ def test_example_twins_run_on_the_cpu(example):
     lines = out.stdout.strip().splitlines()
     assert lines[-1] == "[]", out.stdout
     assert any(line.startswith("round   2") for line in lines), out.stdout
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _flat(tree[k])]
+    return [tree]
