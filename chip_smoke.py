@@ -44,8 +44,10 @@ then, on the card:
    block layout (blocks of 128, 256 and 2048, ragged last blocks) and k,
    on random and hard inputs; ``fedams_update`` at every leaf and ZeRO
    shard size; ``fedams_ingest`` on 4 gathered clients (one of them a
-   non-participant) and on 1. All bitwise (a NaN must
-   meet a NaN). Each kernel is timed with CUDA events (median of 30
+   non-participant) and on 1; and ``topk_ef_sparse`` and ``fedams_ingest``
+   at every shape route o launches them (``phase_lm_shapes``: gemma2-2b's
+   leaves at 2 layers, 2,304 to 589,824,000 values a row, the ingest on 2
+   clients). All bitwise (a NaN must meet a NaN). Each kernel is timed with CUDA events (median of 30
    launches, L2 flushed before each) beside its twin and its bound;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
@@ -125,7 +127,24 @@ then, on the card:
    kernels' launches a round, finite losses, ``wire_up_bytes`` against
    ``mesh_wire_bytes_tiers``, and that every shape at which a rank
    launched a kernel (``record_launch_shapes``) is one phase 1 held
-   against the twin.
+   against the twin;
+5. serves gemma2-2b at its published widths (route n, 26 layers, seeded
+   weights, bf16 compute) through ``launch/serve.py``: batch 4 × prompt
+   512 + 32 tokens, then one 4,608-token prompt (past the 4096 window and
+   2·chunk at q-chunk 256, so the ring caches wrap) + 16 tokens; tokens in
+   range, logits finite; prefill + decode against the full-sequence
+   forward at full width, 2 layers, fp32; the smoke config's loss, prefill
+   and decode on the card against the CPU. Prints prefill ms, decode ms a
+   token, tokens/s and peak memory;
+6. trains gemma2-2b on the mesh (route o: published widths, 2 layers,
+   745,549,056 params in 20 leaves) through ``launch/train.py``'s
+   ``train`` on two gloo ranks sharing the card: fedcams, blockwise top-k
+   1/64 over the sparse collective, the fused ingest through
+   ``KernelImpl``, K = 2, batch 2 × 512 a client, 3 rounds. Each rank
+   launches ``topk_ef_sparse`` and ``fedams_ingest`` once a leaf a round,
+   at shapes phase 1 held; ``wire_up_bytes`` equals
+   ``mesh_wire_bytes_tiers``; losses finite. Prints the reckoned and the
+   measured peak memory a rank and rank 0's round ms.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
@@ -136,6 +155,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -757,6 +777,29 @@ def mesh_kernel_shapes():
     return leaves, shards, (M_MESH, 1)
 
 
+def _hold(out, route, name, what, kern, twin, args, kw, inplace=None):
+    """The kernel and its twin on the same inputs, bitwise; both update
+    argument ``inplace`` (a copy each), compared after. Counts the case,
+    its worst |error| and its :data:`SIGS` signature into ``out[name]``."""
+    a_k, a_r = list(args), list(args)
+    if inplace is not None:
+        a_k[inplace] = args[inplace].clone()
+        a_r[inplace] = args[inplace].clone()
+    got, want = kern(*a_k, **kw), twin(*a_r, **kw)
+    got = list(got) if isinstance(got, tuple) else [got]
+    want = list(want) if isinstance(want, tuple) else [want]
+    if inplace is not None:
+        got.append(a_k[inplace])
+        want.append(a_r[inplace])
+    torch.cuda.synchronize()
+    same(f"{name}[{route}, {what}]", got, want)
+    rec = out[name]
+    rec[0] += 1
+    rec[1] = max([rec[1]] + [max_abs(a.float(), b.float()) for a, b in
+                             zip(got, want) if a.is_floating_point()])
+    rec[2].add(SIGS[name](*a_k, **kw))
+
+
 def phase_mesh_shapes(dev) -> dict:
     """Every kernel at each shape route m launches it
     (:func:`mesh_kernel_shapes`), bitwise against its twin: for each leaf
@@ -775,27 +818,7 @@ def phase_mesh_shapes(dev) -> dict:
     leaves, shards, gathered = mesh_kernel_shapes()
     out = {name: [0, 0.0, set()] for name in SIGS}
     rows = torch.zeros(1, dtype=torch.int64, device=dev)
-
-    def hold(name, what, kern, twin, args, kw, inplace=None):
-        """The kernel and its twin on the same inputs, bitwise; both
-        update argument ``inplace`` (a copy each), compared after."""
-        a_k, a_r = list(args), list(args)
-        if inplace is not None:
-            a_k[inplace] = args[inplace].clone()
-            a_r[inplace] = args[inplace].clone()
-        got, want = kern(*a_k, **kw), twin(*a_r, **kw)
-        got = list(got) if isinstance(got, tuple) else [got]
-        want = list(want) if isinstance(want, tuple) else [want]
-        if inplace is not None:
-            got.append(a_k[inplace])
-            want.append(a_r[inplace])
-        torch.cuda.synchronize()
-        same(f"{name}[route m, {what}]", got, want)
-        rec = out[name]
-        rec[0] += 1
-        rec[1] = max([rec[1]] + [max_abs(a.float(), b.float()) for a, b in
-                                 zip(got, want) if a.is_floating_point()])
-        rec[2].add(SIGS[name](*a_k, **kw))
+    hold = lambda *a, **k: _hold(out, "route m", *a, **k)
 
     seg = 2048
     hard_all = ref.topk_hard_cases(1, 12 * seg, seed=3).to(dev)
@@ -855,6 +878,96 @@ def phase_mesh_shapes(dev) -> dict:
                          dict(kw, n_div=float(n_div), block=bs, option=option,
                               state_dtype="float32"))
     return out
+
+
+#: route o's model: gemma2-2b at its published widths, 2 of its 26 layers
+#: (the mesh state of 26 layers would be ~104 GB a rank; PERF.md §4)
+LM_LAYERS = 2
+LM_CLIENTS = 2      # route o's ranks, one client each
+LM_ROUNDS = 3
+#: route o's leaves above this many values are held on random inputs only:
+#: the hard cases' numpy generator takes ~1 min at 589,824,000 values, and
+#: their 2048-value blocks are the blocks every smaller leaf holds
+LM_HARD_MAX = 1 << 25
+
+
+def lm_cfg():
+    """gemma2-2b at its published widths, ``LM_LAYERS`` layers."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    return mreplace(get_arch("gemma2-2b").model, num_layers=LM_LAYERS)
+
+
+def lm_kernel_shapes():
+    """The leaf sizes route o selects and ingests (one (1, d_leaf) row a
+    leaf), and the client count its fused ingest gathers."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+    sizes = sorted({int(np.prod(d.shape))
+                    for d in tree_leaves(Model(lm_cfg()).defs())})
+    return sizes, (LM_CLIENTS,)
+
+
+def phase_lm_shapes(dev, out: dict):
+    """``topk_ef_sparse`` and ``fedams_ingest`` at every shape route o
+    launches them (:func:`lm_kernel_shapes`), bitwise against the twins,
+    into ``out`` (:func:`phase_mesh_shapes`'s record): for each leaf size d
+    (2,304 to the 589,824,000-value tied embedding) a (1, d) row on random
+    inputs, and on ``ref.topk_hard_cases`` up to ``LM_HARD_MAX`` values;
+    the fused ingest of ``LM_CLIENTS`` clients' selections (made by the
+    selection kernel on random totals), option 1, and option 2 up to
+    ``LM_HARD_MAX``. The largest row's twins hold several 2.4 GB tensors;
+    each leaf's are freed before the next."""
+    from repro_torch.core.compressors import block_layout
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    hold = lambda *a, **k: _hold(out, "route o", *a, **k)
+    rows = torch.zeros(1, dtype=torch.int64, device=dev)
+    leaves, gathered = lm_kernel_shapes()
+    seg = 2048
+    kw = dict(eta=0.5, beta1=0.9, beta2=0.99, eps=1e-3)
+    for d in leaves:
+        bs, _ = block_layout(d, BLOCK)
+        k = max(1, int(round(RATIO * bs)))
+        inputs = [("random", torch.randn(1, d, generator=g, device=dev)
+                   * 0.01, torch.randn(1, d, generator=g, device=dev) * 0.003)]
+        if d <= LM_HARD_MAX:
+            negz = torch.full((1, d), -0.0, device=dev)
+            if d >= 6 * seg:
+                inputs.append(("hard", ref.topk_hard_cases(1, d, seed=d).to(
+                    dev), negz))
+            else:
+                hard = ref.topk_hard_cases(1, 12 * seg, seed=3).to(dev)
+                inputs += [(f"hard segment {i}", hard[:, i * seg:i * seg + d]
+                            .contiguous(), negz) for i in range(6)]
+        for what, x, e in inputs:
+            hold("topk_ef_sparse", f"d={d}, block={bs}, k={k}, {what}",
+                 ops.topk_ef_sparse_cuda, ref.topk_ef_sparse, (x, e, rows),
+                 dict(k=k, block=bs), 1)
+        del inputs, x, e
+        torch.cuda.empty_cache()
+        v = torch.rand(d, generator=g, device=dev) * 1e-4
+        st = (torch.randn(d, generator=g, device=dev),
+              torch.randn(d, generator=g, device=dev) * 1e-3, v,
+              v + torch.rand(d, generator=g, device=dev) * 1e-4)
+        del v
+        for n in gathered:
+            tot = torch.randn(n, d, generator=g, device=dev)
+            vals, idx = ops.topk_ef_sparse_cuda(
+                tot, torch.zeros_like(tot), torch.arange(n, device=dev),
+                k=k, block=bs)
+            del tot
+            torch.cuda.empty_cache()
+            for option in ((1, 2) if d <= LM_HARD_MAX else (1,)):
+                hold("fedams_ingest", f"d={d}, block={bs}, k={k}, n={n}, "
+                     f"option {option}", ops.fedams_ingest_cuda,
+                     ref.fedams_ingest_ref, (*st, vals * 0.01, idx),
+                     dict(kw, n_div=float(n), block=bs, option=option,
+                          state_dtype="float32"))
+                torch.cuda.empty_cache()
+        del st
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1902,17 +2015,19 @@ def _mesh_rank(rank, world, port, outdir, backend, jobs, fn, record):
 
 
 def run_ranks(world: int, backend: str, jobs: dict, fn=None,
-              timeout: float = 600) -> list:
+              timeout: float = 600, record=None) -> list:
     """``fn`` (default :func:`_mesh_job`, a module-level function) on each
     of ``jobs`` on ``world`` spawned ranks (``torch.multiprocessing``);
     each rank's results, in rank order, those of :func:`_mesh_job` with
-    the shapes its kernels were launched at. A rank that fails or outlives
+    the shapes its kernels were launched at (``record``, default: with
+    :func:`_mesh_job` only). A rank that fails or outlives
     ``timeout`` fails the run (the others are stopped)."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
             _mesh_rank, args=(world, _free_port(), tmp, backend, jobs,
-                              fn or _mesh_job, fn is None),
+                              fn or _mesh_job,
+                              fn is None if record is None else record),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.time() + timeout
         try:
@@ -2047,6 +2162,274 @@ def route_m1(held) -> dict:
     return r0
 
 
+
+# ---------------------------------------------------------------------------
+# route n: serving gemma2-2b at full width; route o: federated LM training on
+# the mesh at published widths, 2 layers
+# ---------------------------------------------------------------------------
+
+#: route n's runs through launch/serve.py: (batch, prompt, gen, q-chunk).
+#: The second prompt is past gemma2-2b's 4096 window and past 2·chunk, so
+#: the local layers take the banded chunked path (band 4352 < 4608 keys)
+#: and their ring caches wrap; the reference's q-chunking needs chunk | S,
+#: and 256 is the largest chunk dividing 4608 whose band is short of S
+SERVE_RUNS = ((4, 512, 32, 2048), (1, 4608, 16, 256))
+#: decode against the full-sequence forward: gemma2-2b's widths, 2 layers,
+#: fp32; a prompt of 96, 8 decode steps; logits within this share of the
+#: largest |logit| (cuBLAS sums the prefill's, the decode's and the
+#: forward's GEMMs in their own orders; TF32 off)
+DECODE_TOL = 1e-4
+#: the card against the CPU on the gemma2-2b smoke config (fp32, TF32 off)
+CARD_TOL = 1e-4
+
+
+def _serve_summary(out, batch, gen, peak, vocab) -> dict:
+    toks = out["tokens"]
+    return {"tokens_in_range": bool(((toks >= 0) & (toks < vocab)).all()),
+            "finite": out["finite"], "prefill_ms": out["prefill_s"] * 1e3,
+            "decode_ms_per_token": out["decode_s"] * 1e3 / max(gen - 1, 1),
+            "tokens_per_s": batch * (gen - 1) / max(out["decode_s"], 1e-9),
+            "peak_gb": peak / 1e9, "tokens": toks[:, :8].tolist()}
+
+
+def _rel_err(got, want) -> float:
+    return float((got.double().cpu() - want.double().cpu()).abs().max()
+                 / want.double().abs().max())
+
+
+def route_n() -> dict:
+    """Route n: gemma2-2b served at its published widths (26 layers, bf16
+    compute on fp32 weights from ``torch.Generator().manual_seed(0)``)
+    through ``launch/serve.py``: ``serve`` (batch 4, prompt 512, gen 32),
+    then ``generate`` on the same weights with a 4,608-token prompt (gen
+    16, q-chunk 256). Tokens in range and logits finite. Then the decode
+    path against the full-sequence forward (published widths, 2 layers,
+    fp32), and the smoke config's loss, prefill and decode on the card
+    against the CPU. The port's kernels launch no time."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params, tree_map
+    from repro_torch.sharding.rules import ParallelContext
+
+    cfg = get_arch("gemma2-2b").model
+    model = Model(cfg)
+    res = {"params": count_params(model.defs())}
+    check(cfg.num_layers == 26 and cfg.d_model == 2304
+          and cfg.vocab_size == 256000, "route n: not gemma2-2b's widths")
+    ops.reset_launches()
+    for batch, prompt, gen, chunk in SERVE_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if chunk == 2048:
+            out = tserve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
+                               device="cuda")
+        else:
+            params = model.init(torch.Generator().manual_seed(0), "cuda")
+            prompts = np.random.default_rng(1).integers(
+                0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
+            out = tserve.generate(model, params, prompts, gen, chunk=chunk)
+            del params
+        run = _serve_summary(out, batch, gen, torch.cuda.max_memory_allocated(),
+                             cfg.vocab_size)
+        check(run["tokens_in_range"] and run["finite"],
+              f"route n b{batch} s{prompt}: tokens out of range or logits "
+              f"not finite: {run}")
+        res[f"batch {batch}, prompt {prompt}, gen {gen}"] = run
+        print(f"route n: batch {batch}, prompt {prompt}, gen {gen}: prefill "
+              f"{run['prefill_ms']:.1f} ms, decode "
+              f"{run['decode_ms_per_token']:.2f} ms/token, "
+              f"{run['tokens_per_s']:.1f} tok/s, peak "
+              f"{run['peak_gb']:.2f} GB")
+    torch.cuda.empty_cache()
+    check(not any(ops.launches.values()),
+          f"route n: serving launched the port's kernels {ops.launches}")
+
+    # decode against the full-sequence forward, full width, 2 layers, fp32
+    ctx = ParallelContext()
+    c2 = mreplace(cfg, num_layers=2, dtype="float32")
+    m2 = Model(c2)
+    p2 = m2.init(torch.Generator().manual_seed(1), "cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(2, 104)).astype(np.int32)).cuda()
+    P, steps = 96, 8
+    with torch.no_grad():
+        full = m2.encode(p2, {"tokens": toks}, ctx)
+        lg, caches = m2.prefill(p2, toks[:, :P], ctx, max_len=P + steps)
+        got = [lg]
+        for i in range(steps - 1):
+            lg, caches = m2.decode_step(p2, toks[:, P + i:P + i + 1], caches,
+                                        P + i, ctx, max_len=P + steps)
+            got.append(lg)
+    dec_err = _rel_err(torch.stack(got, 1), full[:, P - 1:P + steps - 1])
+    del p2, full, caches
+    torch.cuda.empty_cache()
+    check(dec_err <= DECODE_TOL, f"route n: prefill + decode differ from "
+          f"the full-sequence forward by {dec_err} of the largest logit")
+    res["decode_vs_forward_rel_err"] = dec_err
+    print(f"route n: prefill + {steps - 1} decode steps vs the full-sequence "
+          f"forward (published widths, 2 layers, fp32): max |diff| "
+          f"{dec_err:.3g} of the largest logit (tolerance {DECODE_TOL})")
+
+    # the card against the CPU on the smoke config
+    cs = get_arch("gemma2-2b").smoke
+    ms = Model(cs)
+    pc = ms.init(torch.Generator().manual_seed(3), "cpu")
+    pg = tree_map(lambda t: t.cuda(), pc)
+    r = np.random.default_rng(4)
+    toks = torch.from_numpy(r.integers(0, cs.vocab_size, size=(2, 64)).astype(
+        np.int32))
+    labels = torch.from_numpy(r.integers(0, cs.vocab_size, size=(2, 64))
+                              .astype(np.int32))
+    outs = {}
+    with torch.no_grad():
+        for name, p in (("cpu", pc), ("cuda", pg)):
+            dev = p["final_norm"].device
+            t = toks.to(dev)
+            loss, _ = ms.loss(p, {"tokens": t, "labels": labels.to(dev)}, ctx,
+                              remat_policy="none", chunk=16)
+            lg, c = ms.prefill(p, t[:, :48], ctx, max_len=64, chunk=16)
+            seq = [loss.reshape(1, 1), lg]
+            for i in range(48, 56):
+                lg, c = ms.decode_step(p, t[:, i:i + 1], c, i, ctx,
+                                       max_len=64)
+                seq.append(lg)
+            outs[name] = seq
+    card_err = max(_rel_err(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+    check(card_err <= CARD_TOL, f"route n: the smoke config on the card "
+          f"differs from the CPU by {card_err} of the largest value")
+    res["card_vs_cpu_rel_err"] = card_err
+    print(f"route n: gemma2-2b smoke loss, prefill (chunked, banded) and 8 "
+          f"decode steps on the card vs the CPU: max |diff| {card_err:.3g} "
+          f"of the largest value (tolerance {CARD_TOL})")
+    return res
+
+
+def lm_fed():
+    """Route o's ``FedConfig``: the train CLI's (``launch/train.py``
+    ``--dp 2 --compressor topk --aggregation sparse``, every other flag at
+    its default: fedcams, ratio 1/64, K = 2, η = 0.5, η_l = 0.05)."""
+    from repro_torch.launch import train as ttrain
+    ap = ttrain.parser()
+    return ttrain.build_fed(ap.parse_args(
+        ["--dp", str(LM_CLIENTS), "--compressor", "topk", "--aggregation",
+         "sparse"]), ap)
+
+
+def _lm_job(job: dict) -> dict:
+    """One rank of route o: the launch counters at 0, then
+    ``launch/train.py``'s ``train`` (model, state, data and rounds), then
+    the counters read."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launches()
+    out = ttrain.train(job["cfg"], job["fed"], job["train"], device="cuda")
+    out["launches"] = dict(ops.launches)
+    return out
+
+
+def lm_memory_reckoning(cfg, d: int, largest: int, tokens: int) -> dict:
+    """What a rank of route o holds at its peak, reckoned from the shapes
+    (bytes; a "copy" is the (d,) fp32 vector). Always: the state (params,
+    m, v, v̂ and the rank's EF row, 5 copies). In local training: the flat
+    params and the local iterate (2), the gradient and the per-leaf
+    gradients it is cut from (2), and the logits' temporaries — about six
+    fp32 (tokens, vocab) tensors, the bf16 table and its bf16 gradient. In
+    the server step: the delta and the new EF row (2), the new params, m,
+    v, v̂ built leaf by leaf (4), and the largest leaf's EF copy."""
+    copy = 4 * d
+    acts = 6 * tokens * cfg.vocab_size * 4 + 2 * 2 * cfg.vocab_size * cfg.d_model
+    local = 9 * copy + acts
+    server = 11 * copy + 4 * largest
+    return {"copy_gb": copy / 1e9, "state_gb": 5 * copy / 1e9,
+            "local_phase_gb": local / 1e9, "server_phase_gb": server / 1e9,
+            "per_rank_gb": max(local, server) / 1e9}
+
+
+def route_o(held) -> dict:
+    """Route o: federated LM training through ``launch/train.py``'s
+    ``train`` on gemma2-2b at published widths and ``LM_LAYERS`` layers,
+    ``LM_CLIENTS`` gloo ranks sharing the card (one client each), fedcams
+    with blockwise top-k 1/64 over the sparse collective and the fused
+    ingest through ``KernelImpl``, K = 2, per-client batch 2 × seq 512,
+    ``LM_ROUNDS`` rounds. Each rank launches ``topk_ef_sparse`` and
+    ``fedams_ingest`` once a leaf a round, at shapes phase 1 held;
+    ``wire_up_bytes`` is what ``mesh_wire_bytes_tiers`` bills; losses and
+    state finite."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.mesh import mesh_wire_bytes_tiers
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params, tree_leaves
+
+    cfg, fed = lm_cfg(), lm_fed()
+    model = Model(cfg)
+    leaves = len(tree_leaves(model.defs()))
+    d = count_params(model.defs())
+    train = TrainConfig(global_batch=2 * LM_CLIENTS, seq_len=512,
+                        rounds=LM_ROUNDS, remat_policy="none")
+    largest = max(int(np.prod(dref.shape)) for dref in
+                  tree_leaves(model.defs()))
+    plan = lm_memory_reckoning(cfg, d, largest,
+                               train.global_batch // LM_CLIENTS
+                               * train.seq_len)
+    free, total = torch.cuda.mem_get_info()
+    print(f"route o: d = {d:,} ({leaves} leaves); a rank holds "
+          f"~{plan['per_rank_gb']:.1f} GB at its peak (reckoned: {plan}); "
+          f"{LM_CLIENTS} ranks on a card with {free / 1e9:.1f} of "
+          f"{total / 1e9:.1f} GB free")
+    check(LM_CLIENTS * plan["per_rank_gb"] * 1e9 < free,
+          f"route o: {LM_CLIENTS} ranks do not fit the card: {plan}")
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(LM_CLIENTS, "gloo", {"o": dict(
+            cfg=cfg, fed=fed, train=train)}, fn=_lm_job, timeout=900,
+            record=True)
+    finally:
+        if saved is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    rs = [rk["o"] for rk in ranks]
+    n_shapes = check_shapes_held("o", rs, held)
+    want = {"topk_ef_sparse": leaves * LM_ROUNDS,
+            "fedams_ingest": leaves * LM_ROUNDS}
+    for i, r in enumerate(rs):
+        got = {k: v for k, v in r["launches"].items() if v}
+        check(got == want, f"route o rank {i}: launches {got}, expected "
+              f"{want} ({leaves} leaves a round)")
+    tiers = mesh_wire_bytes_tiers(fed, model.defs())
+    expected = float(np.float32(fed.num_clients * tiers["tier1"]))
+    hist = [[h for h in r["history"]] for r in rs]
+    losses = [h["loss"] for h in hist[0]]
+    check(all([h["loss"] for h in hr] == losses for hr in hist),
+          "route o: the ranks' losses differ")
+    check(all(np.isfinite(losses)) and all(r["finite"] for r in rs),
+          f"route o: losses {losses} or a non-finite state")
+    wire = [h["wire_up_bytes"] for h in hist[0]]
+    check(wire == [expected] * LM_ROUNDS, f"route o: wire_up_bytes {wire}, "
+          f"mesh_wire_bytes_tiers bills {expected}")
+    round_ms = [h["round_s"] * 1e3 for h in hist[0]]
+    peaks = [r["peak_bytes"] / 1e9 for r in rs]
+    print(f"route o: gemma2-2b at published widths, {LM_LAYERS} layers, "
+          f"{rs[0]['params']:,} params, {LM_CLIENTS} gloo ranks: losses {losses}; "
+          f"wire_up_bytes {wire[0]:.0f} a round (tiers {tiers}); launches a "
+          f"round, each rank {leaves} topk_ef_sparse + {leaves} "
+          f"fedams_ingest; round ms (rank 0) {[round(t, 1) for t in round_ms]}"
+          f"; peak memory a rank {[round(p, 2) for p in peaks]} GB; distinct "
+          f"launch shapes, each held by phase 1: {n_shapes}")
+    return {"losses": losses, "wire_up_bytes": wire, "tiers": tiers,
+            "round_ms": round_ms, "peak_gb": peaks, "reckoned": plan,
+            "d": d, "leaves": leaves, "shapes_held": n_shapes,
+            "launches": {k: sum(r["launches"][k] for r in rs)
+                         for k in rs[0]["launches"]}}
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False — this script needs a card")
@@ -2072,12 +2455,14 @@ def main():
     with deterministic():
         kern = phase_kernels(dev, 704266)
         mesh_held = phase_mesh_shapes(dev)
+        phase_lm_shapes(dev, mesh_held)
+    torch.cuda.empty_cache()
     print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
     for name, (cases, worst, sigs) in mesh_held.items():
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
-        kern[name]["cases_route_m"] = cases
-        print(f"kernel {name} vs twin at route m's shapes: {cases} cases, "
-              f"{len(sigs)} shapes, bitwise")
+        kern[name]["cases_routes_m_o"] = cases
+        print(f"kernel {name} vs twin at routes m and o's shapes: {cases} "
+              f"cases, {len(sigs)} shapes, bitwise")
     for name, r in kern.items():
         print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
               f"{r['plain_ms']:.4f} ms), max_abs_err {r['max_abs_err']}")
@@ -2118,16 +2503,28 @@ def main():
                        mesh_held)
     m1 = route_m1(mesh_held)
     print(f"routes m and m1 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    serve_res = route_n()
+    print(f"route n took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    lm = route_o(mesh_held)
+    print(f"route o took {time.perf_counter() - t_phase:.1f} s")
 
     rows = []
     for name, r in kern.items():
         runs = [(route, sl[route]["launches"][name]) for route in ROUTES]
         per_round = {route: n / ROUNDS for route, n in runs if n}
         mesh_n = sum(j["launches"][name] for j in mesh_res.values())
-        runs += [("m", mesh_n), ("m1", m1["launches"][name])]
+        runs += [("m", mesh_n), ("m1", m1["launches"][name]),
+                 ("o", lm["launches"][name])]
         if mesh_n or m1["launches"][name]:
             per_round["m (all jobs, all ranks)"] = mesh_n
             per_round["m1"] = m1["launches"][name]
+        if lm["launches"][name]:
+            per_round["o (a round, all ranks)"] = (lm["launches"][name]
+                                                   / LM_ROUNDS)
         print(f"kernel {name}: {r['ms']:.4f} ms median of 30, {r['bytes']} "
               f"bytes, launches per round (per cohort on j) {per_round}")
         b_ms, b_by = bound(r["bytes"], r["flops"])
@@ -2146,7 +2543,8 @@ def main():
         {"card": card, "torch": torch.__version__,
          "build_s": build_s, "kernels": kern, "kernel_rows": rows,
          "reference": refcheck, "slice": sl,
-         "route_a_deterministic": det, "mesh": mesh_res, "mesh_m1": m1},
+         "route_a_deterministic": det, "mesh": mesh_res, "mesh_m1": m1,
+         "serve_n": serve_res, "lm_o": lm},
         indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,19 @@ cohorts):
        tensors alone: a list ``all_gather`` and an ``all_reduce`` of 11,008
        (a ConvMixer leaf's selections on the flat model) and 704,266 fp32
        (the whole model), and whether ``all_gather_into_tensor`` is taken
+    n  serving: chip_smoke.py's route n at batch 4, prompt 512, gen 32
+       (gemma2-2b at its published widths, 26 layers, seeded weights)
+       through ``launch/serve.py``'s ``generate``: a warm-up call, 3
+       unprofiled (prefill ms, decode ms a token), one profiled; its stages
+       are the ``serve.prefill`` / ``serve.decode`` ranges, and by layer
+       the ``model.<layer>`` ranges (embed, attention, ffn, unembed)
+    o  federated LM training: chip_smoke.py's route o (gemma2-2b widths, 2
+       layers, 2 gloo ranks sharing the card) through ``launch/train.py``'s
+       ``train``, WARMUP + TIMED + PROFILED rounds with rank 0 under the
+       profiler throughout (its TIMED rounds are the "unprofiled" ones
+       here, so they carry the profiler's host cost); the last PROFILED
+       rounds' ``train.round`` windows are kept; stages are the
+       ``mesh.<stage>`` ranges (with ``mesh.collective`` nested), rank 0
 
 After a warm-up round:
 
@@ -199,7 +212,7 @@ def main():
                                            alpha=0.3, seed=0)
                 for m in (M, chip_smoke.M_K)}
     gen = torch.Generator().manual_seed(1)
-    known = list(chip_smoke.ROUTES) + ["m"]
+    known = list(chip_smoke.ROUTES) + ["m", "n", "o"]
     routes = sys.argv[1:] or known
     unknown = [r for r in routes if r not in known]
     if unknown:
@@ -207,12 +220,12 @@ def main():
                  f"routes are {known}")
     out = {"card": chip_smoke.card_line()}
     print(out["card"])
-    if "m" in routes:
+    if "m" in routes or "o" in routes:
         from repro_torch.kernels import _build
         _build.build_all()    # before the ranks start, which load it
     for route in routes:
-        if route == "m":
-            out[route] = _mesh()
+        if route in ("m", "n", "o"):
+            out[route] = {"m": _mesh, "n": _serve, "o": _lm}[route]()
             continue
         m = chip_smoke.M_K if route == "k" else M
         plan = []
@@ -300,13 +313,132 @@ def _mesh():
     return res
 
 
-def _print_breakdown(route, events, wall, prof_wall, prefix="fedsim."):
+def _serve():
+    """Route n: ``generate`` on gemma2-2b at full width, batch 4, prompt
+    512, gen 32 — a warm-up call, TIMED unprofiled, one profiled."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    cfg = get_arch("gemma2-2b").model
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    batch, prompt, gen, _ = chip_smoke.SERVE_RUNS[0]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
+    quiet = lambda line: None
+    generate(model, params, prompts, gen, log=quiet)
+    runs = [generate(model, params, prompts, gen, log=quiet)
+            for _ in range(TIMED)]
+    wall = [(r["prefill_s"] + r["decode_s"]) * 1e3 for r in runs]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = generate(model, params, prompts, gen, log=quiet)
+        torch.cuda.synchronize()
+    events = _trace_events(prof)
+    res = _print_breakdown("n", events, wall,
+                           (r["prefill_s"] + r["decode_s"]) * 1e3,
+                           prefix="serve.", rounds=1)
+    layers, _, _, _ = _breakdown(events, 1, "model.")
+    res["layer_ms"] = layers
+    res["prefill_ms"] = [x["prefill_s"] * 1e3 for x in runs]
+    res["decode_ms_per_token"] = [x["decode_s"] * 1e3 / (gen - 1)
+                                  for x in runs]
+    print(f"route n: prefill ms {res['prefill_ms']}, decode ms a token "
+          f"{res['decode_ms_per_token']}")
+    for name, t in layers.items():
+        print(f"  layer {name:22s} device {t['device_ms']:9.3f} ms  "
+              f"host {t['host_ms']} ms")
+    return res
+
+
+def _in_windows(events, windows):
+    """The events of ``events`` inside ``windows`` ((start, end) host µs):
+    ranges and runtime calls by their start, kernels by their launch."""
+    inside = lambda ts: any(a <= ts <= b for a, b in windows)
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    keep = []
+    for e in events:
+        if e.get("cat") == "kernel":
+            ts = launch.get(e.get("args", {}).get("correlation"))
+        else:
+            ts = e.get("ts")
+        if ts is not None and inside(ts):
+            keep.append(e)
+    return keep
+
+
+def _lm_job(job):
+    """Rank side of route o: ``train`` for WARMUP + TIMED + PROFILED
+    rounds, rank 0 under the profiler (rank 1 unprofiled, so the two
+    contexts' load is as in ``chip_smoke.py``); rank 0 keeps the trace of
+    its last PROFILED ``train.round`` windows."""
+    import contextlib
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as ttrain
+    rank0 = dist.get_rank() == 0
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if rank0 else contextlib.nullcontext())
+    with prof:
+        out = ttrain.train(job["cfg"], job["fed"], dataclasses.replace(
+            job["train"], rounds=WARMUP + TIMED + PROFILED), device="cuda",
+            log=None)
+    res = {"round_ms": [h["round_s"] * 1e3 for h in out["history"]],
+           "peak_bytes": out["peak_bytes"]}
+    if rank0:
+        events = _trace_events(prof)
+        windows = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                         if e.get("cat") == "user_annotation"
+                         and e["name"] == ttrain.ROUND_RANGE)[-PROFILED:]
+        res["trace"] = _in_windows(events, windows)
+    return res
+
+
+def _lm():
+    """Route o: chip_smoke.py's configuration, rank 0's breakdown."""
+    from repro_torch.configs.base import TrainConfig
+    job = dict(cfg=chip_smoke.lm_cfg(), fed=chip_smoke.lm_fed(),
+               train=TrainConfig(global_batch=2 * chip_smoke.LM_CLIENTS,
+                                 seq_len=512, remat_policy="none"))
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        r0 = chip_smoke.run_ranks(chip_smoke.LM_CLIENTS, "gloo", {"o": job},
+                                  fn=_lm_job, timeout=1500)[0]["o"]
+    finally:
+        if saved is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    wall = r0["round_ms"][WARMUP:WARMUP + TIMED]
+    prof_wall = statistics.mean(r0["round_ms"][WARMUP + TIMED:])
+    res = _print_breakdown("o", r0.pop("trace"), wall, prof_wall,
+                           prefix="mesh.")
+    res["peak_bytes_rank0"] = r0["peak_bytes"]
+    coll = res["stage_ms"].get("collective", {})
+    print(f"route o: the gloo collectives block rank 0's host "
+          f"{coll.get('host_ms')} ms a round; peak memory rank 0 "
+          f"{r0['peak_bytes'] / 1e9:.2f} GB")
+    return res
+
+
+def _print_breakdown(route, events, wall, prof_wall, prefix="fedsim.",
+                     rounds=PROFILED):
     """Print and return one route's breakdown (see ``_breakdown``) beside
-    its unprofiled round times ``wall`` and profiled round ``prof_wall``."""
-    stage_ms, busy, top, port = _breakdown(events, PROFILED, prefix)
+    its unprofiled round times ``wall`` and profiled round ``prof_wall``;
+    ``rounds`` is the number of rounds (calls) the trace holds."""
+    stage_ms, busy, top, port = _breakdown(events, rounds, prefix)
     round_ms = statistics.median(wall)
     res = {"round_ms": wall, "round_ms_median": round_ms,
-           "rounds_profiled": PROFILED, "profiled_round_wall_ms": prof_wall,
+           "rounds_profiled": rounds, "profiled_round_wall_ms": prof_wall,
            "stage_ms": stage_ms, "device_busy_ms": busy,
            "device_busy_share_of_unprofiled_round": busy / round_ms,
            "top_kernels": top, "port_kernels": port}

@@ -1,17 +1,219 @@
-"""``FedConfig`` (the federated algorithm family, selectable per run) and
-``TrainConfig`` (the training loop's settings).
+"""Configuration dataclasses: the model zoo's ``ModelConfig`` (and its
+MoE/MLA/RG-LRU/xLSTM/MTP sub-configs), ``FedConfig`` (the federated
+algorithm family, selectable per run), ``TrainConfig`` (the training
+loop's settings), ``MeshConfig``/``ShapeConfig``/``INPUT_SHAPES`` and
+``ExperimentConfig``.
 
-Copies of ``repro.configs.base.FedConfig`` and ``TrainConfig`` with
-identical field names, defaults and validation, so a config means the same
-thing in both packages (tests/test_torch_imports.py and
-tests/test_torch_faults.py hold the two side by side). The port does not
+Copies of the classes of ``repro.configs.base`` with identical field
+names, defaults and validation, so a config means the same thing in both
+packages (tests/test_torch_imports.py, tests/test_torch_faults.py and
+tests/test_torch_models.py hold the two side by side). The port does not
 import ``repro``, so the classes are copied rather than shared; ``fault``
 takes the port's own ``repro_torch.comm.faults.FaultConfig``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Model sub-configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block config (DeepSeek-V3 / Qwen-MoE style)."""
+
+    num_experts: int
+    top_k: int
+    num_shared_experts: int = 0
+    d_ff_expert: int = 0          # per-expert FFN hidden size
+    d_ff_shared: int = 0          # total shared-expert FFN hidden size
+    capacity_factor: float = 1.25
+    router_softcap: Optional[float] = None
+    aux_loss_weight: float = 1e-3
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek Multi-head Latent Attention dims."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """Griffin RG-LRU recurrent block."""
+
+    lru_width: int = 0            # 0 => d_model
+    conv_width: int = 4           # temporal conv in the recurrent block
+    c_constant: float = 8.0       # a = exp(-c * softplus(Λ) * sigmoid(gate))
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block stack (mLSTM + sLSTM alternating)."""
+
+    pattern: Tuple[str, ...] = ("mlstm", "slstm")
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 4.0 / 3.0
+    conv_width: int = 4
+    # chunkwise-recurrent mLSTM (the xLSTM paper's O(S·c) form): replaces
+    # the O(S²) parallel decay matrices; §Perf optimization, numerics equal.
+    chunkwise: bool = False
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
+class MTPConfig:
+    """DeepSeek-V3 multi-token-prediction auxiliary head."""
+
+    depth: int = 1
+    loss_weight: float = 0.3
+
+
+# ---------------------------------------------------------------------------
+# ModelConfig
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                         # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                   # 0 => d_model // num_heads
+    source: str = ""                    # citation (arXiv / hf card)
+
+    # --- block pattern -----------------------------------------------------
+    # Per-layer block kinds, repeated/truncated to num_layers. Kinds:
+    #   "attn"  : softmax attention (window controlled by attn_pattern)
+    #   "rglru" : Griffin recurrent block
+    #   "mlstm" / "slstm" : xLSTM blocks
+    block_pattern: Tuple[str, ...] = ("attn",)
+    # Per-attention-layer window pattern: entries are window sizes; 0 = global.
+    attn_pattern: Tuple[int, ...] = (0,)
+
+    sliding_window: int = 4096          # window used by "local" attention entries
+    logit_softcap: Optional[float] = None
+    attn_softcap: Optional[float] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    act: str = "silu"                   # silu | gelu
+    gated_ffn: bool = True              # gated (xGLU) FFN; False = classic MLP
+    tie_embeddings: bool = False
+    is_encoder: bool = False            # encoder-only (no causal mask, no decode)
+    frontend: Optional[str] = None      # None | "audio" | "vision"
+    # For long_500k on otherwise-full-attention archs: run a sliding-window
+    # VARIANT (flagged deviation, see DESIGN.md).
+    long_context_variant_window: int = 0   # 0 = arch cannot run long_500k
+
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+    mtp: Optional[MTPConfig] = None
+
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    # ------------------------------------------------------------------
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if not self.block_pattern:
+            raise ValueError("block_pattern must be non-empty")
+
+    # -- derived -------------------------------------------------------
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Block kind for each of the num_layers layers."""
+        p = self.block_pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
+    @property
+    def layer_windows(self) -> Tuple[int, ...]:
+        """Attention window per layer (0 = global); meaningless for non-attn."""
+        p = self.attn_pattern
+        out = []
+        ai = 0
+        for kind in self.layer_kinds:
+            if kind == "attn":
+                out.append(p[ai % len(p)])
+                ai += 1
+            else:
+                out.append(0)
+        return tuple(out)
+
+    def num_params(self) -> int:
+        """Approximate true (unpadded) parameter count."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim
+        total = V * d  # embed
+        if not self.tie_embeddings:
+            total += V * d
+        for kind in self.layer_kinds:
+            if kind == "attn":
+                if self.mla is not None:
+                    m = self.mla
+                    qh = m.nope_head_dim + m.rope_head_dim
+                    total += d * m.q_lora_rank + m.q_lora_rank * self.num_heads * qh
+                    total += d * (m.kv_lora_rank + m.rope_head_dim)
+                    total += m.kv_lora_rank * self.num_heads * (m.nope_head_dim + m.v_head_dim)
+                    total += self.num_heads * m.v_head_dim * d
+                else:
+                    total += d * self.num_heads * hd          # q
+                    total += 2 * d * self.num_kv_heads * hd   # k, v
+                    total += self.num_heads * hd * d          # o
+            elif kind == "rglru":
+                w = self.rglru.lru_width or d
+                total += 2 * d * w + w * d + 3 * w + self.rglru.conv_width * w
+            elif kind == "mlstm":
+                pf = self.xlstm.mlstm_proj_factor
+                di = int(d * pf)
+                total += 2 * d * di + 3 * di * di // max(self.num_heads, 1) + di * d
+            elif kind == "slstm":
+                pf = self.xlstm.slstm_proj_factor
+                total += 4 * d * d + 4 * d * d // max(self.num_heads, 1)
+                total += int(2 * d * d * pf)
+            # FFN
+            if self.moe is not None and kind == "attn":
+                mo = self.moe
+                total += d * mo.num_experts                    # router
+                total += mo.num_experts * 3 * d * mo.d_ff_expert
+                total += mo.num_shared_experts * 3 * d * max(mo.d_ff_shared, mo.d_ff_expert)
+            elif kind in ("attn", "rglru") and ff > 0:
+                total += 3 * d * ff if self.gated_ffn else 2 * d * ff
+        return total
+
+    def num_active_params(self) -> int:
+        """Active params per token (= num_params for dense)."""
+        if self.moe is None:
+            return self.num_params()
+        mo = self.moe
+        d = self.d_model
+        full = self.num_params()
+        all_expert = self.num_layers * mo.num_experts * 3 * d * mo.d_ff_expert
+        active_expert = self.num_layers * mo.top_k * 3 * d * mo.d_ff_expert
+        return full - all_expert + active_expert
+
+
+# ---------------------------------------------------------------------------
+# Federated / training / mesh configs
+# ---------------------------------------------------------------------------
 
 
 #: Known values for the validated FedConfig string fields (a typo should
@@ -338,8 +540,9 @@ class TrainConfig:
     ``repro.configs.base.TrainConfig``, same fields and defaults). The
     simulation backend's ``FederatedTrainer`` reads ``rounds``,
     ``log_every``, ``checkpoint_every`` and ``seed``; the mesh backend
-    also ``global_batch``, ``seq_len`` and ``remat_policy``. The rest
-    configure the model zoo, not ported yet."""
+    also ``global_batch``, ``seq_len`` and ``remat_policy``;
+    ``microbatch`` and ``tp_collective`` are read by no code of the port
+    yet (the mesh runs at tp = 1)."""
 
     global_batch: int = 256
     seq_len: int = 4096
@@ -350,3 +553,51 @@ class TrainConfig:
     log_every: int = 10
     checkpoint_every: int = 0
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def tp(self) -> int:
+        return self.shape[self.axes.index("model")]
+
+    @property
+    def dp(self) -> int:
+        return self.shape[self.axes.index("data")]
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    model: ModelConfig
+    fed: FedConfig = field(default_factory=FedConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def mreplace(cfg, **kw):
+    """dataclasses.replace that tolerates nested dataclass fields."""
+    return dataclasses.replace(cfg, **kw)

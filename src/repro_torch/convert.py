@@ -5,6 +5,12 @@ pytrees), so this module needs neither ``jax`` nor ``repro``:
 
 * :func:`params_from_jax` — a nested dict of arrays → the port's params (a
   nested dict of fp32 tensors in the same, JAX, shapes);
+* :func:`model_params_from_jax` / :func:`model_params_to_jax` — a model
+  zoo params tree (``repro.models.model.Model.init``, stacked group leaves
+  included) to the port's ``models.model.Model`` params on a device, and
+  back to numpy: the JAX init is not reproducible across processes (it
+  keys leaves by Python's salted ``hash()``), so parity runs carry it
+  across;
 * :func:`flat_from_jax` — the same, raveled in ``ravel_pytree`` order;
 * :func:`server_state_from_jax` — a FedSim ``ServerState`` over the flat
   vector (fp32, bf16 or int8 ``QuantState`` storage) → the port's;
@@ -46,6 +52,29 @@ def params_from_jax(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device).float()
+
+
+def model_params_from_jax(tree, device=None):
+    """A JAX model params tree (nested dicts of arrays, e.g.
+    ``jax.device_get(model.init(key))``) → the same tree of tensors on
+    ``device`` (None: CUDA), every leaf copied with its dtype and shape."""
+    from repro_torch import resolve_device
+    device = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return tensor_from_numpy(t, device)
+
+    return conv(tree)
+
+
+def model_params_to_jax(params) -> dict:
+    """The port's model params → nested dicts of numpy arrays (fp32), what
+    ``jnp.asarray`` or ``repro.checkpoint.save_pytree`` takes."""
+    if isinstance(params, dict):
+        return {k: model_params_to_jax(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy().copy()
 
 
 def flat_from_jax(tree, device="cpu") -> torch.Tensor:

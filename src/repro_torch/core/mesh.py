@@ -24,7 +24,7 @@ slices of m/v/v̂ and its client's EF row); :func:`shard_fed_state` and
 :func:`gather_fed_state` convert to and from the global layout the JAX
 package holds (``convert.mesh_state_to_jax`` / ``mesh_state_from_jax``
 carry that across packages). ``tp > 1`` (a model axis) waits for the
-model zoo (ROADMAP Queue 1 item 8) and raises.
+model zoo's tensor-parallel code (ROADMAP Queue 1 item 8f) and raises.
 
 A model is duck-typed as the JAX one: ``defs()`` (a nested dict of
 ``ParamDef``), ``loss(p, b, ctx, remat_policy=..., chunk=...) -> (loss,
@@ -307,9 +307,9 @@ def require_tp1(tp: int) -> None:
     """Refuse a model axis > 1: the port's mesh runs at tp = 1."""
     if tp > 1:
         raise NotImplementedError(
-            "the mesh backend runs at tp = 1 in repro_torch: no model of "
-            "the port has tensor-parallel (model-axis) defs yet — that "
-            "waits for the model zoo, ROADMAP Queue 1 item 8")
+            "the mesh backend runs at tp = 1 in repro_torch: the model "
+            "axis's collectives are not held against the reference yet — "
+            "that waits for ROADMAP Queue 1 item 8f")
 
 
 def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
@@ -424,6 +424,9 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
             local, loss_local = run_local_steps(rule, grad_fn, flat0, batch,
                                                 eta_l, k_i=k_i)
             delta = unravel((local - flat0).float())
+            # neither is read again: free their 2·d floats before the
+            # uplink and the server step allocate theirs
+            del local, flat0
 
         # participation: the same mask on every rank (shared draw)
         mask = participation_mask(round_generator(seed, 1), m_clients,

@@ -1,1 +1,4 @@
-from repro_torch.data.synthetic import FederatedClassification  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    FederatedClassification,
+    FederatedLMData,
+)

@@ -1,11 +1,17 @@
-"""Synthetic federated classification data with Dirichlet non-IID skew.
+"""Synthetic federated datasets with Dirichlet non-IID client skew.
 
-A copy of ``repro.data.synthetic.FederatedClassification`` (numpy only):
-Gaussian class prototypes plus noise, flat features or images, and a
-Dirichlet(α) label skew across clients. The same seed draws the same
-batches as the JAX package (tests/test_torch_imports.py), so the two can be
-fed identical data. Batches are numpy arrays; the caller moves them to its
-device.
+Copies of ``repro.data.synthetic`` (numpy only):
+
+  * ``FederatedClassification`` — Gaussian class prototypes plus noise,
+    flat features or images, and a Dirichlet(α) label skew across clients;
+  * ``FederatedLMData`` — token streams where each client draws from its
+    own Zipf-reweighted unigram distribution over the vocabulary, with a
+    planted bigram structure.
+
+The same seed draws the same batches as the JAX package
+(tests/test_torch_imports.py, tests/test_torch_lm_train.py): the batch
+seeds hash a tuple of ints, which Python does not salt. Batches are numpy
+arrays; the caller moves them to its device.
 """
 from __future__ import annotations
 
@@ -61,3 +67,58 @@ class FederatedClassification:
             "x": np.stack([[b["x"] for b in row] for row in out]),
             "y": np.stack([[b["y"] for b in row] for row in out]),
         }
+
+
+@dataclass
+class FederatedLMData:
+    num_clients: int = 16
+    vocab_size: int = 256
+    alpha: float = 0.5
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        base = 1.0 / np.arange(1, self.vocab_size + 1) ** 1.1  # zipf
+        skew = rng.dirichlet([self.alpha] * self.vocab_size, size=self.num_clients)
+        dist = base[None, :] * (0.5 + skew * self.vocab_size * 0.5)
+        self.unigram = dist / dist.sum(1, keepdims=True)
+        # planted deterministic bigram: next = (tok * 31 + 7) % V with prob 0.5
+        self.mult, self.add = 31, 7
+
+    def client_batch(self, client: int, step: int, batch_size: int,
+                     seq_len: int) -> Dict:
+        rng = np.random.default_rng(
+            hash((self.seed, int(client), int(step))) % (2**63))
+        toks = np.empty((batch_size, seq_len + 1), np.int32)
+        toks[:, 0] = rng.choice(self.vocab_size, size=batch_size,
+                                p=self.unigram[client])
+        for t in range(seq_len):
+            fresh = rng.choice(self.vocab_size, size=batch_size,
+                               p=self.unigram[client])
+            follow = (toks[:, t] * self.mult + self.add) % self.vocab_size
+            coin = rng.random(batch_size) < 0.5
+            toks[:, t + 1] = np.where(coin, follow, fresh)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def round_batches(self, clients, round_idx: int, local_steps: int,
+                      batch_size: int, seq_len: int) -> Dict:
+        rows = [[self.client_batch(c, round_idx * local_steps + k, batch_size,
+                                   seq_len) for k in range(local_steps)]
+                for c in clients]
+        return {
+            "tokens": np.stack([[b["tokens"] for b in r] for r in rows]),
+            "labels": np.stack([[b["labels"] for b in r] for r in rows]),
+        }
+
+    def mesh_batch(self, round_idx: int, local_steps: int, global_batch: int,
+                   seq_len: int) -> Dict:
+        """Batch for the mesh path: (K, GB, S) with client c owning the
+        contiguous slice c·GB/m ... (c+1)·GB/m."""
+        per = global_batch // self.num_clients
+        rows = [self.client_batch(c, round_idx * local_steps + k, per, seq_len)
+                for k in range(local_steps) for c in range(self.num_clients)]
+        toks = np.stack([b["tokens"] for b in rows]).reshape(
+            local_steps, self.num_clients * per, seq_len)
+        labs = np.stack([b["labels"] for b in rows]).reshape(
+            local_steps, self.num_clients * per, seq_len)
+        return {"tokens": toks, "labels": labs}

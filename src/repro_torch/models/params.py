@@ -13,6 +13,7 @@ level, depth first, each leaf row-major in its JAX shape
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -35,6 +36,20 @@ class ParamDef:
         """``spec`` padded with None to one entry per dim."""
         spec = tuple(self.spec or ())
         return spec + (None,) * (len(self.shape) - len(spec))
+
+    def stacked(self, n: int) -> "ParamDef":
+        """Prepend a layer-stack (group) dimension, replicated."""
+        return dataclasses.replace(self, shape=(n,) + tuple(self.shape),
+                                   spec=(None,) + tuple(self.spec or ()))
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def stack_defs(defs, n: int):
+    """Every def of ``defs`` with a leading group dim of ``n``."""
+    return tree_map(lambda d: d.stacked(n), defs)
 
 
 def tree_map(fn, tree, *rest):
@@ -128,14 +143,27 @@ def ravel(params) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Dict]]:
 # -- convenience constructors ------------------------------------------------
 
 
-def linear(in_dim: int, out_dim: int, dtype="float32") -> ParamDef:
-    """A (in, out) weight."""
-    return ParamDef((in_dim, out_dim), scale=in_dim ** -0.5, dtype=dtype)
+def linear(in_dim: int, out_dim: int, *, shard: Optional[str] = None,
+           shard_dim: int = 1, dtype="float32") -> ParamDef:
+    """A (in, out) weight. ``shard``: mesh axis name for ``shard_dim``."""
+    spec = [None, None]
+    if shard is not None:
+        spec[shard_dim] = shard
+    return ParamDef((in_dim, out_dim), scale=in_dim ** -0.5, dtype=dtype,
+                    spec=tuple(spec))
 
 
-def bias(dim: int, dtype="float32") -> ParamDef:
-    return ParamDef((dim,), scale=0.0, dtype=dtype, init="zeros")
+def bias(dim: int, *, shard: Optional[str] = None,
+         dtype="float32") -> ParamDef:
+    return ParamDef((dim,), scale=0.0, dtype=dtype, init="zeros",
+                    spec=(shard,))
 
 
-def norm_scale(dim: int) -> ParamDef:
-    return ParamDef((dim,), init="ones")
+def norm_scale(dim: int, *, shard: Optional[str] = None) -> ParamDef:
+    return ParamDef((dim,), init="ones", spec=(shard,))
+
+
+def embedding(vocab: int, dim: int, *,
+              shard: Optional[str] = None) -> ParamDef:
+    """A vocab-sharded (vocab, dim) embedding table."""
+    return ParamDef((vocab, dim), scale=1.0, spec=(shard, None))

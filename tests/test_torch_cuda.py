@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain twins, on the card. Marked ``cuda``:
+"""The CUDA kernels against their plain twins, and the model zoo's smoke
+configs against the CPU, on the card. Marked ``cuda``:
 each test asks for the ``card`` fixture, which skips without CUDA (decided
 at run time, never at import). Run on a machine with a card:
 
@@ -492,3 +493,66 @@ def test_rows_wrappers_check_arguments_on_the_card(card):
     with pytest.raises(ValueError, match="do not fit"):
         ops.unpack_uint_rows(out, 20, 1, 9, torch.float32, scale_col=28)
     assert all(n == 0 for n in ops.launches.values())
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen1.5-32b",
+                                  "hubert-xlarge"])
+def test_model_on_the_card_matches_the_cpu(card, arch):
+    """The zoo's smoke configs (fp32, TF32 off) on the card against the
+    CPU, one init carried over: ``loss`` and every leaf of its gradient,
+    and for the decoders ``prefill`` past the window (chunked, with a band)
+    and 6 ``decode_step``s, within 1e-4 of the largest |value| (cuBLAS and
+    the CPU's GEMMs sum in their own orders)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import leaves_with_paths, tree_map
+    from repro_torch.sharding.rules import ParallelContext
+    ctx = ParallelContext()
+    cfg = get_arch(arch).smoke
+    model = Model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    gpu = tree_map(lambda t: t.to(card), cpu)
+    r = np.random.default_rng(1)
+    toks = torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 40)).astype(
+        np.int32))
+    labels = torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 32)).astype(
+        np.int32))
+    if cfg.frontend is not None:
+        batch = {"embeddings": torch.from_numpy(r.normal(
+            size=(2, 32, cfg.d_model)).astype(np.float32)), "labels": labels}
+    else:
+        batch = {"tokens": toks[:, :32], "labels": labels}
+
+    def close(a, b):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+    outs = {}
+    for name, p in (("cpu", cpu), ("gpu", gpu)):
+        dev = p["final_norm"].device
+        p = tree_map(lambda t: t.clone().requires_grad_(True), p)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = model.loss(p, b, ctx, remat_policy="none", chunk=8)
+        loss.backward()
+        outs[name] = [loss] + [leaf.grad if leaf.grad is not None
+                               else torch.zeros(()) for _, leaf in
+                               leaves_with_paths(p)]
+    for a, b in zip(outs["gpu"], outs["cpu"]):
+        close(a, b)
+    if cfg.is_encoder:
+        return
+    steps = {}
+    with torch.no_grad():
+        for name, p in (("cpu", cpu), ("gpu", gpu)):
+            dev = p["final_norm"].device
+            lg, c = model.prefill(p, toks[:, :32].to(dev), ctx, max_len=40,
+                                  chunk=8)
+            got = [lg]
+            for i in range(32, 38):
+                lg, c = model.decode_step(p, toks[:, i:i + 1].to(dev), c, i,
+                                          ctx, max_len=40)
+                got.append(lg)
+            steps[name] = got
+    for a, b in zip(steps["gpu"], steps["cpu"]):
+        close(a, b)

@@ -43,12 +43,19 @@ MODULES = [
     "repro_torch.comm.async_engine", "repro_torch.core.mesh",
     "repro_torch.sharding", "repro_torch.sharding.rules",
     "repro_torch.launch", "repro_torch.launch.mesh",
+    "repro_torch.configs.registry", "repro_torch.data",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.stack",
+    "repro_torch.models.model", "repro_torch.launch.serve",
+    "repro_torch.launch.train",
 ]
 
 
 def test_import_loads_no_jax_and_no_repro():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "from repro_torch.configs import all_archs\n"
+            "all_archs()\n"
             "import repro_torch.core as c\n"
             "for name in c.__all__: getattr(c, name)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -249,6 +256,34 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
                             ParallelContext())
     assert KernelImpl().compiled and not KernelImpl(device="cpu").compiled
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_zoo_entry_points_need_cuda_unless_cpu_is_asked_for():
+    """``Model.init``/``init_cache``, ``convert.model_params_from_jax``,
+    the serve and train bodies (and so every consumer of
+    ``FederatedLMData`` on the mesh) default to CUDA and raise without a
+    card; each runs on ``device="cpu"``."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.model import Model
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: CUDA is available")
+    cfg = get_arch("gemma2-2b").smoke
+    m = Model(cfg)
+    for call in (lambda: m.init(torch.Generator()),
+                 lambda: m.init_cache(1, 8),
+                 lambda: model_params_from_jax({"w": np.zeros(2)}),
+                 lambda: tserve.serve(cfg, batch=1, prompt_len=4, gen=2),
+                 lambda: ttrain.train(cfg, FedConfig(), TrainConfig()),
+                 lambda: ttrain.launch(cfg, FedConfig(), TrainConfig(),
+                                       dp=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert m.init(torch.Generator(), "cpu")["final_norm"].device.type == "cpu"
+    assert m.init_cache(1, 8, device="cpu")["groups"]["l0"]["k"].shape == (
+        1, 1, 8, 2, 32)
 
 
 def test_forced_kernels_raise_on_cpu_tensors():
