@@ -45,10 +45,15 @@ then, on the card:
    on random and hard inputs; ``fedams_update`` at every leaf and ZeRO
    shard size; ``fedams_ingest`` on 4 gathered clients (one of them a
    non-participant) and on 1; and ``topk_ef_sparse`` and ``fedams_ingest``
-   at every shape route o launches them (``phase_lm_shapes``: gemma2-2b's
-   leaves at 2 layers, 2,304 to 589,824,000 values a row, the ingest on 2
-   clients). All bitwise (a NaN must meet a NaN). Each kernel is timed with CUDA events (median of 30
-   launches, L2 flushed before each) beside its twin and its bound;
+   at every shape routes o and q launch them (``phase_lm_shapes``:
+   gemma2-2b's leaves at 2 layers, 2,304 to 589,824,000 values a row, the
+   ingest on 2 clients; qwen2-moe-a2.7b's at 1 layer, 2,048 to 311,164,928
+   values, the (1, 60, 2048, 1408) expert stacks of 173,015,040 among
+   them, the ingest on 1 client). All bitwise (a NaN must meet a NaN).
+   Each kernel is timed with CUDA events (median of 30 launches, L2
+   flushed before each) beside its twin and its bound, and the two large
+   ones also alone on each LM route's largest leaf (route o's 589,824,000
+   and route q's 311,164,928 values) beside their bytes bounds;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
    small MLP problem, every route below (route g through the trainer, j
@@ -144,7 +149,28 @@ then, on the card:
    launches ``topk_ef_sparse`` and ``fedams_ingest`` once a leaf a round,
    at shapes phase 1 held; ``wire_up_bytes`` equals
    ``mesh_wire_bytes_tiers``; losses finite. Prints the reckoned and the
-   measured peak memory a rank and rank 0's round ms.
+   measured peak memory a rank and rank 0's round ms;
+7. serves qwen2-moe-a2.7b at its published widths and full depth (route
+   p, 24 layers, 14,315,735,040 params, 57.3 GB of fp32 weights, bf16
+   compute) through ``launch/serve.py``: batch 4 × prompt 512 + 32 tokens
+   (``serve``), then batch 16 × prompt 128 + 16 on the same weights (decode
+   at C = 2 slots an expert, not 1); tokens in range, logits finite;
+   prefill + decode against the full-sequence forward at full width, 2
+   layers, fp32, capacity factor 15 (= E/k, so that decode drops no token
+   the forward keeps); one layer's ``moe_ffn`` against
+   ``moe_ffn_dense_ref`` (T = 2048, capacity factor 15, fp32); the
+   dispatch on the card bitwise the CPU's on the same probs; the smoke
+   config's loss, aux, prefill and decode on the card against the CPU.
+   Prints the init's seconds, prefill ms, decode ms a token, tokens/s and
+   peak memory beside the reckoned peak;
+8. trains qwen2-moe-a2.7b on the mesh (route q: published widths, 1 layer,
+   1,192,890,368 params in 19 leaves, ~53.7 GB: one rank) through
+   ``launch/train.py``'s ``train`` on one NCCL rank: fedcams, blockwise
+   top-k 1/64 over the sparse collective, the fused ingest, K = 2, batch
+   2 × 512, 3 rounds. 19 ``topk_ef_sparse`` + 19 ``fedams_ingest`` a
+   round at shapes phase 1 held; ``wire_up_bytes`` as billed; losses and
+   every local step's aux loss finite, the aux loss > 0. Prints round ms
+   and peak memory.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
@@ -885,49 +911,78 @@ def phase_mesh_shapes(dev) -> dict:
 LM_LAYERS = 2
 LM_CLIENTS = 2      # route o's ranks, one client each
 LM_ROUNDS = 3
-#: route o's leaves above this many values are held on random inputs only:
-#: the hard cases' numpy generator takes ~1 min at 589,824,000 values, and
-#: their 2048-value blocks are the blocks every smaller leaf holds
+#: routes o and q's leaves above this many values are held on random inputs
+#: only: the hard cases' numpy generator takes ~1 min at 589,824,000
+#: values, and their 2048-value blocks are the blocks every smaller leaf
+#: holds
 LM_HARD_MAX = 1 << 25
+#: route q's model: qwen2-moe-a2.7b at its published widths, 1 of its 24
+#: layers, on ONE rank (~53.7 GB: two ranks do not fit the card; PERF.md
+#: §4)
+MOE_LAYERS = 1
+MOE_ROUNDS = 3
 
 
-def lm_cfg():
-    """gemma2-2b at its published widths, ``LM_LAYERS`` layers."""
+def lm_cfg(arch: str = "gemma2-2b", layers: int = LM_LAYERS):
+    """``arch`` at its published widths, ``layers`` layers (route o:
+    gemma2-2b at ``LM_LAYERS``)."""
     from repro_torch.configs.base import mreplace
     from repro_torch.configs.registry import get_arch
-    return mreplace(get_arch("gemma2-2b").model, num_layers=LM_LAYERS)
+    return mreplace(get_arch(arch).model, num_layers=layers)
 
 
-def lm_kernel_shapes():
-    """The leaf sizes route o selects and ingests (one (1, d_leaf) row a
-    leaf), and the client count its fused ingest gathers."""
+def moe_cfg():
+    """Route q's model: qwen2-moe-a2.7b at ``MOE_LAYERS`` layers."""
+    return lm_cfg("qwen2-moe-a2.7b", MOE_LAYERS)
+
+
+def leaf_sizes(cfg) -> list:
     from repro_torch.models.model import Model
     from repro_torch.models.params import tree_leaves
-    sizes = sorted({int(np.prod(d.shape))
-                    for d in tree_leaves(Model(lm_cfg()).defs())})
-    return sizes, (LM_CLIENTS,)
+    return [int(np.prod(d.shape)) for d in tree_leaves(Model(cfg).defs())]
 
 
-def phase_lm_shapes(dev, out: dict):
-    """``topk_ef_sparse`` and ``fedams_ingest`` at every shape route o
-    launches them (:func:`lm_kernel_shapes`), bitwise against the twins,
-    into ``out`` (:func:`phase_mesh_shapes`'s record): for each leaf size d
-    (2,304 to the 589,824,000-value tied embedding) a (1, d) row on random
-    inputs, and on ``ref.topk_hard_cases`` up to ``LM_HARD_MAX`` values;
-    the fused ingest of ``LM_CLIENTS`` clients' selections (made by the
-    selection kernel on random totals), option 1, and option 2 up to
-    ``LM_HARD_MAX``. The largest row's twins hold several 2.4 GB tensors;
-    each leaf's are freed before the next."""
+def lm_kernel_shapes() -> dict:
+    """The leaf sizes routes o and q select and ingest (one (1, d_leaf)
+    row a leaf) → the client counts their fused ingests gather at that
+    size (route o's ``LM_CLIENTS``, route q's one)."""
+    out = {}
+    for cfg, n in ((lm_cfg(), LM_CLIENTS), (moe_cfg(), 1)):
+        for d in leaf_sizes(cfg):
+            out.setdefault(d, set()).add(n)
+    return {d: sorted(out[d]) for d in sorted(out)}
+
+
+def phase_lm_shapes(dev, out: dict) -> dict:
+    """``topk_ef_sparse`` and ``fedams_ingest`` at every shape routes o
+    and q launch them (:func:`lm_kernel_shapes`), bitwise against the
+    twins, into ``out`` (:func:`phase_mesh_shapes`'s record): for each leaf
+    size d (2,048 to gemma2-2b's 589,824,000-value tied embedding) a (1, d)
+    row on random inputs, and on ``ref.topk_hard_cases`` up to
+    ``LM_HARD_MAX`` values; the fused ingest of the routes' client counts'
+    selections (made by the selection kernel on random totals), option 1,
+    and option 2 up to ``LM_HARD_MAX``. The largest row's twins hold
+    several 2.4 GB tensors; each leaf's are freed before the next.
+
+    The largest leaf of each route (route o's 589,824,000-value table,
+    route q's 311,164,928-value untied one) is also timed alone: each
+    kernel's CUDA-event ms (median of 30, L2 flushed, the EF row restored
+    before each selection) beside its bytes bound. Returns those times by
+    leaf size."""
     from repro_torch.core.compressors import block_layout
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(4)
-    hold = lambda *a, **k: _hold(out, "route o", *a, **k)
+    hold = lambda *a, **k: _hold(out, "routes o, q", *a, **k)
     rows = torch.zeros(1, dtype=torch.int64, device=dev)
-    leaves, gathered = lm_kernel_shapes()
+    leaves = lm_kernel_shapes()
+    largest = {max(leaf_sizes(lm_cfg())): ("o", LM_CLIENTS),
+               max(leaf_sizes(moe_cfg())): ("q", 1)}
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)
+    timed = {}
     seg = 2048
     kw = dict(eta=0.5, beta1=0.9, beta2=0.99, eps=1e-3)
-    for d in leaves:
+    for d, gathered in leaves.items():
         bs, _ = block_layout(d, BLOCK)
         k = max(1, int(round(RATIO * bs)))
         inputs = [("random", torch.randn(1, d, generator=g, device=dev)
@@ -945,6 +1000,21 @@ def phase_lm_shapes(dev, out: dict):
             hold("topk_ef_sparse", f"d={d}, block={bs}, k={k}, {what}",
                  ops.topk_ef_sparse_cuda, ref.topk_ef_sparse, (x, e, rows),
                  dict(k=k, block=bs), 1)
+        if d in largest:
+            xt, et0 = inputs[0][1:]
+            et = et0.clone()
+
+            def restore():
+                et.copy_(et0)
+                flush.sum()    # read 256 MB: L2 holds nothing used
+
+            nbytes = 3 * 4 * d + -(-d // bs) * k * 8 + 8
+            timed[d] = {"route": largest[d][0], "topk_ef_sparse": dict(
+                ms=time_ms(lambda: ops.topk_ef_sparse_cuda(
+                    xt, et, rows, k=k, block=bs, check_rows=False),
+                    restore),
+                bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_S * 1e3)}
+            del xt, et, et0
         del inputs, x, e
         torch.cuda.empty_cache()
         v = torch.rand(d, generator=g, device=dev) * 1e-4
@@ -966,8 +1036,20 @@ def phase_lm_shapes(dev, out: dict):
                      dict(kw, n_div=float(n), block=bs, option=option,
                           state_dtype="float32"))
                 torch.cuda.empty_cache()
+            if d in largest and n == largest[d][1]:
+                sel = (vals * 0.01, idx)
+                nbytes = 2 * 4 * 4 * d + vals.numel() * 8
+                timed[d]["fedams_ingest"] = dict(
+                    ms=time_ms(lambda: ops.fedams_ingest_cuda(
+                        *st, *sel, n_div=float(n), block=bs, option=1,
+                        state_dtype="float32", **kw), flush.sum),
+                    bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_S * 1e3,
+                    clients=n)
+                del sel
+                torch.cuda.empty_cache()
         del st
         torch.cuda.empty_cache()
+    return timed
 
 
 # ---------------------------------------------------------------------------
@@ -2243,6 +2325,7 @@ def route_n() -> dict:
               f"{run['decode_ms_per_token']:.2f} ms/token, "
               f"{run['tokens_per_s']:.1f} tok/s, peak "
               f"{run['peak_gb']:.2f} GB")
+        del out           # serve() hands back its params: free them
     torch.cuda.empty_cache()
     check(not any(ops.launches.values()),
           f"route n: serving launched the port's kernels {ops.launches}")
@@ -2307,31 +2390,285 @@ def route_n() -> dict:
     return res
 
 
-def lm_fed():
-    """Route o's ``FedConfig``: the train CLI's (``launch/train.py``
-    ``--dp 2 --compressor topk --aggregation sparse``, every other flag at
-    its default: fedcams, ratio 1/64, K = 2, η = 0.5, η_l = 0.05)."""
+#: route p's runs through launch/serve.py: (batch, prompt, gen). Decode
+#: runs the MoE on T = B tokens, so at B = 4 an expert has C = 1 slot and
+#: at B = 16 it has 2
+MOE_SERVE_RUNS = ((4, 512, 32), (16, 128, 16))
+#: decode against the forward at qwen2-moe's widths takes capacity factor
+#: 15 = E/k, so that C = T on both paths: at the published 1.25 decode
+#: drops every token that shares an expert with another, as the
+#: reference's does, and the forward does not
+MOE_DECODE_CF = 15.0
+#: the smoke config on the card against the CPU (fp32, TF32 off)
+MOE_CARD_TOL = 1e-5
+#: one layer's moe_ffn against moe_ffn_dense_ref at published widths, fp32
+#: (the gathered and the dense einsums sum in their own orders)
+MOE_DENSE_TOL = 1e-5
+
+
+def host_available_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def moe_serve_reckoning(cfg, d: int, batch: int, max_len: int) -> float:
+    """What route p holds at its peak, reckoned from the shapes (GB): the
+    fp32 weights, one layer's three bf16 expert casts, the bf16
+    unembedding, a (batch, vocab) fp32 logits row and its bf16 twin, and
+    the bf16 k/v caches twice (a decode step restacks the layers' new
+    caches before the old ones go)."""
+    mo = cfg.moe
+    casts = 3 * mo.num_experts * cfg.d_model * mo.d_ff_expert * 2
+    unembed = cfg.vocab_size * cfg.d_model * 2
+    caches = (2 * 2 * cfg.num_layers * batch * max_len * cfg.num_kv_heads
+              * cfg.head_dim * 2)
+    return (4 * d + casts + unembed + batch * cfg.vocab_size * 6
+            + caches) / 1e9
+
+
+def route_p() -> dict:
+    """Route p: qwen2-moe-a2.7b served at its published widths and full
+    depth (24 layers, bf16 compute on fp32 weights from
+    ``torch.Generator().manual_seed(0)``) through ``launch/serve.py``:
+    ``serve`` (batch 4, prompt 512, gen 32), then ``generate`` on the same
+    weights (batch 16, prompt 128, gen 16). Tokens in range and logits
+    finite. Then, at published widths: prefill + decode against the
+    full-sequence forward (2 layers, fp32, capacity factor 15); one
+    layer's ``moe_ffn`` against ``moe_ffn_dense_ref`` (T = 2048, capacity
+    factor 15, fp32); the dispatch on the card bitwise the CPU's on the
+    same probs (and on probs rounded to 1/16, full of ties); and the smoke
+    config's loss, prefill and decode on the card against the CPU. The
+    port's kernels launch no time."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params, tree_map
+    from repro_torch.sharding.rules import ParallelContext
+
+    cfg = get_arch("qwen2-moe-a2.7b").model
+    model = Model(cfg)
+    d = count_params(model.defs())
+    check(cfg.num_layers == 24 and cfg.d_model == 2048
+          and cfg.moe.num_experts == 60 and cfg.moe.top_k == 4
+          and cfg.vocab_size == 151936, "route p: not qwen2-moe's widths")
+    largest = max(leaf_sizes(cfg))
+    host = host_available_gb()
+    res = {"params": d, "num_params_config": cfg.num_params(),
+           "host_available_gb": host, "reckoned_peak_gb": {
+               b: moe_serve_reckoning(cfg, d, b, s + g) for b, s, g in
+               MOE_SERVE_RUNS}}
+    print(f"route p: qwen2-moe-a2.7b, {cfg.num_layers} layers, {d:,} params "
+          f"(ModelConfig.num_params() reads {cfg.num_params():,}), "
+          f"{4 * d / 1e9:.1f} GB fp32; the host has {host:.1f} GB available, "
+          f"the largest leaf is {4 * largest / 1e9:.1f} GB; reckoned peak "
+          f"{res['reckoned_peak_gb']}")
+    check(host * 1e9 > 1.5 * 4 * largest,
+          f"route p: {host:.1f} GB of host memory cannot draw a "
+          f"{4 * largest / 1e9:.1f} GB leaf")
+    ops.reset_launches()
+    params = None
+    for batch, prompt, gen in MOE_SERVE_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if params is None:
+            out = tserve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
+                               device="cuda")
+            params = out.pop("params")
+            res["init_s"] = out["init_s"]
+            print(f"route p: the weights drawn and moved in "
+                  f"{out['init_s']:.1f} s")
+        else:
+            prompts = np.random.default_rng(1).integers(
+                0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
+            out = tserve.generate(model, params, prompts, gen)
+        run = _serve_summary(out, batch, gen,
+                             torch.cuda.max_memory_allocated(),
+                             cfg.vocab_size)
+        check(run["tokens_in_range"] and run["finite"],
+              f"route p b{batch} s{prompt}: tokens out of range or logits "
+              f"not finite: {run}")
+        res[f"batch {batch}, prompt {prompt}, gen {gen}"] = run
+        print(f"route p: batch {batch}, prompt {prompt}, gen {gen}: prefill "
+              f"{run['prefill_ms']:.1f} ms, decode "
+              f"{run['decode_ms_per_token']:.2f} ms/token, "
+              f"{run['tokens_per_s']:.1f} tok/s, peak "
+              f"{run['peak_gb']:.2f} GB (reckoned "
+              f"{res['reckoned_peak_gb'][batch]:.2f})")
+        del out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not any(ops.launches.values()),
+          f"route p: serving launched the port's kernels {ops.launches}")
+
+    # decode against the full-sequence forward, published widths, 2 layers
+    ctx = ParallelContext()
+    c2 = mreplace(cfg, num_layers=2, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_DECODE_CF))
+    m2 = Model(c2)
+    p2 = m2.init(torch.Generator().manual_seed(1), "cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(2, 104)).astype(np.int32)).cuda()
+    P, steps = 96, 8
+    with torch.no_grad():
+        full = m2.encode(p2, {"tokens": toks}, ctx)
+        lg, caches = m2.prefill(p2, toks[:, :P], ctx, max_len=P + steps)
+        got = [lg]
+        for i in range(steps - 1):
+            lg, caches = m2.decode_step(p2, toks[:, P + i:P + i + 1], caches,
+                                        P + i, ctx, max_len=P + steps)
+            got.append(lg)
+    dec_err = _rel_err(torch.stack(got, 1), full[:, P - 1:P + steps - 1])
+    check(dec_err <= DECODE_TOL, f"route p: prefill + decode differ from "
+          f"the full-sequence forward by {dec_err} of the largest logit")
+    res["decode_vs_forward_rel_err"] = dec_err
+    print(f"route p: prefill + {steps - 1} decode steps vs the full-sequence "
+          f"forward (published widths, 2 layers, fp32, capacity factor "
+          f"{MOE_DECODE_CF}): max |diff| {dec_err:.3g} of the largest logit "
+          f"(tolerance {DECODE_TOL})")
+
+    # one layer's MoE FFN against the dense reference, and the dispatch
+    mlp = p2["stack"]["groups"]["l0"]["mlp"]
+    mlp = tree_map(lambda t: t[0], mlp)
+    del p2, full, caches
+    torch.cuda.empty_cache()
+    x = torch.randn(4, 512, cfg.d_model, generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda")
+    with torch.no_grad():
+        out, aux = moe_mod.moe_ffn(mlp, x, c2.moe, ctx, dtype="float32")
+        want = moe_mod.moe_ffn_dense_ref(mlp, x, c2.moe, ctx,
+                                         dtype="float32")
+        probs = moe_mod.router_probs(mlp, x.reshape(-1, cfg.d_model),
+                                     cfg.moe, "float32")
+    dense_err = _rel_err(out, want)
+    check(dense_err <= MOE_DENSE_TOL and bool(torch.isfinite(aux)),
+          f"route p: moe_ffn differs from moe_ffn_dense_ref by {dense_err} "
+          f"of the largest value (aux {float(aux)})")
+    res["moe_vs_dense_rel_err"] = dense_err
+    del out, want, x, mlp
+    ties = torch.round(probs * 16) / 16
+    for what, pr in (("router", probs), ("ties", ties)):
+        on_card = moe_mod.dispatch(pr, cfg.moe)
+        on_cpu = moe_mod.dispatch(pr.cpu(), cfg.moe)
+        check(on_card.C == on_cpu.C, f"route p: dispatch C {on_card.C} on "
+              f"the card, {on_cpu.C} on the CPU")
+        for name in ("gates", "top_idx", "sel", "w_tok", "tok_idx", "valid"):
+            a, b = getattr(on_card, name).cpu(), getattr(on_cpu, name)
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            check(torch.equal(a, b), f"route p: the dispatch's {name} on "
+                  f"the card differs from the CPU's ({what} probs)")
+    res["dispatch_bitwise"] = {"T": probs.shape[0], "C": on_cpu.C}
+    print(f"route p: one layer's moe_ffn (T = 2048, capacity factor "
+          f"{MOE_DECODE_CF}, fp32) vs moe_ffn_dense_ref: max |diff| "
+          f"{dense_err:.3g} of the largest value (tolerance "
+          f"{MOE_DENSE_TOL}); the dispatch (T = {probs.shape[0]}, C = "
+          f"{on_cpu.C}) on the card equals the CPU's to the bit, on the "
+          f"router's probs and on probs rounded to 1/16")
+    del probs, ties, on_card
+    torch.cuda.empty_cache()
+
+    # the card against the CPU on the smoke config
+    cs = get_arch("qwen2-moe-a2.7b").smoke
+    ms = Model(cs)
+    pc = ms.init(torch.Generator().manual_seed(3), "cpu")
+    pg = tree_map(lambda t: t.cuda(), pc)
+    r = np.random.default_rng(4)
+    toks = torch.from_numpy(r.integers(0, cs.vocab_size, size=(2, 64)).astype(
+        np.int32))
+    labels = torch.from_numpy(r.integers(0, cs.vocab_size, size=(2, 64))
+                              .astype(np.int32))
+    outs = {}
+    with torch.no_grad():
+        for name, p in (("cpu", pc), ("cuda", pg)):
+            dev = p["final_norm"].device
+            t = toks.to(dev)
+            loss, met = ms.loss(p, {"tokens": t, "labels": labels.to(dev)},
+                                ctx, remat_policy="none")
+            lg, c = ms.prefill(p, t[:, :48], ctx, max_len=64)
+            seq = [loss.reshape(1, 1), met["aux"].reshape(1, 1), lg]
+            for i in range(48, 56):
+                lg, c = ms.decode_step(p, t[:, i:i + 1], c, i, ctx,
+                                       max_len=64)
+                seq.append(lg)
+            outs[name] = seq
+    card_err = max(_rel_err(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+    check(card_err <= MOE_CARD_TOL, f"route p: the smoke config on the card "
+          f"differs from the CPU by {card_err} of the largest value")
+    res["card_vs_cpu_rel_err"] = card_err
+    print(f"route p: qwen2-moe smoke loss, aux, prefill and 8 decode steps on "
+          f"the card vs the CPU: max |diff| {card_err:.3g} of the largest "
+          f"value (tolerance {MOE_CARD_TOL})")
+    return res
+
+
+def lm_fed(dp: int = LM_CLIENTS):
+    """Route o's (q's, at ``dp`` 1) ``FedConfig``: the train CLI's
+    (``launch/train.py --dp 2 --compressor topk --aggregation sparse``,
+    every other flag at its default: fedcams, ratio 1/64, K = 2, η = 0.5,
+    η_l = 0.05)."""
     from repro_torch.launch import train as ttrain
     ap = ttrain.parser()
     return ttrain.build_fed(ap.parse_args(
-        ["--dp", str(LM_CLIENTS), "--compressor", "topk", "--aggregation",
+        ["--dp", str(dp), "--compressor", "topk", "--aggregation",
          "sparse"]), ap)
 
 
+def _recording_aux(sink: list):
+    """Make ``Model.loss`` (in this process) also append each call's
+    ``metrics["aux"]`` to ``sink``: the mesh round reports the loss, and
+    the aux loss is a part of it."""
+    from repro_torch.models.model import Model
+    loss = Model.loss
+
+    def recorded(self, *a, **kw):
+        out = loss(self, *a, **kw)
+        sink.append(out[1]["aux"].detach())
+        return out
+
+    Model.loss = recorded
+
+
 def _lm_job(job: dict) -> dict:
-    """One rank of route o: the launch counters at 0, then
+    """One rank of route o or q: the launch counters at 0, then
     ``launch/train.py``'s ``train`` (model, state, data and rounds), then
-    the counters read."""
+    the counters read (and, with ``job["aux"]``, every local step's aux
+    loss)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train as ttrain
+    aux = []
+    if job.get("aux"):
+        _recording_aux(aux)
     torch.cuda.synchronize()
     dist.barrier()
     ops.reset_launches()
     out = ttrain.train(job["cfg"], job["fed"], job["train"], device="cuda")
     out["launches"] = dict(ops.launches)
+    out["aux"] = [float(a) for a in aux]
     return out
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The ranks' allocator grows its segments in place (less memory
+    stranded between the round's phases' large blocks)."""
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
 
 
 def lm_memory_reckoning(cfg, d: int, largest: int, tokens: int) -> dict:
@@ -2385,17 +2722,10 @@ def route_o(held) -> dict:
           f"{total / 1e9:.1f} GB free")
     check(LM_CLIENTS * plan["per_rank_gb"] * 1e9 < free,
           f"route o: {LM_CLIENTS} ranks do not fit the card: {plan}")
-    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
+    with expandable_segments():
         ranks = run_ranks(LM_CLIENTS, "gloo", {"o": dict(
             cfg=cfg, fed=fed, train=train)}, fn=_lm_job, timeout=900,
             record=True)
-    finally:
-        if saved is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
     rs = [rk["o"] for rk in ranks]
     n_shapes = check_shapes_held("o", rs, held)
     want = {"topk_ef_sparse": leaves * LM_ROUNDS,
@@ -2430,6 +2760,74 @@ def route_o(held) -> dict:
             "launches": {k: sum(r["launches"][k] for r in rs)
                          for k in rs[0]["launches"]}}
 
+
+def route_q(held) -> dict:
+    """Route q: federated training through ``launch/train.py``'s ``train``
+    on qwen2-moe-a2.7b at published widths and ``MOE_LAYERS`` layer, one
+    NCCL rank (one client: a rank needs ~53.7 GB, so two do not fit the
+    card), fedcams with blockwise top-k 1/64 over the sparse collective
+    and the fused ingest through ``KernelImpl``, K = 2, batch 2 × seq 512,
+    ``MOE_ROUNDS`` rounds. The rank launches ``topk_ef_sparse`` and
+    ``fedams_ingest`` once a leaf a round, at shapes phase 1 held;
+    ``wire_up_bytes`` is what ``mesh_wire_bytes_tiers`` bills; losses,
+    state and every local step's aux loss finite, and the aux loss > 0."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.mesh import mesh_wire_bytes_tiers
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params, tree_leaves
+
+    cfg, fed = moe_cfg(), lm_fed(dp=1)
+    model = Model(cfg)
+    leaves = len(tree_leaves(model.defs()))
+    d = count_params(model.defs())
+    train = TrainConfig(global_batch=2, seq_len=512, rounds=MOE_ROUNDS,
+                        remat_policy="none")
+    plan = lm_memory_reckoning(cfg, d, max(leaf_sizes(cfg)),
+                               train.global_batch * train.seq_len)
+    free, total = torch.cuda.mem_get_info()
+    print(f"route q: qwen2-moe-a2.7b at published widths, {MOE_LAYERS} "
+          f"layer: d = {d:,} ({leaves} leaves); a rank holds "
+          f"~{plan['per_rank_gb']:.1f} GB at its peak (reckoned: {plan}), so "
+          f"2 ranks would need {2 * plan['per_rank_gb']:.1f} of the card's "
+          f"{total / 1e9:.1f} GB; 1 rank on {free / 1e9:.1f} GB free")
+    check(plan["per_rank_gb"] * 1e9 < free,
+          f"route q: one rank does not fit the card: {plan}")
+    with expandable_segments():
+        r = run_ranks(1, "nccl", {"q": dict(cfg=cfg, fed=fed, train=train,
+                                            aux=True)},
+                      fn=_lm_job, timeout=900, record=True)[0]["q"]
+    n_shapes = check_shapes_held("q", [r], held)
+    want = {"topk_ef_sparse": leaves * MOE_ROUNDS,
+            "fedams_ingest": leaves * MOE_ROUNDS}
+    got = {k: v for k, v in r["launches"].items() if v}
+    check(got == want, f"route q: launches {got}, expected {want} ({leaves} "
+          f"leaves a round)")
+    tiers = mesh_wire_bytes_tiers(fed, model.defs())
+    expected = float(np.float32(fed.num_clients * tiers["tier1"]))
+    losses = [h["loss"] for h in r["history"]]
+    check(all(np.isfinite(losses)) and r["finite"],
+          f"route q: losses {losses} or a non-finite state")
+    aux = r["aux"]
+    check(len(aux) == MOE_ROUNDS * fed.local_steps and all(
+        np.isfinite(aux)) and min(aux) > 0,
+        f"route q: the local steps' aux losses {aux}")
+    wire = [h["wire_up_bytes"] for h in r["history"]]
+    check(wire == [expected] * MOE_ROUNDS, f"route q: wire_up_bytes {wire}, "
+          f"mesh_wire_bytes_tiers bills {expected}")
+    round_ms = [h["round_s"] * 1e3 for h in r["history"]]
+    peak = r["peak_bytes"] / 1e9
+    print(f"route q: qwen2-moe-a2.7b at published widths, {MOE_LAYERS} "
+          f"layer, {r['params']:,} params, 1 NCCL rank: losses {losses}; aux "
+          f"{aux}; wire_up_bytes {wire[0]:.0f} a round (tiers {tiers}); "
+          f"launches a round {leaves} topk_ef_sparse + {leaves} "
+          f"fedams_ingest; round ms {[round(t, 1) for t in round_ms]}; peak "
+          f"memory {peak:.2f} GB (reckoned {plan['per_rank_gb']:.2f}); "
+          f"distinct launch shapes, each held by phase 1: {n_shapes}")
+    return {"losses": losses, "aux": aux, "wire_up_bytes": wire,
+            "tiers": tiers, "round_ms": round_ms, "peak_gb": peak,
+            "reckoned": plan, "d": d, "leaves": leaves,
+            "shapes_held": n_shapes, "launches": r["launches"]}
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False — this script needs a card")
@@ -2455,14 +2853,22 @@ def main():
     with deterministic():
         kern = phase_kernels(dev, 704266)
         mesh_held = phase_mesh_shapes(dev)
-        phase_lm_shapes(dev, mesh_held)
+        large = phase_lm_shapes(dev, mesh_held)
     torch.cuda.empty_cache()
     print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
     for name, (cases, worst, sigs) in mesh_held.items():
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
-        kern[name]["cases_routes_m_o"] = cases
-        print(f"kernel {name} vs twin at routes m and o's shapes: {cases} "
+        kern[name]["cases_routes_m_o_q"] = cases
+        print(f"kernel {name} vs twin at routes m, o and q's shapes: {cases} "
               f"cases, {len(sigs)} shapes, bitwise")
+    for d, row in large.items():
+        for name in ("topk_ef_sparse", "fedams_ingest"):
+            t = row[name]
+            kern[name].setdefault("largest_rows", {})[d] = t
+            print(f"kernel {name} alone on route {row['route']}'s largest "
+                  f"leaf, a (1, {d:,}) row: {t['ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bytes']} bytes), "
+                  f"{t['ms'] / t['bound_ms']:.2f}x the bound")
     for name, r in kern.items():
         print(f"kernel {name} vs twin: {r['ms']:.4f} ms (twin "
               f"{r['plain_ms']:.4f} ms), max_abs_err {r['max_abs_err']}")
@@ -2511,6 +2917,14 @@ def main():
     t_phase = time.perf_counter()
     lm = route_o(mesh_held)
     print(f"route o took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    moe_serve = route_p()
+    print(f"route p took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    moe_lm = route_q(mesh_held)
+    print(f"route q took {time.perf_counter() - t_phase:.1f} s")
 
     rows = []
     for name, r in kern.items():
@@ -2518,13 +2932,15 @@ def main():
         per_round = {route: n / ROUNDS for route, n in runs if n}
         mesh_n = sum(j["launches"][name] for j in mesh_res.values())
         runs += [("m", mesh_n), ("m1", m1["launches"][name]),
-                 ("o", lm["launches"][name])]
+                 ("o", lm["launches"][name]), ("q", moe_lm["launches"][name])]
         if mesh_n or m1["launches"][name]:
             per_round["m (all jobs, all ranks)"] = mesh_n
             per_round["m1"] = m1["launches"][name]
         if lm["launches"][name]:
             per_round["o (a round, all ranks)"] = (lm["launches"][name]
                                                    / LM_ROUNDS)
+        if moe_lm["launches"][name]:
+            per_round["q (a round)"] = moe_lm["launches"][name] / MOE_ROUNDS
         print(f"kernel {name}: {r['ms']:.4f} ms median of 30, {r['bytes']} "
               f"bytes, launches per round (per cohort on j) {per_round}")
         b_ms, b_by = bound(r["bytes"], r["flops"])
@@ -2544,7 +2960,8 @@ def main():
          "build_s": build_s, "kernels": kern, "kernel_rows": rows,
          "reference": refcheck, "slice": sl,
          "route_a_deterministic": det, "mesh": mesh_res, "mesh_m1": m1,
-         "serve_n": serve_res, "lm_o": lm},
+         "serve_n": serve_res, "lm_o": lm, "serve_p": moe_serve,
+         "lm_q": moe_lm},
         indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

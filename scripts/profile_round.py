@@ -49,7 +49,13 @@ cohorts):
        through ``launch/serve.py``'s ``generate``: a warm-up call, 3
        unprofiled (prefill ms, decode ms a token), one profiled; its stages
        are the ``serve.prefill`` / ``serve.decode`` ranges, and by layer
-       the ``model.<layer>`` ranges (embed, attention, ffn, unembed)
+       the ``model.<layer>`` ranges (embed, attention, ffn, unembed), each
+       with its kernel launches
+    p  serving the MoE: chip_smoke.py's route p at batch 4, prompt 512,
+       gen 32 (qwen2-moe-a2.7b at its published widths, 24 layers, seeded
+       weights), as n; by layer also ``model.moe`` (router, dispatch,
+       expert einsums), ``model.moe_scatter`` (the expert-by-expert
+       ``index_add_``) and ``model.ffn`` (the shared experts)
     o  federated LM training: chip_smoke.py's route o (gemma2-2b widths, 2
        layers, 2 gloo ranks sharing the card) through ``launch/train.py``'s
        ``train``, WARMUP + TIMED + PROFILED rounds with rank 0 under the
@@ -169,6 +175,7 @@ def _breakdown(events, rounds: int, prefix: str = "fedsim."):
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "correlation" in e.get("args", {})}
     stage_dev = defaultdict(float)
+    stage_n = defaultdict(int)
     stage_host = defaultdict(float)
     for t0, t1, name in stages:
         stage_host[name] += (t1 - t0) / 1e3
@@ -182,15 +189,19 @@ def _breakdown(events, rounds: int, prefix: str = "fedsim."):
         by_kernel[e["name"]][0] += 1
         by_kernel[e["name"]][1] += ms
         ts = launch_ts.get(e["args"].get("correlation"))
-        stage_dev[innermost(ts) if ts is not None
-                  else "(outside the stages)"] += ms
+        where = (innermost(ts) if ts is not None
+                 else "(outside the stages)")
+        stage_dev[where] += ms
+        stage_n[where] += 1
     stage_ms = {name: {"device_ms": stage_dev.get(name, 0.0) / rounds,
-                       "host_ms": stage_host.get(name, 0.0) / rounds}
+                       "host_ms": stage_host.get(name, 0.0) / rounds,
+                       "launches": stage_n.get(name, 0) / rounds}
                 for name in dict.fromkeys(s[2] for s in stages)}
     if "(outside the stages)" in stage_dev:
         stage_ms["(outside the stages)"] = {
             "device_ms": stage_dev["(outside the stages)"] / rounds,
-            "host_ms": None}
+            "host_ms": None,
+            "launches": stage_n["(outside the stages)"] / rounds}
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     per_round = lambda kv: {"name": kv[0][:90], "count": kv[1][0] / rounds,
                             "device_ms": kv[1][1] / rounds}
@@ -212,7 +223,7 @@ def main():
                                            alpha=0.3, seed=0)
                 for m in (M, chip_smoke.M_K)}
     gen = torch.Generator().manual_seed(1)
-    known = list(chip_smoke.ROUTES) + ["m", "n", "o"]
+    known = list(chip_smoke.ROUTES) + ["m", "n", "o", "p"]
     routes = sys.argv[1:] or known
     unknown = [r for r in routes if r not in known]
     if unknown:
@@ -224,8 +235,9 @@ def main():
         from repro_torch.kernels import _build
         _build.build_all()    # before the ranks start, which load it
     for route in routes:
-        if route in ("m", "n", "o"):
-            out[route] = {"m": _mesh, "n": _serve, "o": _lm}[route]()
+        if route in ("m", "n", "o", "p"):
+            out[route] = {"m": _mesh, "n": lambda: _serve("n"), "o": _lm,
+                          "p": lambda: _serve("p")}[route]()
             continue
         m = chip_smoke.M_K if route == "k" else M
         plan = []
@@ -313,19 +325,22 @@ def _mesh():
     return res
 
 
-def _serve():
-    """Route n: ``generate`` on gemma2-2b at full width, batch 4, prompt
-    512, gen 32 — a warm-up call, TIMED unprofiled, one profiled."""
+def _serve(route):
+    """Route n (p): ``generate`` on gemma2-2b (qwen2-moe-a2.7b) at full
+    width, batch 4, prompt 512, gen 32 — a warm-up call, TIMED unprofiled,
+    one profiled."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import Model
-    cfg = get_arch("gemma2-2b").model
+    arch, (batch, prompt, gen) = {
+        "n": ("gemma2-2b", chip_smoke.SERVE_RUNS[0][:3]),
+        "p": ("qwen2-moe-a2.7b", chip_smoke.MOE_SERVE_RUNS[0])}[route]
+    cfg = get_arch(arch).model
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cuda")
-    batch, prompt, gen, _ = chip_smoke.SERVE_RUNS[0]
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
     quiet = lambda line: None
@@ -338,7 +353,7 @@ def _serve():
         r = generate(model, params, prompts, gen, log=quiet)
         torch.cuda.synchronize()
     events = _trace_events(prof)
-    res = _print_breakdown("n", events, wall,
+    res = _print_breakdown(route, events, wall,
                            (r["prefill_s"] + r["decode_s"]) * 1e3,
                            prefix="serve.", rounds=1)
     layers, _, _, _ = _breakdown(events, 1, "model.")
@@ -346,11 +361,11 @@ def _serve():
     res["prefill_ms"] = [x["prefill_s"] * 1e3 for x in runs]
     res["decode_ms_per_token"] = [x["decode_s"] * 1e3 / (gen - 1)
                                   for x in runs]
-    print(f"route n: prefill ms {res['prefill_ms']}, decode ms a token "
-          f"{res['decode_ms_per_token']}")
+    print(f"route {route}: prefill ms {res['prefill_ms']}, decode ms a "
+          f"token {res['decode_ms_per_token']}")
     for name, t in layers.items():
         print(f"  layer {name:22s} device {t['device_ms']:9.3f} ms  "
-              f"host {t['host_ms']} ms")
+              f"host {t['host_ms']} ms  launches {t['launches']:g}")
     return res
 
 
@@ -408,16 +423,9 @@ def _lm():
     job = dict(cfg=chip_smoke.lm_cfg(), fed=chip_smoke.lm_fed(),
                train=TrainConfig(global_batch=2 * chip_smoke.LM_CLIENTS,
                                  seq_len=512, remat_policy="none"))
-    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
+    with chip_smoke.expandable_segments():
         r0 = chip_smoke.run_ranks(chip_smoke.LM_CLIENTS, "gloo", {"o": job},
                                   fn=_lm_job, timeout=1500)[0]["o"]
-    finally:
-        if saved is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
     wall = r0["round_ms"][WARMUP:WARMUP + TIMED]
     prof_wall = statistics.mean(r0["round_ms"][WARMUP + TIMED:])
     res = _print_breakdown("o", r0.pop("trace"), wall, prof_wall,
@@ -446,7 +454,7 @@ def _print_breakdown(route, events, wall, prof_wall, prefix="fedsim.",
           f"{round_ms:.1f}); profiled {prof_wall:.1f} ms")
     for name, t in stage_ms.items():
         print(f"  stage {name:22s} device {t['device_ms']:9.3f} ms  "
-              f"host {t['host_ms']} ms")
+              f"host {t['host_ms']} ms  launches {t['launches']:g}")
     print(f"route {route}: device busy {busy:.1f} ms per round, "
           f"{100 * busy / round_ms:.1f} % of the unprofiled round")
     for row in top:

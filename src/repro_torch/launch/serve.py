@@ -91,7 +91,9 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 16,
     ``tp``, params from ``torch.Generator().manual_seed(0)`` on ``device``
     (None: CUDA) or restored from ``checkpoint``, the reference's prompts,
     then :func:`generate`. Returns :func:`generate`'s result with the
-    prompts."""
+    prompts, the params (another batch can be served on the same weights
+    without drawing them again: qwen2-moe-a2.7b's are 57 GB) and the
+    seconds the params took to draw or restore."""
     from repro_torch import resolve_device
     from repro_torch.models.model import Model
 
@@ -99,16 +101,19 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 16,
         raise SystemExit(f"{cfg.name} is encoder-only; no decode serving")
     model = Model(cfg, tp=tp)
     dev = resolve_device(device)
+    t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(0), dev)
     if checkpoint:
         from repro_torch.checkpoint import load_pytree
         params, meta = load_pytree(checkpoint, params)
         log(f"restored {meta}")
+    _sync(dev)
+    init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(batch, prompt_len)).astype(np.int32)
     res = generate(model, params, prompts, gen, max_len=max_len, log=log)
-    res["prompts"] = prompts
+    res.update(prompts=prompts, params=params, init_s=init_s)
     return res
 
 

@@ -205,6 +205,15 @@ def require_no_seq_axis(ctx) -> None:
             "ParallelContext has no seq_shards yet — ROADMAP Queue 1 item 8f")
 
 
+def _cache_write(c, x, slot: int):
+    """A copy of the cache ``c`` with ``x`` in ``slot`` of dim 1. A copy of
+    ``c`` alone: ``slice_scatter`` copies the whole storage of a view, and
+    a layer's cache is a view of the stack's (n_groups, ...) one."""
+    out = c.clone()
+    out[:, slot:slot + 1] = x
+    return out
+
+
 def attn_decode(p, x, cache: KVCache, pos, dims: AttnDims, ctx, *,
                 window: int, cap: Optional[float], rope_theta: float,
                 total_len: int, dtype="bfloat16"):
@@ -221,9 +230,8 @@ def attn_decode(p, x, cache: KVCache, pos, dims: AttnDims, ctx, *,
     q = rope(q, posv, rope_theta)
     k = rope(k, posv, rope_theta)
     gslot = pos % total_len
-    new_cache = KVCache(
-        cache.k.slice_scatter(k, dim=1, start=gslot, end=gslot + 1),
-        cache.v.slice_scatter(v, dim=1, start=gslot, end=gslot + 1))
+    new_cache = KVCache(_cache_write(cache.k, k, gslot),
+                        _cache_write(cache.v, v, gslot))
     slot_ids = torch.arange(total_len, device=dev)
 
     ke = expand_kv(new_cache.k, dims, ctx)

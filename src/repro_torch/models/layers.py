@@ -16,6 +16,7 @@ logits take -1e30, not -inf, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -36,6 +37,13 @@ def span(name: str):
 
 def cast(x, dtype: str):
     return x.to(getattr(torch, dtype))
+
+
+def promoted(*ts):
+    """The tensors in their promoted dtype, JAX's rule for a matmul of
+    mixed operands (fp32 activations on bf16 weights compute in fp32)."""
+    dt = functools.reduce(torch.promote_types, [t.dtype for t in ts])
+    return [t.to(dt) for t in ts]
 
 
 def rms_norm(scale, x, eps: float = 1e-6):
@@ -98,12 +106,13 @@ def ffn_defs(d_model: int, d_ff: int, act: str = "silu", gated: bool = True):
 def ffn_apply(p, x, ctx, act: str = "silu", dtype="bfloat16",
               psum: bool = True):
     with span("ffn"):
-        up = x @ cast(p["up"], dtype)
+        mm = lambda a, w: torch.matmul(*promoted(a, cast(w, dtype)))
+        up = mm(x, p["up"])
         if "gate" in p:
-            h = activation(x @ cast(p["gate"], dtype), act) * up
+            h = activation(mm(x, p["gate"]), act) * up
         else:
             h = activation(up, act)
-        out = h @ cast(p["down"], dtype)
+        out = mm(h, p["down"])
         return ctx.psum_model(out) if psum else out
 
 

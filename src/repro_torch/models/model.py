@@ -6,9 +6,11 @@ as in the reference: their batches carry precomputed frame/patch
 ``"embeddings"`` (B, S, d_model) instead of token ids.
 
 The port builds the attention-only family (gemma2-2b/27b, qwen1.5-32b,
-deepseek-coder-33b, internvl2-1b, hubert-xlarge) at tp = 1. A config with
-MoE, MLA, MTP or a recurrent layer kind, and ``tp > 1``, raise
-``NotImplementedError`` naming their ROADMAP item. Params are nested dicts
+deepseek-coder-33b, internvl2-1b, hubert-xlarge) and the MoE family
+(qwen2-moe-a2.7b) at tp = 1; ``loss`` adds the MoE layers' aux loss to the
+cross entropy and reports it as ``metrics["aux"]``. A config with MLA, MTP
+or a recurrent layer kind, and ``tp > 1``, raise ``NotImplementedError``
+naming their ROADMAP item. Params are nested dicts
 of tensors in the JAX package's shapes and key order, so the mesh's flat
 vector, its EF rows and checkpoints line up with the reference
 (``convert.model_params_from_jax`` carries a JAX init across).

@@ -105,7 +105,10 @@ def init_params(defs, generator: torch.Generator, device="cpu") -> Dict:
         elif d.init == "ones":
             arr = torch.ones(d.shape, dtype=dtype)
         else:
-            arr = torch.randn(d.shape, generator=generator, dtype=dtype) * d.scale
+            # in place: one host copy of the leaf, not two (an expert
+            # stack of qwen2-moe-a2.7b is 16.6 GB)
+            arr = torch.randn(d.shape, generator=generator,
+                              dtype=dtype).mul_(d.scale)
         paths.append(path)
         leaves.append(arr.to(device))
     return unflatten(paths, leaves)

@@ -8,8 +8,10 @@ indexes the stacked leaves. Leftover layers run as an unstacked tail. The
 same defs tree (and so the same ravel order and checkpoint layout) as the
 JAX package.
 
-This slice ports the attention-only family: ``"attn"`` layers with a dense
-FFN. MoE, MLA and the recurrent kinds raise ``NotImplementedError`` naming
+The port builds ``"attn"`` layers with a dense FFN or, with ``cfg.moe``,
+the MoE FFN (``models.moe``), whose aux loss ``stack_train`` sums in the
+reference's order (within a group, then across groups, then the tail).
+MLA, MTP and the recurrent kinds raise ``NotImplementedError`` naming
 their ROADMAP item (:func:`require_ported`).
 
 ``remat_policy`` is the reference's: ``"none"``; ``"full"`` recomputes a
@@ -28,6 +30,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pdefs
 from repro_torch.models.layers import ffn_apply, ffn_defs, rms_norm, span
 from repro_torch.models.params import leaves_with_paths, tree_map, unflatten
@@ -57,7 +60,6 @@ def plan_stack(cfg: ModelConfig) -> Tuple[Tuple[LayerDesc, ...], int,
 
 #: what this slice does not build, and the ROADMAP item each waits for
 UNPORTED = {
-    "moe": "MoE layers (cfg.moe) wait for ROADMAP Queue 1 item 8b",
     "mla": "MLA attention (cfg.mla) waits for ROADMAP Queue 1 item 8c",
     "mtp": "the MTP head (cfg.mtp) waits for ROADMAP Queue 1 item 8c",
     "rglru": "RG-LRU layers ('rglru') wait for ROADMAP Queue 1 item 8d",
@@ -67,16 +69,16 @@ UNPORTED = {
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Refuse a config outside the attention-only family, naming every
-    feature it needs that is not ported yet."""
-    missing = [UNPORTED[f] for f in ("moe", "mla", "mtp")
+    """Refuse a config the port does not build, naming every feature it
+    needs that is not ported yet."""
+    missing = [UNPORTED[f] for f in ("mla", "mtp")
                if getattr(cfg, f) is not None]
     missing += [UNPORTED[k] for k in sorted(set(cfg.layer_kinds))
                 if k != "attn"]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch ports the attention-only family "
-            f"(attn layers with a dense FFN); " + "; ".join(missing))
+            f"{cfg.name}: repro_torch ports attn layers with a dense or "
+            f"MoE FFN; " + "; ".join(missing))
 
 
 # ---------------------------------------------------------------------------
@@ -90,15 +92,25 @@ def layer_defs(cfg: ModelConfig, desc: LayerDesc, dims: AttnDims, tp: int):
     defs = {"norm1": pdefs.norm_scale(d),
             "mix": attn.attn_defs(d, dims, qkv_bias=cfg.qkv_bias),
             "norm2": pdefs.norm_scale(d)}
-    if cfg.d_ff > 0:
+    if cfg.moe is not None:
+        defs["mlp"] = moe_mod.moe_defs(d, cfg.moe, tp, cfg.act)
+    elif cfg.d_ff > 0:
         defs["mlp"] = ffn_defs(d, cfg.d_ff, cfg.act, cfg.gated_ffn)
     return defs
+
+
+def _mlp(p, h2, cfg: ModelConfig, ctx):
+    """The layer's FFN: dense, or MoE with its aux loss. Returns (out,
+    aux or None)."""
+    if cfg.moe is not None:
+        return moe_mod.moe_ffn(p, h2, cfg.moe, ctx, act=cfg.act,
+                               dtype=cfg.dtype)
+    return ffn_apply(p, h2, ctx, act=cfg.act, dtype=cfg.dtype), None
 
 
 def layer_train(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
                 ctx, chunk: int = 2048):
     """One layer, full sequence. Returns (x, aux_loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = ctx.tp_copy(rms_norm(p["norm1"], x, cfg.norm_eps))
     with span("attention"):
         out, _ = attn.attn_train(p["mix"], h, dims, ctx,
@@ -108,7 +120,9 @@ def layer_train(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
                                  chunk=chunk)
     x = x + out
     h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
-    out2 = ffn_apply(p["mlp"], h2, ctx, act=cfg.act, dtype=cfg.dtype)
+    out2, aux = _mlp(p["mlp"], h2, cfg, ctx)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + out2, aux
 
 
@@ -128,7 +142,7 @@ def layer_prefill(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
             return_cache_len=_cache_len(desc, max_len))
     x = x + out
     h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
-    out2 = ffn_apply(p["mlp"], h2, ctx, act=cfg.act, dtype=cfg.dtype)
+    out2, _ = _mlp(p["mlp"], h2, cfg, ctx)
     return x + out2, {"k": kv[0], "v": kv[1]}
 
 
@@ -182,7 +196,7 @@ def layer_decode(p, x, cache, pos, cfg: ModelConfig, desc: LayerDesc,
             dtype=cfg.dtype)
     x = x + out
     h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
-    out2 = ffn_apply(p["mlp"], h2, ctx, act=cfg.act, dtype=cfg.dtype)
+    out2, _ = _mlp(p["mlp"], h2, cfg, ctx)
     return x + out2, {"k": nc.k, "v": nc.v}
 
 

@@ -15,10 +15,11 @@ matmuls.
 * Attention: ``attention_core`` causal, windowed, softcapped and
   bidirectional, unchunked and q-chunked (``chunk=8``, so windowed layers
   slice a band); the prefill cache roll, bitwise.
-* Model: ``Model.loss`` and its gradient against ``jax.grad`` on the six
-  attention-only smoke configs and on ``test_decode_consistency.py``'s
-  ``dense_gqa`` and ``local_global_softcap``; the three remat policies.
-* Refusals: MoE, MLA, MTP, RG-LRU, xLSTM, tp > 1 and seq-sharded decode.
+* Model: ``Model.loss``, its aux loss and its gradient against
+  ``jax.grad`` on the six attention-only smoke configs, the qwen2-moe
+  smoke config and ``test_decode_consistency.py``'s ``dense_gqa`` and
+  ``local_global_softcap``; the three remat policies.
+* Refusals: MLA, MTP, RG-LRU, xLSTM, tp > 1 and seq-sharded decode.
 """
 import dataclasses
 
@@ -53,12 +54,12 @@ from test_decode_consistency import CASES as DECODE_CASES
 torch.set_num_threads(1)
 
 CTX, JCTX = ParallelContext(), JaxCtx()
-#: the archs the port builds (every layer "attn", a dense FFN, no MLA/MTP)
+#: the archs the port builds (every layer "attn", a dense or MoE FFN, no
+#: MLA/MTP)
 PORTED = ("gemma2-2b", "gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b",
-          "internvl2-1b", "hubert-xlarge")
-UNPORTED = {"deepseek-v3-671b": ("MoE", "MLA", "MTP"),
-            "qwen2-moe-a2.7b": ("MoE",), "recurrentgemma-2b": ("RG-LRU",),
-            "xlstm-350m": ("xLSTM",)}
+          "internvl2-1b", "hubert-xlarge", "qwen2-moe-a2.7b")
+UNPORTED = {"deepseek-v3-671b": ("MLA", "MTP"),
+            "recurrentgemma-2b": ("RG-LRU",), "xlstm-350m": ("xLSTM",)}
 
 
 def t(a):
@@ -318,6 +319,33 @@ def test_prefill_cache_roll_is_bitwise(monkeypatch, S, C):
     assert np.array_equal(tv.numpy(), np.asarray(jv))
 
 
+def test_decode_cache_write_copies_the_layer_alone():
+    """``attn_decode`` on a layer's cache that is a view of the stack's
+    (n_groups, ...) cache returns a new cache the size of the layer's, with
+    the new k/v in slot ``pos % C`` and every other slot as it was, and
+    leaves the stacked cache untouched (``slice_scatter`` would copy the
+    whole stack: 24 layers' caches a write at qwen2-moe's depth)."""
+    from repro_torch.sharding.rules import attn_dims
+    r = np.random.default_rng(6)
+    dims = attn_dims(4, 2, 8, 1)
+    d = 16
+    p = {k: t(r.normal(size=s).astype(np.float32)) for k, s in (
+        ("wq", (d, 32)), ("wk", (d, 16)), ("wv", (d, 16)), ("wo", (32, d)))}
+    stacked = [t(r.normal(size=(5, 2, 6, 2, 8)).astype(np.float32))
+               for _ in range(2)]
+    before = [c.clone() for c in stacked]
+    x = t(r.normal(size=(2, 1, d)).astype(np.float32))
+    cache = tattn.KVCache(stacked[0][3], stacked[1][3])
+    _, new = tattn.attn_decode(p, x, cache, 9, dims, CTX, window=0, cap=None,
+                               rope_theta=1e4, total_len=6, dtype="float32")
+    for c, old in zip(new, cache):
+        assert c.untyped_storage().nbytes() == old.numel() * 4
+        keep = [j for j in range(6) if j != 9 % 6]
+        assert torch.equal(c[:, keep], old[:, keep])
+        assert not torch.equal(c[:, 3], old[:, 3])
+    assert all(torch.equal(a, b) for a, b in zip(stacked, before))
+
+
 # -- the model ---------------------------------------------------------------
 
 MODEL_CASES = {a: (jax_arch(a).smoke, get_arch(a).smoke) for a in PORTED}
@@ -346,22 +374,24 @@ def _jax_and_port(name, seed=0):
 
 @pytest.mark.parametrize("name", list(MODEL_CASES))
 def test_loss_and_gradient_match_jax(name):
-    """``Model.loss`` within 1e-6 relative and every leaf of its gradient
-    within 2e-5 of the leaf's largest |∂| (``jax.grad``), at S = 32 with
-    ``chunk=8``: the chunked path, and a band on the windowed layers (16 +
-    8 < 32)."""
+    """``Model.loss`` and its aux loss (the MoE layers'; 0 without them)
+    within 1e-6 relative and every leaf of its gradient within 2e-5 of the
+    leaf's largest |∂| (``jax.grad``), at S = 32 with ``chunk=8``: the
+    chunked path, and a band on the windowed layers (16 + 8 < 32)."""
     jm, tm, jp, tp = _jax_and_port(name)
     cfg = tm.cfg
     b = _batch(cfg, 2, 32, 5)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
-    jloss = lambda p: jm.loss(p, jb, JCTX, remat_policy="none", chunk=8)[0]
-    want, jg = jax.value_and_grad(jloss)(jp)
+    jloss = lambda p: jm.loss(p, jb, JCTX, remat_policy="none", chunk=8)
+    (want, jmet), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
     params = tree_map(lambda x: x.clone().requires_grad_(True), tp)
     loss, met = tm.loss(params, {k: t(v) for k, v in b.items()}, CTX,
                         remat_policy="none", chunk=8)
     loss.backward()
     assert float(loss.detach()) == pytest.approx(float(want), rel=1e-6)
-    assert float(met["aux"]) == 0.0
+    assert float(met["aux"].detach()) == pytest.approx(float(jmet["aux"]),
+                                                       rel=1e-6)
+    assert (float(met["aux"].detach()) > 0.0) == (cfg.moe is not None)
     jgd = dict(leaves_with_paths(jax.device_get(jg)))
     for path, leaf in leaves_with_paths(params):
         g = (leaf.grad if leaf.grad is not None
@@ -408,6 +438,7 @@ def test_unported_configs_are_refused_by_name(arch):
         for what in UNPORTED[arch]:
             assert what in str(e.value), (arch, what, str(e.value))
         assert "ROADMAP Queue 1 item 8" in str(e.value)
+        assert "MoE layers" not in str(e.value)      # ported (item 8b)
 
 
 def test_tp_and_seq_sharded_decode_are_refused():

@@ -8,11 +8,13 @@ in summation order, and each tolerance is stated where it is set.
 * ``prefill``'s last-position logits and its caches (the windowed layers'
   rolled ring, the global layers' padded one), unchunked and q-chunked
   with a band, then k ``decode_step``s past the window against JAX's, on
-  every decoder arch of the slice and on ``test_decode_consistency.py``'s
-  two dense cases;
+  every decoder arch the port builds (qwen2-moe's MoE FFN included), on
+  ``test_decode_consistency.py``'s two dense cases and on an attention +
+  MoE case (its ``mla_moe`` case without MLA, capacity factor 8.0);
 * decoding from an empty cache equals the port's full-sequence forward;
 * the serve CLI on ``--device cpu`` prints the JAX CLI's tokens, both
-  restoring the same checkpoint (the JAX package's files).
+  restoring the same checkpoint (the JAX package's files);
+  ``examples/serve_batched_torch.py`` runs on ``--device cpu``.
 """
 import dataclasses
 import os
@@ -26,10 +28,11 @@ import pytest
 import torch
 
 from repro.checkpoint import save_pytree as jax_save_pytree
+from repro.configs import base as jbase
 from repro.configs.registry import get_arch as jax_arch
 from repro.models.model import Model as JaxModel
 from repro.sharding.rules import ParallelContext as JaxCtx
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.convert import model_params_from_jax
 from repro_torch.launch import serve as tserve
@@ -41,14 +44,26 @@ from test_decode_consistency import CASES as DECODE_CASES
 torch.set_num_threads(1)
 
 CTX, JCTX = ParallelContext(), JaxCtx()
-SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
 DECODERS = ("gemma2-2b", "gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b",
-            "internvl2-1b")
+            "internvl2-1b", "qwen2-moe-a2.7b")
 CASES = {a: (jax_arch(a).smoke, get_arch(a).smoke) for a in DECODERS}
 CASES.update({f"decode:{n}": (c, ModelConfig(**{
     f.name: getattr(c, f.name) for f in dataclasses.fields(c)}))
     for n, c in DECODE_CASES.items()
     if n in ("dense_gqa", "local_global_softcap")})
+#: ``test_decode_consistency.py``'s ``mla_moe`` case without MLA: at
+#: capacity factor 8.0 (≥ E/k) an expert has a slot for every token, so
+#: decode (T = B) drops no token the forward keeps
+_ATTN_MOE = dict(name="am", family="moe", num_layers=2, d_model=64,
+                 num_heads=4, num_kv_heads=4, d_ff=0, vocab_size=64,
+                 dtype="float32")
+_MOE = dict(num_experts=4, top_k=2, num_shared_experts=1, d_ff_expert=64,
+            capacity_factor=8.0)
+CASES["decode:attn_moe"] = (
+    jbase.ModelConfig(**_ATTN_MOE, moe=jbase.MoEConfig(**_MOE)),
+    ModelConfig(**_ATTN_MOE, moe=MoEConfig(**_MOE)))
 
 
 def close(got, want, rel, what=""):
@@ -112,7 +127,8 @@ def test_prefill_then_decode_past_the_window_matches_jax(name, chunk):
 
 
 @pytest.mark.parametrize("name", ["gemma2-2b", "decode:local_global_softcap",
-                                  "qwen1.5-32b"])
+                                  "qwen1.5-32b", "decode:attn_moe",
+                                  "qwen2-moe-a2.7b"])
 def test_decode_from_an_empty_cache_matches_the_forward(name):
     """Decoding a sequence token by token from ``init_cache`` (the rings
     wrap after 16 / 6 tokens) gives the full-sequence forward's logits at
@@ -174,6 +190,38 @@ def test_serve_refuses_what_the_port_does_not_run():
     with pytest.raises(SystemExit, match="encoder-only"):
         tserve.main(["--arch", "hubert-xlarge", "--smoke", "--device",
                      "cpu"])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tserve.main(["--arch", "qwen2-moe-a2.7b", "--smoke", "--device",
+    with pytest.raises(NotImplementedError, match="MLA"):
+        tserve.main(["--arch", "deepseek-v3-671b", "--smoke", "--device",
                      "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-moe-a2.7b"])
+def test_serve_batched_example_runs_on_the_cpu(arch):
+    """The twin of ``examples/serve_batched.py`` serves a smoke config on
+    ``--device cpu``: its prefill, decode and request lines, tokens in the
+    vocabulary, and neither jax nor repro loaded."""
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['serve_batched_torch.py', '--arch', '{arch}', "
+            "'--batch', '3', '--prompt-len', '12', '--gen', '6', "
+            "'--device', 'cpu']\n"
+            "runpy.run_path("
+            f"{os.path.join(ROOT, 'examples', 'serve_batched_torch.py')!r}, "
+            "run_name='__main__')\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('jaxlib') "
+            "or m == 'repro' or m.startswith('repro.'))\n"
+            "print(bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "[]", out.stdout
+    assert lines[0].startswith("prefill 3x12: "), out.stdout
+    assert lines[1].startswith("decode: "), out.stdout
+    reqs = [ln for ln in lines if ln.strip().startswith("request[")]
+    vocab = get_arch(arch).smoke.vocab_size
+    assert len(reqs) == 3
+    for ln in reqs:
+        toks = [int(v) for v in ln.split("-> [")[1].split("]")[0].split(",")]
+        assert len(toks) == 6 and all(0 <= v < vocab for v in toks), ln
