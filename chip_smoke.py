@@ -45,15 +45,19 @@ then, on the card:
    on random and hard inputs; ``fedams_update`` at every leaf and ZeRO
    shard size; ``fedams_ingest`` on 4 gathered clients (one of them a
    non-participant) and on 1; and ``topk_ef_sparse`` and ``fedams_ingest``
-   at every shape routes o and q launch them (``phase_lm_shapes``:
+   at every shape routes o, q, s and u launch them (``phase_lm_shapes``:
    gemma2-2b's leaves at 2 layers, 2,304 to 589,824,000 values a row, the
    ingest on 2 clients; qwen2-moe-a2.7b's at 1 layer, 2,048 to 311,164,928
    values, the (1, 60, 2048, 1408) expert stacks of 173,015,040 among
-   them, the ingest on 1 client). All bitwise (a NaN must meet a NaN).
+   them; route s's deepseek-v3 cut, 512 to 117,440,512 values (its
+   (1, 8, 7168, 2048) expert stacks); recurrentgemma-2b's at 5 layers,
+   2,560 to 655,360,000 values (its tied table); the ingest on 1 client).
+   All bitwise (a NaN must meet a NaN).
    Each kernel is timed with CUDA events (median of 30 launches, L2
    flushed before each) beside its twin and its bound, and the two large
-   ones also alone on each LM route's largest leaf (route o's 589,824,000
-   and route q's 311,164,928 values) beside their bytes bounds;
+   ones also alone on each LM route's largest leaf (route o's
+   589,824,000, q's 311,164,928, s's 117,440,512 and u's 655,360,000
+   values) beside their bytes bounds;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
    small MLP problem, every route below (route g through the trainer, j
@@ -170,7 +174,36 @@ then, on the card:
    2 × 512, 3 rounds. 19 ``topk_ef_sparse`` + 19 ``fedams_ingest`` a
    round at shapes phase 1 held; ``wire_up_bytes`` as billed; losses and
    every local step's aux loss finite, the aux loss > 0. Prints round ms
-   and peak memory.
+   and peak memory;
+9. serves deepseek-v3-671b at its published widths (route r: MLA with the
+   absorbed decode over its latent cache, 256 experts top-8 and a shared
+   one; reduced to 1 of 61 layers and no MTP block, which serving never
+   runs: 13,360,651,264 params, 53.44 GB of fp32 weights drawn on the card
+   from a seeded CUDA generator, bf16 compute) through
+   ``launch/serve.py``, as route n: batch 4 × 512 + 32, then 1 × 4,608 +
+   16 at q-chunk 256 (18 MLA q-chunks). Then, on the same weights in fp32
+   at capacity factor 32 (= E/k: decode drops nothing the forward keeps),
+   prefill + absorbed decode against the decompressed forward; and the
+   smoke config (its MTP head included) on the card against the CPU.
+   Prints the peak memory beside ``serve_reckoning``'s;
+10. trains deepseek-v3 on the mesh (route s: published d_model, heads and
+   MLA dims with the MTP block; reduced to 1 layer, 8 of 256 experts at
+   the published expert width, top-2, a vocabulary of 8,192;
+   1,387,296,768 params in 41 leaves) on one NCCL rank, as route q: 41
+   ``topk_ef_sparse`` + 41 ``fedams_ingest`` a round; every local step's
+   aux loss and MTP cross entropy finite and > 0;
+11. serves recurrentgemma-2b at its published widths and full depth (route
+   t: 26 layers, (RG-LRU, RG-LRU, local attention) × 8 and two RG-LRU
+   layers, 2,658,690,560 params, 10.63 GB fp32, bf16 compute) as route n:
+   the 4,608-token prompt is past the 2,048 window, so the rings wrap
+   while the RG-LRU state carries. Decode against the forward at 5 layers,
+   fp32, a prompt of 2,100 (past the window); the smoke config on the card
+   against the CPU;
+12. trains recurrentgemma-2b on the mesh (route u: published widths,
+   reduced to 5 layers — one period and the 2-layer tail — 1,043,453,440
+   params in 67 leaves) on one NCCL rank, as route q: 67
+   ``topk_ef_sparse`` + 67 ``fedams_ingest`` a round.
+Every model route prints its seconds.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
@@ -942,30 +975,64 @@ def leaf_sizes(cfg) -> list:
     return [int(np.prod(d.shape)) for d in tree_leaves(Model(cfg).defs())]
 
 
+#: route s's model: deepseek-v3-671b at published d_model, heads and MLA
+#: dims with its MTP block; reduced: 1 of 61 layers, 8 of 256 experts at
+#: the published expert width, top-2 of 8, a vocabulary of 8,192 of
+#: 129,280 (1,387,296,768 params in 41 leaves, ~5.55 GB a copy: the two
+#: published tables alone are 1.85 B values, and a rank holds ~11 copies)
+MLA_TRAIN = dict(num_layers=1, vocab_size=8192, num_experts=8, top_k=2)
+MLA_ROUNDS = 3
+#: route u's model: recurrentgemma-2b at published widths, 5 of its 26
+#: layers: one (RG-LRU, RG-LRU, attention) period and the 2-layer tail, as
+#: the full stack plans (1,043,453,440 params in 67 leaves)
+RG_LAYERS = 5
+RG_ROUNDS = 3
+
+
+def mla_train_cfg():
+    """Route s's model (``MLA_TRAIN``)."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("deepseek-v3-671b").model
+    return mreplace(cfg, num_layers=MLA_TRAIN["num_layers"],
+                    vocab_size=MLA_TRAIN["vocab_size"],
+                    moe=dataclasses.replace(
+                        cfg.moe, num_experts=MLA_TRAIN["num_experts"],
+                        top_k=MLA_TRAIN["top_k"]))
+
+
+def rg_train_cfg():
+    """Route u's model: recurrentgemma-2b at ``RG_LAYERS`` layers."""
+    return lm_cfg("recurrentgemma-2b", RG_LAYERS)
+
+
 def lm_kernel_shapes() -> dict:
-    """The leaf sizes routes o and q select and ingest (one (1, d_leaf)
-    row a leaf) → the client counts their fused ingests gather at that
-    size (route o's ``LM_CLIENTS``, route q's one)."""
+    """The leaf sizes routes o, q, s and u select and ingest (one
+    (1, d_leaf) row a leaf) → the client counts their fused ingests gather
+    at that size (route o's ``LM_CLIENTS``, the others' one)."""
     out = {}
-    for cfg, n in ((lm_cfg(), LM_CLIENTS), (moe_cfg(), 1)):
+    for cfg, n in ((lm_cfg(), LM_CLIENTS), (moe_cfg(), 1),
+                   (mla_train_cfg(), 1), (rg_train_cfg(), 1)):
         for d in leaf_sizes(cfg):
             out.setdefault(d, set()).add(n)
     return {d: sorted(out[d]) for d in sorted(out)}
 
 
 def phase_lm_shapes(dev, out: dict) -> dict:
-    """``topk_ef_sparse`` and ``fedams_ingest`` at every shape routes o
-    and q launch them (:func:`lm_kernel_shapes`), bitwise against the
+    """``topk_ef_sparse`` and ``fedams_ingest`` at every shape routes o,
+    q, s and u launch them (:func:`lm_kernel_shapes`), bitwise against the
     twins, into ``out`` (:func:`phase_mesh_shapes`'s record): for each leaf
-    size d (2,048 to gemma2-2b's 589,824,000-value tied embedding) a (1, d)
-    row on random inputs, and on ``ref.topk_hard_cases`` up to
+    size d (512 to recurrentgemma-2b's 655,360,000-value tied embedding) a
+    (1, d) row on random inputs, and on ``ref.topk_hard_cases`` up to
     ``LM_HARD_MAX`` values; the fused ingest of the routes' client counts'
     selections (made by the selection kernel on random totals), option 1,
     and option 2 up to ``LM_HARD_MAX``. The largest row's twins hold
     several 2.4 GB tensors; each leaf's are freed before the next.
 
     The largest leaf of each route (route o's 589,824,000-value table,
-    route q's 311,164,928-value untied one) is also timed alone: each
+    route q's 311,164,928-value untied one, route s's 117,440,512-value
+    expert stacks, route u's 655,360,000-value table) is also timed alone:
+    each
     kernel's CUDA-event ms (median of 30, L2 flushed, the EF row restored
     before each selection) beside its bytes bound. Returns those times by
     leaf size."""
@@ -973,11 +1040,13 @@ def phase_lm_shapes(dev, out: dict) -> dict:
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(4)
-    hold = lambda *a, **k: _hold(out, "routes o, q", *a, **k)
+    hold = lambda *a, **k: _hold(out, "routes o, q, s, u", *a, **k)
     rows = torch.zeros(1, dtype=torch.int64, device=dev)
     leaves = lm_kernel_shapes()
     largest = {max(leaf_sizes(lm_cfg())): ("o", LM_CLIENTS),
-               max(leaf_sizes(moe_cfg())): ("q", 1)}
+               max(leaf_sizes(moe_cfg())): ("q", 1),
+               max(leaf_sizes(mla_train_cfg())): ("s", 1),
+               max(leaf_sizes(rg_train_cfg())): ("u", 1)}
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)
     timed = {}
     seg = 2048
@@ -2279,85 +2348,37 @@ def _rel_err(got, want) -> float:
                  / want.double().abs().max())
 
 
-def route_n() -> dict:
-    """Route n: gemma2-2b served at its published widths (26 layers, bf16
-    compute on fp32 weights from ``torch.Generator().manual_seed(0)``)
-    through ``launch/serve.py``: ``serve`` (batch 4, prompt 512, gen 32),
-    then ``generate`` on the same weights with a 4,608-token prompt (gen
-    16, q-chunk 256). Tokens in range and logits finite. Then the decode
-    path against the full-sequence forward (published widths, 2 layers,
-    fp32), and the smoke config's loss, prefill and decode on the card
-    against the CPU. The port's kernels launch no time."""
-    from repro_torch.configs.base import mreplace
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve as tserve
-    from repro_torch.models.model import Model
-    from repro_torch.models.params import count_params, tree_map
+def decode_vs_forward(model, params, P: int, steps: int, seed: int) -> float:
+    """Prefill P tokens and decode ``steps`` - 1 more on the card, against
+    the full-sequence forward's logits at the same positions; returns the
+    largest |difference| over the largest |logit|."""
     from repro_torch.sharding.rules import ParallelContext
-
-    cfg = get_arch("gemma2-2b").model
-    model = Model(cfg)
-    res = {"params": count_params(model.defs())}
-    check(cfg.num_layers == 26 and cfg.d_model == 2304
-          and cfg.vocab_size == 256000, "route n: not gemma2-2b's widths")
-    ops.reset_launches()
-    for batch, prompt, gen, chunk in SERVE_RUNS:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        if chunk == 2048:
-            out = tserve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
-                               device="cuda")
-        else:
-            params = model.init(torch.Generator().manual_seed(0), "cuda")
-            prompts = np.random.default_rng(1).integers(
-                0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
-            out = tserve.generate(model, params, prompts, gen, chunk=chunk)
-            del params
-        run = _serve_summary(out, batch, gen, torch.cuda.max_memory_allocated(),
-                             cfg.vocab_size)
-        check(run["tokens_in_range"] and run["finite"],
-              f"route n b{batch} s{prompt}: tokens out of range or logits "
-              f"not finite: {run}")
-        res[f"batch {batch}, prompt {prompt}, gen {gen}"] = run
-        print(f"route n: batch {batch}, prompt {prompt}, gen {gen}: prefill "
-              f"{run['prefill_ms']:.1f} ms, decode "
-              f"{run['decode_ms_per_token']:.2f} ms/token, "
-              f"{run['tokens_per_s']:.1f} tok/s, peak "
-              f"{run['peak_gb']:.2f} GB")
-        del out           # serve() hands back its params: free them
-    torch.cuda.empty_cache()
-    check(not any(ops.launches.values()),
-          f"route n: serving launched the port's kernels {ops.launches}")
-
-    # decode against the full-sequence forward, full width, 2 layers, fp32
     ctx = ParallelContext()
-    c2 = mreplace(cfg, num_layers=2, dtype="float32")
-    m2 = Model(c2)
-    p2 = m2.init(torch.Generator().manual_seed(1), "cuda")
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, size=(2, 104)).astype(np.int32)).cuda()
-    P, steps = 96, 8
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab_size, size=(2, P + steps)).astype(np.int32)).cuda()
     with torch.no_grad():
-        full = m2.encode(p2, {"tokens": toks}, ctx)
-        lg, caches = m2.prefill(p2, toks[:, :P], ctx, max_len=P + steps)
+        full = model.encode(params, {"tokens": toks}, ctx)
+        lg, caches = model.prefill(params, toks[:, :P], ctx, max_len=P + steps)
         got = [lg]
         for i in range(steps - 1):
-            lg, caches = m2.decode_step(p2, toks[:, P + i:P + i + 1], caches,
-                                        P + i, ctx, max_len=P + steps)
+            lg, caches = model.decode_step(params, toks[:, P + i:P + i + 1],
+                                           caches, P + i, ctx,
+                                           max_len=P + steps)
             got.append(lg)
-    dec_err = _rel_err(torch.stack(got, 1), full[:, P - 1:P + steps - 1])
-    del p2, full, caches
-    torch.cuda.empty_cache()
-    check(dec_err <= DECODE_TOL, f"route n: prefill + decode differ from "
-          f"the full-sequence forward by {dec_err} of the largest logit")
-    res["decode_vs_forward_rel_err"] = dec_err
-    print(f"route n: prefill + {steps - 1} decode steps vs the full-sequence "
-          f"forward (published widths, 2 layers, fp32): max |diff| "
-          f"{dec_err:.3g} of the largest logit (tolerance {DECODE_TOL})")
+    return _rel_err(torch.stack(got, 1), full[:, P - 1:P + steps - 1])
 
-    # the card against the CPU on the smoke config
-    cs = get_arch("gemma2-2b").smoke
+
+def smoke_card_vs_cpu(arch: str, chunk: int = 2048) -> float:
+    """``arch``'s smoke config (seeded weights) on the card against the
+    CPU: the loss and each of its metrics (ce, aux, mtp_ce where the model
+    has them), the prefill of 48 tokens and 8 decode steps; returns the
+    largest |difference| over the largest |value|, across them."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding.rules import ParallelContext
+    ctx = ParallelContext()
+    cs = get_arch(arch).smoke
     ms = Model(cs)
     pc = ms.init(torch.Generator().manual_seed(3), "cpu")
     pg = tree_map(lambda t: t.cuda(), pc)
@@ -2371,16 +2392,117 @@ def route_n() -> dict:
         for name, p in (("cpu", pc), ("cuda", pg)):
             dev = p["final_norm"].device
             t = toks.to(dev)
-            loss, _ = ms.loss(p, {"tokens": t, "labels": labels.to(dev)}, ctx,
-                              remat_policy="none", chunk=16)
-            lg, c = ms.prefill(p, t[:, :48], ctx, max_len=64, chunk=16)
-            seq = [loss.reshape(1, 1), lg]
+            loss, met = ms.loss(p, {"tokens": t, "labels": labels.to(dev)},
+                                ctx, remat_policy="none", chunk=chunk)
+            lg, c = ms.prefill(p, t[:, :48], ctx, max_len=64, chunk=chunk)
+            seq = [loss.reshape(1, 1)] + [met[k].reshape(1, 1)
+                                          for k in sorted(met)] + [lg]
             for i in range(48, 56):
                 lg, c = ms.decode_step(p, t[:, i:i + 1], c, i, ctx,
                                        max_len=64)
                 seq.append(lg)
             outs[name] = seq
-    card_err = max(_rel_err(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+    return max(_rel_err(a, b) if float(b.abs().max()) else
+               float((a.cpu() - b).abs().max())
+               for a, b in zip(outs["cuda"], outs["cpu"]))
+
+
+def serve_route(route: str, cfg, generator, runs=None) -> dict:
+    """``cfg`` served through ``launch/serve.py``: ``serve`` on the first of
+    ``runs`` ((batch, prompt, gen, q-chunk); default ``SERVE_RUNS``: batch
+    4, prompt 512, gen 32; weights from ``generator``, None: the host's
+    seed 0), then ``generate`` on the same weights for each other run
+    (``SERVE_RUNS``: batch 1, a 4,608-token prompt, gen 16, q-chunk 256).
+    Tokens in range, logits finite, each run's peak memory beside
+    ``serve_reckoning``'s; the port's kernels launch no time. Returns the
+    runs' numbers and the params."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params
+
+    runs = runs or SERVE_RUNS
+    model = Model(cfg)
+    d = count_params(model.defs())
+    res = {"params": d, "num_params_config": cfg.num_params(),
+           "reckoned_peak_gb": {b: serve_reckoning(model, d, b, s + g)
+                                for b, s, g, _ in runs}}
+    print(f"route {route}: {cfg.name}, {cfg.num_layers} layers, {d:,} params "
+          f"(ModelConfig.num_params() reads {cfg.num_params():,}), "
+          f"{4 * d / 1e9:.2f} GB fp32; reckoned peak "
+          f"{res['reckoned_peak_gb']} GB")
+    ops.reset_launches()
+    params = None
+    for batch, prompt, gen, chunk in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if params is None:
+            out = tserve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
+                               device="cuda", generator=generator)
+            params = out.pop("params")
+            res["init_s"] = out["init_s"]
+            print(f"route {route}: the weights drawn in {out['init_s']:.1f} s")
+        else:
+            prompts = np.random.default_rng(1).integers(
+                0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
+            out = tserve.generate(model, params, prompts, gen, chunk=chunk)
+        run = _serve_summary(out, batch, gen,
+                             torch.cuda.max_memory_allocated(),
+                             cfg.vocab_size)
+        check(run["tokens_in_range"] and run["finite"],
+              f"route {route} b{batch} s{prompt}: tokens out of range or "
+              f"logits not finite: {run}")
+        res[f"batch {batch}, prompt {prompt}, gen {gen}"] = run
+        print(f"route {route}: batch {batch}, prompt {prompt}, gen {gen}, "
+              f"q-chunk {chunk}: prefill {run['prefill_ms']:.1f} ms, decode "
+              f"{run['decode_ms_per_token']:.2f} ms/token, "
+              f"{run['tokens_per_s']:.1f} tok/s, peak {run['peak_gb']:.2f} GB "
+              f"(reckoned {res['reckoned_peak_gb'][batch]:.2f})")
+        del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not any(ops.launches.values()),
+          f"route {route}: serving launched the port's kernels {ops.launches}")
+    return res, params
+
+
+def route_n() -> dict:
+    """Route n: gemma2-2b served at its published widths (26 layers, bf16
+    compute on fp32 weights from ``torch.Generator().manual_seed(0)``)
+    through ``launch/serve.py``: ``serve`` (batch 4, prompt 512, gen 32),
+    then ``generate`` on the same weights with a 4,608-token prompt (gen
+    16, q-chunk 256). Tokens in range and logits finite. Then the decode
+    path against the full-sequence forward (published widths, 2 layers,
+    fp32), and the smoke config's loss, prefill and decode on the card
+    against the CPU. The port's kernels launch no time."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("gemma2-2b").model
+    check(cfg.num_layers == 26 and cfg.d_model == 2304
+          and cfg.vocab_size == 256000, "route n: not gemma2-2b's widths")
+    res, params = serve_route("n", cfg, None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # decode against the full-sequence forward, full width, 2 layers, fp32
+    m2 = Model(mreplace(cfg, num_layers=2, dtype="float32"))
+    p2 = m2.init(torch.Generator().manual_seed(1), "cuda")
+    P, steps = 96, 8
+    dec_err = decode_vs_forward(m2, p2, P, steps, seed=2)
+    del p2
+    torch.cuda.empty_cache()
+    check(dec_err <= DECODE_TOL, f"route n: prefill + decode differ from "
+          f"the full-sequence forward by {dec_err} of the largest logit")
+    res["decode_vs_forward_rel_err"] = dec_err
+    print(f"route n: prefill + {steps - 1} decode steps vs the full-sequence "
+          f"forward (published widths, 2 layers, fp32): max |diff| "
+          f"{dec_err:.3g} of the largest logit (tolerance {DECODE_TOL})")
+
+    # the card against the CPU on the smoke config
+    card_err = smoke_card_vs_cpu("gemma2-2b", chunk=16)
     check(card_err <= CARD_TOL, f"route n: the smoke config on the card "
           f"differs from the CPU by {card_err} of the largest value")
     res["card_vs_cpu_rel_err"] = card_err
@@ -2393,7 +2515,7 @@ def route_n() -> dict:
 #: route p's runs through launch/serve.py: (batch, prompt, gen). Decode
 #: runs the MoE on T = B tokens, so at B = 4 an expert has C = 1 slot and
 #: at B = 16 it has 2
-MOE_SERVE_RUNS = ((4, 512, 32), (16, 128, 16))
+MOE_SERVE_RUNS = ((4, 512, 32, 2048), (16, 128, 16, 2048))
 #: decode against the forward at qwen2-moe's widths takes capacity factor
 #: 15 = E/k, so that C = T on both paths: at the published 1.25 decode
 #: drops every token that shares an expert with another, as the
@@ -2414,17 +2536,22 @@ def host_available_gb() -> float:
     return float("nan")
 
 
-def moe_serve_reckoning(cfg, d: int, batch: int, max_len: int) -> float:
-    """What route p holds at its peak, reckoned from the shapes (GB): the
-    fp32 weights, one layer's three bf16 expert casts, the bf16
+def serve_reckoning(model, d: int, batch: int, max_len: int) -> float:
+    """What a serving route holds at its peak, reckoned from the shapes
+    (GB): the fp32 weights, a MoE layer's three bf16 expert casts, the bf16
     unembedding, a (batch, vocab) fp32 logits row and its bf16 twin, and
-    the bf16 k/v caches twice (a decode step restacks the layers' new
+    the decode caches (k/v, MLA's latents or RG-LRU's state, from
+    ``Model.cache_defs``) twice (a decode step restacks the layers' new
     caches before the old ones go)."""
+    from repro_torch.models.params import leaves_with_paths
+    cfg = model.cfg
     mo = cfg.moe
-    casts = 3 * mo.num_experts * cfg.d_model * mo.d_ff_expert * 2
+    casts = 0 if mo is None else 3 * (mo.num_experts * cfg.d_model
+                                      * mo.d_ff_expert * 2)
     unembed = cfg.vocab_size * cfg.d_model * 2
-    caches = (2 * 2 * cfg.num_layers * batch * max_len * cfg.num_kv_heads
-              * cfg.head_dim * 2)
+    caches = 2 * sum(int(np.prod(c.shape)) * getattr(torch, c.dtype).itemsize
+                     for _, c in leaves_with_paths(model.cache_defs(
+                         batch, max_len)))
     return (4 * d + casts + unembed + batch * cfg.vocab_size * 6
             + caches) / 1e9
 
@@ -2444,68 +2571,27 @@ def route_p() -> dict:
     port's kernels launch no time."""
     from repro_torch.configs.base import mreplace
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve as tserve
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.model import Model
-    from repro_torch.models.params import count_params, tree_map
+    from repro_torch.models.params import tree_map
     from repro_torch.sharding.rules import ParallelContext
 
     cfg = get_arch("qwen2-moe-a2.7b").model
-    model = Model(cfg)
-    d = count_params(model.defs())
     check(cfg.num_layers == 24 and cfg.d_model == 2048
           and cfg.moe.num_experts == 60 and cfg.moe.top_k == 4
           and cfg.vocab_size == 151936, "route p: not qwen2-moe's widths")
     largest = max(leaf_sizes(cfg))
     host = host_available_gb()
-    res = {"params": d, "num_params_config": cfg.num_params(),
-           "host_available_gb": host, "reckoned_peak_gb": {
-               b: moe_serve_reckoning(cfg, d, b, s + g) for b, s, g in
-               MOE_SERVE_RUNS}}
-    print(f"route p: qwen2-moe-a2.7b, {cfg.num_layers} layers, {d:,} params "
-          f"(ModelConfig.num_params() reads {cfg.num_params():,}), "
-          f"{4 * d / 1e9:.1f} GB fp32; the host has {host:.1f} GB available, "
-          f"the largest leaf is {4 * largest / 1e9:.1f} GB; reckoned peak "
-          f"{res['reckoned_peak_gb']}")
+    print(f"route p: the host has {host:.1f} GB available, the largest leaf "
+          f"is {4 * largest / 1e9:.1f} GB")
     check(host * 1e9 > 1.5 * 4 * largest,
           f"route p: {host:.1f} GB of host memory cannot draw a "
           f"{4 * largest / 1e9:.1f} GB leaf")
-    ops.reset_launches()
-    params = None
-    for batch, prompt, gen in MOE_SERVE_RUNS:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        if params is None:
-            out = tserve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
-                               device="cuda")
-            params = out.pop("params")
-            res["init_s"] = out["init_s"]
-            print(f"route p: the weights drawn and moved in "
-                  f"{out['init_s']:.1f} s")
-        else:
-            prompts = np.random.default_rng(1).integers(
-                0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
-            out = tserve.generate(model, params, prompts, gen)
-        run = _serve_summary(out, batch, gen,
-                             torch.cuda.max_memory_allocated(),
-                             cfg.vocab_size)
-        check(run["tokens_in_range"] and run["finite"],
-              f"route p b{batch} s{prompt}: tokens out of range or logits "
-              f"not finite: {run}")
-        res[f"batch {batch}, prompt {prompt}, gen {gen}"] = run
-        print(f"route p: batch {batch}, prompt {prompt}, gen {gen}: prefill "
-              f"{run['prefill_ms']:.1f} ms, decode "
-              f"{run['decode_ms_per_token']:.2f} ms/token, "
-              f"{run['tokens_per_s']:.1f} tok/s, peak "
-              f"{run['peak_gb']:.2f} GB (reckoned "
-              f"{res['reckoned_peak_gb'][batch]:.2f})")
-        del out
+    res, params = serve_route("p", cfg, None, MOE_SERVE_RUNS)
+    res["host_available_gb"] = host
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    check(not any(ops.launches.values()),
-          f"route p: serving launched the port's kernels {ops.launches}")
 
     # decode against the full-sequence forward, published widths, 2 layers
     ctx = ParallelContext()
@@ -2513,18 +2599,8 @@ def route_p() -> dict:
         cfg.moe, capacity_factor=MOE_DECODE_CF))
     m2 = Model(c2)
     p2 = m2.init(torch.Generator().manual_seed(1), "cuda")
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, size=(2, 104)).astype(np.int32)).cuda()
     P, steps = 96, 8
-    with torch.no_grad():
-        full = m2.encode(p2, {"tokens": toks}, ctx)
-        lg, caches = m2.prefill(p2, toks[:, :P], ctx, max_len=P + steps)
-        got = [lg]
-        for i in range(steps - 1):
-            lg, caches = m2.decode_step(p2, toks[:, P + i:P + i + 1], caches,
-                                        P + i, ctx, max_len=P + steps)
-            got.append(lg)
-    dec_err = _rel_err(torch.stack(got, 1), full[:, P - 1:P + steps - 1])
+    dec_err = decode_vs_forward(m2, p2, P, steps, seed=2)
     check(dec_err <= DECODE_TOL, f"route p: prefill + decode differ from "
           f"the full-sequence forward by {dec_err} of the largest logit")
     res["decode_vs_forward_rel_err"] = dec_err
@@ -2536,7 +2612,7 @@ def route_p() -> dict:
     # one layer's MoE FFN against the dense reference, and the dispatch
     mlp = p2["stack"]["groups"]["l0"]["mlp"]
     mlp = tree_map(lambda t: t[0], mlp)
-    del p2, full, caches
+    del p2
     torch.cuda.empty_cache()
     x = torch.randn(4, 512, cfg.d_model, generator=torch.Generator(
         device="cuda").manual_seed(5), device="cuda")
@@ -2575,36 +2651,127 @@ def route_p() -> dict:
     torch.cuda.empty_cache()
 
     # the card against the CPU on the smoke config
-    cs = get_arch("qwen2-moe-a2.7b").smoke
-    ms = Model(cs)
-    pc = ms.init(torch.Generator().manual_seed(3), "cpu")
-    pg = tree_map(lambda t: t.cuda(), pc)
-    r = np.random.default_rng(4)
-    toks = torch.from_numpy(r.integers(0, cs.vocab_size, size=(2, 64)).astype(
-        np.int32))
-    labels = torch.from_numpy(r.integers(0, cs.vocab_size, size=(2, 64))
-                              .astype(np.int32))
-    outs = {}
-    with torch.no_grad():
-        for name, p in (("cpu", pc), ("cuda", pg)):
-            dev = p["final_norm"].device
-            t = toks.to(dev)
-            loss, met = ms.loss(p, {"tokens": t, "labels": labels.to(dev)},
-                                ctx, remat_policy="none")
-            lg, c = ms.prefill(p, t[:, :48], ctx, max_len=64)
-            seq = [loss.reshape(1, 1), met["aux"].reshape(1, 1), lg]
-            for i in range(48, 56):
-                lg, c = ms.decode_step(p, t[:, i:i + 1], c, i, ctx,
-                                       max_len=64)
-                seq.append(lg)
-            outs[name] = seq
-    card_err = max(_rel_err(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+    card_err = smoke_card_vs_cpu("qwen2-moe-a2.7b")
     check(card_err <= MOE_CARD_TOL, f"route p: the smoke config on the card "
           f"differs from the CPU by {card_err} of the largest value")
     res["card_vs_cpu_rel_err"] = card_err
     print(f"route p: qwen2-moe smoke loss, aux, prefill and 8 decode steps on "
           f"the card vs the CPU: max |diff| {card_err:.3g} of the largest "
           f"value (tolerance {MOE_CARD_TOL})")
+    return res
+
+
+#: route r's cut of deepseek-v3-671b: published widths, 1 of 61 layers,
+#: no MTP block (serving never runs it): 13,360,651,264 params, 53.44 GB
+#: of fp32 weights (ROADMAP Queue 1 item 8c)
+MLA_SERVE_LAYERS = 1
+#: decode against the forward at deepseek-v3's widths takes capacity
+#: factor 32 = E/k, so that C = T on both paths (decode drops no token the
+#: forward keeps)
+MLA_DECODE_CF = 32.0
+#: route t's check of decode against the forward: recurrentgemma-2b's
+#: widths at 5 layers (one period and the 2-layer tail), fp32, a prompt of
+#: 2,100 (past the 2,048 window: the ring wraps) and 8 decode steps
+RG_DECODE_LAYERS, RG_DECODE_PROMPT = 5, 2100
+
+
+def route_r() -> dict:
+    """Route r: deepseek-v3-671b served at its published widths (MLA with
+    its absorbed decode over the latent cache, 256 experts top-8 and a
+    shared one), ``MLA_SERVE_LAYERS`` layer and no MTP block, bf16 compute
+    on fp32 weights drawn on the card from a seeded CUDA generator (the
+    largest leaf is 15.0 GB), through :func:`serve_route`. Then, on the
+    same weights in fp32 at capacity factor ``MLA_DECODE_CF``: prefill +
+    absorbed decode against the decompressed full-sequence forward; and
+    the smoke config (MTP head included) on the card against the CPU."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    full = get_arch("deepseek-v3-671b").model
+    cfg = mreplace(full, num_layers=MLA_SERVE_LAYERS, mtp=None)
+    m, mo = cfg.mla, cfg.moe
+    check(cfg.d_model == 7168 and cfg.num_heads == 128
+          and (m.kv_lora_rank, m.q_lora_rank, m.rope_head_dim,
+               m.nope_head_dim, m.v_head_dim) == (512, 1536, 64, 128, 128)
+          and (mo.num_experts, mo.top_k, mo.d_ff_expert) == (256, 8, 2048)
+          and cfg.vocab_size == 129280, "route r: not deepseek-v3's widths")
+    res, params = serve_route("r", cfg, torch.Generator(
+        device="cuda").manual_seed(0))
+    res["reduced"] = {"num_layers": [full.num_layers, cfg.num_layers],
+                      "mtp": "dropped (serving never runs it)"}
+
+    # decode against the forward on the same weights: fp32, E/k capacity
+    m2 = Model(mreplace(cfg, dtype="float32", moe=dataclasses.replace(
+        mo, capacity_factor=MLA_DECODE_CF)))
+    P, steps = 96, 8
+    dec_err = decode_vs_forward(m2, params, P, steps, seed=2)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(dec_err <= DECODE_TOL, f"route r: prefill + absorbed decode "
+          f"differ from the forward by {dec_err} of the largest logit")
+    res["decode_vs_forward_rel_err"] = dec_err
+    print(f"route r: prefill + {steps - 1} absorbed decode steps vs the "
+          f"decompressed full-sequence forward (published widths, "
+          f"{cfg.num_layers} layer, fp32, capacity factor {MLA_DECODE_CF}): "
+          f"max |diff| {dec_err:.3g} of the largest logit (tolerance "
+          f"{DECODE_TOL})")
+
+    card_err = smoke_card_vs_cpu("deepseek-v3-671b", chunk=16)
+    check(card_err <= CARD_TOL, f"route r: the smoke config on the card "
+          f"differs from the CPU by {card_err} of the largest value")
+    res["card_vs_cpu_rel_err"] = card_err
+    print(f"route r: deepseek-v3 smoke loss, ce, aux, mtp_ce, prefill (four "
+          f"MLA q-chunks) and 8 "
+          f"decode steps on the card vs the CPU: max |diff| {card_err:.3g} "
+          f"of the largest value (tolerance {CARD_TOL})")
+    return res
+
+
+def route_t() -> dict:
+    """Route t: recurrentgemma-2b served at its published widths and full
+    depth (26 layers: (RG-LRU, RG-LRU, local attention) × 8 and two RG-LRU
+    layers, bf16 compute on fp32 weights from
+    ``torch.Generator().manual_seed(0)``) through :func:`serve_route`: the
+    4,608-token prompt is past the 2,048 window, so the attention rings
+    wrap while the RG-LRU state carries. Then decode against the
+    full-sequence forward at ``RG_DECODE_LAYERS`` layers, fp32, past the
+    window; and the smoke config on the card against the CPU."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("recurrentgemma-2b").model
+    check(cfg.num_layers == 26 and cfg.d_model == 2560
+          and cfg.rglru.lru_width == 2560 and cfg.sliding_window == 2048
+          and cfg.vocab_size == 256000, "route t: not recurrentgemma's widths")
+    res, params = serve_route("t", cfg, None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    m5 = Model(mreplace(cfg, num_layers=RG_DECODE_LAYERS, dtype="float32"))
+    p5 = m5.init(torch.Generator(device="cuda").manual_seed(1), "cuda")
+    steps = 8
+    dec_err = decode_vs_forward(m5, p5, RG_DECODE_PROMPT, steps, seed=2)
+    del p5
+    torch.cuda.empty_cache()
+    check(dec_err <= DECODE_TOL, f"route t: prefill + decode differ from "
+          f"the full-sequence forward by {dec_err} of the largest logit")
+    res["decode_vs_forward_rel_err"] = dec_err
+    print(f"route t: prefill of {RG_DECODE_PROMPT} + {steps - 1} decode steps "
+          f"vs the full-sequence forward (published widths, "
+          f"{RG_DECODE_LAYERS} layers, fp32, the rings wrapped): max |diff| "
+          f"{dec_err:.3g} of the largest logit (tolerance {DECODE_TOL})")
+
+    card_err = smoke_card_vs_cpu("recurrentgemma-2b", chunk=16)
+    check(card_err <= CARD_TOL, f"route t: the smoke config on the card "
+          f"differs from the CPU by {card_err} of the largest value")
+    res["card_vs_cpu_rel_err"] = card_err
+    print(f"route t: recurrentgemma smoke loss, prefill (chunked, banded) and "
+          f"8 decode steps on the card vs the CPU: max |diff| {card_err:.3g} "
+          f"of the largest value (tolerance {CARD_TOL})")
     return res
 
 
@@ -2620,39 +2787,40 @@ def lm_fed(dp: int = LM_CLIENTS):
          "sparse"]), ap)
 
 
-def _recording_aux(sink: list):
+def _recording_metrics(names, sink: dict):
     """Make ``Model.loss`` (in this process) also append each call's
-    ``metrics["aux"]`` to ``sink``: the mesh round reports the loss, and
-    the aux loss is a part of it."""
+    ``metrics[name]`` for each of ``names`` to ``sink[name]``: the mesh
+    round reports the loss, and the aux loss and the MTP head's cross
+    entropy are parts of it."""
     from repro_torch.models.model import Model
     loss = Model.loss
 
     def recorded(self, *a, **kw):
         out = loss(self, *a, **kw)
-        sink.append(out[1]["aux"].detach())
+        for name in names:
+            sink.setdefault(name, []).append(out[1][name].detach())
         return out
 
     Model.loss = recorded
 
 
 def _lm_job(job: dict) -> dict:
-    """One rank of route o or q: the launch counters at 0, then
+    """One rank of route o, q, s or u: the launch counters at 0, then
     ``launch/train.py``'s ``train`` (model, state, data and rounds), then
-    the counters read (and, with ``job["aux"]``, every local step's aux
-    loss)."""
+    the counters read (and every local step's metrics named in
+    ``job["metrics"]``)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train as ttrain
-    aux = []
-    if job.get("aux"):
-        _recording_aux(aux)
+    sink = {}
+    _recording_metrics(job.get("metrics", ()), sink)
     torch.cuda.synchronize()
     dist.barrier()
     ops.reset_launches()
     out = ttrain.train(job["cfg"], job["fed"], job["train"], device="cuda")
     out["launches"] = dict(ops.launches)
-    out["aux"] = [float(a) for a in aux]
+    out["metrics"] = {k: [float(v) for v in vs] for k, vs in sink.items()}
     return out
 
 
@@ -2677,11 +2845,18 @@ def lm_memory_reckoning(cfg, d: int, largest: int, tokens: int) -> dict:
     m, v, v̂ and the rank's EF row, 5 copies). In local training: the flat
     params and the local iterate (2), the gradient and the per-leaf
     gradients it is cut from (2), and the logits' temporaries — about six
-    fp32 (tokens, vocab) tensors, the bf16 table and its bf16 gradient. In
-    the server step: the delta and the new EF row (2), the new params, m,
-    v, v̂ built leaf by leaf (4), and the largest leaf's EF copy."""
+    fp32 (tokens, vocab) tensors a head (two with the MTP head), the bf16
+    table and its bf16 gradient — and, a recurrent layer, the scan's saved
+    levels (about 16 fp32 (tokens, width) tensors). In the server step: the
+    delta and the new EF row (2), the new params, m, v, v̂ built leaf by
+    leaf (4), and the largest leaf's EF copy."""
     copy = 4 * d
-    acts = 6 * tokens * cfg.vocab_size * 4 + 2 * 2 * cfg.vocab_size * cfg.d_model
+    heads = 1 if cfg.mtp is None else 2
+    acts = (heads * 6 * tokens * cfg.vocab_size * 4
+            + 2 * 2 * cfg.vocab_size * cfg.d_model)
+    if cfg.rglru is not None:
+        acts += (cfg.layer_kinds.count("rglru") * 16 * tokens
+                 * (cfg.rglru.lru_width or cfg.d_model) * 4)
     local = 9 * copy + acts
     server = 11 * copy + 4 * largest
     return {"copy_gb": copy / 1e9, "state_gb": 5 * copy / 1e9,
@@ -2761,72 +2936,99 @@ def route_o(held) -> dict:
                          for k in rs[0]["launches"]}}
 
 
-def route_q(held) -> dict:
-    """Route q: federated training through ``launch/train.py``'s ``train``
-    on qwen2-moe-a2.7b at published widths and ``MOE_LAYERS`` layer, one
-    NCCL rank (one client: a rank needs ~53.7 GB, so two do not fit the
-    card), fedcams with blockwise top-k 1/64 over the sparse collective
-    and the fused ingest through ``KernelImpl``, K = 2, batch 2 × seq 512,
-    ``MOE_ROUNDS`` rounds. The rank launches ``topk_ef_sparse`` and
+def route_one_rank(route: str, cfg, rounds: int, held,
+                   positive=()) -> dict:
+    """Federated training through ``launch/train.py``'s ``train`` on
+    ``cfg`` (published widths, depth and the rest cut as the route says),
+    one NCCL rank (one client: one rank of these fills most of the card),
+    fedcams with blockwise top-k 1/64 over the sparse collective and the
+    fused ingest through ``KernelImpl``, K = 2, batch 2 × seq 512,
+    ``rounds`` rounds. The rank launches ``topk_ef_sparse`` and
     ``fedams_ingest`` once a leaf a round, at shapes phase 1 held;
-    ``wire_up_bytes`` is what ``mesh_wire_bytes_tiers`` bills; losses,
-    state and every local step's aux loss finite, and the aux loss > 0."""
+    ``wire_up_bytes`` is what ``mesh_wire_bytes_tiers`` bills; losses and
+    state finite; every local step's metrics in ``positive`` finite and
+    > 0."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.mesh import mesh_wire_bytes_tiers
     from repro_torch.models.model import Model
     from repro_torch.models.params import count_params, tree_leaves
 
-    cfg, fed = moe_cfg(), lm_fed(dp=1)
+    fed = lm_fed(dp=1)
     model = Model(cfg)
     leaves = len(tree_leaves(model.defs()))
     d = count_params(model.defs())
-    train = TrainConfig(global_batch=2, seq_len=512, rounds=MOE_ROUNDS,
+    train = TrainConfig(global_batch=2, seq_len=512, rounds=rounds,
                         remat_policy="none")
     plan = lm_memory_reckoning(cfg, d, max(leaf_sizes(cfg)),
                                train.global_batch * train.seq_len)
     free, total = torch.cuda.mem_get_info()
-    print(f"route q: qwen2-moe-a2.7b at published widths, {MOE_LAYERS} "
-          f"layer: d = {d:,} ({leaves} leaves); a rank holds "
+    print(f"route {route}: {cfg.name} at published widths, {cfg.num_layers} "
+          f"layer(s): d = {d:,} ({leaves} leaves); a rank holds "
           f"~{plan['per_rank_gb']:.1f} GB at its peak (reckoned: {plan}), so "
           f"2 ranks would need {2 * plan['per_rank_gb']:.1f} of the card's "
           f"{total / 1e9:.1f} GB; 1 rank on {free / 1e9:.1f} GB free")
     check(plan["per_rank_gb"] * 1e9 < free,
-          f"route q: one rank does not fit the card: {plan}")
+          f"route {route}: one rank does not fit the card: {plan}")
     with expandable_segments():
-        r = run_ranks(1, "nccl", {"q": dict(cfg=cfg, fed=fed, train=train,
-                                            aux=True)},
-                      fn=_lm_job, timeout=900, record=True)[0]["q"]
-    n_shapes = check_shapes_held("q", [r], held)
-    want = {"topk_ef_sparse": leaves * MOE_ROUNDS,
-            "fedams_ingest": leaves * MOE_ROUNDS}
+        r = run_ranks(1, "nccl", {route: dict(cfg=cfg, fed=fed, train=train,
+                                              metrics=positive)},
+                      fn=_lm_job, timeout=900, record=True)[0][route]
+    n_shapes = check_shapes_held(route, [r], held)
+    want = {"topk_ef_sparse": leaves * rounds, "fedams_ingest": leaves * rounds}
     got = {k: v for k, v in r["launches"].items() if v}
-    check(got == want, f"route q: launches {got}, expected {want} ({leaves} "
-          f"leaves a round)")
+    check(got == want, f"route {route}: launches {got}, expected {want} "
+          f"({leaves} leaves a round)")
     tiers = mesh_wire_bytes_tiers(fed, model.defs())
     expected = float(np.float32(fed.num_clients * tiers["tier1"]))
     losses = [h["loss"] for h in r["history"]]
     check(all(np.isfinite(losses)) and r["finite"],
-          f"route q: losses {losses} or a non-finite state")
-    aux = r["aux"]
-    check(len(aux) == MOE_ROUNDS * fed.local_steps and all(
-        np.isfinite(aux)) and min(aux) > 0,
-        f"route q: the local steps' aux losses {aux}")
+          f"route {route}: losses {losses} or a non-finite state")
+    for name in positive:
+        vals = r["metrics"][name]
+        check(len(vals) == rounds * fed.local_steps and all(
+            np.isfinite(vals)) and min(vals) > 0,
+            f"route {route}: the local steps' {name} {vals}")
     wire = [h["wire_up_bytes"] for h in r["history"]]
-    check(wire == [expected] * MOE_ROUNDS, f"route q: wire_up_bytes {wire}, "
-          f"mesh_wire_bytes_tiers bills {expected}")
+    check(wire == [expected] * rounds, f"route {route}: wire_up_bytes "
+          f"{wire}, mesh_wire_bytes_tiers bills {expected}")
     round_ms = [h["round_s"] * 1e3 for h in r["history"]]
     peak = r["peak_bytes"] / 1e9
-    print(f"route q: qwen2-moe-a2.7b at published widths, {MOE_LAYERS} "
-          f"layer, {r['params']:,} params, 1 NCCL rank: losses {losses}; aux "
-          f"{aux}; wire_up_bytes {wire[0]:.0f} a round (tiers {tiers}); "
-          f"launches a round {leaves} topk_ef_sparse + {leaves} "
-          f"fedams_ingest; round ms {[round(t, 1) for t in round_ms]}; peak "
-          f"memory {peak:.2f} GB (reckoned {plan['per_rank_gb']:.2f}); "
-          f"distinct launch shapes, each held by phase 1: {n_shapes}")
-    return {"losses": losses, "aux": aux, "wire_up_bytes": wire,
+    print(f"route {route}: {cfg.name}, {r['params']:,} params, 1 NCCL rank: "
+          f"losses {losses}; local steps' {r['metrics']}; wire_up_bytes "
+          f"{wire[0]:.0f} a round (tiers {tiers}); launches a round {leaves} "
+          f"topk_ef_sparse + {leaves} fedams_ingest; round ms "
+          f"{[round(t, 1) for t in round_ms]}; peak memory {peak:.2f} GB "
+          f"(reckoned {plan['per_rank_gb']:.2f}); distinct launch shapes, "
+          f"each held by phase 1: {n_shapes}")
+    return {"losses": losses, "metrics": r["metrics"], "wire_up_bytes": wire,
             "tiers": tiers, "round_ms": round_ms, "peak_gb": peak,
             "reckoned": plan, "d": d, "leaves": leaves,
             "shapes_held": n_shapes, "launches": r["launches"]}
+
+
+def route_q(held) -> dict:
+    """Route q: qwen2-moe-a2.7b at published widths and ``MOE_LAYERS``
+    layer (~53.7 GB a rank, so two do not fit the card) through
+    :func:`route_one_rank`; every local step's aux loss > 0."""
+    return route_one_rank("q", moe_cfg(), MOE_ROUNDS, held,
+                          positive=("aux",))
+
+
+def route_s(held) -> dict:
+    """Route s: deepseek-v3-671b at published d_model, heads and MLA dims
+    with its MTP block, cut as :func:`mla_train_cfg` says, through
+    :func:`route_one_rank`; every local step's aux loss and MTP cross
+    entropy > 0."""
+    return route_one_rank("s", mla_train_cfg(), MLA_ROUNDS, held,
+                          positive=("aux", "mtp_ce"))
+
+
+def route_u(held) -> dict:
+    """Route u: recurrentgemma-2b at published widths, ``RG_LAYERS``
+    layers (one period and the 2-layer tail), through
+    :func:`route_one_rank`."""
+    return route_one_rank("u", rg_train_cfg(), RG_ROUNDS, held)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2909,38 +3111,37 @@ def main():
                        mesh_held)
     m1 = route_m1(mesh_held)
     print(f"routes m and m1 took {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
-    serve_res = route_n()
-    print(f"route n took {time.perf_counter() - t_phase:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    lm = route_o(mesh_held)
-    print(f"route o took {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
-    moe_serve = route_p()
-    print(f"route p took {time.perf_counter() - t_phase:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
-    moe_lm = route_q(mesh_held)
-    print(f"route q took {time.perf_counter() - t_phase:.1f} s")
+    #: the model routes in order (serving, then training, a family at a
+    #: time), and the rounds each training route runs
+    model_routes = {"n": route_n, "o": lambda: route_o(mesh_held),
+                    "p": route_p, "q": lambda: route_q(mesh_held),
+                    "r": route_r, "s": lambda: route_s(mesh_held),
+                    "t": route_t, "u": lambda: route_u(mesh_held)}
+    lm_rounds = {"o": LM_ROUNDS, "q": MOE_ROUNDS, "s": MLA_ROUNDS,
+                 "u": RG_ROUNDS}
+    zoo = {}
+    for route, fn in model_routes.items():
+        t_phase = time.perf_counter()
+        zoo[route] = fn()
+        zoo[route]["seconds"] = time.perf_counter() - t_phase
+        print(f"route {route} took {zoo[route]['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     rows = []
     for name, r in kern.items():
         runs = [(route, sl[route]["launches"][name]) for route in ROUTES]
         per_round = {route: n / ROUNDS for route, n in runs if n}
         mesh_n = sum(j["launches"][name] for j in mesh_res.values())
-        runs += [("m", mesh_n), ("m1", m1["launches"][name]),
-                 ("o", lm["launches"][name]), ("q", moe_lm["launches"][name])]
+        runs += [("m", mesh_n), ("m1", m1["launches"][name])]
+        runs += [(route, zoo[route]["launches"][name]) for route in lm_rounds]
         if mesh_n or m1["launches"][name]:
             per_round["m (all jobs, all ranks)"] = mesh_n
             per_round["m1"] = m1["launches"][name]
-        if lm["launches"][name]:
-            per_round["o (a round, all ranks)"] = (lm["launches"][name]
-                                                   / LM_ROUNDS)
-        if moe_lm["launches"][name]:
-            per_round["q (a round)"] = moe_lm["launches"][name] / MOE_ROUNDS
+        for route, rounds in lm_rounds.items():
+            if zoo[route]["launches"][name]:
+                per_round[f"{route} (a round, all ranks)"] = (
+                    zoo[route]["launches"][name] / rounds)
         print(f"kernel {name}: {r['ms']:.4f} ms median of 30, {r['bytes']} "
               f"bytes, launches per round (per cohort on j) {per_round}")
         b_ms, b_by = bound(r["bytes"], r["flops"])
@@ -2960,8 +3161,7 @@ def main():
          "build_s": build_s, "kernels": kern, "kernel_rows": rows,
          "reference": refcheck, "slice": sl,
          "route_a_deterministic": det, "mesh": mesh_res, "mesh_m1": m1,
-         "serve_n": serve_res, "lm_o": lm, "serve_p": moe_serve,
-         "lm_q": moe_lm},
+         "zoo": zoo},
         indent=1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

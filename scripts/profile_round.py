@@ -56,6 +56,14 @@ cohorts):
        weights), as n; by layer also ``model.moe`` (router, dispatch,
        expert einsums), ``model.moe_scatter`` (the expert-by-expert
        ``index_add_``) and ``model.ffn`` (the shared experts)
+    r  serving MLA: chip_smoke.py's route r at batch 4, prompt 512, gen 32
+       (deepseek-v3-671b at its published widths, 1 layer, no MTP block,
+       weights drawn on the card), as p; ``model.attention`` is MLA (the
+       decompressed prefill, the absorbed decode)
+    t  serving the hybrid: chip_smoke.py's route t at batch 4, prompt 512,
+       gen 32 (recurrentgemma-2b at its published widths, 26 layers), as
+       n; by layer also ``model.rglru`` (the gated conv, the gates and the
+       scan or the decode step)
     o  federated LM training: chip_smoke.py's route o (gemma2-2b widths, 2
        layers, 2 gloo ranks sharing the card) through ``launch/train.py``'s
        ``train``, WARMUP + TIMED + PROFILED rounds with rank 0 under the
@@ -223,7 +231,7 @@ def main():
                                            alpha=0.3, seed=0)
                 for m in (M, chip_smoke.M_K)}
     gen = torch.Generator().manual_seed(1)
-    known = list(chip_smoke.ROUTES) + ["m", "n", "o", "p"]
+    known = list(chip_smoke.ROUTES) + ["m", "n", "o", "p", "r", "t"]
     routes = sys.argv[1:] or known
     unknown = [r for r in routes if r not in known]
     if unknown:
@@ -235,9 +243,9 @@ def main():
         from repro_torch.kernels import _build
         _build.build_all()    # before the ranks start, which load it
     for route in routes:
-        if route in ("m", "n", "o", "p"):
-            out[route] = {"m": _mesh, "n": lambda: _serve("n"), "o": _lm,
-                          "p": lambda: _serve("p")}[route]()
+        if route in ("m", "n", "o", "p", "r", "t"):
+            out[route] = _mesh() if route == "m" else (
+                _lm() if route == "o" else _serve(route))
             continue
         m = chip_smoke.M_K if route == "k" else M
         plan = []
@@ -326,21 +334,28 @@ def _mesh():
 
 
 def _serve(route):
-    """Route n (p): ``generate`` on gemma2-2b (qwen2-moe-a2.7b) at full
-    width, batch 4, prompt 512, gen 32 — a warm-up call, TIMED unprofiled,
-    one profiled."""
+    """Route n (p, r, t): ``generate`` on gemma2-2b (qwen2-moe-a2.7b,
+    deepseek-v3-671b at 1 layer, recurrentgemma-2b) at full width, batch
+    4, prompt 512, gen 32 — a warm-up call, TIMED unprofiled, one
+    profiled."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.configs.base import mreplace
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import Model
-    arch, (batch, prompt, gen) = {
-        "n": ("gemma2-2b", chip_smoke.SERVE_RUNS[0][:3]),
-        "p": ("qwen2-moe-a2.7b", chip_smoke.MOE_SERVE_RUNS[0])}[route]
+    batch, prompt, gen = (chip_smoke.MOE_SERVE_RUNS if route == "p" else
+                          chip_smoke.SERVE_RUNS)[0][:3]
+    arch = {"n": "gemma2-2b", "p": "qwen2-moe-a2.7b",
+            "r": "deepseek-v3-671b", "t": "recurrentgemma-2b"}[route]
     cfg = get_arch(arch).model
+    generator = torch.Generator().manual_seed(0)
+    if route == "r":      # chip_smoke.route_r's cut, drawn on the card
+        cfg = mreplace(cfg, num_layers=chip_smoke.MLA_SERVE_LAYERS, mtp=None)
+        generator = torch.Generator(device="cuda").manual_seed(0)
     model = Model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    params = model.init(generator, "cuda")
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
     quiet = lambda line: None

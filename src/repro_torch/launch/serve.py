@@ -86,14 +86,16 @@ def generate(model, params, prompts, gen: int, *, max_len: int = 0,
 
 def serve(cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 16,
           max_len: int = 0, tp: int = 1, checkpoint: str = "", device=None,
-          log=print) -> dict:
+          generator=None, log=print) -> dict:
     """The serving driver on ``cfg`` (a ``ModelConfig``): the model at
-    ``tp``, params from ``torch.Generator().manual_seed(0)`` on ``device``
-    (None: CUDA) or restored from ``checkpoint``, the reference's prompts,
-    then :func:`generate`. Returns :func:`generate`'s result with the
-    prompts, the params (another batch can be served on the same weights
-    without drawing them again: qwen2-moe-a2.7b's are 57 GB) and the
-    seconds the params took to draw or restore."""
+    ``tp``, params from ``generator`` (None: ``torch.Generator()
+    .manual_seed(0)``, drawn on the host; a seeded CUDA generator draws on
+    the card) on ``device`` (None: CUDA) or restored from ``checkpoint``,
+    the reference's prompts, then :func:`generate`. Returns
+    :func:`generate`'s result with the prompts, the params (another batch
+    can be served on the same weights without drawing them again:
+    qwen2-moe-a2.7b's are 57 GB) and the seconds the params took to draw
+    or restore."""
     from repro_torch import resolve_device
     from repro_torch.models.model import Model
 
@@ -102,7 +104,7 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 16,
     model = Model(cfg, tp=tp)
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    params = model.init(torch.Generator().manual_seed(0), dev)
+    params = model.init(generator or torch.Generator().manual_seed(0), dev)
     if checkpoint:
         from repro_torch.checkpoint import load_pytree
         params, meta = load_pytree(checkpoint, params)

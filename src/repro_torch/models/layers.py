@@ -29,7 +29,8 @@ NEG_INF = -1e30
 
 def span(name: str):
     """A ``torch.profiler`` range ``model.<name>`` over one layer of the
-    forward (``embed``, ``attention``, ``ffn``, ``unembed``, ``xent``): a
+    forward (``embed``, ``attention``, ``rglru``, ``ffn``, ``moe``,
+    ``unembed``, ``xent``; ``mtp`` around the MTP head's block): a
     profiled step reports each layer's device time
     (``scripts/profile_round.py n``). Nearly free when no profiler runs."""
     return torch.profiler.record_function(f"model.{name}")
@@ -44,6 +45,12 @@ def promoted(*ts):
     mixed operands (fp32 activations on bf16 weights compute in fp32)."""
     dt = functools.reduce(torch.promote_types, [t.dtype for t in ts])
     return [t.to(dt) for t in ts]
+
+
+def mm(x, w, dtype: str):
+    """``x @ cast(w, dtype)`` in the promoted dtype of the two (the
+    reference's ``x @ cast(w, dtype)``)."""
+    return torch.matmul(*promoted(x, cast(w, dtype)))
 
 
 def rms_norm(scale, x, eps: float = 1e-6):
@@ -106,13 +113,12 @@ def ffn_defs(d_model: int, d_ff: int, act: str = "silu", gated: bool = True):
 def ffn_apply(p, x, ctx, act: str = "silu", dtype="bfloat16",
               psum: bool = True):
     with span("ffn"):
-        mm = lambda a, w: torch.matmul(*promoted(a, cast(w, dtype)))
-        up = mm(x, p["up"])
+        up = mm(x, p["up"], dtype)
         if "gate" in p:
-            h = activation(mm(x, p["gate"]), act) * up
+            h = activation(mm(x, p["gate"], dtype), act) * up
         else:
             h = activation(up, act)
-        out = mm(h, p["down"])
+        out = mm(h, p["down"], dtype)
         return ctx.psum_model(out) if psum else out
 
 

@@ -6,11 +6,14 @@ as in the reference: their batches carry precomputed frame/patch
 ``"embeddings"`` (B, S, d_model) instead of token ids.
 
 The port builds the attention-only family (gemma2-2b/27b, qwen1.5-32b,
-deepseek-coder-33b, internvl2-1b, hubert-xlarge) and the MoE family
-(qwen2-moe-a2.7b) at tp = 1; ``loss`` adds the MoE layers' aux loss to the
-cross entropy and reports it as ``metrics["aux"]``. A config with MLA, MTP
-or a recurrent layer kind, and ``tp > 1``, raise ``NotImplementedError``
-naming their ROADMAP item. Params are nested dicts
+deepseek-coder-33b, internvl2-1b, hubert-xlarge), the MoE family
+(qwen2-moe-a2.7b; deepseek-v3-671b with MLA and the MTP head) and the
+hybrid recurrentgemma-2b (RG-LRU + local attention) at tp = 1. ``loss``
+adds the MoE layers' aux loss to the cross entropy and reports it as
+``metrics["aux"]``; with ``cfg.mtp`` and a token batch it adds
+``loss_weight`` times the MTP head's cross entropy, ``metrics["mtp_ce"]``
+(:meth:`Model._mtp_loss`). xLSTM layer kinds and ``tp > 1`` raise
+``NotImplementedError`` naming their ROADMAP item. Params are nested dicts
 of tensors in the JAX package's shapes and key order, so the mesh's flat
 vector, its EF rows and checkpoints line up with the reference
 (``convert.model_params_from_jax`` carries a JAX init across).
@@ -59,11 +62,19 @@ class Model:
         }
         if not cfg.tie_embeddings:
             d["unembed"] = embed_defs(self.vocab_padded, cfg.d_model)
+        if cfg.mtp is not None:
+            desc = stack_mod.LayerDesc("attn", 0)
+            d["mtp"] = {
+                "proj": pdefs.linear(2 * cfg.d_model, cfg.d_model),
+                "block": stack_mod.layer_defs(cfg, desc, self.dims, self.tp),
+                "norm": pdefs.norm_scale(cfg.d_model),
+            }
         return d
 
     def init(self, generator: torch.Generator, device=None):
-        """Params from ``generator`` (a CPU ``torch.Generator``), on
-        ``device`` (None: CUDA, which raises without a card)."""
+        """Params from ``generator`` (drawn on its device: a CPU
+        ``torch.Generator`` gives the same init everywhere), on ``device``
+        (None: CUDA, which raises without a card)."""
         return pdefs.init_params(self.defs(), generator,
                                  resolve_device(device))
 
@@ -114,7 +125,35 @@ class Model:
         with span("xent"):
             ce = sharded_xent(logits, batch["labels"], ctx,
                               true_vocab=cfg.vocab_size)
-        return ce + aux, {"ce": ce, "aux": aux}
+        loss = ce + aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp is not None and "tokens" in batch:
+            mtp_ce = self._mtp_loss(params, h, batch, ctx)
+            loss = loss + cfg.mtp.loss_weight * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        return loss, metrics
+
+    def _mtp_loss(self, params, h, batch, ctx):
+        """DeepSeek-V3 multi-token prediction: predict t+2 from [h_t;
+        emb_{t+1}], h after ``final_norm``. The shifts wrap around
+        (``torch.roll``, the reference's ``jnp.roll``); the block is an
+        MLA + MoE layer at the default chunk, its aux loss dropped."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        with span("mtp"):
+            emb_next = embed_lookup(params["embed"],
+                                    torch.roll(batch["tokens"], -1, dims=1),
+                                    ctx, cfg.dtype)
+            z = torch.cat([h, emb_next], dim=-1) @ mp["proj"].to(h.dtype)
+            desc = stack_mod.LayerDesc("attn", 0)
+            z, _ = stack_mod.layer_train(mp["block"], z, cfg, desc, self.dims,
+                                         ctx)
+            z = rms_norm(mp["norm"], z, cfg.norm_eps)
+        logits = self._unembed(params, z, ctx)
+        labels2 = torch.roll(batch["labels"], -1, dims=1)
+        with span("xent"):
+            return sharded_xent(logits, labels2, ctx,
+                                true_vocab=cfg.vocab_size)
 
     # ------------------------------------------------------------------
     # Serving

@@ -93,22 +93,23 @@ def unflatten(paths: List[Tuple[str, ...]], leaves: List) -> Dict:
 
 def init_params(defs, generator: torch.Generator, device="cpu") -> Dict:
     """Concretely initialize a defs tree. Leaves are drawn in ravel order
-    from ``generator`` (a CPU ``torch.Generator``) and then moved to
-    ``device``, so the init does not depend on the device. The numbers
-    differ from ``repro``'s (a JAX PRNG); parity runs convert the JAX init
-    instead (``repro_torch.convert``)."""
+    from ``generator`` on the generator's device and then moved to
+    ``device``: a CPU ``torch.Generator`` gives the same init on every
+    device; a CUDA one draws on the card (other numbers, no host copy of
+    the weights). The numbers differ from ``repro``'s (a JAX PRNG); parity
+    runs convert the JAX init instead (``repro_torch.convert``)."""
     paths, leaves = [], []
     for path, d in leaves_with_paths(defs):
         dtype = getattr(torch, d.dtype)
         if d.init == "zeros":
-            arr = torch.zeros(d.shape, dtype=dtype)
+            arr = torch.zeros(d.shape, dtype=dtype, device=device)
         elif d.init == "ones":
-            arr = torch.ones(d.shape, dtype=dtype)
+            arr = torch.ones(d.shape, dtype=dtype, device=device)
         else:
-            # in place: one host copy of the leaf, not two (an expert
-            # stack of qwen2-moe-a2.7b is 16.6 GB)
-            arr = torch.randn(d.shape, generator=generator,
-                              dtype=dtype).mul_(d.scale)
+            # in place: one copy of the leaf, not two (an expert stack of
+            # deepseek-v3 is 15.0 GB)
+            arr = torch.randn(d.shape, generator=generator, dtype=dtype,
+                              device=generator.device).mul_(d.scale)
         paths.append(path)
         leaves.append(arr.to(device))
     return unflatten(paths, leaves)

@@ -8,11 +8,13 @@ indexes the stacked leaves. Leftover layers run as an unstacked tail. The
 same defs tree (and so the same ravel order and checkpoint layout) as the
 JAX package.
 
-The port builds ``"attn"`` layers with a dense FFN or, with ``cfg.moe``,
-the MoE FFN (``models.moe``), whose aux loss ``stack_train`` sums in the
-reference's order (within a group, then across groups, then the tail).
-MLA, MTP and the recurrent kinds raise ``NotImplementedError`` naming
-their ROADMAP item (:func:`require_ported`).
+The port builds ``"attn"`` layers (softmax attention, or MLA with
+``cfg.mla``: ``models.mla``) with a dense FFN or, with ``cfg.moe``, the MoE
+FFN (``models.moe``), whose aux loss ``stack_train`` sums in the
+reference's order (within a group, then across groups, then the tail), and
+``"rglru"`` layers (``models.rglru``) with an optional dense FFN. The xLSTM
+kinds raise ``NotImplementedError`` naming their ROADMAP item
+(:func:`require_ported`).
 
 ``remat_policy`` is the reference's: ``"none"``; ``"full"`` recomputes a
 group in the backward pass (``torch.utils.checkpoint``); ``"dots"`` saves
@@ -30,8 +32,10 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pdefs
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import ffn_apply, ffn_defs, rms_norm, span
 from repro_torch.models.params import leaves_with_paths, tree_map, unflatten
 from repro_torch.sharding.rules import AttnDims, attn_dims
@@ -58,27 +62,24 @@ def plan_stack(cfg: ModelConfig) -> Tuple[Tuple[LayerDesc, ...], int,
     return tuple(descs), 1, ()
 
 
-#: what this slice does not build, and the ROADMAP item each waits for
+#: the layer kinds the port does not build, and the ROADMAP item each waits
+#: for
 UNPORTED = {
-    "mla": "MLA attention (cfg.mla) waits for ROADMAP Queue 1 item 8c",
-    "mtp": "the MTP head (cfg.mtp) waits for ROADMAP Queue 1 item 8c",
-    "rglru": "RG-LRU layers ('rglru') wait for ROADMAP Queue 1 item 8d",
     "mlstm": "xLSTM layers ('mlstm') wait for ROADMAP Queue 1 item 8e",
     "slstm": "xLSTM layers ('slstm') wait for ROADMAP Queue 1 item 8e",
 }
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Refuse a config the port does not build, naming every feature it
+    """Refuse a config the port does not build, naming every layer kind it
     needs that is not ported yet."""
-    missing = [UNPORTED[f] for f in ("mla", "mtp")
-               if getattr(cfg, f) is not None]
-    missing += [UNPORTED[k] for k in sorted(set(cfg.layer_kinds))
-                if k != "attn"]
+    missing = [UNPORTED[k] for k in sorted(set(cfg.layer_kinds))
+               if k in UNPORTED]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch ports attn layers with a dense or "
-            f"MoE FFN; " + "; ".join(missing))
+            f"{cfg.name}: repro_torch ports attn layers (softmax or MLA, a "
+            f"dense or MoE FFN, the MTP head) and RG-LRU layers; "
+            + "; ".join(missing))
 
 
 # ---------------------------------------------------------------------------
@@ -89,13 +90,24 @@ def require_ported(cfg: ModelConfig) -> None:
 def layer_defs(cfg: ModelConfig, desc: LayerDesc, dims: AttnDims, tp: int):
     require_ported(cfg)
     d = cfg.d_model
-    defs = {"norm1": pdefs.norm_scale(d),
-            "mix": attn.attn_defs(d, dims, qkv_bias=cfg.qkv_bias),
-            "norm2": pdefs.norm_scale(d)}
-    if cfg.moe is not None:
-        defs["mlp"] = moe_mod.moe_defs(d, cfg.moe, tp, cfg.act)
-    elif cfg.d_ff > 0:
-        defs["mlp"] = ffn_defs(d, cfg.d_ff, cfg.act, cfg.gated_ffn)
+    defs = {"norm1": pdefs.norm_scale(d)}
+    if desc.kind == "attn":
+        if cfg.mla is not None:
+            defs["mix"] = mla_mod.mla_defs(d, cfg.num_heads, cfg.mla, tp)
+        else:
+            defs["mix"] = attn.attn_defs(d, dims, qkv_bias=cfg.qkv_bias)
+        defs["norm2"] = pdefs.norm_scale(d)
+        if cfg.moe is not None:
+            defs["mlp"] = moe_mod.moe_defs(d, cfg.moe, tp, cfg.act)
+        elif cfg.d_ff > 0:
+            defs["mlp"] = ffn_defs(d, cfg.d_ff, cfg.act, cfg.gated_ffn)
+    elif desc.kind == "rglru":
+        defs["mix"] = rglru_mod.rglru_defs(d, cfg.rglru)
+        if cfg.d_ff > 0:
+            defs["norm2"] = pdefs.norm_scale(d)
+            defs["mlp"] = ffn_defs(d, cfg.d_ff, cfg.act, cfg.gated_ffn)
+    else:
+        raise ValueError(desc.kind)
     return defs
 
 
@@ -108,42 +120,74 @@ def _mlp(p, h2, cfg: ModelConfig, ctx):
     return ffn_apply(p, h2, ctx, act=cfg.act, dtype=cfg.dtype), None
 
 
-def layer_train(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
-                ctx, chunk: int = 2048):
-    """One layer, full sequence. Returns (x, aux_loss)."""
-    h = ctx.tp_copy(rms_norm(p["norm1"], x, cfg.norm_eps))
-    with span("attention"):
-        out, _ = attn.attn_train(p["mix"], h, dims, ctx,
-                                 causal=not cfg.is_encoder,
-                                 window=desc.window, cap=cfg.attn_softcap,
-                                 rope_theta=cfg.rope_theta, dtype=cfg.dtype,
-                                 chunk=chunk)
-    x = x + out
-    h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
-    out2, aux = _mlp(p["mlp"], h2, cfg, ctx)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + out2, aux
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _cache_len(desc: LayerDesc, max_len: int) -> int:
     return min(desc.window, max_len) if desc.window > 0 else max_len
 
 
+def _rglru_ffn(p, x, cfg: ModelConfig, ctx):
+    """The recurrent layer's optional FFN, residual added."""
+    if "mlp" not in p:
+        return x
+    h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
+    return x + ffn_apply(p["mlp"], h2, ctx, act=cfg.act, dtype=cfg.dtype)
+
+
+def _attn_mix(p, h, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims, ctx,
+              chunk: int, cache_len: int = 0):
+    """The attention layer's mixer over a full sequence: MLA or softmax
+    attention. Returns (out, the prefill cache dict or None)."""
+    with span("attention"):
+        if cfg.mla is not None:
+            res = mla_mod.mla_train(p, h, cfg.mla, ctx,
+                                    rope_theta=cfg.rope_theta,
+                                    cap=cfg.attn_softcap, dtype=cfg.dtype,
+                                    chunk=chunk, return_cache_len=cache_len)
+            if not cache_len:
+                return res, None
+            out, c = res
+            return out, {"c_kv": c.c_kv, "k_rope": c.k_rope}
+        out, kv = attn.attn_train(p, h, dims, ctx, causal=not cfg.is_encoder,
+                                  window=desc.window, cap=cfg.attn_softcap,
+                                  rope_theta=cfg.rope_theta, dtype=cfg.dtype,
+                                  chunk=chunk, return_cache_len=cache_len)
+        return out, (None if kv is None else {"k": kv[0], "v": kv[1]})
+
+
+def layer_train(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
+                ctx, chunk: int = 2048):
+    """One layer, full sequence. Returns (x, aux_loss)."""
+    h = ctx.tp_copy(rms_norm(p["norm1"], x, cfg.norm_eps))
+    if desc.kind == "rglru":
+        with span("rglru"):
+            x = x + rglru_mod.rglru_train(p["mix"], h, cfg.rglru, ctx,
+                                          cfg.dtype)
+        return _rglru_ffn(p, x, cfg, ctx), _zero_aux(x)
+    out, _ = _attn_mix(p["mix"], h, cfg, desc, dims, ctx, chunk)
+    x = x + out
+    h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
+    out2, aux = _mlp(p["mlp"], h2, cfg, ctx)
+    return x + out2, (_zero_aux(x) if aux is None else aux)
+
+
 def layer_prefill(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
                   ctx, max_len: int, chunk: int = 2048):
     """Full-sequence forward that also emits the layer's decode cache."""
     h = ctx.tp_copy(rms_norm(p["norm1"], x, cfg.norm_eps))
-    with span("attention"):
-        out, kv = attn.attn_train(
-            p["mix"], h, dims, ctx, causal=not cfg.is_encoder,
-            window=desc.window, cap=cfg.attn_softcap,
-            rope_theta=cfg.rope_theta, dtype=cfg.dtype, chunk=chunk,
-            return_cache_len=_cache_len(desc, max_len))
+    if desc.kind == "rglru":
+        with span("rglru"):
+            out, st = rglru_mod.rglru_train(p["mix"], h, cfg.rglru, ctx,
+                                            cfg.dtype, return_state=True)
+        return _rglru_ffn(p, x + out, cfg, ctx), {"h": st.h, "conv": st.conv}
+    out, cache = _attn_mix(p["mix"], h, cfg, desc, dims, ctx, chunk,
+                           _cache_len(desc, max_len))
     x = x + out
     h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
     out2, _ = _mlp(p["mlp"], h2, cfg, ctx)
-    return x + out2, {"k": kv[0], "v": kv[1]}
+    return x + out2, cache
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +204,26 @@ def layer_cache_defs(cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
             "a sequence-sharded decode cache (long_500k over the data axis) "
             "is not ported: the port's ParallelContext has no seq_shards "
             "yet — ROADMAP Queue 1 item 8f")
+    if desc.kind == "rglru":
+        w = cfg.rglru.lru_width or cfg.d_model
+        cw = cfg.rglru.conv_width
+        return {
+            "h": pdefs.ParamDef((batch, w), spec=("data", "model"),
+                                dtype="float32"),
+            "conv": pdefs.ParamDef((batch, cw - 1, w),
+                                   spec=("data", None, "model"),
+                                   dtype=cfg.dtype),
+        }
     C = _cache_len(desc, max_len)
+    if cfg.mla is not None:
+        m = cfg.mla
+        spec = ("data", None, None)
+        return {
+            "c_kv": pdefs.ParamDef((batch, C, m.kv_lora_rank), spec=spec,
+                                   dtype=cfg.dtype),
+            "k_rope": pdefs.ParamDef((batch, C, m.rope_head_dim), spec=spec,
+                                     dtype=cfg.dtype),
+        }
     kvspec = "model" if dims.kv_sharded else None
     kvh = dims.kv_heads if dims.kv_sharded else dims.kv_local
     spec = ("data", None, kvspec, None)
@@ -188,16 +251,30 @@ def layer_decode(p, x, cache, pos, cfg: ModelConfig, desc: LayerDesc,
                  dims: AttnDims, ctx, max_len: int):
     """One-token decode through one layer. Returns (x, new_cache)."""
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
+    if desc.kind == "rglru":
+        with span("rglru"):
+            out, st = rglru_mod.rglru_decode(
+                p["mix"], h, rglru_mod.RGLRUState(cache["h"], cache["conv"]),
+                cfg.rglru, ctx, cfg.dtype)
+        return _rglru_ffn(p, x + out, cfg, ctx), {"h": st.h, "conv": st.conv}
+    C = _cache_len(desc, max_len)
     with span("attention"):
-        out, nc = attn.attn_decode(
-            p["mix"], h, attn.KVCache(cache["k"], cache["v"]), pos, dims,
-            ctx, window=desc.window, cap=cfg.attn_softcap,
-            rope_theta=cfg.rope_theta, total_len=_cache_len(desc, max_len),
-            dtype=cfg.dtype)
+        if cfg.mla is not None:
+            out, nc = mla_mod.mla_decode(
+                p["mix"], h, mla_mod.MLACache(cache["c_kv"], cache["k_rope"]),
+                pos, cfg.mla, ctx, rope_theta=cfg.rope_theta, total_len=C,
+                cap=cfg.attn_softcap, dtype=cfg.dtype)
+            new_cache = {"c_kv": nc.c_kv, "k_rope": nc.k_rope}
+        else:
+            out, nc = attn.attn_decode(
+                p["mix"], h, attn.KVCache(cache["k"], cache["v"]), pos, dims,
+                ctx, window=desc.window, cap=cfg.attn_softcap,
+                rope_theta=cfg.rope_theta, total_len=C, dtype=cfg.dtype)
+            new_cache = {"k": nc.k, "v": nc.v}
     x = x + out
     h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
     out2, _ = _mlp(p["mlp"], h2, cfg, ctx)
-    return x + out2, {"k": nc.k, "v": nc.v}
+    return x + out2, new_cache
 
 
 # ---------------------------------------------------------------------------

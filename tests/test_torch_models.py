@@ -15,11 +15,14 @@ matmuls.
 * Attention: ``attention_core`` causal, windowed, softcapped and
   bidirectional, unchunked and q-chunked (``chunk=8``, so windowed layers
   slice a band); the prefill cache roll, bitwise.
-* Model: ``Model.loss``, its aux loss and its gradient against
-  ``jax.grad`` on the six attention-only smoke configs, the qwen2-moe
-  smoke config and ``test_decode_consistency.py``'s ``dense_gqa`` and
-  ``local_global_softcap``; the three remat policies.
-* Refusals: MLA, MTP, RG-LRU, xLSTM, tp > 1 and seq-sharded decode.
+* Model: ``Model.loss``, its aux loss, the MTP head's ``mtp_ce`` and the
+  gradient against ``jax.grad`` on the six attention-only smoke configs,
+  the qwen2-moe, deepseek-v3 (MLA + MoE + MTP) and recurrentgemma (RG-LRU
+  + local attention) smoke configs and ``test_decode_consistency.py``'s
+  ``dense_gqa``, ``local_global_softcap``, ``mla_moe`` and
+  ``hybrid_rglru``; the three remat policies; recurrentgemma's stack plans
+  at 26, 5 and 3 layers; ``num_params`` leaving out the MTP block.
+* Refusals: xLSTM, tp > 1 and seq-sharded decode.
 """
 import dataclasses
 
@@ -54,12 +57,12 @@ from test_decode_consistency import CASES as DECODE_CASES
 torch.set_num_threads(1)
 
 CTX, JCTX = ParallelContext(), JaxCtx()
-#: the archs the port builds (every layer "attn", a dense or MoE FFN, no
-#: MLA/MTP)
+#: the archs the port builds (attention, MLA and RG-LRU layers, a dense or
+#: MoE FFN, the MTP head)
 PORTED = ("gemma2-2b", "gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b",
-          "internvl2-1b", "hubert-xlarge", "qwen2-moe-a2.7b")
-UNPORTED = {"deepseek-v3-671b": ("MLA", "MTP"),
-            "recurrentgemma-2b": ("RG-LRU",), "xlstm-350m": ("xLSTM",)}
+          "internvl2-1b", "hubert-xlarge", "qwen2-moe-a2.7b",
+          "deepseek-v3-671b", "recurrentgemma-2b")
+UNPORTED = {"xlstm-350m": ("xLSTM",)}
 
 
 def t(a):
@@ -119,6 +122,41 @@ def test_arch_configs_equal_the_reference(arch, which):
     jg, jn, jt = jstack.plan_stack(jc)
     as_t = lambda ds: [(d.kind, d.window) for d in ds]
     assert (as_t(tg), tn, as_t(tt)) == (as_t(jg), jn, as_t(jt))
+
+
+@pytest.mark.parametrize("layers,plan", [
+    (26, ((("rglru", 0), ("rglru", 0), ("attn", 2048)), 8,
+          (("rglru", 0), ("rglru", 0)))),
+    (5, ((("rglru", 0), ("rglru", 0), ("attn", 2048)), 1,
+         (("rglru", 0), ("rglru", 0)))),
+    (3, ((("rglru", 0), ("rglru", 0)), 1, (("attn", 2048),)))])
+def test_recurrentgemma_stack_plans(layers, plan):
+    """The full recurrentgemma-2b plans as (rglru, rglru, attn) × 8 and an
+    unstacked 2-layer tail; 5 layers as one period and the same tail; 3
+    layers as (rglru, rglru) × 1 and an attn tail — on both packages."""
+    as_t = lambda ds: tuple((d.kind, d.window) for d in ds)
+    for cfg, mod in ((get_arch("recurrentgemma-2b").model, tstack),
+                     (jax_arch("recurrentgemma-2b").model, jstack)):
+        g, n, tail = mod.plan_stack(dataclasses.replace(cfg,
+                                                        num_layers=layers))
+        assert (as_t(g), n, as_t(tail)) == plan
+
+
+def test_num_params_leaves_out_the_mtp_block():
+    """``ModelConfig.num_params()`` (the reference's arithmetic, copied)
+    reads 13,360,627,712 for deepseek-v3 at 1 layer with or without the MTP
+    block; the defs count 24,970,704,896 with it and 13,360,651,264
+    without (the norms the arithmetic leaves out). Memory is reckoned from
+    the defs (ROADMAP Queue 3)."""
+    from repro_torch.models.params import count_params
+    cfg = tbase.mreplace(get_arch("deepseek-v3-671b").model, num_layers=1)
+    bare = dataclasses.replace(cfg, mtp=None)
+    assert cfg.num_params() == bare.num_params() == 13_360_627_712
+    assert count_params(Model(cfg).defs()) == 24_970_704_896
+    assert count_params(Model(bare).defs()) == 13_360_651_264
+    jcfg = dataclasses.replace(jax_arch("deepseek-v3-671b").model,
+                               num_layers=1)
+    assert jparams.count_params(JaxModel(jcfg).defs()) == 24_970_704_896
 
 
 def _jax_spec(spec, ndim):
@@ -352,7 +390,7 @@ MODEL_CASES = {a: (jax_arch(a).smoke, get_arch(a).smoke) for a in PORTED}
 MODEL_CASES.update({f"decode:{n}": (c, tbase.ModelConfig(**{
     f.name: getattr(c, f.name) for f in dataclasses.fields(c)}))
     for n, c in DECODE_CASES.items()
-    if n in ("dense_gqa", "local_global_softcap")})
+    if n in ("dense_gqa", "local_global_softcap", "mla_moe", "hybrid_rglru")})
 
 
 def _batch(cfg, B, S, seed):
@@ -374,10 +412,14 @@ def _jax_and_port(name, seed=0):
 
 @pytest.mark.parametrize("name", list(MODEL_CASES))
 def test_loss_and_gradient_match_jax(name):
-    """``Model.loss`` and its aux loss (the MoE layers'; 0 without them)
-    within 1e-6 relative and every leaf of its gradient within 2e-5 of the
-    leaf's largest |∂| (``jax.grad``), at S = 32 with ``chunk=8``: the
-    chunked path, and a band on the windowed layers (16 + 8 < 32)."""
+    """``Model.loss``, its aux loss (the MoE layers'; 0 without them) and
+    the MTP head's ``mtp_ce`` (deepseek-v3's; absent without MTP) within
+    1e-6 relative and every leaf of its gradient within 2e-5 of the leaf's
+    largest |∂| (``jax.grad``), at S = 32 with ``chunk=8``: the chunked
+    path (four MLA q-chunks; the MTP block runs at the default chunk, as
+    in the reference), and a band on the windowed layers (16 + 8 < 32).
+    On the RG-LRU configs the reference's scan runs inside its layer
+    scan, which XLA:CPU compiles with FMAs; the port's runs op by op."""
     jm, tm, jp, tp = _jax_and_port(name)
     cfg = tm.cfg
     b = _batch(cfg, 2, 32, 5)
@@ -389,9 +431,12 @@ def test_loss_and_gradient_match_jax(name):
                         remat_policy="none", chunk=8)
     loss.backward()
     assert float(loss.detach()) == pytest.approx(float(want), rel=1e-6)
-    assert float(met["aux"].detach()) == pytest.approx(float(jmet["aux"]),
-                                                       rel=1e-6)
+    assert sorted(met) == sorted(jmet)
+    for k in met:
+        assert float(met[k].detach()) == pytest.approx(float(jmet[k]),
+                                                       rel=1e-6), k
     assert (float(met["aux"].detach()) > 0.0) == (cfg.moe is not None)
+    assert ("mtp_ce" in met) == (cfg.mtp is not None)
     jgd = dict(leaves_with_paths(jax.device_get(jg)))
     for path, leaf in leaves_with_paths(params):
         g = (leaf.grad if leaf.grad is not None

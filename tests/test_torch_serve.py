@@ -8,13 +8,17 @@ in summation order, and each tolerance is stated where it is set.
 * ``prefill``'s last-position logits and its caches (the windowed layers'
   rolled ring, the global layers' padded one), unchunked and q-chunked
   with a band, then k ``decode_step``s past the window against JAX's, on
-  every decoder arch the port builds (qwen2-moe's MoE FFN included), on
-  ``test_decode_consistency.py``'s two dense cases and on an attention +
-  MoE case (its ``mla_moe`` case without MLA, capacity factor 8.0);
+  every decoder arch the port builds (qwen2-moe's MoE FFN, deepseek-v3's
+  MLA latent cache and recurrentgemma's RG-LRU state included), on
+  ``test_decode_consistency.py``'s two dense cases, its ``mla_moe`` and
+  ``hybrid_rglru`` cases, and on an attention + MoE case (its ``mla_moe``
+  case without MLA, capacity factor 8.0);
 * decoding from an empty cache equals the port's full-sequence forward;
 * the serve CLI on ``--device cpu`` prints the JAX CLI's tokens, both
-  restoring the same checkpoint (the JAX package's files);
-  ``examples/serve_batched_torch.py`` runs on ``--device cpu``.
+  restoring the same checkpoint (the JAX package's files), on gemma2-2b,
+  deepseek-v3 (its checkpoint holds the MTP block serving never runs) and
+  recurrentgemma; ``examples/serve_batched_torch.py`` runs on
+  ``--device cpu``.
 """
 import dataclasses
 import os
@@ -47,12 +51,13 @@ CTX, JCTX = ParallelContext(), JaxCtx()
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
 DECODERS = ("gemma2-2b", "gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b",
-            "internvl2-1b", "qwen2-moe-a2.7b")
+            "internvl2-1b", "qwen2-moe-a2.7b", "deepseek-v3-671b",
+            "recurrentgemma-2b")
 CASES = {a: (jax_arch(a).smoke, get_arch(a).smoke) for a in DECODERS}
 CASES.update({f"decode:{n}": (c, ModelConfig(**{
     f.name: getattr(c, f.name) for f in dataclasses.fields(c)}))
     for n, c in DECODE_CASES.items()
-    if n in ("dense_gqa", "local_global_softcap")})
+    if n in ("dense_gqa", "local_global_softcap", "mla_moe", "hybrid_rglru")})
 #: ``test_decode_consistency.py``'s ``mla_moe`` case without MLA: at
 #: capacity factor 8.0 (≥ E/k) an expert has a slot for every token, so
 #: decode (T = B) drops no token the forward keeps
@@ -91,7 +96,10 @@ def test_prefill_then_decode_past_the_window_matches_jax(name, chunk):
     the prefill runs q-chunked with a band of keys on the windowed layers.
     Logits within 1e-5 of the largest |logit|, every cache leaf within
     1e-5 of its largest |value|, at every step (fp32; the caches are the
-    roped k/v, whose matmuls sum in another order than XLA's)."""
+    roped k/v, the MLA latents or the RG-LRU state, whose matmuls sum in
+    another order than XLA's; JAX's jitted decode step contracts the
+    recurrence into an FMA). MLA decodes absorbed on both sides: the
+    caches and logits are held against JAX's, not against the forward."""
     jm, tm, jp, tp = _models(name)
     B, S, G = 2, 40, 12
     max_len = S + G
@@ -128,12 +136,14 @@ def test_prefill_then_decode_past_the_window_matches_jax(name, chunk):
 
 @pytest.mark.parametrize("name", ["gemma2-2b", "decode:local_global_softcap",
                                   "qwen1.5-32b", "decode:attn_moe",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "decode:mla_moe",
+                                  "decode:hybrid_rglru", "recurrentgemma-2b"])
 def test_decode_from_an_empty_cache_matches_the_forward(name):
     """Decoding a sequence token by token from ``init_cache`` (the rings
     wrap after 16 / 6 tokens) gives the full-sequence forward's logits at
     every position, within 1e-5 of the largest |logit| (the reference's
-    own consistency check, on the port)."""
+    own consistency check, on the port): MLA's absorbed decode against the
+    decompressed forward, RG-LRU's step against the scan."""
     _, tm, _, tp = _models(name)
     B, S, max_len = 2, 24, 24
     toks = torch.from_numpy(np.random.default_rng(3).integers(
@@ -160,17 +170,17 @@ def _seq_lines(text):
             if ln.strip().startswith("seq[")]
 
 
-def test_serve_cli_prints_the_jax_clis_tokens(tmp_path, capsys):
-    """Both CLIs restore one checkpoint (the JAX init of the gemma2-2b smoke
+def _serve_clis(arch, tmp_path, capsys):
+    """Both CLIs restore one checkpoint (the JAX init of ``arch``'s smoke
     config, its embedding table scaled by 0.05 so that the layers, not the
-    tied table, pick the tokens) and greedy-decode the same prompts: the
+    table, pick the tokens) and greedy-decode the same prompts: the
     printed tokens are equal."""
-    cfg = jax_arch("gemma2-2b").smoke
+    cfg = jax_arch(arch).smoke
     params = jax.device_get(JaxModel(cfg).init(jax.random.PRNGKey(4)))
     params["embed"]["table"] = params["embed"]["table"] * np.float32(0.05)
     path = str(tmp_path / "ckpt")
     jax_save_pytree(path, params, {"arch": cfg.name})
-    argv = ["--arch", "gemma2-2b", "--smoke", "--batch", "3",
+    argv = ["--arch", arch, "--smoke", "--batch", "3",
             "--prompt-len", "20", "--gen", "10", "--checkpoint", path]
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-m", "repro.launch.serve", *argv],
@@ -184,18 +194,32 @@ def test_serve_cli_prints_the_jax_clis_tokens(tmp_path, capsys):
     assert len({ln.split("->")[1] for ln in got}) > 1
 
 
+def test_serve_cli_prints_the_jax_clis_tokens(tmp_path, capsys):
+    _serve_clis("gemma2-2b", tmp_path, capsys)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "recurrentgemma-2b"])
+def test_serve_cli_prints_the_jax_clis_tokens_on_mla_and_rglru(
+        arch, tmp_path, capsys):
+    """As :func:`test_serve_cli_prints_the_jax_clis_tokens`: deepseek-v3's
+    MLA + MoE (the checkpoint holds the MTP block too, which serving
+    restores and never runs) and recurrentgemma's RG-LRU + local
+    attention."""
+    _serve_clis(arch, tmp_path, capsys)
+
+
 def test_serve_refuses_what_the_port_does_not_run():
     with pytest.raises(NotImplementedError, match="tp = 1"):
         tserve.main(["--smoke", "--tp", "2", "--device", "cpu"])
     with pytest.raises(SystemExit, match="encoder-only"):
         tserve.main(["--arch", "hubert-xlarge", "--smoke", "--device",
                      "cpu"])
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tserve.main(["--arch", "deepseek-v3-671b", "--smoke", "--device",
-                     "cpu"])
+    with pytest.raises(NotImplementedError, match="xLSTM"):
+        tserve.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-moe-a2.7b",
+                                  "deepseek-v3-671b", "recurrentgemma-2b"])
 def test_serve_batched_example_runs_on_the_cpu(arch):
     """The twin of ``examples/serve_batched.py`` serves a smoke config on
     ``--device cpu``: its prefill, decode and request lines, tokens in the
