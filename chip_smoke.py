@@ -45,19 +45,21 @@ then, on the card:
    on random and hard inputs; ``fedams_update`` at every leaf and ZeRO
    shard size; ``fedams_ingest`` on 4 gathered clients (one of them a
    non-participant) and on 1; and ``topk_ef_sparse`` and ``fedams_ingest``
-   at every shape routes o, q, s and u launch them (``phase_lm_shapes``:
+   at every shape routes o, q, s, u and w launch them (``phase_lm_shapes``:
    gemma2-2b's leaves at 2 layers, 2,304 to 589,824,000 values a row, the
    ingest on 2 clients; qwen2-moe-a2.7b's at 1 layer, 2,048 to 311,164,928
    values, the (1, 60, 2048, 1408) expert stacks of 173,015,040 among
    them; route s's deepseek-v3 cut, 512 to 117,440,512 values (its
    (1, 8, 7168, 2048) expert stacks); recurrentgemma-2b's at 5 layers,
-   2,560 to 655,360,000 values (its tied table); the ingest on 1 client).
+   2,560 to 655,360,000 values (its tied table); the ingest on 1 client;
+   route w's xlstm-350m leaves as a rank at tp 2 holds them, 1,024 to
+   50,331,648 values, the ingest on 2 clients).
    All bitwise (a NaN must meet a NaN).
    Each kernel is timed with CUDA events (median of 30 launches, L2
    flushed before each) beside its twin and its bound, and the two large
    ones also alone on each LM route's largest leaf (route o's
-   589,824,000, q's 311,164,928, s's 117,440,512 and u's 655,360,000
-   values) beside their bytes bounds;
+   589,824,000, q's 311,164,928, s's 117,440,512, u's 655,360,000 and
+   w's 50,331,648 values) beside their bytes bounds;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
    small MLP problem, every route below (route g through the trainer, j
@@ -202,7 +204,32 @@ then, on the card:
 12. trains recurrentgemma-2b on the mesh (route u: published widths,
    reduced to 5 layers — one period and the 2-layer tail — 1,043,453,440
    params in 67 leaves) on one NCCL rank, as route q: 67
-   ``topk_ef_sparse`` + 67 ``fedams_ingest`` a round.
+   ``topk_ef_sparse`` + 67 ``fedams_ingest`` a round;
+13. serves xlstm-350m at its published widths and depth (route v: 24
+   layers alternating mLSTM and sLSTM, 343,856,128 params, bf16 compute)
+   as route n: batch 4 × 512 + 32, then 1 × 4,608 + 16 (two mLSTM
+   q-chunks of 2,304; the sLSTM steps 4,608 times a layer); decode against
+   the forward at 4 layers, fp32; the smoke config on the card against the
+   CPU;
+14. trains xlstm-350m at full depth on the mesh at dp 2 × tp 2 (route w:
+   four gloo ranks sharing the card, each holding its model shards) through
+   ``launch/train.py``'s ``train``: fedcams, blockwise top-k 1/64 over the
+   sparse collective, the fused ingest, K = 2, batch 2 × 512 a client, 3
+   rounds, 19 ``topk_ef_sparse`` + 19 ``fedams_ingest`` a rank a round on
+   its model-local leaves at shapes phase 1 held, every replicated leaf of
+   the final state the same on all four ranks to the bit; then dense
+   FedAvg rounds in fp32 at one and two local steps, at dp 2 × tp 2 and
+   at dp 2 × tp 1 from the same seeded init, the loss and the gathered
+   params held together (at two steps within ten times what the tp 1
+   round reads on the card against the host's CPU);
+15. runs the model axis on the card (route x): gemma2-2b at full width and
+   depth served at tp 2 on two gloo ranks (route n's weights; the prefill
+   logits against route n's, the share of greedy tokens that agree), and
+   in fp32 against tp 1 at 2 layers within 1e-4, at 26 within 1e-3;
+   qwen2-moe-a2.7b at
+   published widths, 2 layers and 58 experts at tp 4 (padded to 60): no
+   pad expert chosen, decode = forward; a decode over a cache split across
+   2 ranks of the sequence axis against the unsharded one within 1e-5.
 Every model route prints its seconds.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
@@ -969,10 +996,35 @@ def moe_cfg():
     return lm_cfg("qwen2-moe-a2.7b", MOE_LAYERS)
 
 
-def leaf_sizes(cfg) -> list:
+def leaf_sizes(cfg, tp: int = 1) -> list:
+    """Each leaf's size on one rank of a model axis of ``tp``."""
     from repro_torch.models.model import Model
-    from repro_torch.models.params import tree_leaves
-    return [int(np.prod(d.shape)) for d in tree_leaves(Model(cfg).defs())]
+    from repro_torch.models.params import local_shape, tree_leaves
+    return [int(np.prod(local_shape(d, {"model": tp})))
+            for d in tree_leaves(Model(cfg, tp=tp).defs())]
+
+
+#: route w: xlstm-350m at its published widths and depth (24 layers,
+#: 343,856,128 params in 19 leaves) on dp ``W_DP`` × tp ``W_TP``: four gloo
+#: ranks sharing the card. Its step sizes are the train CLI's ``--eta-l
+#: 0.001 --eta 0.01``: at the defaults (η_l = 0.05) the first local step
+#: drives an mLSTM input gate below -88, where the normalizer's exp(-m)
+#: overflows and the reference's and the port's backward give NaN (ROADMAP
+#: Queue 3 item 27); at η_l = 0.001 its rounds stay finite on the card
+W_DP, W_TP, W_ROUNDS, W_ETA, W_ETA_L = 2, 2, 3, 0.01, 0.001
+
+
+def w_fed():
+    """Route w's ``FedConfig``: route o's at ``W_DP`` clients, η ``W_ETA``
+    and η_l ``W_ETA_L``."""
+    return dataclasses.replace(lm_fed(W_DP), eta=W_ETA, eta_l=W_ETA_L)
+
+
+def xlstm_cfg():
+    """Routes v and w's model: xlstm-350m at its published widths and
+    depth (bf16 compute, the config's)."""
+    from repro_torch.configs.registry import get_arch
+    return get_arch("xlstm-350m").model
 
 
 #: route s's model: deepseek-v3-671b at published d_model, heads and MLA
@@ -1007,22 +1059,27 @@ def rg_train_cfg():
 
 
 def lm_kernel_shapes() -> dict:
-    """The leaf sizes routes o, q, s and u select and ingest (one
-    (1, d_leaf) row a leaf) → the client counts their fused ingests gather
-    at that size (route o's ``LM_CLIENTS``, the others' one)."""
+    """The leaf sizes routes o, q, s, u and w select and ingest (one
+    (1, d_leaf) row a leaf; route w's are each rank's model-local leaves
+    at tp = ``W_TP``) → the client counts their fused ingests gather at
+    that size (route o's ``LM_CLIENTS``, route w's ``W_DP``, the others'
+    one)."""
     out = {}
-    for cfg, n in ((lm_cfg(), LM_CLIENTS), (moe_cfg(), 1),
-                   (mla_train_cfg(), 1), (rg_train_cfg(), 1)):
-        for d in leaf_sizes(cfg):
+    for cfg, n, tp in ((lm_cfg(), LM_CLIENTS, 1), (moe_cfg(), 1, 1),
+                       (mla_train_cfg(), 1, 1), (rg_train_cfg(), 1, 1),
+                       (xlstm_cfg(), W_DP, W_TP)):
+        for d in leaf_sizes(cfg, tp):
             out.setdefault(d, set()).add(n)
     return {d: sorted(out[d]) for d in sorted(out)}
 
 
 def phase_lm_shapes(dev, out: dict) -> dict:
     """``topk_ef_sparse`` and ``fedams_ingest`` at every shape routes o,
-    q, s and u launch them (:func:`lm_kernel_shapes`), bitwise against the
-    twins, into ``out`` (:func:`phase_mesh_shapes`'s record): for each leaf
-    size d (512 to recurrentgemma-2b's 655,360,000-value tied embedding) a
+    q, s, u and w launch them (:func:`lm_kernel_shapes`), bitwise against
+    the twins, into ``out`` (:func:`phase_mesh_shapes`'s record): for each
+    leaf size d (512 to recurrentgemma-2b's 655,360,000-value tied
+    embedding; route w's xlstm-350m leaves as a rank at tp = 2 holds them,
+    1,024 to 50,331,648 values) a
     (1, d) row on random inputs, and on ``ref.topk_hard_cases`` up to
     ``LM_HARD_MAX`` values; the fused ingest of the routes' client counts'
     selections (made by the selection kernel on random totals), option 1,
@@ -1031,7 +1088,9 @@ def phase_lm_shapes(dev, out: dict) -> dict:
 
     The largest leaf of each route (route o's 589,824,000-value table,
     route q's 311,164,928-value untied one, route s's 117,440,512-value
-    expert stacks, route u's 655,360,000-value table) is also timed alone:
+    expert stacks, route u's 655,360,000-value table, route w's
+    50,331,648-value replicated sLSTM input projections) is also timed
+    alone:
     each
     kernel's CUDA-event ms (median of 30, L2 flushed, the EF row restored
     before each selection) beside its bytes bound. Returns those times by
@@ -1040,13 +1099,14 @@ def phase_lm_shapes(dev, out: dict) -> dict:
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(4)
-    hold = lambda *a, **k: _hold(out, "routes o, q, s, u", *a, **k)
+    hold = lambda *a, **k: _hold(out, "routes o, q, s, u, w", *a, **k)
     rows = torch.zeros(1, dtype=torch.int64, device=dev)
     leaves = lm_kernel_shapes()
     largest = {max(leaf_sizes(lm_cfg())): ("o", LM_CLIENTS),
                max(leaf_sizes(moe_cfg())): ("q", 1),
                max(leaf_sizes(mla_train_cfg())): ("s", 1),
-               max(leaf_sizes(rg_train_cfg())): ("u", 1)}
+               max(leaf_sizes(rg_train_cfg())): ("u", 1),
+               max(leaf_sizes(xlstm_cfg(), W_TP)): ("w", W_DP)}
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)
     timed = {}
     seg = 2048
@@ -2334,6 +2394,11 @@ DECODE_TOL = 1e-4
 CARD_TOL = 1e-4
 
 
+#: each serving route's first run: its prefill's last-position logits and
+#: its greedy tokens (route x holds its tp = 2 run against route n's)
+SERVED = {}
+
+
 def _serve_summary(out, batch, gen, peak, vocab) -> dict:
     toks = out["tokens"]
     return {"tokens_in_range": bool(((toks >= 0) & (toks < vocab)).all()),
@@ -2348,23 +2413,27 @@ def _rel_err(got, want) -> float:
                  / want.double().abs().max())
 
 
-def decode_vs_forward(model, params, P: int, steps: int, seed: int) -> float:
+def decode_vs_forward(model, params, P: int, steps: int, seed: int,
+                      ctx=None) -> float:
     """Prefill P tokens and decode ``steps`` - 1 more on the card, against
     the full-sequence forward's logits at the same positions; returns the
-    largest |difference| over the largest |logit|."""
+    largest |difference| over the largest |logit|. ``ctx``: a rank's
+    context over a model axis (the logits gathered over it), None: one
+    process."""
     from repro_torch.sharding.rules import ParallelContext
-    ctx = ParallelContext()
+    ctx = ctx or ParallelContext()
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, model.cfg.vocab_size, size=(2, P + steps)).astype(np.int32)).cuda()
+    gathered = lambda lg: ctx.all_gather_model(lg, -1)
     with torch.no_grad():
-        full = model.encode(params, {"tokens": toks}, ctx)
+        full = gathered(model.encode(params, {"tokens": toks}, ctx))
         lg, caches = model.prefill(params, toks[:, :P], ctx, max_len=P + steps)
-        got = [lg]
+        got = [gathered(lg)]
         for i in range(steps - 1):
             lg, caches = model.decode_step(params, toks[:, P + i:P + i + 1],
                                            caches, P + i, ctx,
                                            max_len=P + steps)
-            got.append(lg)
+            got.append(gathered(lg))
     return _rel_err(torch.stack(got, 1), full[:, P - 1:P + steps - 1])
 
 
@@ -2449,6 +2518,7 @@ def serve_route(route: str, cfg, generator, runs=None) -> dict:
         run = _serve_summary(out, batch, gen,
                              torch.cuda.max_memory_allocated(),
                              cfg.vocab_size)
+        SERVED.setdefault(route, (out["logits0"], out["tokens"]))
         check(run["tokens_in_range"] and run["finite"],
               f"route {route} b{batch} s{prompt}: tokens out of range or "
               f"logits not finite: {run}")
@@ -2468,7 +2538,8 @@ def serve_route(route: str, cfg, generator, runs=None) -> dict:
 
 def route_n() -> dict:
     """Route n: gemma2-2b served at its published widths (26 layers, bf16
-    compute on fp32 weights from ``torch.Generator().manual_seed(0)``)
+    compute on fp32 weights drawn on the card from a CUDA generator seeded
+    0, which route x's tp = 2 ranks draw again)
     through ``launch/serve.py``: ``serve`` (batch 4, prompt 512, gen 32),
     then ``generate`` on the same weights with a 4,608-token prompt (gen
     16, q-chunk 256). Tokens in range and logits finite. Then the decode
@@ -2482,7 +2553,8 @@ def route_n() -> dict:
     cfg = get_arch("gemma2-2b").model
     check(cfg.num_layers == 26 and cfg.d_model == 2304
           and cfg.vocab_size == 256000, "route n: not gemma2-2b's widths")
-    res, params = serve_route("n", cfg, None)
+    res, params = serve_route("n", cfg, torch.Generator(
+        device="cuda").manual_seed(0))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2552,8 +2624,15 @@ def serve_reckoning(model, d: int, batch: int, max_len: int) -> float:
     caches = 2 * sum(int(np.prod(c.shape)) * getattr(torch, c.dtype).itemsize
                      for _, c in leaves_with_paths(model.cache_defs(
                          batch, max_len)))
+    quad = 0
+    if cfg.xlstm is not None:
+        # the mLSTM's quadratic prefill: ~6 fp32 (batch, q-chunk, S, heads)
+        # temporaries of one chunk live (D, its mask, w, s, s·w, their grad-
+        # free products)
+        n = max(max_len // 2048, 1)
+        quad = 6 * batch * (max_len // n) * max_len * cfg.num_heads * 4
     return (4 * d + casts + unembed + batch * cfg.vocab_size * 6
-            + caches) / 1e9
+            + caches + quad) / 1e9
 
 
 def route_p() -> dict:
@@ -2804,23 +2883,72 @@ def _recording_metrics(names, sink: dict):
     Model.loss = recorded
 
 
+@contextlib.contextmanager
+def _recording_state(sink: dict):
+    """Each round body that ``core.mesh.build_fed_round`` builds (in this
+    process) leaves its last state in ``sink["state"]`` and its context's
+    model index in ``sink["model_index"]``."""
+    from repro_torch.core import mesh as meshmod
+    build = meshmod.build_fed_round
+
+    def recorded(model, fed, train, ctx, **kw):
+        rnd = build(model, fed, train, ctx, **kw)
+        sink["model_index"] = ctx.model_index()
+
+        def fed_round(state, batch, seed):
+            out = rnd(state, batch, seed)
+            sink["state"] = out[0]
+            return out
+
+        return fed_round
+
+    meshmod.build_fed_round = recorded
+    try:
+        yield
+    finally:
+        meshmod.build_fed_round = build
+
+
+def _leaf_digests(tree) -> dict:
+    """Each leaf's path → the SHA-256 of its bytes."""
+    from repro_torch.models.params import leaves_with_paths
+    return {"/".join(p): hashlib.sha256(t.detach().reshape(-1).view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        for p, t in leaves_with_paths(tree)}
+
+
 def _lm_job(job: dict) -> dict:
-    """One rank of route o, q, s or u: the launch counters at 0, then
-    ``launch/train.py``'s ``train`` (model, state, data and rounds), then
-    the counters read (and every local step's metrics named in
-    ``job["metrics"]``)."""
+    """One rank of route o, q, s, u or w: the launch counters at 0, then
+    ``launch/train.py``'s ``train`` (model at ``job["tp"]``, state, data
+    and rounds, on ``job["device"]``, default the card; with
+    ``job["keep_params"]`` the gathered params back), then the counters
+    read (and every local step's metrics named in ``job["metrics"]``; with
+    ``job["digests"]`` each leaf's digest of this rank's final params, m, v
+    and v̂, and its model index)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
     from repro_torch.launch import train as ttrain
-    sink = {}
+    sink, state = {}, {}
+    device = job.get("device", "cuda")
     _recording_metrics(job.get("metrics", ()), sink)
     torch.cuda.synchronize()
     dist.barrier()
     ops.reset_launches()
-    out = ttrain.train(job["cfg"], job["fed"], job["train"], device="cuda")
+    with contextlib.ExitStack() as stack:
+        if job.get("digests"):
+            stack.enter_context(_recording_state(state))
+        out = ttrain.train(job["cfg"], job["fed"], job["train"],
+                           device=device, tp=job.get("tp", 1),
+                           keep_params=job.get("keep_params", False))
     out["launches"] = dict(ops.launches)
     out["metrics"] = {k: [float(v) for v in vs] for k, vs in sink.items()}
+    if job.get("digests"):
+        st = state.pop("state")
+        out["model_index"] = state["model_index"]
+        out["digests"] = {f: _leaf_digests(getattr(st, f))
+                          for f in ("params", "m", "v", "vhat")}
+        del st
     return out
 
 
@@ -2839,7 +2967,8 @@ def expandable_segments():
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
 
 
-def lm_memory_reckoning(cfg, d: int, largest: int, tokens: int) -> dict:
+def lm_memory_reckoning(cfg, d: int, largest: int, tokens: int,
+                        seq: int = 512) -> dict:
     """What a rank of route o holds at its peak, reckoned from the shapes
     (bytes; a "copy" is the (d,) fp32 vector). Always: the state (params,
     m, v, v̂ and the rank's EF row, 5 copies). In local training: the flat
@@ -2847,9 +2976,10 @@ def lm_memory_reckoning(cfg, d: int, largest: int, tokens: int) -> dict:
     gradients it is cut from (2), and the logits' temporaries — about six
     fp32 (tokens, vocab) tensors a head (two with the MTP head), the bf16
     table and its bf16 gradient — and, a recurrent layer, the scan's saved
-    levels (about 16 fp32 (tokens, width) tensors). In the server step: the
-    delta and the new EF row (2), the new params, m, v, v̂ built leaf by
-    leaf (4), and the largest leaf's EF copy."""
+    levels (about 16 fp32 (tokens, width) tensors; an sLSTM layer its
+    steps', an mLSTM layer its (tokens, seq, heads) scores). In the server
+    step: the delta and the new EF row (2), the new params, m, v, v̂ built
+    leaf by leaf (4), and the largest leaf's EF copy."""
     copy = 4 * d
     heads = 1 if cfg.mtp is None else 2
     acts = (heads * 6 * tokens * cfg.vocab_size * 4
@@ -2857,6 +2987,12 @@ def lm_memory_reckoning(cfg, d: int, largest: int, tokens: int) -> dict:
     if cfg.rglru is not None:
         acts += (cfg.layer_kinds.count("rglru") * 16 * tokens
                  * (cfg.rglru.lru_width or cfg.d_model) * 4)
+    if cfg.xlstm is not None:
+        # the sLSTM's ~30 fp32 (tokens, d) step tensors saved a layer, the
+        # mLSTM's ~6 fp32 (tokens, seq, heads) score tensors a layer
+        acts += (cfg.layer_kinds.count("slstm") * 30 * tokens * cfg.d_model
+                 * 4 + cfg.layer_kinds.count("mlstm") * 6 * tokens * seq
+                 * cfg.num_heads * 4)
     local = 9 * copy + acts
     server = 11 * copy + 4 * largest
     return {"copy_gb": copy / 1e9, "state_gb": 5 * copy / 1e9,
@@ -3030,6 +3166,491 @@ def route_u(held) -> dict:
     return route_one_rank("u", rg_train_cfg(), RG_ROUNDS, held)
 
 
+#: route v's runs through launch/serve.py: (batch, prompt, gen, q-chunk);
+#: the 4,608-token prompt is two mLSTM q-chunks of 2,304 at chunk 2048,
+#: and each sLSTM layer steps 4,608 times
+XLSTM_SERVE_RUNS = ((4, 512, 32, 2048), (1, 4608, 16, 2048))
+#: route v's decode against the forward: xlstm-350m's widths at 4 layers,
+#: fp32, a prompt of 96 and 8 decode steps
+XLSTM_DECODE_LAYERS = 4
+
+
+def route_v() -> dict:
+    """Route v: xlstm-350m served at its published widths and depth (24
+    layers alternating mLSTM and sLSTM, d_model 1024, 4 heads, the mLSTM 2048
+    wide, vocabulary 50,304; 343,856,128 params, bf16 compute on fp32
+    weights drawn on the card) through :func:`serve_route`: batch 4 × 512 +
+    32, then 1 × 4,608 + 16 (two mLSTM q-chunks of 2,304; the sLSTM state
+    carried over 4,608 sequential steps). Then decode against the
+    full-sequence forward at ``XLSTM_DECODE_LAYERS`` layers, fp32; and the
+    smoke config on the card against the CPU."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.models.model import Model
+
+    cfg = xlstm_cfg()
+    check(cfg.num_layers == 24 and cfg.d_model == 1024 and cfg.num_heads == 4
+          and cfg.vocab_size == 50304 and cfg.xlstm.mlstm_proj_factor == 2.0
+          and cfg.layer_kinds[:2] == ("mlstm", "slstm")
+          and cfg.dtype == "bfloat16", "route v: not xlstm-350m's widths")
+    res, params = serve_route("v", cfg, torch.Generator(
+        device="cuda").manual_seed(0), runs=XLSTM_SERVE_RUNS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    m4 = Model(mreplace(cfg, num_layers=XLSTM_DECODE_LAYERS,
+                        dtype="float32"))
+    p4 = m4.init(torch.Generator(device="cuda").manual_seed(1), "cuda")
+    P, steps = 96, 8
+    dec_err = decode_vs_forward(m4, p4, P, steps, seed=2)
+    del p4
+    torch.cuda.empty_cache()
+    check(dec_err <= DECODE_TOL, f"route v: prefill + decode differ from "
+          f"the full-sequence forward by {dec_err} of the largest logit")
+    res["decode_vs_forward_rel_err"] = dec_err
+    print(f"route v: prefill of {P} + {steps - 1} decode steps vs the "
+          f"full-sequence forward (published widths, {XLSTM_DECODE_LAYERS} "
+          f"layers, fp32): max |diff| {dec_err:.3g} of the largest logit "
+          f"(tolerance {DECODE_TOL})")
+
+    card_err = smoke_card_vs_cpu("xlstm-350m", chunk=16)
+    check(card_err <= CARD_TOL, f"route v: the smoke config on the card "
+          f"differs from the CPU by {card_err} of the largest value")
+    res["card_vs_cpu_rel_err"] = card_err
+    print(f"route v: xlstm smoke loss, prefill (three mLSTM q-chunks) and 8 "
+          f"decode steps on the card vs the CPU: max |diff| {card_err:.3g} "
+          f"of the largest value (tolerance {CARD_TOL})")
+    return res
+
+
+#: route w's pairs: dense FedAvg rounds in fp32 (no kernel: a blockwise
+#: top-k selects from each rank's model-local leaf, so only a dense round
+#: is the same at tp 1 and 2) from the same seeded init, dp 2 × tp 2
+#: against dp 2 × tp 1. At one local step the loss within W_LOSS_RTOL
+#: relative and each gathered leaf of the params within W_PARAMS_TOL of
+#: its largest |value|. At route w's own K = 2 the loss within
+#: W_LOSS_RTOL, and each leaf within W_WITNESS_FACTOR times what the same
+#: tp 1 round reads on the card against the host's CPU (other kernels,
+#: other orders of sums), or W_PARAMS_TOL where that is more. The round is
+#: ill-conditioned at K = 2 (ROADMAP Queue 3 item 29): the zero-initialised
+#: sLSTM bias, all update, read 1.05 at tp 1 card against CPU, and tp 2
+#: against tp 1 3.2e-4 at one local step and 0.50 at two; no leaf of tp
+#: 2's over 1.2 times its witness (H100 80GB HBM3, 700.00 W)
+W_LOSS_RTOL, W_PARAMS_TOL, W_WITNESS_FACTOR = 1e-4, 1e-3, 10.0
+
+
+def _w_jobs(tp: int, device: str = "cuda"):
+    """Route w's jobs at ``tp``: at W_TP the main run (fedcams, blockwise
+    top-k 1/64 over the sparse collective, fused ingest, K = 2, batch 2 ×
+    512 a client, η ``W_ETA``, η_l ``W_ETA_L``, W_ROUNDS rounds), then the
+    FedAvg rounds at one and at two local steps (the same η_l), each
+    keeping its ranks' digests; at 1 the two FedAvg rounds, on the CPU the
+    second alone."""
+    from repro_torch.configs.base import TrainConfig, mreplace
+    cfg = xlstm_cfg()
+    train = TrainConfig(global_batch=2 * W_DP, seq_len=512, rounds=W_ROUNDS,
+                        remat_policy="none")
+    avg = dataclasses.replace(w_fed(), algorithm="fedavg",
+                              compressor="none", aggregation="dense")
+    pair = dict(cfg=mreplace(cfg, dtype="float32"),
+                train=dataclasses.replace(train, rounds=1), tp=tp,
+                keep_params=True, digests=tp > 1, device=device)
+    jobs = {f"avg{k}": dict(pair, fed=dataclasses.replace(avg, local_steps=k))
+            for k in ((2,) if device == "cpu" else (1, 2))}
+    if tp > 1:
+        return {"w": dict(cfg=cfg, fed=w_fed(), train=train, tp=tp,
+                          digests=True), **jobs}
+    return jobs
+
+
+def _leaf_errs(got, want) -> dict:
+    """Each leaf's path → max |got − want| over the largest |want|."""
+    from repro_torch.models.params import leaves_with_paths
+    ref = dict(leaves_with_paths(want))
+    return {"/".join(p): float((t - ref[p]).abs().max()
+                               / ref[p].abs().max().clamp_min(1e-30))
+            for p, t in leaves_with_paths(got)}
+
+
+def _worst(errs: dict, n: int = 4) -> list:
+    return sorted(((e, k) for k, e in errs.items()), reverse=True)[:n]
+
+
+def check_replicas(route: str, ranks: list, defs, tp: int) -> int:
+    """Every rank's final params, m, v and v̂ (``_lm_job``'s digests): a
+    leaf that no dim shards over the model axis the same to the bit on
+    every rank, a model-sharded leaf on every rank of its model index.
+    Returns the count of replicated leaves."""
+    from repro_torch.models.params import dim_axes, leaves_with_paths
+    reps = {"/".join(p) for p, d in leaves_with_paths(defs)
+            if not any("model" in dim_axes(sp) for sp in d.dim_specs)}
+    check({r["model_index"] for r in ranks} == set(range(tp)),
+          f"route {route}: model indices {[r['model_index'] for r in ranks]}")
+    for f in ("params", "m", "v", "vhat"):
+        for leaf, d0 in ranks[0]["digests"][f].items():
+            peers = [r for r in ranks if leaf in reps
+                     or r["model_index"] == ranks[0]["model_index"]]
+            check(all(r["digests"][f][leaf] == d0 for r in peers),
+                  f"route {route}: {f} {leaf} differs across ranks that "
+                  f"hold the same copy of it")
+    return len(reps)
+
+
+def route_w(held) -> dict:
+    """Route w: xlstm-350m at its published widths and depth trained
+    through ``launch/train.py``'s ``train`` on dp ``W_DP`` × tp ``W_TP``:
+    four gloo ranks sharing the card, each holding its model shards.
+    fedcams with blockwise top-k 1/64 over the sparse collective and the
+    fused ingest, K = 2, batch 2 × 512 a client, η ``W_ETA``, η_l
+    ``W_ETA_L``, ``W_ROUNDS`` rounds: each rank launches ``topk_ef_sparse``
+    and ``fedams_ingest`` once a model-local leaf a round, at shapes phase
+    1 held; ``wire_up_bytes`` as ``mesh_wire_bytes_tiers`` bills the local
+    leaves × tp; losses and state finite; every replicated leaf of the
+    final state the same on all four ranks. Then dense FedAvg rounds in
+    fp32 at one and at two local steps on the same ranks and on dp 2 × tp
+    1 (two ranks), from the same seeded init, and the second on dp 2 × tp
+    1 on the host's CPU, held as the constants above say."""
+    from repro_torch.core.mesh import mesh_wire_bytes_tiers
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params, local_shape, \
+        tree_leaves, tree_map
+
+    cfg, fed = xlstm_cfg(), w_fed()
+    model = Model(cfg, tp=W_TP)
+    local = tree_map(lambda d: dataclasses.replace(
+        d, shape=local_shape(d, {"model": W_TP})), model.defs())
+    leaves = len(tree_leaves(local))
+    d_all, d = count_params(model.defs()), count_params(local)
+    plan = lm_memory_reckoning(cfg, d, max(leaf_sizes(cfg, W_TP)), 512)
+    world = W_DP * W_TP
+    free, total = torch.cuda.mem_get_info()
+    print(f"route w: {cfg.name}, {d_all:,} params in {leaves} leaves; a "
+          f"rank at tp {W_TP} holds {d:,} (its model shards); reckoned "
+          f"~{plan['per_rank_gb']:.1f} GB a rank at its peak ({plan}); "
+          f"{world} ranks on a card with {free / 1e9:.1f} of "
+          f"{total / 1e9:.1f} GB free")
+    check(world * plan["per_rank_gb"] * 1e9 < free,
+          f"route w: {world} ranks do not fit the card: {plan}")
+    with expandable_segments():
+        ranks = run_ranks(world, "gloo", _w_jobs(W_TP), fn=_lm_job,
+                          timeout=900, record=True)
+    rs = [rk["w"] for rk in ranks]
+    n_shapes = check_shapes_held("w", rs, held)
+    want = {"topk_ef_sparse": leaves * W_ROUNDS,
+            "fedams_ingest": leaves * W_ROUNDS}
+    for i, r in enumerate(rs):
+        got = {k: v for k, v in r["launches"].items() if v}
+        check(got == want, f"route w rank {i}: launches {got}, expected "
+              f"{want} ({leaves} model-local leaves a round)")
+        for k in ("avg1", "avg2"):
+            check(not any(ranks[i][k]["launches"].values()),
+                  f"route w rank {i}: the FedAvg round {k} launched "
+                  f"{ranks[i][k]['launches']}")
+    n_rep = check_replicas("w", rs, model.defs(), W_TP)
+    for k in ("avg1", "avg2"):
+        check_replicas(f"w ({k})", [rk[k] for rk in ranks], model.defs(),
+                       W_TP)
+    tiers = mesh_wire_bytes_tiers(fed, local, tp=W_TP)
+    expected = float(np.float32(fed.num_clients * tiers["tier1"]))
+    hist = [r["history"] for r in rs]
+    losses = [h["loss"] for h in hist[0]]
+    check(all([h["loss"] for h in hr] == losses for hr in hist),
+          f"route w: the ranks' losses differ: "
+          f"{[[h['loss'] for h in hr] for hr in hist]}")
+    check(all(np.isfinite(losses)) and all(r["finite"] for r in rs),
+          f"route w: losses {losses} or a non-finite state")
+    wire = [h["wire_up_bytes"] for h in hist[0]]
+    check(wire == [expected] * W_ROUNDS, f"route w: wire_up_bytes {wire}, "
+          f"mesh_wire_bytes_tiers bills {expected}")
+    round_ms = [h["round_s"] * 1e3 for h in hist[0]]
+    peaks = [r["peak_bytes"] / 1e9 for r in rs]
+
+    one = run_ranks(W_DP, "gloo", _w_jobs(1), fn=_lm_job, timeout=900)[0]
+    host = run_ranks(W_DP, "gloo", _w_jobs(1, "cpu"), fn=_lm_job,
+                     timeout=900)[0]
+    pairs = {}
+    for k in ("avg1", "avg2"):
+        a2, a1 = ranks[0][k], one[k]
+        loss2, loss1 = a2["history"][0]["loss"], a1["history"][0]["loss"]
+        pairs[k] = {"loss": [loss2, loss1],
+                    "loss_rel_err": abs(loss2 - loss1) / abs(loss1),
+                    "errs": _leaf_errs(a2["params"], a1["params"])}
+    witness = _leaf_errs(host["avg2"]["params"], one["avg2"]["params"])
+    w_loss = [host["avg2"]["history"][0]["loss"],
+              one["avg2"]["history"][0]["loss"]]
+    one_err = pairs["avg1"]
+    check(one_err["loss_rel_err"] <= W_LOSS_RTOL
+          and max(one_err["errs"].values()) <= W_PARAMS_TOL,
+          f"route w: the FedAvg round at one local step, dp {W_DP} x tp "
+          f"{W_TP} vs dp {W_DP} x tp 1: loss {one_err['loss']} "
+          f"({one_err['loss_rel_err']:.3g}), the worst leaves "
+          f"{_worst(one_err['errs'])}")
+    two = pairs["avg2"]
+    over = {k: (e, witness[k]) for k, e in two["errs"].items()
+            if e > max(W_WITNESS_FACTOR * witness[k], W_PARAMS_TOL)}
+    check(two["loss_rel_err"] <= W_LOSS_RTOL and not over,
+          f"route w: the FedAvg round at two local steps, dp {W_DP} x tp "
+          f"{W_TP} vs dp {W_DP} x tp 1: loss {two['loss']} "
+          f"({two['loss_rel_err']:.3g}); leaves over {W_WITNESS_FACTOR} x "
+          f"the tp 1 round's card-vs-CPU reading (tp 2, card vs CPU): "
+          f"{over}")
+    print(f"route w: {cfg.name} at dp {W_DP} x tp {W_TP}, {world} gloo ranks "
+          f"sharing the card: losses {losses}; wire_up_bytes {wire[0]:.0f} a "
+          f"round (tiers {tiers}); launches a round, each rank {leaves} "
+          f"topk_ef_sparse + {leaves} fedams_ingest on its model-local "
+          f"leaves; round ms (rank 0) {[round(t, 1) for t in round_ms]}; peak "
+          f"memory a rank {[round(p, 2) for p in peaks]} GB (reckoned "
+          f"{plan['per_rank_gb']:.2f}); distinct launch shapes, each held by "
+          f"phase 1: {n_shapes}; the {n_rep} replicated leaves of params, m, "
+          f"v and v̂ the same on all {world} ranks to the bit, the sharded "
+          f"ones on each model index's ranks")
+    for k, steps in (("avg1", 1), ("avg2", 2)):
+        print(f"route w: dense FedAvg round, {steps} local step(s), fp32, "
+              f"dp {W_DP} x tp {W_TP} vs dp {W_DP} x tp 1 from the same "
+              f"seeded init: loss {pairs[k]['loss']} (rel "
+              f"{pairs[k]['loss_rel_err']:.3g}, tolerance {W_LOSS_RTOL}); "
+              f"the worst leaves of the gathered params, max |diff| over "
+              f"the largest |value|: {_worst(pairs[k]['errs'])}")
+    ratio = {k: e / max(witness[k], 1e-30) for k, e in two["errs"].items()}
+    print(f"route w: the same tp 1 round at 2 local steps on the host's "
+          f"CPU against the card: loss {w_loss}, the worst leaves "
+          f"{_worst(witness)}; tp 2's reading over it, the largest ratios "
+          f"{_worst(ratio)}")
+    return {"losses": losses, "wire_up_bytes": wire, "tiers": tiers,
+            "round_ms": round_ms, "peak_gb": peaks, "reckoned": plan,
+            "d": d_all, "d_rank": d, "leaves": leaves, "shapes_held": n_shapes,
+            "replicated_leaves": n_rep,
+            "fedavg_tp2_vs_tp1": pairs,
+            "fedavg_tp1_cpu_vs_card": {"loss": w_loss, "errs": witness},
+            "fedavg_tp2_over_cpu_witness": ratio,
+            "launches": {k: sum(r["launches"][k] for r in rs)
+                         for k in rs[0]["launches"]}}
+
+
+#: route x: gemma2-2b at tp X_TP against route n's tp = 1 on the same
+#: weights; the fp32 pairs (a batch of 2 × 96) within X_FP32_TOL of the
+#: largest logit at 2 layers, X_FP32_FULL_TOL at all 26 (tp 2 sums each
+#: layer's sharded matmuls in two halves, tp 1 in one: 9.79e-6 read at 2
+#: layers, H100 80GB HBM3, 700.00 W)
+X_TP, X_FP32_TOL, X_FP32_FULL_TOL = 2, 1e-4, 1e-3
+#: route x's MoE: qwen2-moe-a2.7b at published widths, 2 layers, tp 4, cut
+#: to 58 of its 60 experts so that tp 4 pads them to 60 (60 = 4 · 15 needs
+#: no pad; 58 needs two, on the last rank), fp32, capacity factor 15 = E/k
+#: (decode drops no token the forward keeps)
+X_MOE_TP, X_MOE_LAYERS, X_MOE_EXPERTS, X_MOE_CF = 4, 2, 58, 15.0
+#: route x's sequence-sharded decode: gemma2-2b's widths, 2 layers, fp32,
+#: 24 tokens into a cache of 32 slots split over 2 ranks of "data"
+X_SEQ_SHARDS, X_SEQ_TOL = 2, 1e-5
+
+
+def _x_serve_job(job: dict) -> dict:
+    """One of route x's two ranks: ``launch/serve.py``'s ``serve`` at tp
+    ``X_TP`` in this rank (its context over a ("model",) mesh) on each of
+    ``job["runs"]`` (a config, batch, prompt, gen, the CUDA generator's
+    seed); returns each run's gathered prefill logits, tokens and times."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    ops.reset_launches()
+    ctx = tserve.model_context(X_TP, "cuda")
+    out = {}
+    for name, (cfg, batch, prompt, gen, seed) in job["runs"].items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = tserve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
+                           tp=X_TP, device="cuda", ctx=ctx,
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(seed),
+                           log=print if name == "full" and
+                           ctx.model_index() == 0 else None)
+        res.pop("params")
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = res
+        gc.collect()
+    out["launches"] = dict(ops.launches)
+    return out
+
+
+def _x_mesh_job(job: dict) -> dict:
+    """One of route x's four ranks: (1) the MoE cut at tp ``X_MOE_TP``
+    (weights drawn on the card, this rank's shards kept): prefill + decode
+    against the forward, every dispatch's top-k recorded (no pad expert
+    chosen, the pad experts' router probs 0); (2) the sequence-sharded
+    decode over ``X_SEQ_SHARDS`` ranks of "data" (the "model" dim's ranks
+    repeat it) against the unsharded decode."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.rules import ParallelContext
+
+    ops.reset_launches()
+    seen = {"top": -1, "pad_prob": 0.0, "calls": 0}
+    dispatch = moe_mod.dispatch
+
+    def recorded(probs, mo, *a, **kw):
+        r = dispatch(probs, mo, *a, **kw)
+        seen["top"] = max(seen["top"], int(r.top_idx.max()))
+        seen["pad_prob"] = max(seen["pad_prob"], float(
+            probs[:, mo.num_experts:].max()))
+        seen["calls"] += 1
+        return r
+
+    moe_mod.dispatch = recorded
+    ctx = tserve.model_context(X_MOE_TP, "cuda")
+    model = Model(job["moe_cfg"], tp=X_MOE_TP)
+    params = model.init(torch.Generator(device="cuda").manual_seed(5),
+                        "cuda", ctx=ctx)
+    E_loc = tuple(params["stack"]["groups"]["l0"]["mlp"]["w_up"].shape)
+    moe_err = decode_vs_forward(model, params, 64, 8, seed=6, ctx=ctx)
+    moe_mod.dispatch = dispatch
+    del params
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh((X_SEQ_SHARDS, X_MOE_TP // X_SEQ_SHARDS),
+                     ("data", "model"), "cuda")
+    seq = ParallelContext(seq_axis="data", mesh=mesh)
+    check(seq.seq_shards == X_SEQ_SHARDS,
+          f"route x: the sequence axis has {seq.seq_shards} ranks")
+    m2 = Model(job["seq_cfg"])
+    p2 = m2.init(torch.Generator(device="cuda").manual_seed(7), "cuda")
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, m2.cfg.vocab_size, size=(2, 24)).astype(np.int32)).cuda()
+    logits = {}
+    with torch.no_grad():
+        for tag, c in (("ref", ParallelContext()), ("seq", seq)):
+            caches = m2.init_cache(2, 32, seq_sharded=tag == "seq",
+                                   device="cuda", ctx=c)
+            if tag == "seq":
+                slots = caches["groups"]["l1"]["k"].shape[2]
+            out = []
+            for i in range(24):
+                lg, caches = m2.decode_step(p2, toks[:, i:i + 1], caches, i,
+                                            c, max_len=32)
+                out.append(lg)
+            logits[tag] = torch.stack(out, 1)
+    return {"moe_decode_vs_forward": moe_err, "moe_w_up_local": E_loc,
+            "dispatch": seen, "seq_slots_a_rank": slots,
+            "seq_vs_unsharded": _rel_err(logits["seq"], logits["ref"]),
+            "launches": dict(ops.launches)}
+
+
+def route_x() -> dict:
+    """Route x: the model axis on the card. (1) gemma2-2b served at its
+    published widths and depth at tp ``X_TP`` on two gloo ranks sharing the
+    card (``launch/serve.py``'s ``serve`` in each rank, the weights route n
+    drew, each rank keeping its shards): batch 4 × 512 + 32, its prefill
+    logits against route n's tp = 1 logits (bf16: the largest difference and
+    the share of greedy tokens that agree are printed); and in fp32 (batch
+    2 × 96 + 2) against the same model at tp = 1 in this process: at 2
+    layers within ``X_FP32_TOL``, at all 26 within ``X_FP32_FULL_TOL``. (2) On four gloo ranks:
+    qwen2-moe-a2.7b at published widths, ``X_MOE_LAYERS`` layers, tp
+    ``X_MOE_TP`` with ``X_MOE_EXPERTS`` experts padded to 60 (no pad expert
+    selected; decode = forward within ``DECODE_TOL``, fp32), then a
+    sequence-sharded decode over ``X_SEQ_SHARDS`` ranks against the
+    unsharded decode within ``X_SEQ_TOL``. The port's kernels launch no
+    time."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models.model import Model
+
+    cfg = get_arch("gemma2-2b").model
+    small = mreplace(cfg, num_layers=2, dtype="float32")
+    deep = mreplace(cfg, dtype="float32")
+    check("n" in SERVED, "route x: route n's logits are not there")
+    refs = {}
+    for name, c, seed in (("fp32", small, 1), ("fp32_full", deep, 3)):
+        m1 = Model(c)
+        p1 = m1.init(torch.Generator(device="cuda").manual_seed(seed),
+                     "cuda")
+        refs[name] = tserve.generate(m1, p1, np.random.default_rng(
+            0).integers(0, c.vocab_size, size=(2, 96)).astype(np.int32), 2,
+            log=None)["logits0"]
+        del p1
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    rk = run_ranks(X_TP, "gloo", {"x": {"runs": {
+        "full": (cfg, 4, 512, 32, 0), "fp32": (small, 2, 96, 2, 1),
+        "fp32_full": (deep, 2, 96, 2, 3)}}},
+        fn=_x_serve_job, timeout=900)
+    full, fp32 = rk[0]["x"]["full"], rk[0]["x"]["fp32"]
+    n_logits, n_tokens = SERVED["n"]
+    full_err = _rel_err(full["logits0"], n_logits)
+    agree = float((full["tokens"] == n_tokens).mean())
+    fp32_err = _rel_err(fp32["logits0"], refs["fp32"])
+    deep_err = _rel_err(rk[0]["x"]["fp32_full"]["logits0"],
+                        refs["fp32_full"])
+    summary = _serve_summary(full, 4, 32, max(r["x"]["full"]["peak_gb"]
+                                             for r in rk) * 1e9,
+                             cfg.vocab_size)
+    check(summary["tokens_in_range"] and summary["finite"],
+          f"route x: tokens out of range or logits not finite: {summary}")
+    check(fp32_err <= X_FP32_TOL, f"route x: fp32 prefill at tp {X_TP} "
+          f"differs from tp 1 by {fp32_err} of the largest logit")
+    check(deep_err <= X_FP32_FULL_TOL, f"route x: fp32 prefill at tp "
+          f"{X_TP}, 26 layers, differs from tp 1 by {deep_err} of the "
+          f"largest logit")
+    print(f"route x: gemma2-2b at tp {X_TP} (26 layers, bf16), batch 4 × 512 "
+          f"+ 32: prefill {summary['prefill_ms']:.1f} ms, decode "
+          f"{summary['decode_ms_per_token']:.2f} ms/token, "
+          f"{summary['tokens_per_s']:.1f} tok/s, peak a rank "
+          f"{summary['peak_gb']:.2f} GB; prefill logits vs route n's tp 1 "
+          f"max |diff| {full_err:.3g} of the largest, greedy tokens agreeing "
+          f"{agree:.3f} (no check: both bf16, at random weights); fp32 vs "
+          f"tp 1 (2 × 96 + 2) at 2 layers {fp32_err:.3g} (tolerance "
+          f"{X_FP32_TOL}), at 26 layers {deep_err:.3g} (tolerance "
+          f"{X_FP32_FULL_TOL})")
+
+    base = get_arch("qwen2-moe-a2.7b").model
+    moe_cfg = mreplace(base, num_layers=X_MOE_LAYERS, dtype="float32",
+                       moe=dataclasses.replace(
+                           base.moe, num_experts=X_MOE_EXPERTS,
+                           capacity_factor=X_MOE_CF))
+    seq_cfg = small
+    r4 = run_ranks(X_MOE_TP, "gloo", {"x": {"moe_cfg": moe_cfg,
+                                            "seq_cfg": seq_cfg}},
+                   fn=_x_mesh_job, timeout=900)
+    mx = r4[0]["x"]
+    check(all(r["x"]["dispatch"]["top"] < X_MOE_EXPERTS
+              and r["x"]["dispatch"]["pad_prob"] == 0.0
+              and r["x"]["dispatch"]["calls"] > 0 for r in r4),
+          f"route x: a pad expert was selected or had a router prob: "
+          f"{[r['x']['dispatch'] for r in r4]}")
+    check(mx["moe_decode_vs_forward"] <= DECODE_TOL,
+          f"route x: MoE decode at tp {X_MOE_TP} differs from the forward by "
+          f"{mx['moe_decode_vs_forward']}")
+    check(mx["seq_slots_a_rank"] == 32 // X_SEQ_SHARDS
+          and mx["seq_vs_unsharded"] <= X_SEQ_TOL,
+          f"route x: sequence-sharded decode: {mx}")
+    launched = [r["x"]["launches"] for r in rk] + [r["x"]["launches"]
+                                                  for r in r4]
+    check(not any(ops.launches.values()) and not any(
+        any(v.values()) for v in launched),
+        f"route x: serving launched the port's kernels {launched}")
+    print(f"route x: qwen2-moe-a2.7b at published widths, {X_MOE_LAYERS} "
+          f"layers, {X_MOE_EXPERTS} experts at tp {X_MOE_TP} (padded to 60; "
+          f"a rank's w_up {mx['moe_w_up_local']}): the top expert chosen "
+          f"{max(r['x']['dispatch']['top'] for r in r4)} over "
+          f"{mx['dispatch']['calls']} dispatches a rank, pad probs 0; decode "
+          f"vs forward (fp32, capacity factor {X_MOE_CF}) "
+          f"{mx['moe_decode_vs_forward']:.3g} (tolerance {DECODE_TOL}); "
+          f"sequence-sharded decode over {X_SEQ_SHARDS} ranks "
+          f"({mx['seq_slots_a_rank']} slots a rank) vs unsharded "
+          f"{mx['seq_vs_unsharded']:.3g} (tolerance {X_SEQ_TOL})")
+    return {"tp2": dict(summary, prefill_vs_tp1_rel_err=full_err,
+                        greedy_agree=agree, fp32_vs_tp1_rel_err=fp32_err,
+                        fp32_26_layers_vs_tp1_rel_err=deep_err,
+                        fp32=_serve_summary(fp32, 2, 2, fp32["peak_gb"] * 1e9,
+                                            cfg.vocab_size)),
+            "moe_tp4": {k: mx[k] for k in ("moe_decode_vs_forward",
+                                           "moe_w_up_local", "dispatch")},
+            "seq": {k: mx[k] for k in ("seq_slots_a_rank",
+                                       "seq_vs_unsharded")},
+            "launches": dict(ops.launches)}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False — this script needs a card")
@@ -3116,9 +3737,11 @@ def main():
     model_routes = {"n": route_n, "o": lambda: route_o(mesh_held),
                     "p": route_p, "q": lambda: route_q(mesh_held),
                     "r": route_r, "s": lambda: route_s(mesh_held),
-                    "t": route_t, "u": lambda: route_u(mesh_held)}
+                    "t": route_t, "u": lambda: route_u(mesh_held),
+                    "v": route_v, "w": lambda: route_w(mesh_held),
+                    "x": route_x}
     lm_rounds = {"o": LM_ROUNDS, "q": MOE_ROUNDS, "s": MLA_ROUNDS,
-                 "u": RG_ROUNDS}
+                 "u": RG_ROUNDS, "w": W_ROUNDS}
     zoo = {}
     for route, fn in model_routes.items():
         t_phase = time.perf_counter()

@@ -64,6 +64,12 @@ cohorts):
        gen 32 (recurrentgemma-2b at its published widths, 26 layers), as
        n; by layer also ``model.rglru`` (the gated conv, the gates and the
        scan or the decode step)
+    v  serving the xLSTM: chip_smoke.py's route v at batch 4, prompt 512,
+       gen 32 (xlstm-350m at its published widths and depth, 24 layers,
+       bf16 compute), as n; by layer ``model.mlstm`` (the projections and
+       the quadratic form or the recurrent step) and ``model.slstm`` (the
+       sequential steps, the norm and the FFN, whose ``model.ffn`` nests
+       inside it)
     o  federated LM training: chip_smoke.py's route o (gemma2-2b widths, 2
        layers, 2 gloo ranks sharing the card) through ``launch/train.py``'s
        ``train``, WARMUP + TIMED + PROFILED rounds with rank 0 under the
@@ -231,7 +237,7 @@ def main():
                                            alpha=0.3, seed=0)
                 for m in (M, chip_smoke.M_K)}
     gen = torch.Generator().manual_seed(1)
-    known = list(chip_smoke.ROUTES) + ["m", "n", "o", "p", "r", "t"]
+    known = list(chip_smoke.ROUTES) + ["m", "n", "o", "p", "r", "t", "v"]
     routes = sys.argv[1:] or known
     unknown = [r for r in routes if r not in known]
     if unknown:
@@ -243,7 +249,7 @@ def main():
         from repro_torch.kernels import _build
         _build.build_all()    # before the ranks start, which load it
     for route in routes:
-        if route in ("m", "n", "o", "p", "r", "t"):
+        if route in ("m", "n", "o", "p", "r", "t", "v"):
             out[route] = _mesh() if route == "m" else (
                 _lm() if route == "o" else _serve(route))
             continue
@@ -334,10 +340,10 @@ def _mesh():
 
 
 def _serve(route):
-    """Route n (p, r, t): ``generate`` on gemma2-2b (qwen2-moe-a2.7b,
-    deepseek-v3-671b at 1 layer, recurrentgemma-2b) at full width, batch
-    4, prompt 512, gen 32 — a warm-up call, TIMED unprofiled, one
-    profiled."""
+    """Route n (p, r, t, v): ``generate`` on gemma2-2b (qwen2-moe-a2.7b,
+    deepseek-v3-671b at 1 layer, recurrentgemma-2b, xlstm-350m at bf16)
+    at full width, batch 4, prompt 512, gen 32 — a warm-up call, TIMED
+    unprofiled, one profiled."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -348,7 +354,8 @@ def _serve(route):
     batch, prompt, gen = (chip_smoke.MOE_SERVE_RUNS if route == "p" else
                           chip_smoke.SERVE_RUNS)[0][:3]
     arch = {"n": "gemma2-2b", "p": "qwen2-moe-a2.7b",
-            "r": "deepseek-v3-671b", "t": "recurrentgemma-2b"}[route]
+            "r": "deepseek-v3-671b", "t": "recurrentgemma-2b",
+            "v": "xlstm-350m"}[route]
     cfg = get_arch(arch).model
     generator = torch.Generator().manual_seed(0)
     if route == "r":      # chip_smoke.route_r's cut, drawn on the card

@@ -540,9 +540,9 @@ class TrainConfig:
     ``repro.configs.base.TrainConfig``, same fields and defaults). The
     simulation backend's ``FederatedTrainer`` reads ``rounds``,
     ``log_every``, ``checkpoint_every`` and ``seed``; the mesh backend
-    also ``global_batch``, ``seq_len`` and ``remat_policy``;
-    ``microbatch`` and ``tp_collective`` are read by no code of the port
-    yet (the mesh runs at tp = 1)."""
+    also ``global_batch``, ``seq_len``, ``remat_policy`` and
+    ``tp_collective`` (the model axis's all-reduce); ``microbatch`` is
+    read by no code of the port yet."""
 
     global_batch: int = 256
     seq_len: int = 4096

@@ -10,7 +10,8 @@ pytrees), so this module needs neither ``jax`` nor ``repro``:
   included) to the port's ``models.model.Model`` params on a device, and
   back to numpy: the JAX init is not reproducible across processes (it
   keys leaves by Python's salted ``hash()``), so parity runs carry it
-  across;
+  across. At tp > 1 the JAX tree is global and each rank takes (and
+  gives back) its model shards;
 * :func:`flat_from_jax` — the same, raveled in ``ravel_pytree`` order;
 * :func:`server_state_from_jax` — a FedSim ``ServerState`` over the flat
   vector (fp32, bf16 or int8 ``QuantState`` storage) → the port's;
@@ -20,8 +21,9 @@ pytrees), so this module needs neither ``jax`` nor ``repro``:
   checkpoint, or ``jax.device_get(state._asdict())``) → the port's
   ``SimState``;
 * :func:`mesh_state_to_jax` / :func:`mesh_state_from_jax` — the mesh's
-  ``FedMeshState`` in the global layout (``core.mesh.gather_fed_state``)
-  to and from the JAX ``FedMeshState._asdict()`` layout (what the mesh
+  ``FedMeshState`` in the global layout (``core.mesh.gather_fed_state``,
+  model shards and EF rows joined at any tp; ``shard_fed_state`` cuts it
+  back) to and from the JAX ``FedMeshState._asdict()`` layout (what the mesh
   trainer's ``save`` writes; both packages start a parity run from one
   staged state with them).
 """
@@ -54,12 +56,19 @@ def params_from_jax(tree, device="cpu"):
     return tensor_from_numpy(tree, device).float()
 
 
-def model_params_from_jax(tree, device=None):
-    """A JAX model params tree (nested dicts of arrays, e.g.
-    ``jax.device_get(model.init(key))``) → the same tree of tensors on
-    ``device`` (None: CUDA), every leaf copied with its dtype and shape."""
+def model_params_from_jax(tree, device=None, defs=None, ctx=None):
+    """A JAX model params tree (nested dicts of arrays at their global
+    shapes, e.g. ``jax.device_get(model.init(key))``) → the same tree of
+    tensors on ``device`` (None: CUDA), every leaf copied with its dtype
+    and shape; with ``defs`` and ``ctx`` (a rank of a mesh with a model
+    axis), this rank's shards of it (``models.params.shard_params``)."""
     from repro_torch import resolve_device
+    from repro_torch.models.params import take_shard, tree_map
     device = resolve_device(device)
+    if ctx is not None:
+        return tree_map(lambda a, d: tensor_from_numpy(
+            take_shard(tensor_from_numpy(a), d, ctx), device).contiguous(),
+            tree, defs)
 
     def conv(t):
         if isinstance(t, dict):
@@ -69,9 +78,14 @@ def model_params_from_jax(tree, device=None):
     return conv(tree)
 
 
-def model_params_to_jax(params) -> dict:
+def model_params_to_jax(params, defs=None, ctx=None) -> dict:
     """The port's model params → nested dicts of numpy arrays (fp32), what
-    ``jnp.asarray`` or ``repro.checkpoint.save_pytree`` takes."""
+    ``jnp.asarray`` or ``repro.checkpoint.save_pytree`` takes; with
+    ``defs`` and ``ctx``, this rank's shards gathered to the global tree
+    first (collective: every rank of the mesh calls it)."""
+    if ctx is not None:
+        from repro_torch.models.params import gather_params
+        params = gather_params(params, defs, ctx)
     if isinstance(params, dict):
         return {k: model_params_to_jax(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy().copy()

@@ -11,8 +11,10 @@ Counterpart of ``repro.core.api.FederatedTrainer``, with both backends:
   rank builds the trainer after ``init_process_group`` and calls ``run``
   (and ``save``) alike; each index of the client axes is one client. It
   needs ``model`` and ``lm_data`` (with ``mesh_batch(round, K,
-  global_batch, seq_len)``), runs at tp = 1 (a model axis > 1 raises
-  ``NotImplementedError``) and hands the round a ``kernels.ops.KernelImpl``
+  global_batch, seq_len)``), runs at any size of the mesh's ``"model"``
+  dim (the model must be built at that tp; each rank holds its model
+  shards, and ``save`` gathers them) and hands the round a
+  ``kernels.ops.KernelImpl``
   on the state's device: the kernels on CUDA, the plain paths on the CPU,
   as ``"auto"`` resolves them.
 
@@ -93,14 +95,18 @@ class FederatedTrainer:
             raise ValueError("the mesh backend needs model and lm_data")
         sizes = dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))
         tp = int(sizes.get("model", 1))
-        meshmod.require_tp1(max(tp, getattr(self.model, "tp", 1)))
+        if getattr(self.model, "tp", 1) != tp:
+            raise ValueError(f"the model is built for tp="
+                             f"{getattr(self.model, 'tp', 1)} but the mesh's "
+                             f"model axis is {tp}")
         hierarchical = "data" not in self.fed.client_axes
         self._ctx = ParallelContext(
             model_axis="model" if "model" in sizes else None, tp=tp,
             data_axis="data" if (hierarchical and "data" in sizes) else None,
             dp=int(sizes.get("data", 1)) if hierarchical else 1,
             client_axes=self.fed.client_axes,
-            num_clients=self.fed.num_clients, mesh=self.mesh)
+            num_clients=self.fed.num_clients,
+            tp_collective=self.train.tp_collective, mesh=self.mesh)
         self._device = resolve_device(self.device)
         self._rnd = meshmod.build_fed_round(
             self.model, self.fed, self.train, self._ctx,

@@ -23,8 +23,13 @@ streams. The state is per rank (``FedMeshState``: the params, this rank's
 slices of m/v/v̂ and its client's EF row); :func:`shard_fed_state` and
 :func:`gather_fed_state` convert to and from the global layout the JAX
 package holds (``convert.mesh_state_to_jax`` / ``mesh_state_from_jax``
-carry that across packages). ``tp > 1`` (a model axis) waits for the
-model zoo's tensor-parallel code (ROADMAP Queue 1 item 8f) and raises.
+carry that across packages). With a model axis (``tp > 1``) the params
+and every state leaf are this rank's model shards (``ParamDef`` specs
+naming ``"model"``): each rank selects, gathers over the client axes and
+ingests its own model-local leaves, and the model's backward sums the
+replicated weights' gradients over the model axis (``models.layers``); a
+replicated leaf's local update is model rank 0's on every model rank
+(:func:`sync_model_replicas`), so its copies never drift apart.
 
 A model is duck-typed as the JAX one: ``defs()`` (a nested dict of
 ``ParamDef``), ``loss(p, b, ctx, remat_policy=..., chunk=...) -> (loss,
@@ -62,7 +67,7 @@ class FedMeshState(NamedTuple):
     (:func:`gather_fed_state`, the JAX package's ``FedMeshState``) every
     leaf has its global shape: ``errors`` leaves lead with the client dim
     (m, ...), ``m``/``v``/``vhat`` are whole."""
-    params: object     # nested dict, replicated (tp = 1)
+    params: object     # nested dict, this rank's model shards
     m: object          # server momentum (fp32; this rank's shard if sharded)
     v: object          # server variance (fp32 or bf16)
     vhat: object       # max-stabilized variance
@@ -84,10 +89,15 @@ def state_shard_axes(fed: FedConfig):
 
 
 def state_shard_dim(dref: pdefs.ParamDef, shards: int):
-    """First dim of a leaf that can host the server-state shard, or None."""
+    """First dim of a leaf that can host the server-state shard, or None:
+    an unsharded dim its spec covers, as the reference's ``zip(shape,
+    spec)`` reads it (a spec shorter than the shape, like the sLSTM's
+    ``()``, covers its leading dims only). ``spec=None`` covers every dim
+    (ROADMAP Queue 3 item 11)."""
     if shards <= 1:
         return None
-    for i, (size, sp) in enumerate(zip(dref.shape, dref.dim_specs)):
+    specs = dref.dim_specs if dref.spec is None else tuple(dref.spec)
+    for i, (size, sp) in enumerate(zip(dref.shape, specs)):
         if sp is None and size % shards == 0 and size >= shards:
             return i
     return None
@@ -139,34 +149,6 @@ def fed_state_defs(model, fed: FedConfig) -> FedMeshState:
 # -- global <-> per-rank layouts ---------------------------------------------
 
 
-def _dim_axes(sp) -> Tuple[str, ...]:
-    if sp is None:
-        return ()
-    return (sp,) if isinstance(sp, str) else tuple(sp)
-
-
-def local_shape(dref: pdefs.ParamDef, ctx) -> Tuple[int, ...]:
-    """This rank's shape of a leaf whose dims are sharded by its spec."""
-    return tuple(size // ctx.axis_size(_dim_axes(sp))
-                 for size, sp in zip(dref.shape, dref.dim_specs))
-
-
-def _take_local(t, dref: pdefs.ParamDef, ctx):
-    for dim, sp in enumerate(dref.dim_specs):
-        axes = _dim_axes(sp)
-        n = ctx.axis_size(axes)
-        if n > 1:
-            chunk = t.shape[dim] // n
-            t = t.narrow(dim, ctx.axis_index(axes) * chunk, chunk)
-    return t
-
-
-def _gather_global(t, dref: pdefs.ParamDef, ctx):
-    for dim, sp in enumerate(dref.dim_specs):
-        t = ctx.gather_axes(_dim_axes(sp), t, axis=dim)
-    return t
-
-
 def _state_map(fn, state: FedMeshState, defs: FedMeshState) -> FedMeshState:
     return FedMeshState(*(tree_map(fn, s, d) for s, d in zip(state, defs)))
 
@@ -179,7 +161,7 @@ def shard_fed_state(state: FedMeshState, model, fed: FedConfig, ctx,
     defs = fed_state_defs(model, fed)
     device = resolve_device(device)
     return _state_map(
-        lambda t, d: _take_local(t, d, ctx).to(
+        lambda t, d: pdefs.take_shard(t, d, ctx).to(
             device=device, copy=True).contiguous(), state, defs)
 
 
@@ -188,21 +170,27 @@ def gather_fed_state(state: FedMeshState, model, fed: FedConfig,
     """This rank's state → the global layout, on every rank (collective:
     every rank calls it). EF rows come back client-major."""
     defs = fed_state_defs(model, fed)
-    return _state_map(lambda t, d: _gather_global(t, d, ctx), state, defs)
+    return _state_map(lambda t, d: pdefs.gather_shard(t, d, ctx), state,
+                      defs)
 
 
 def init_fed_state(model, fed: FedConfig, generator: torch.Generator, ctx,
                    device=None) -> FedMeshState:
-    """This rank's initial state: params from ``generator`` (the same on
-    every rank given the same seed; ``models.params.init_params``), zeros
-    elsewhere, each leaf in its per-rank shape, on ``device`` (None:
-    CUDA)."""
+    """This rank's initial state: params from ``generator`` (the global
+    tree, the same on every rank given the same seed, cut to this rank's
+    model shards: ``models.params.init_params``), zeros elsewhere, each
+    leaf in its per-rank shape, on ``device`` (None: CUDA)."""
     device = resolve_device(device)
     defs = fed_state_defs(model, fed)
-    params = pdefs.init_params(defs.params, generator, device)
+    params = pdefs.init_params(defs.params, generator, device, ctx=ctx)
+    # every named dim of the mesh, as take_shard cuts them (the ZeRO state
+    # shards over "data" with no client axes)
+    sizes = ({} if ctx.mesh is None else
+             {ax: ctx.axis_size((ax,)) for ax in ctx.mesh.mesh_dim_names})
     zeros = lambda t: tree_map(
-        lambda d: torch.zeros(local_shape(d, ctx), dtype=getattr(torch, d.dtype),
-                              device=device), t)
+        lambda d: torch.zeros(pdefs.local_shape(d, sizes),
+                              dtype=getattr(torch, d.dtype), device=device),
+        t)
     return FedMeshState(params=params, m=zeros(defs.m), v=zeros(defs.v),
                         vhat=zeros(defs.vhat), errors=zeros(defs.errors),
                         round=torch.zeros((), dtype=torch.int32,
@@ -303,13 +291,25 @@ def mesh_wire_bytes_tiers(fed: FedConfig, delta_tree, block: int = 2048,
             "tier2": tier2 * max(tp, 1)}
 
 
-def require_tp1(tp: int) -> None:
-    """Refuse a model axis > 1: the port's mesh runs at tp = 1."""
-    if tp > 1:
-        raise NotImplementedError(
-            "the mesh backend runs at tp = 1 in repro_torch: the model "
-            "axis's collectives are not held against the reference yet — "
-            "that waits for ROADMAP Queue 1 item 8f")
+def sync_model_replicas(delta, defs, ctx):
+    """Make each leaf of ``delta`` that no dim shards over the model axis
+    model rank 0's on every model rank, in place (one broadcast of their
+    concatenation). Every model rank computes such a leaf's local update
+    itself, and on a card the replicated compute need not round alike on
+    every rank (cuBLAS's and a scatter's orders of sums): the same update
+    keeps every model rank's copy of the leaf, its EF row and its selection
+    the same to the bit, as the reference's are by construction. On the
+    CPU the copies already agree and this changes no bit."""
+    if not ctx.model_axis or ctx.tp <= 1:
+        return
+    reps = [t for t, d in zip(tree_leaves(delta), tree_leaves(defs))
+            if not any(ctx.model_axis in pdefs.dim_axes(sp)
+                       for sp in d.dim_specs)]
+    if not reps:
+        return
+    flat = ctx.broadcast_model(torch.cat([t.reshape(-1) for t in reps]))
+    for t, part in zip(reps, torch.split(flat, [t.numel() for t in reps])):
+        t.copy_(part.view_as(t))
 
 
 def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
@@ -321,7 +321,9 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
     ``kernel_impl``: a ``kernels.ops.KernelImpl`` (the selection and the
     fused ingest through their kernels; the dense-hat EF and the two-pass
     server step launch theirs on CUDA tensors without one)."""
-    require_tp1(max(ctx.tp, getattr(model, "tp", 1)))
+    if getattr(model, "tp", 1) != max(ctx.tp, 1):
+        raise ValueError(f"the model is built for tp={model.tp} but the "
+                         f"context's model axis has tp={ctx.tp}")
     # On the mesh "topk" means the blockwise kernel semantics (global top-k
     # of a sharded leaf is ill-defined); exact global top-k is FedSim's.
     comp_name = "blocktopk" if fed.compressor == "topk" else fed.compressor
@@ -397,6 +399,7 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
     m_clients = fed.num_clients
     n_part = fed.participating or m_clients
     hierarchical = "data" not in fed.client_axes  # within-client DP on "data"
+    defs = model.defs()
 
     def fed_round(state: FedMeshState, batch, seed):
         seed = int(seed)
@@ -427,6 +430,7 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
             # neither is read again: free their 2·d floats before the
             # uplink and the server step allocate theirs
             del local, flat0
+            sync_model_replicas(delta, defs, ctx)
 
         # participation: the same mask on every rank (shared draw)
         mask = participation_mask(round_generator(seed, 1), m_clients,
@@ -516,6 +520,11 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
         loss = ctx.all_gather_clients(loss_local.reshape(1), axis=0).mean()
         if hierarchical:
             loss = ctx.pmean_data(loss)
+        if ctx.model_axis:
+            # the model ranks' losses are one loss computed tp times (its
+            # replicated part by each rank itself): their mean, the same on
+            # every rank, as the reference's is model-invariant
+            loss = ctx.psum_axes((ctx.model_axis,), loss) / ctx.tp
         new_state = FedMeshState(params=new_params, m=new_st.m, v=new_st.v,
                                  vhat=new_st.vhat, errors=errors,
                                  round=new_st.t)
@@ -607,6 +616,6 @@ def shard_batch(batch, model, fed: FedConfig, train: TrainConfig, ctx,
         if staged:
             d = dataclasses.replace(d, shape=(t.shape[0],) + d.shape,
                                     spec=(None,) + d.dim_specs)
-        return _take_local(t, d, ctx).to(device=device).contiguous()
+        return pdefs.take_shard(t, d, ctx).to(device=device).contiguous()
 
     return tree_map(cut, batch, defs)

@@ -10,8 +10,12 @@ Counterpart of ``repro.launch.serve``, with the same CLI and output lines
 :func:`serve` is the body, for a ``ModelConfig``: random weights from a
 seeded ``torch.Generator`` (or ``--checkpoint``, a params tree in the JAX
 package's files, through ``checkpoint.load_pytree``), the reference's
-prompts (``np.random.default_rng(0)``), then :func:`generate`. The port
-runs at tp = 1: ``--tp > 1`` raises ``NotImplementedError``.
+prompts (``np.random.default_rng(0)``), then :func:`generate`. At
+``--tp > 1`` it starts tp ranks (``launch.mesh.spawn``: gloo on the CPU;
+on CUDA gloo with the ranks sharing the card, or NCCL with a card a rank),
+each holding its model shards of the same global weights over a
+``("model",)`` mesh, and rank 0 prints the tokens, as the reference's
+model-axis mesh does.
 """
 from __future__ import annotations
 
@@ -28,14 +32,17 @@ def _sync(device):
 
 
 def generate(model, params, prompts, gen: int, *, max_len: int = 0,
-             chunk: int = 2048, log=print) -> dict:
+             chunk: int = 2048, log=print, ctx=None) -> dict:
     """Prefill ``prompts`` ((B, S) int32 numpy) and greedy-decode ``gen``
     tokens with ``model`` on ``params``' device, printing the reference's
-    lines. Returns the generated tokens ((B, gen) numpy), the prefill and
-    decode times (host clock, the device synchronized) and whether every
-    logit was finite. The prefill (with the first token)
-    and the decode loop run in ``serve.prefill`` / ``serve.decode``
-    profiler ranges (``scripts/profile_round.py n``). ``chunk`` is ``Model.prefill``'s
+    lines (``log`` None: silent). Returns the generated tokens ((B, gen)
+    numpy), the prefill's last-position logits (B, V) on the host
+    (gathered over the model axis), the prefill and decode times (host
+    clock, the device synchronized) and whether every logit was finite.
+    ``ctx``: this rank's context over a model axis (None: one process).
+    The prefill (with the first token) and the decode loop run in
+    ``serve.prefill`` / ``serve.decode`` profiler ranges
+    (``scripts/profile_round.py n``). ``chunk`` is ``Model.prefill``'s
     q-chunk (the reference's default 2048; a prompt longer than 2·chunk
     must be a multiple of it)."""
     from repro_torch.models.model import greedy_sample
@@ -44,7 +51,8 @@ def generate(model, params, prompts, gen: int, *, max_len: int = 0,
     cfg = model.cfg
     B, S = prompts.shape
     max_len = max_len or (S + gen)
-    ctx = ParallelContext()
+    ctx = ctx or ParallelContext()
+    log = log or (lambda *_: None)
     dev = params["final_norm"].device
     finite = torch.ones((), dtype=torch.bool, device=dev)
 
@@ -63,6 +71,7 @@ def generate(model, params, prompts, gen: int, *, max_len: int = 0,
             tok = greedy_sample(logits, ctx)[:, None]
             out = [tok[:, 0].cpu().numpy()]
         t_prefill = time.perf_counter() - t0
+        logits0 = ctx.all_gather_model(logits, axis=-1).cpu()
 
         t0 = time.perf_counter()
         with torch.profiler.record_function("serve.decode"):
@@ -80,13 +89,26 @@ def generate(model, params, prompts, gen: int, *, max_len: int = 0,
         f"({B*(gen-1)/max(t_dec,1e-9):.1f} tok/s)")
     for b in range(min(B, 4)):
         log(f"  seq[{b}]: {prompts[b, -4:].tolist()} -> {tokens[b].tolist()}")
-    return {"tokens": tokens, "prefill_s": t_prefill, "decode_s": t_dec,
-            "finite": bool(finite)}
+    return {"tokens": tokens, "logits0": logits0, "prefill_s": t_prefill,
+            "decode_s": t_dec, "finite": bool(finite)}
+
+
+def model_context(tp: int, device):
+    """One rank's context over a ``("model",)`` mesh of ``tp`` ranks (the
+    process group initialized), the reference's serving mesh; tp = 1:
+    the context of one process."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import ParallelContext
+
+    if tp <= 1:
+        return ParallelContext()
+    return ParallelContext(model_axis="model", tp=tp, mesh=make_mesh(
+        (tp,), ("model",), torch.device(device).type))
 
 
 def serve(cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 16,
           max_len: int = 0, tp: int = 1, checkpoint: str = "", device=None,
-          generator=None, log=print) -> dict:
+          generator=None, log=print, ctx=None) -> dict:
     """The serving driver on ``cfg`` (a ``ModelConfig``): the model at
     ``tp``, params from ``generator`` (None: ``torch.Generator()
     .manual_seed(0)``, drawn on the host; a seeded CUDA generator draws on
@@ -95,27 +117,62 @@ def serve(cfg, *, batch: int = 4, prompt_len: int = 16, gen: int = 16,
     :func:`generate`'s result with the prompts, the params (another batch
     can be served on the same weights without drawing them again:
     qwen2-moe-a2.7b's are 57 GB) and the seconds the params took to draw
-    or restore."""
+    or restore.
+
+    At ``tp > 1`` without ``ctx`` it starts tp ranks running this body
+    (each draws the global weights from a generator of the same device
+    type and seed and keeps its shards) and returns rank 0's result,
+    without the params. Inside a rank, ``ctx`` is that rank's context
+    (:func:`model_context`); only rank 0 logs."""
     from repro_torch import resolve_device
     from repro_torch.models.model import Model
+    from repro_torch.models.params import shard_params
 
     if cfg.is_encoder:
         raise SystemExit(f"{cfg.name} is encoder-only; no decode serving")
-    model = Model(cfg, tp=tp)
     dev = resolve_device(device)
+    if tp > 1 and ctx is None:
+        from repro_torch.launch.mesh import spawn
+        g = generator or torch.Generator().manual_seed(0)
+        return spawn(_serve_rank, tp, cfg, g.device.type, g.initial_seed(),
+                     device=dev.type, batch=batch, prompt_len=prompt_len,
+                     gen=gen, max_len=max_len, tp=tp, checkpoint=checkpoint,
+                     log=log)
+    log = log or (lambda *_: None)
+    model = Model(cfg, tp=tp)
     t0 = time.perf_counter()
-    params = model.init(generator or torch.Generator().manual_seed(0), dev)
+    gen_ = generator or torch.Generator().manual_seed(0)
     if checkpoint:
         from repro_torch.checkpoint import load_pytree
-        params, meta = load_pytree(checkpoint, params)
+        params, meta = load_pytree(checkpoint, model.init(gen_, dev))
+        if ctx is not None and tp > 1:
+            params = shard_params(params, model.defs(), ctx)
         log(f"restored {meta}")
+    else:
+        params = model.init(gen_, dev, ctx=ctx if tp > 1 else None)
     _sync(dev)
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            size=(batch, prompt_len)).astype(np.int32)
-    res = generate(model, params, prompts, gen, max_len=max_len, log=log)
+    res = generate(model, params, prompts, gen, max_len=max_len, log=log,
+                   ctx=ctx)
     res.update(prompts=prompts, params=params, init_s=init_s)
+    return res
+
+
+def _serve_rank(cfg, gen_device: str, seed: int, *, device, tp: int, log,
+                **kw) -> dict:
+    """One of :func:`serve`'s tp ranks: its context, then the body; rank 0
+    logs and returns the result (the params stay with the rank)."""
+    import torch.distributed as dist
+
+    ctx = model_context(tp, device)
+    generator = torch.Generator(
+        device=device if gen_device == "cuda" else "cpu").manual_seed(seed)
+    res = serve(cfg, tp=tp, device=device, generator=generator, ctx=ctx,
+                log=log if dist.get_rank() == 0 else None, **kw)
+    res.pop("params")
     return res
 
 

@@ -10,20 +10,18 @@ plain paths run, as ``"auto"`` resolves them) over ``FederatedLMData``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
         --smoke --dp 2 --rounds 3 --aggregation sparse --device cpu
 
-:func:`main` starts the ``--dp`` ranks itself (:func:`launch`): gloo on
-the CPU with ``--device cpu``; on CUDA, NCCL with one rank a card when
-there are cards enough, else gloo with the ranks sharing the cards (NCCL
-refuses two ranks on one card). :func:`train` is one rank's body, for a
-``ModelConfig``; it needs the process group. The port runs at tp = 1:
-``--tp > 1`` raises ``NotImplementedError``; ``--deadline-s`` and
-``--async-buffer`` are refused with the reference's messages.
+:func:`main` starts the ``--dp``·``--tp`` ranks itself (:func:`launch`):
+gloo on the CPU with ``--device cpu``; on CUDA, NCCL with one rank a card
+when there are cards enough, else gloo with the ranks sharing the cards
+(NCCL refuses two ranks on one card). The mesh is the reference's: (dp,
+tp) over ("data", "model"), each client's tp ranks holding its model
+shards. :func:`train` is one rank's body, for a ``ModelConfig``; it needs
+the process group. ``--deadline-s`` and ``--async-buffer`` are refused
+with the reference's messages.
 """
 from __future__ import annotations
 
 import argparse
-import os
-import socket
-import tempfile
 import time
 
 import torch
@@ -46,7 +44,7 @@ def _mesh_layout(fed, dp: int, tp: int):
 
 def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
           checkpoint: str = "", log_every: int = 1, scan_rounds: int = 0,
-          log=print) -> dict:
+          keep_params: bool = False, log=print) -> dict:
     """One rank of the training driver on ``cfg`` (a ``ModelConfig``):
     the mesh over the initialized process group, params from
     ``torch.Generator().manual_seed(train_cfg.seed)`` on ``device`` (None:
@@ -55,7 +53,10 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
     ``checkpoint`` the global state written by rank 0 in the JAX package's
     layout. Rank 0 prints the reference's lines. Returns the rounds'
     metrics, each with its host time (the device synchronized), the
-    parameter count and this rank's peak device memory (CUDA)."""
+    parameter count (this rank's: its model shards) and this rank's peak
+    device memory (CUDA); with ``keep_params``, the final params gathered
+    over the model axis, on the host (every rank calls the gather; rank 0
+    returns them)."""
     from repro_torch import resolve_device
     from repro_torch.core import mesh as meshmod
     from repro_torch.data.synthetic import FederatedLMData
@@ -72,7 +73,8 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
     mesh = make_mesh(shape, axes, dev.type)
     ctx = ParallelContext(model_axis="model" if tp > 1 else None, tp=tp,
                           client_axes=fed.client_axes,
-                          num_clients=fed.num_clients, mesh=mesh)
+                          num_clients=fed.num_clients,
+                          tp_collective=train_cfg.tp_collective, mesh=mesh)
     rnd = meshmod.build_fed_round(model, fed, train_cfg, ctx,
                                   kernel_impl=KernelImpl(device=dev))
     state = meshmod.init_fed_state(
@@ -140,6 +142,12 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
            "finite": all(bool(torch.isfinite(t).all()) for part in (
                state.params, state.m, state.v, state.vhat, state.errors)
                for t in tree_leaves(part))}
+    if keep_params:
+        from repro_torch.models.params import gather_params, tree_map
+        full = gather_params(state.params, model.defs(), ctx)
+        out["params"] = (tree_map(lambda t: t.detach().cpu(), full)
+                         if dist.get_rank() == 0 else None)
+        del full
     if checkpoint:
         from repro_torch.checkpoint import save_pytree
         from repro_torch.convert import mesh_state_to_jax
@@ -152,63 +160,16 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
     return out
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank(rank, world, port, backend, cards, outdir, cfg, fed, train_cfg,
-          kw):
-    """One spawned rank: its card (rank modulo the cards), the process
-    group, :func:`train`; rank 0 writes its result to ``outdir``."""
-    device = kw.pop("device")
-    if device != "cpu":
-        device = f"cuda:{rank % cards}"
-        torch.cuda.set_device(device)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world)
-    try:
-        out = train(cfg, fed, train_cfg, device=device, **kw)
-        if rank == 0:
-            torch.save(out, os.path.join(outdir, "rank0.pt"))
-    finally:
-        dist.destroy_process_group()
-
-
 def launch(cfg, fed, train_cfg, *, dp: int, tp: int = 1, device="cuda",
            timeout: float = 3600, **kw) -> dict:
-    """:func:`train` on ``dp·tp`` spawned ranks (``torch.multiprocessing``,
-    spawn): gloo on the CPU (``device="cpu"``); on CUDA NCCL when every
-    rank has a card of its own, else gloo with the ranks sharing the cards.
-    Returns rank 0's result; a rank that fails, or outlives ``timeout``
-    seconds, raises (the others are stopped)."""
-    import torch.multiprocessing as mp
-
-    world = dp * tp
-    if device == "cpu":
-        backend, cards = "gloo", 0
-    else:
-        cards = torch.cuda.device_count()
-        if not cards:
-            raise RuntimeError(
-                "repro_torch: CUDA was requested but no card is present — "
-                "pass --device cpu to run on the CPU")
-        backend = "nccl" if world <= cards else "gloo"
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(
-            _rank, args=(world, _free_port(), backend, cards, tmp, cfg, fed,
-                         train_cfg, dict(kw, tp=tp, device=device)),
-            nprocs=world, join=False, start_method="spawn")
-        deadline = time.time() + timeout
-        while not ctx.join(timeout=5):
-            if time.time() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise TimeoutError(f"training ranks still running after "
-                                   f"{timeout} s")
-        return torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+    """:func:`train` on ``dp·tp`` spawned ranks (``launch.mesh.spawn``):
+    gloo on the CPU (``device="cpu"``); on CUDA NCCL when every rank has a
+    card of its own, else gloo with the ranks sharing the cards. Returns
+    rank 0's result; a rank that fails, or outlives ``timeout`` seconds,
+    raises (the others are stopped)."""
+    from repro_torch.launch.mesh import spawn
+    return spawn(train, dp * tp, cfg, fed, train_cfg, device=device,
+                 timeout=timeout, tp=tp, **kw)
 
 
 def build_fed(args, ap):
@@ -336,12 +297,10 @@ def main(argv=None) -> None:
 
     from repro_torch.configs import TrainConfig
     from repro_torch.configs.registry import get_arch
-    from repro_torch.models.model import Model
 
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke else spec.model
     fed = build_fed(args, ap)
-    Model(cfg, tp=args.tp)        # refuses tp > 1 and unported configs
     train_cfg = TrainConfig(global_batch=args.global_batch,
                             seq_len=args.seq_len, rounds=args.rounds,
                             remat_policy="none")

@@ -8,11 +8,15 @@ scoring core:
                       a static band of keys per chunk;
   * ``attn_decode`` — one new token against a (possibly rolling) KV cache.
 
-Sequence-sharded decode (the cache sharded over the "data" axis, long_500k)
-is not ported: a context with a ``seq_axis`` raises (ROADMAP Queue 1 item
-8f). Head layout is the padded layout of ``sharding.attn_dims``; kv heads
-are expanded to q-head alignment with a gather so GQA/MQA/dense all run the
-same einsums.
+Sequence-sharded decode (long_500k: a context with a ``seq_axis``, each of
+its ``seq_shards`` ranks holding a contiguous block of the cache's slots)
+writes the new token on the rank whose block holds its slot and combines
+the blocks' partial softmaxes by their log-sum-exp: ``pmax_seq`` of the
+maxima, then ``psum_seq`` of the denominators and of the partial outputs.
+Head layout is the padded layout of ``sharding.attn_dims``; kv heads are
+expanded to q-head alignment with a gather so GQA/MQA/dense all run the
+same einsums. Replicated kv heads (``kv_sharded`` False at tp > 1) take
+the model axis's marker on their weights (``models.layers``).
 
 Numerics follow the reference: scores in ``cfg.dtype``, then fp32, scaled
 and softcapped; masked scores are -1e30 (a fully masked row gives uniform
@@ -51,13 +55,16 @@ def _project_qkv(p, x, dims: AttnDims, ctx, dtype):
     """Project to q, k, v: (B, S, heads, hd) each."""
     B, S, _ = x.shape
     hd = dims.head_dim
+    # replicated kv weights feed the sharded heads: their cotangents
+    # arrive partial on each rank
+    kv = (lambda w: w) if dims.kv_sharded else ctx.tp_copy
     q = x @ cast(p["wq"], dtype)
-    k = x @ cast(p["wk"], dtype)
-    v = x @ cast(p["wv"], dtype)
+    k = x @ cast(kv(p["wk"]), dtype)
+    v = x @ cast(kv(p["wv"]), dtype)
     if "bq" in p:
         q = q + cast(p["bq"], dtype)
-        k = k + cast(p["bk"], dtype)
-        v = v + cast(p["bv"], dtype)
+        k = k + cast(kv(p["bk"]), dtype)
+        v = v + cast(kv(p["bv"]), dtype)
     q = q.reshape(B, S, dims.q_local, hd)
     k = k.reshape(B, S, dims.kv_local, hd)
     v = v.reshape(B, S, dims.kv_local, hd)
@@ -196,15 +203,6 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def require_no_seq_axis(ctx) -> None:
-    """Refuse sequence-sharded decode (the cache over the "data" axis)."""
-    if ctx.seq_axis:
-        raise NotImplementedError(
-            "sequence-sharded decode (a KV cache sharded over the "
-            f"{ctx.seq_axis!r} axis, long_500k) is not ported: the port's "
-            "ParallelContext has no seq_shards yet — ROADMAP Queue 1 item 8f")
-
-
 def _cache_write(c, x, slot: int):
     """A copy of the cache ``c`` with ``x`` in ``slot`` of dim 1. A copy of
     ``c`` alone: ``slice_scatter`` copies the whole storage of a view, and
@@ -214,13 +212,45 @@ def _cache_write(c, x, slot: int):
     return out
 
 
+def _write_slot(cache, new, gslot: int, total_len: int, ctx, kind):
+    """``cache`` (a NamedTuple of (B, C, ...) leaves) with ``new``'s
+    leaves written at the global slot ``gslot``, and the global slot ids
+    of this rank's slots. On a sequence-sharded cache the rank whose block
+    ``[lo, lo + Cl)`` holds the slot writes it; the others keep theirs."""
+    if not ctx.seq_axis:
+        return (kind(*(_cache_write(c, x, gslot) for c, x in zip(cache, new))),
+                torch.arange(total_len, device=cache[0].device))
+    Cl = cache[0].shape[1]
+    lo = ctx.seq_index() * Cl
+    if lo <= gslot < lo + Cl:
+        cache = kind(*(_cache_write(c, x, gslot - lo)
+                       for c, x in zip(cache, new)))
+    return cache, lo + torch.arange(Cl, device=cache[0].device)
+
+
+def softmax_combine(s, vals, eq: str, ctx):
+    """``einsum(eq, softmax(s), vals)`` over the last dim of the fp32
+    scores ``s`` (B, H, 1, C), the weights cast to ``vals``' dtype. With a
+    sequence axis each rank holds a block of the keys: the blocks combine
+    by their log-sum-exp (the global max by ``pmax_seq``, the denominators
+    and the unnormalised outputs by ``psum_seq``)."""
+    if not ctx.seq_axis:
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum(eq, w.to(vals.dtype), vals)
+    m = ctx.pmax_seq(s.amax(dim=-1))                     # (B,H,1)
+    w = torch.exp(s - m[..., None])
+    denom = ctx.psum_seq(w.sum(dim=-1))                  # (B,H,1)
+    part = ctx.psum_seq(torch.einsum(eq, w.to(vals.dtype), vals))
+    return part / denom.permute(0, 2, 1)[..., None]
+
+
 def attn_decode(p, x, cache: KVCache, pos, dims: AttnDims, ctx, *,
                 window: int, cap: Optional[float], rope_theta: float,
                 total_len: int, dtype="bfloat16"):
     """One-token decode. x: (B,1,d); pos: the current position (an int).
-    ``total_len`` is the cache length C. Returns (out (B,1,d), new_cache);
+    ``total_len`` is the global cache length C (a sequence-sharded cache
+    holds C / seq_shards slots a rank). Returns (out (B,1,d), new_cache);
     the input cache is not modified."""
-    require_no_seq_axis(ctx)
     pos = int(pos)
     B = x.shape[0]
     hd = dims.head_dim
@@ -230,9 +260,8 @@ def attn_decode(p, x, cache: KVCache, pos, dims: AttnDims, ctx, *,
     q = rope(q, posv, rope_theta)
     k = rope(k, posv, rope_theta)
     gslot = pos % total_len
-    new_cache = KVCache(_cache_write(cache.k, k, gslot),
-                        _cache_write(cache.v, v, gslot))
-    slot_ids = torch.arange(total_len, device=dev)
+    new_cache, slot_ids = _write_slot(cache, (k, v), gslot, total_len, ctx,
+                                      KVCache)
 
     ke = expand_kv(new_cache.k, dims, ctx)
     ve = expand_kv(new_cache.v, dims, ctx)
@@ -247,8 +276,7 @@ def attn_decode(p, x, cache: KVCache, pos, dims: AttnDims, ctx, *,
     s = torch.einsum("bqhd,bkhd->bhqk", q, ke).float() * hd ** -0.5
     s = softcap(s, cap)
     s = torch.where(valid, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", w.to(ve.dtype), ve)
+    out = softmax_combine(s, ve, "bhqk,bkhd->bqhd", ctx)
     out = cast(out.reshape(B, 1, dims.q_local * hd), dtype)
     out = ctx.psum_model(out @ cast(p["wo"], dtype))
     return out, new_cache

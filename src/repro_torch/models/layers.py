@@ -5,8 +5,38 @@ and cross entropy.
 Counterpart of ``repro.models.layers``, written in the same per-rank
 (manual-collective) style over the port's ``ParallelContext``: activations
 are replicated over the "model" axis, weights arrive in their local shapes,
-row-parallel matmuls finish with ``ctx.psum_model``. The port runs at
-tp = 1, where every model-axis helper is the identity.
+row-parallel matmuls finish with ``ctx.psum_model``. At tp = 1 every
+model-axis helper is the identity.
+
+**The model axis's gradient rule.** Each rank runs its own autograd, with
+no varying-axes tracking to insert JAX's psum-on-transpose, so the code
+marks where it goes. Every cotangent is summed over the model axis exactly
+once: where a model-invariant value (replicated, the same on every rank)
+is consumed by model-varying compute (a rank's shard) — the edge where
+JAX's ``check_vma`` inserts its ``pvary``. ``ctx.tp_copy`` is that marker
+(identity forward, all-reduce of the cotangent backward) and
+``ctx.psum_model`` the branch's exit (all-reduce forward, identity
+backward). Three cases:
+
+1. A branch whose every path to its output runs through sharded compute
+   (attention, MLA, the dense FFN, the RG-LRU, the mLSTM, the sLSTM, the
+   unembedding) takes the marker on its normed input (``models.stack``,
+   ``Model._unembed``).
+2. A replicated weight used inside such a branch after that marker takes
+   the marker on the weight itself: its cotangent arrives partial on each
+   rank. That is MLA's ``w_dq``, ``q_norm``, ``w_dkv``, ``kv_norm`` and
+   ``w_kr``; attention's ``wk``/``wv`` (and biases) when the kv heads are
+   replicated; the mLSTM's ``w_q``, ``w_k``, ``w_i`` and ``w_f``; the
+   sLSTM's ``w_in``, ``b``, ``r`` and ``norm``.
+3. A branch with a model-invariant path to the loss takes no entry marker:
+   the MoE FFN's router feeds the aux loss on every rank alike. It marks
+   the token activations where the experts (and the shared FFN) read them
+   and the router's probs where the dispatch reads them; the aux loss
+   reads the unmarked probs, so its cotangent is counted once.
+
+A second marker on a cotangent already summed would multiply it by tp;
+``tests/test_torch_tp.py`` holds every gathered gradient at tp = 2 and 4
+to tp = 1's on each smoke config.
 
 Numerics follow the reference: params live in fp32 and every matmul runs in
 ``cfg.dtype`` (bf16 by default); norms, RoPE angles, softcaps of logits and
@@ -29,8 +59,9 @@ NEG_INF = -1e30
 
 def span(name: str):
     """A ``torch.profiler`` range ``model.<name>`` over one layer of the
-    forward (``embed``, ``attention``, ``rglru``, ``ffn``, ``moe``,
-    ``unembed``, ``xent``; ``mtp`` around the MTP head's block): a
+    forward (``embed``, ``attention``, ``rglru``, ``mlstm``, ``slstm``,
+    ``ffn``, ``moe``, ``unembed``, ``xent``; ``mtp`` around the MTP head's
+    block): a
     profiled step reports each layer's device time
     (``scripts/profile_round.py n``). Nearly free when no profiler runs."""
     return torch.profiler.record_function(f"model.{name}")

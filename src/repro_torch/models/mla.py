@@ -12,8 +12,12 @@ Counterpart of ``repro.models.mla``:
                      (``c_kv``: kv_lora_rank values a position, and
                      ``k_rope``: rope_head_dim, shared by every head).
 
-Sequence-sharded decode is not ported: a context with a ``seq_axis``
-raises (ROADMAP Queue 1 item 8f).
+Sequence-sharded decode runs as attention's does
+(``attention._write_slot``, ``attention.softmax_combine``): each rank of the
+sequence axis holds a block of the latent cache's slots. The down
+projections and their norms (``w_dq``, ``q_norm``, ``w_dkv``, ``kv_norm``,
+``w_kr``) are replicated and feed the model-sharded heads, so they take the
+model axis's marker on the weight (``models.layers``).
 
 Numerics follow the reference: scores in the activations' dtype, then
 fp32, scaled by ``(nope_head_dim + rope_head_dim)^-0.5`` and softcapped;
@@ -31,7 +35,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.models import params as pdefs
-from repro_torch.models.attention import _cache_write, require_no_seq_axis
+from repro_torch.models.attention import _write_slot, softmax_combine
 from repro_torch.models.layers import (NEG_INF, cast, mm, promoted,
                                        rms_norm, rope, softcap)
 from repro_torch.sharding.rules import pad_to
@@ -60,18 +64,21 @@ def _ein(eq: str, a, b):
     return torch.einsum(eq, *promoted(a, b))
 
 
-def _queries(p, x, m: MLAConfig, Hl: int, positions, theta, dtype):
+def _queries(p, x, m: MLAConfig, Hl: int, positions, theta, dtype, ctx):
     B, S, _ = x.shape
-    cq = rms_norm(p["q_norm"], mm(x, p["w_dq"], dtype))
+    cq = rms_norm(ctx.tp_copy(p["q_norm"]),
+                  mm(x, ctx.tp_copy(p["w_dq"]), dtype))
     q = mm(cq, p["w_uq"], dtype).reshape(B, S, Hl, -1)
     q_nope = q[..., :m.nope_head_dim]
     q_rope = rope(q[..., m.nope_head_dim:], positions, theta)
     return q_nope, q_rope
 
 
-def _latents(p, x, m: MLAConfig, positions, theta, dtype):
-    c_kv = rms_norm(p["kv_norm"], mm(x, p["w_dkv"], dtype))
-    k_rope = rope(mm(x, p["w_kr"], dtype)[:, :, None, :], positions, theta)
+def _latents(p, x, m: MLAConfig, positions, theta, dtype, ctx):
+    c_kv = rms_norm(ctx.tp_copy(p["kv_norm"]),
+                    mm(x, ctx.tp_copy(p["w_dkv"]), dtype))
+    k_rope = rope(mm(x, ctx.tp_copy(p["w_kr"]), dtype)[:, :, None, :],
+                  positions, theta)
     return c_kv, k_rope[:, :, 0, :]
 
 
@@ -112,8 +119,9 @@ def mla_train(p, x, m: MLAConfig, ctx, *, rope_theta: float,
     Hl = _local_heads(p, m)
     dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None]
-    q_nope, q_rope = _queries(p, x, m, Hl, positions, rope_theta, dtype)
-    c_kv, k_rope = _latents(p, x, m, positions, rope_theta, dtype)
+    q_nope, q_rope = _queries(p, x, m, Hl, positions, rope_theta, dtype,
+                              ctx)
+    c_kv, k_rope = _latents(p, x, m, positions, rope_theta, dtype, ctx)
     k_nope = mm(c_kv, p["w_uk"], dtype).reshape(B, S, Hl, m.nope_head_dim)
     v = mm(c_kv, p["w_uv"], dtype).reshape(B, S, Hl, m.v_head_dim)
 
@@ -144,19 +152,18 @@ def mla_decode(p, x, cache: MLACache, pos, m: MLAConfig, ctx, *,
                cap: Optional[float] = None, dtype="bfloat16"):
     """Absorbed one-token decode against the latent cache. x: (B,1,d);
     pos: the current position (an int); ``total_len`` is the cache length
-    C. Returns (out (B,1,d), new_cache); the input cache is not
-    modified."""
-    require_no_seq_axis(ctx)
+    C (a sequence-sharded cache holds C / seq_shards slots a rank).
+    Returns (out (B,1,d), new_cache); the input cache is not modified."""
     pos = int(pos)
     B = x.shape[0]
     dev = x.device
     Hl = _local_heads(p, m)
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
-    q_nope, q_rope = _queries(p, x, m, Hl, posv, rope_theta, dtype)
-    c_new, kr_new = _latents(p, x, m, posv, rope_theta, dtype)
+    q_nope, q_rope = _queries(p, x, m, Hl, posv, rope_theta, dtype, ctx)
+    c_new, kr_new = _latents(p, x, m, posv, rope_theta, dtype, ctx)
     gslot = pos % total_len
-    new_cache = MLACache(_cache_write(cache.c_kv, c_new, gslot),
-                         _cache_write(cache.k_rope, kr_new, gslot))
+    new_cache, slot_ids = _write_slot(cache, (c_new, kr_new), gslot,
+                                      total_len, ctx, MLACache)
 
     # absorb W_uk into q:  q_lat[h] = q_nope[h] @ W_uk[:, h].T
     w_uk = cast(p["w_uk"], dtype).reshape(m.kv_lora_rank, Hl,
@@ -168,11 +175,8 @@ def mla_decode(p, x, cache: MLACache, pos, m: MLAConfig, ctx, *,
     s = s + _ein("bqhd,bkd->bhqk", q_rope, new_cache.k_rope).float()
     s = softcap(s * scale, cap)
     if pos < total_len:                 # slots past pos are still empty
-        filled = torch.arange(total_len, device=dev) <= pos
-        s = torch.where(filled[None, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    c_kv = new_cache.c_kv
-    lat = _ein("bhqk,bkc->bqhc", w.to(c_kv.dtype), c_kv)
+        s = torch.where((slot_ids <= pos)[None, None, None, :], s, NEG_INF)
+    lat = softmax_combine(s, new_cache.c_kv, "bhqk,bkc->bqhc", ctx)
     # absorb W_uv on the way out
     w_uv = cast(p["w_uv"], dtype).reshape(m.kv_lora_rank, Hl, m.v_head_dim)
     out = _ein("bqhc,chd->bqhd", cast(lat, dtype), w_uv).reshape(

@@ -5,18 +5,24 @@ Counterpart of ``repro.models.model``: one ``Model`` class driven by a
 as in the reference: their batches carry precomputed frame/patch
 ``"embeddings"`` (B, S, d_model) instead of token ids.
 
-The port builds the attention-only family (gemma2-2b/27b, qwen1.5-32b,
-deepseek-coder-33b, internvl2-1b, hubert-xlarge), the MoE family
-(qwen2-moe-a2.7b; deepseek-v3-671b with MLA and the MTP head) and the
-hybrid recurrentgemma-2b (RG-LRU + local attention) at tp = 1. ``loss``
-adds the MoE layers' aux loss to the cross entropy and reports it as
-``metrics["aux"]``; with ``cfg.mtp`` and a token batch it adds
-``loss_weight`` times the MTP head's cross entropy, ``metrics["mtp_ce"]``
-(:meth:`Model._mtp_loss`). xLSTM layer kinds and ``tp > 1`` raise
-``NotImplementedError`` naming their ROADMAP item. Params are nested dicts
-of tensors in the JAX package's shapes and key order, so the mesh's flat
-vector, its EF rows and checkpoints line up with the reference
-(``convert.model_params_from_jax`` carries a JAX init across).
+The port builds every arch of the zoo: the attention-only family
+(gemma2-2b/27b, qwen1.5-32b, deepseek-coder-33b, internvl2-1b,
+hubert-xlarge), the MoE family (qwen2-moe-a2.7b; deepseek-v3-671b with MLA
+and the MTP head), the hybrid recurrentgemma-2b (RG-LRU + local attention)
+and xlstm-350m (mLSTM + sLSTM), at any tp. ``loss`` adds the MoE layers'
+aux loss to the cross entropy and reports it as ``metrics["aux"]``; with
+``cfg.mtp`` and a token batch it adds ``loss_weight`` times the MTP head's
+cross entropy, ``metrics["mtp_ce"]`` (:meth:`Model._mtp_loss`).
+
+``Model(cfg, tp)`` pads heads and the vocabulary to a multiple of tp, as
+the reference's does; ``defs()`` are GLOBAL shapes (the reference's), and
+each rank of a model axis holds its shards of them (``ParamDef`` specs
+naming ``"model"``: ``init(..., ctx=ctx)`` draws the global tree and keeps
+the rank's shards, ``models.params.shard_params``/``gather_params`` cut and
+rejoin a tree). Params are nested dicts of tensors in the JAX package's
+shapes and key order, so the mesh's flat vector, its EF rows and
+checkpoints line up with the reference (``convert.model_params_from_jax``
+carries a JAX init across).
 """
 from __future__ import annotations
 
@@ -32,18 +38,8 @@ from repro_torch.models.layers import (embed_defs, embed_lookup, rms_norm,
 from repro_torch.sharding.rules import attn_dims, pad_to
 
 
-def require_tp1(tp: int) -> None:
-    """Refuse a model axis > 1: the zoo runs at tp = 1 in the port."""
-    if tp > 1:
-        raise NotImplementedError(
-            f"tp={tp}: the port's model zoo runs at tp = 1 — tensor "
-            "parallelism (the model axis) waits for ROADMAP Queue 1 item 8f")
-
-
 class Model:
     def __init__(self, cfg: ModelConfig, tp: int = 1):
-        require_tp1(tp)
-        stack_mod.require_ported(cfg)
         self.cfg = cfg
         self.tp = tp
         self.vocab_padded = pad_to(cfg.vocab_size, tp)
@@ -71,12 +67,14 @@ class Model:
             }
         return d
 
-    def init(self, generator: torch.Generator, device=None):
+    def init(self, generator: torch.Generator, device=None, ctx=None):
         """Params from ``generator`` (drawn on its device: a CPU
         ``torch.Generator`` gives the same init everywhere), on ``device``
-        (None: CUDA, which raises without a card)."""
+        (None: CUDA, which raises without a card). With ``ctx`` (a context
+        over a mesh with a model axis) this rank's shards of the global
+        draw."""
         return pdefs.init_params(self.defs(), generator,
-                                 resolve_device(device))
+                                 resolve_device(device), ctx=ctx)
 
     # ------------------------------------------------------------------
     # Input specs
@@ -164,11 +162,14 @@ class Model:
                                           seq_sharded=seq_sharded)
 
     def init_cache(self, batch: int, max_len: int, *,
-                   seq_sharded: bool = False, device=None):
-        """A zero cache on ``device`` (None: CUDA)."""
+                   seq_sharded: bool = False, device=None, ctx=None):
+        """A zero cache on ``device`` (None: CUDA); with ``ctx``, this
+        rank's block of it (its model shards and, ``seq_sharded``, its
+        block of the slots)."""
         return stack_mod.init_cache_value(
             self.cache_defs(batch, max_len, seq_sharded=seq_sharded),
-            resolve_device(device))
+            resolve_device(device),
+            {} if ctx is None else ctx.axis_sizes())
 
     def _require_decoder(self):
         if self.cfg.is_encoder:

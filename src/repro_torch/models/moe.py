@@ -24,9 +24,13 @@ output dtype, one ``index_add_`` an expert in expert order: each expert's
 C token ids are distinct, so the order of the adds is XLA:CPU's sequential
 scatter on every device.
 
-Experts are padded to a multiple of tp with their logits pinned at -1e30;
-the port runs at tp = 1, where E is the config's count (60 for
-qwen2-moe).
+Experts are padded to a multiple of tp with their logits pinned at -1e30
+(qwen2-moe's 60 are 64 at tp = 8), and each rank of the model axis runs
+its ``E / tp`` experts from ``model_index · E / tp``. The FFN takes no
+branch-entry marker: the router is replicated and its aux loss reaches the
+loss on every rank alike, so the tokens take the model axis's marker where
+the experts and the shared FFN read them, and the probs where the dispatch
+reads them (``models.layers``' rule, case 3).
 """
 from __future__ import annotations
 
@@ -121,8 +125,10 @@ def moe_ffn(p, x, mo: MoEConfig, ctx, *, act: str = "silu",
     with span("moe"):
         probs = router_probs(p, xf, mo, dtype)
         E_loc = p["w_up"].shape[0]                        # E / tp locally
-        r = dispatch(probs, mo, ctx.model_index() * E_loc, E_loc)
-        xg = xf[r.tok_idx.reshape(-1)].reshape(E_loc, r.C, d)
+        r = dispatch(ctx.tp_copy(probs), mo, ctx.model_index() * E_loc,
+                     E_loc)
+        xv = ctx.tp_copy(xf)                # read by the local experts
+        xg = xv[r.tok_idx.reshape(-1)].reshape(E_loc, r.C, d)
         up = _mm("ecd,edf->ecf", xg, cast(p["w_up"], dtype))
         gt = _mm("ecd,edf->ecf", xg, cast(p["w_gate"], dtype))
         h = activation(gt, act) * up
@@ -134,7 +140,7 @@ def moe_ffn(p, x, mo: MoEConfig, ctx, *, act: str = "silu",
                 out.index_add_(0, r.tok_idx[e], ye[e])
         out = ctx.psum_model(out)
     if "shared" in p:
-        out = out + ffn_apply(p["shared"], xf, ctx, act=act,
+        out = out + ffn_apply(p["shared"], xv, ctx, act=act,
                               dtype=dtype).to(out.dtype)
     # switch-style load balance aux loss (over true experts only)
     Et = mo.num_experts

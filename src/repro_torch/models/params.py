@@ -91,13 +91,17 @@ def unflatten(paths: List[Tuple[str, ...]], leaves: List) -> Dict:
     return out
 
 
-def init_params(defs, generator: torch.Generator, device="cpu") -> Dict:
+def init_params(defs, generator: torch.Generator, device="cpu",
+                ctx=None) -> Dict:
     """Concretely initialize a defs tree. Leaves are drawn in ravel order
     from ``generator`` on the generator's device and then moved to
     ``device``: a CPU ``torch.Generator`` gives the same init on every
     device; a CUDA one draws on the card (other numbers, no host copy of
-    the weights). The numbers differ from ``repro``'s (a JAX PRNG); parity
-    runs convert the JAX init instead (``repro_torch.convert``)."""
+    the weights). With ``ctx`` each leaf is drawn at its global shape and
+    this rank keeps its shard (:func:`take_shard`), so every layout of the
+    mesh holds the same numbers. The numbers differ from ``repro``'s (a JAX
+    PRNG); parity runs convert the JAX init instead
+    (``repro_torch.convert``)."""
     paths, leaves = [], []
     for path, d in leaves_with_paths(defs):
         dtype = getattr(torch, d.dtype)
@@ -110,9 +114,72 @@ def init_params(defs, generator: torch.Generator, device="cpu") -> Dict:
             # deepseek-v3 is 15.0 GB)
             arr = torch.randn(d.shape, generator=generator, dtype=dtype,
                               device=generator.device).mul_(d.scale)
+        if ctx is not None:
+            arr = take_shard(arr, d, ctx)
         paths.append(path)
-        leaves.append(arr.to(device))
+        leaves.append(arr.to(device, copy=ctx is not None).contiguous())
+        del arr
     return unflatten(paths, leaves)
+
+
+# -- global <-> per-rank shards ------------------------------------------------
+
+
+def dim_axes(sp) -> Tuple[str, ...]:
+    """The mesh axes one dim's spec entry names (None: none)."""
+    if sp is None:
+        return ()
+    return (sp,) if isinstance(sp, str) else tuple(sp)
+
+
+def local_shape(d: ParamDef, axis_sizes: Dict[str, int]) -> Tuple[int, ...]:
+    """A leaf's shape on one rank: each dim divided by the sizes of the
+    axes its spec names (``axis_sizes``: axis name → size; an axis it
+    lacks counts 1), as ``shard_map`` hands each device its block."""
+    out = []
+    for size, sp in zip(d.shape, d.dim_specs):
+        n = 1
+        for ax in dim_axes(sp):
+            n *= int(axis_sizes.get(ax, 1))
+        if size % n:
+            raise ValueError(f"dim of {size} does not split over {sp!r} "
+                             f"({n} ranks)")
+        out.append(size // n)
+    return tuple(out)
+
+
+def take_shard(t: torch.Tensor, d: ParamDef, ctx) -> torch.Tensor:
+    """This rank's block of a global leaf ``t`` (a view): every dim cut by
+    the rank's index over the axes its spec names (client-major over a
+    tuple of axes, as ``ctx.axis_index``)."""
+    for dim, sp in enumerate(d.dim_specs):
+        axes = dim_axes(sp)
+        n = ctx.axis_size(axes)
+        if n > 1:
+            chunk = t.shape[dim] // n
+            t = t.narrow(dim, ctx.axis_index(axes) * chunk, chunk)
+    return t
+
+
+def gather_shard(t: torch.Tensor, d: ParamDef, ctx) -> torch.Tensor:
+    """The global leaf from every rank's block (collective over the axes
+    its spec names)."""
+    for dim, sp in enumerate(d.dim_specs):
+        t = ctx.gather_axes(dim_axes(sp), t, axis=dim)
+    return t
+
+
+def shard_params(full, defs, ctx):
+    """A global params tree (every rank holding the same one) → this
+    rank's shards, each a contiguous copy."""
+    return tree_map(lambda t, d: take_shard(t, d, ctx).contiguous(), full,
+                    defs)
+
+
+def gather_params(local, defs, ctx):
+    """This rank's shards → the global tree, on every rank (collective:
+    every rank calls it)."""
+    return tree_map(lambda t, d: gather_shard(t, d, ctx), local, defs)
 
 
 def count_params(defs) -> int:

@@ -8,13 +8,18 @@ indexes the stacked leaves. Leftover layers run as an unstacked tail. The
 same defs tree (and so the same ravel order and checkpoint layout) as the
 JAX package.
 
-The port builds ``"attn"`` layers (softmax attention, or MLA with
-``cfg.mla``: ``models.mla``) with a dense FFN or, with ``cfg.moe``, the MoE
-FFN (``models.moe``), whose aux loss ``stack_train`` sums in the
-reference's order (within a group, then across groups, then the tail), and
-``"rglru"`` layers (``models.rglru``) with an optional dense FFN. The xLSTM
-kinds raise ``NotImplementedError`` naming their ROADMAP item
-(:func:`require_ported`).
+Every layer kind of the zoo is built: ``"attn"`` layers (softmax
+attention, or MLA with ``cfg.mla``: ``models.mla``) with a dense FFN or,
+with ``cfg.moe``, the MoE FFN (``models.moe``), whose aux loss
+``stack_train`` sums in the reference's order (within a group, then across
+groups, then the tail); ``"rglru"`` layers (``models.rglru``) with an
+optional dense FFN; and the xLSTM's ``"mlstm"`` and ``"slstm"`` layers
+(``models.xlstm``; ``cfg.xlstm.chunkwise`` trains the mLSTM chunkwise at
+``cfg.xlstm.chunk_size``). Each branch's normed input takes the model
+axis's entry marker (``ctx.tp_copy``) but the MoE FFN's, which marks its
+own inputs (``models.layers``' rule). A ``seq_sharded`` cache shards the
+full-length attention caches' slots over ``"data"``; the windowed ones
+stay whole, and their decode runs without the sequence axis.
 
 ``remat_policy`` is the reference's: ``"none"``; ``"full"`` recomputes a
 group in the backward pass (``torch.utils.checkpoint``); ``"dots"`` saves
@@ -36,9 +41,10 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pdefs
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import ffn_apply, ffn_defs, rms_norm, span
 from repro_torch.models.params import leaves_with_paths, tree_map, unflatten
-from repro_torch.sharding.rules import AttnDims, attn_dims
+from repro_torch.sharding.rules import AttnDims, attn_dims, pad_to
 
 
 @dataclass(frozen=True)
@@ -62,33 +68,12 @@ def plan_stack(cfg: ModelConfig) -> Tuple[Tuple[LayerDesc, ...], int,
     return tuple(descs), 1, ()
 
 
-#: the layer kinds the port does not build, and the ROADMAP item each waits
-#: for
-UNPORTED = {
-    "mlstm": "xLSTM layers ('mlstm') wait for ROADMAP Queue 1 item 8e",
-    "slstm": "xLSTM layers ('slstm') wait for ROADMAP Queue 1 item 8e",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Refuse a config the port does not build, naming every layer kind it
-    needs that is not ported yet."""
-    missing = [UNPORTED[k] for k in sorted(set(cfg.layer_kinds))
-               if k in UNPORTED]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: repro_torch ports attn layers (softmax or MLA, a "
-            f"dense or MoE FFN, the MTP head) and RG-LRU layers; "
-            + "; ".join(missing))
-
-
 # ---------------------------------------------------------------------------
 # Per-layer defs / apply
 # ---------------------------------------------------------------------------
 
 
 def layer_defs(cfg: ModelConfig, desc: LayerDesc, dims: AttnDims, tp: int):
-    require_ported(cfg)
     d = cfg.d_model
     defs = {"norm1": pdefs.norm_scale(d)}
     if desc.kind == "attn":
@@ -106,18 +91,24 @@ def layer_defs(cfg: ModelConfig, desc: LayerDesc, dims: AttnDims, tp: int):
         if cfg.d_ff > 0:
             defs["norm2"] = pdefs.norm_scale(d)
             defs["mlp"] = ffn_defs(d, cfg.d_ff, cfg.act, cfg.gated_ffn)
+    elif desc.kind == "mlstm":
+        defs["mix"] = xlstm_mod.mlstm_defs(d, cfg.num_heads, cfg.xlstm)
+    elif desc.kind == "slstm":
+        defs["mix"] = xlstm_mod.slstm_defs(d, cfg.num_heads, cfg.xlstm)
     else:
         raise ValueError(desc.kind)
     return defs
 
 
 def _mlp(p, h2, cfg: ModelConfig, ctx):
-    """The layer's FFN: dense, or MoE with its aux loss. Returns (out,
+    """The layer's FFN on the normed ``h2``: dense behind the entry marker,
+    or MoE (which marks its own inputs) with its aux loss. Returns (out,
     aux or None)."""
     if cfg.moe is not None:
         return moe_mod.moe_ffn(p, h2, cfg.moe, ctx, act=cfg.act,
                                dtype=cfg.dtype)
-    return ffn_apply(p, h2, ctx, act=cfg.act, dtype=cfg.dtype), None
+    return ffn_apply(p, ctx.tp_copy(h2), ctx, act=cfg.act,
+                     dtype=cfg.dtype), None
 
 
 def _zero_aux(x):
@@ -157,10 +148,33 @@ def _attn_mix(p, h, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims, ctx,
         return out, (None if kv is None else {"k": kv[0], "v": kv[1]})
 
 
+def _mlstm(p, h, cfg: ModelConfig, ctx, chunk: int, return_state=False):
+    """The mLSTM mixer over a full sequence: chunkwise at
+    ``cfg.xlstm.chunk_size`` with ``cfg.xlstm.chunkwise``, else quadratic
+    at ``chunk``."""
+    with span("mlstm"):
+        if cfg.xlstm.chunkwise:
+            return xlstm_mod.mlstm_train_chunkwise(
+                p, h, cfg.num_heads, ctx, cfg.dtype,
+                chunk=cfg.xlstm.chunk_size, return_state=return_state)
+        return xlstm_mod.mlstm_train(p, h, cfg.num_heads, ctx, cfg.dtype,
+                                     chunk=chunk, return_state=return_state)
+
+
+def _slstm(p, h, cfg: ModelConfig, ctx, return_state=False):
+    with span("slstm"):
+        return xlstm_mod.slstm_train(p, h, cfg.num_heads, ctx, cfg.dtype,
+                                     return_state=return_state)
+
+
 def layer_train(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
                 ctx, chunk: int = 2048):
     """One layer, full sequence. Returns (x, aux_loss)."""
     h = ctx.tp_copy(rms_norm(p["norm1"], x, cfg.norm_eps))
+    if desc.kind == "mlstm":
+        return x + _mlstm(p["mix"], h, cfg, ctx, chunk), _zero_aux(x)
+    if desc.kind == "slstm":
+        return x + _slstm(p["mix"], h, cfg, ctx), _zero_aux(x)
     if desc.kind == "rglru":
         with span("rglru"):
             x = x + rglru_mod.rglru_train(p["mix"], h, cfg.rglru, ctx,
@@ -168,8 +182,8 @@ def layer_train(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
         return _rglru_ffn(p, x, cfg, ctx), _zero_aux(x)
     out, _ = _attn_mix(p["mix"], h, cfg, desc, dims, ctx, chunk)
     x = x + out
-    h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
-    out2, aux = _mlp(p["mlp"], h2, cfg, ctx)
+    out2, aux = _mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg,
+                     ctx)
     return x + out2, (_zero_aux(x) if aux is None else aux)
 
 
@@ -177,6 +191,12 @@ def layer_prefill(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
                   ctx, max_len: int, chunk: int = 2048):
     """Full-sequence forward that also emits the layer's decode cache."""
     h = ctx.tp_copy(rms_norm(p["norm1"], x, cfg.norm_eps))
+    if desc.kind == "mlstm":
+        out, st = _mlstm(p["mix"], h, cfg, ctx, chunk, return_state=True)
+        return x + out, {"C": st.C, "n": st.n, "m": st.m}
+    if desc.kind == "slstm":
+        out, st = _slstm(p["mix"], h, cfg, ctx, return_state=True)
+        return x + out, {"h": st.h, "c": st.c, "n": st.n, "m": st.m}
     if desc.kind == "rglru":
         with span("rglru"):
             out, st = rglru_mod.rglru_train(p["mix"], h, cfg.rglru, ctx,
@@ -185,8 +205,8 @@ def layer_prefill(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
     out, cache = _attn_mix(p["mix"], h, cfg, desc, dims, ctx, chunk,
                            _cache_len(desc, max_len))
     x = x + out
-    h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
-    out2, _ = _mlp(p["mlp"], h2, cfg, ctx)
+    out2, _ = _mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg,
+                   ctx)
     return x + out2, cache
 
 
@@ -197,27 +217,43 @@ def layer_prefill(p, x, cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
 
 def layer_cache_defs(cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
                      batch: int, max_len: int, *, seq_sharded: bool):
-    """ParamDef tree describing one layer's decode state (GLOBAL shapes)."""
-    require_ported(cfg)
-    if seq_sharded:
-        raise NotImplementedError(
-            "a sequence-sharded decode cache (long_500k over the data axis) "
-            "is not ported: the port's ParallelContext has no seq_shards "
-            "yet — ROADMAP Queue 1 item 8f")
+    """ParamDef tree describing one layer's decode state (GLOBAL shapes).
+    The batch dim shards over ``"data"``, unless ``seq_sharded``: then a
+    full-length attention cache shards its slots over ``"data"``."""
+    d = cfg.d_model
+    bspec = None if seq_sharded else "data"
     if desc.kind == "rglru":
-        w = cfg.rglru.lru_width or cfg.d_model
+        w = cfg.rglru.lru_width or d
         cw = cfg.rglru.conv_width
         return {
-            "h": pdefs.ParamDef((batch, w), spec=("data", "model"),
+            "h": pdefs.ParamDef((batch, w), spec=(bspec, "model"),
                                 dtype="float32"),
             "conv": pdefs.ParamDef((batch, cw - 1, w),
-                                   spec=("data", None, "model"),
+                                   spec=(bspec, None, "model"),
                                    dtype=cfg.dtype),
         }
+    if desc.kind == "mlstm":
+        di = pad_to(int(d * cfg.xlstm.mlstm_proj_factor), 128)
+        nh = cfg.num_heads
+        dh = di // nh
+        return {
+            "C": pdefs.ParamDef((batch, nh, dh, di // nh),
+                                spec=(bspec, None, None, "model"),
+                                dtype="float32"),
+            "n": pdefs.ParamDef((batch, nh, dh), spec=(bspec, None, None),
+                                dtype="float32"),
+            "m": pdefs.ParamDef((batch, nh), spec=(bspec, None),
+                                dtype="float32"),
+        }
+    if desc.kind == "slstm":
+        return {k: pdefs.ParamDef((batch, d), spec=(bspec, None),
+                                  dtype="float32")
+                for k in ("h", "c", "n", "m")}
     C = _cache_len(desc, max_len)
+    sspec = "data" if (seq_sharded and C == max_len) else None
     if cfg.mla is not None:
         m = cfg.mla
-        spec = ("data", None, None)
+        spec = (bspec, sspec, None)
         return {
             "c_kv": pdefs.ParamDef((batch, C, m.kv_lora_rank), spec=spec,
                                    dtype=cfg.dtype),
@@ -226,7 +262,7 @@ def layer_cache_defs(cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
         }
     kvspec = "model" if dims.kv_sharded else None
     kvh = dims.kv_heads if dims.kv_sharded else dims.kv_local
-    spec = ("data", None, kvspec, None)
+    spec = (bspec, sspec, kvspec, None)
     return {
         "k": pdefs.ParamDef((batch, C, kvh, dims.head_dim), spec=spec,
                             dtype=cfg.dtype),
@@ -235,14 +271,16 @@ def layer_cache_defs(cfg: ModelConfig, desc: LayerDesc, dims: AttnDims,
     }
 
 
-def init_cache_value(defs, device):
+def init_cache_value(defs, device, axis_sizes=None):
     """Zero-initialized concrete cache on ``device`` (m-states get
-    -1e30)."""
+    -1e30), each leaf in its shape on one rank of a mesh with
+    ``axis_sizes`` (axis name → size; None: the global shapes)."""
     paths, leaves = [], []
     for path, dx in leaves_with_paths(defs):
         fill = -1e30 if path[-1] == "m" else 0.0
         paths.append(path)
-        leaves.append(torch.full(dx.shape, fill, dtype=getattr(torch, dx.dtype),
+        leaves.append(torch.full(pdefs.local_shape(dx, axis_sizes or {}),
+                                 fill, dtype=getattr(torch, dx.dtype),
                                  device=device))
     return unflatten(paths, leaves)
 
@@ -251,6 +289,20 @@ def layer_decode(p, x, cache, pos, cfg: ModelConfig, desc: LayerDesc,
                  dims: AttnDims, ctx, max_len: int):
     """One-token decode through one layer. Returns (x, new_cache)."""
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
+    if desc.kind == "mlstm":
+        with span("mlstm"):
+            out, st = xlstm_mod.mlstm_decode(
+                p["mix"], h, xlstm_mod.MLSTMState(cache["C"], cache["n"],
+                                                  cache["m"]),
+                cfg.num_heads, ctx, cfg.dtype)
+        return x + out, {"C": st.C, "n": st.n, "m": st.m}
+    if desc.kind == "slstm":
+        with span("slstm"):
+            out, st = xlstm_mod.slstm_decode(
+                p["mix"], h, xlstm_mod.SLSTMState(cache["h"], cache["c"],
+                                                  cache["n"], cache["m"]),
+                cfg.num_heads, ctx, cfg.dtype)
+        return x + out, {"h": st.h, "c": st.c, "n": st.n, "m": st.m}
     if desc.kind == "rglru":
         with span("rglru"):
             out, st = rglru_mod.rglru_decode(
@@ -258,22 +310,24 @@ def layer_decode(p, x, cache, pos, cfg: ModelConfig, desc: LayerDesc,
                 cfg.rglru, ctx, cfg.dtype)
         return _rglru_ffn(p, x + out, cfg, ctx), {"h": st.h, "conv": st.conv}
     C = _cache_len(desc, max_len)
+    # a windowed layer's ring is whole on every rank of the sequence axis
+    lctx = ctx if C == max_len else ctx.with_(seq_axis=None)
     with span("attention"):
         if cfg.mla is not None:
             out, nc = mla_mod.mla_decode(
                 p["mix"], h, mla_mod.MLACache(cache["c_kv"], cache["k_rope"]),
-                pos, cfg.mla, ctx, rope_theta=cfg.rope_theta, total_len=C,
+                pos, cfg.mla, lctx, rope_theta=cfg.rope_theta, total_len=C,
                 cap=cfg.attn_softcap, dtype=cfg.dtype)
             new_cache = {"c_kv": nc.c_kv, "k_rope": nc.k_rope}
         else:
             out, nc = attn.attn_decode(
                 p["mix"], h, attn.KVCache(cache["k"], cache["v"]), pos, dims,
-                ctx, window=desc.window, cap=cfg.attn_softcap,
+                lctx, window=desc.window, cap=cfg.attn_softcap,
                 rope_theta=cfg.rope_theta, total_len=C, dtype=cfg.dtype)
             new_cache = {"k": nc.k, "v": nc.v}
     x = x + out
-    h2 = ctx.tp_copy(rms_norm(p["norm2"], x, cfg.norm_eps))
-    out2, _ = _mlp(p["mlp"], h2, cfg, ctx)
+    out2, _ = _mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg,
+                   ctx)
     return x + out2, new_cache
 
 

@@ -22,7 +22,7 @@ the originals (pure Python).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field, fields
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -96,6 +96,38 @@ def _axis_groups(mesh, axes: Tuple[str, ...]) -> _AxisGroup:
     return mine
 
 
+class _PsumModel(torch.autograd.Function):
+    """Megatron's [f] operator at a branch's exit: the all-reduce over the
+    model axis forward, the identity backward (the transpose of JAX's
+    psum of a model-varying value: its cotangent is model-invariant).
+    ``rs_ag`` reduce-scatters dim 0 and all-gathers it back: on NCCL with
+    ``reduce_scatter_tensor``; gloo has none, so there the reduction is the
+    all-reduce and each rank keeps its slice before the gather — the
+    psum's sums either way."""
+
+    @staticmethod
+    def forward(ctx, x, group, rs_ag):
+        y = x.clone()
+        n = len(group.ranks)
+        with torch.profiler.record_function(COLLECTIVE_RANGE):
+            if not rs_ag:
+                dist.all_reduce(y, group=group.group)
+                return y
+            y = y.contiguous()
+            chunk = y.shape[0] // n
+            if dist.get_backend(group.group) == "nccl":
+                part = y.new_empty((chunk,) + tuple(y.shape[1:]))
+                dist.reduce_scatter_tensor(part, y, group=group.group)
+            else:
+                dist.all_reduce(y, group=group.group)
+                part = y.narrow(0, group.index * chunk, chunk).contiguous()
+        return torch.cat(group.all_gather(part), dim=0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
 class _TPCopy(torch.autograd.Function):
     """Megatron's [g] operator: identity forward, all-reduce of the
     gradient over the model axis backward."""
@@ -129,6 +161,9 @@ class ParallelContext:
     client_axes: Tuple[str, ...] = ()
     num_clients: int = 1
     seq_axis: Optional[str] = None   # sequence-sharded KV cache (long-context decode)
+    # the model axis's all-reduce: "psum", or "rs_ag" (reduce-scatter then
+    # all-gather, the reference's bf16-native TPU form: the same sums)
+    tp_collective: str = "psum"      # "psum" | "rs_ag"
     mesh: Optional[object] = field(default=None, compare=False, repr=False)
     _groups: Dict = field(default_factory=dict, init=False, compare=False,
                           repr=False)
@@ -191,8 +226,27 @@ class ParallelContext:
         return x if g is None else _TPCopy.apply(x, g)
 
     def psum_model(self, x):
-        return self.psum_axes((self.model_axis,) if self.model_axis else (),
-                              x)
+        """The sum over the model axis; differentiable, its backward the
+        identity (:class:`_PsumModel`). ``rs_ag`` takes it where dim 0
+        splits evenly over the axis, as the reference does."""
+        g = self._group((self.model_axis,) if self.model_axis else ())
+        if g is None:
+            return x
+        n = len(g.ranks)
+        rs_ag = (self.tp_collective == "rs_ag" and x.dim() >= 2
+                 and x.shape[0] % n == 0 and x.shape[0] >= n)
+        return _PsumModel.apply(x, g, rs_ag)
+
+    def broadcast_model(self, x):
+        """Model rank 0's ``x`` on every model rank (not
+        differentiable)."""
+        g = self._group((self.model_axis,) if self.model_axis else ())
+        if g is None:
+            return x
+        y = x.contiguous().clone()
+        with torch.profiler.record_function(COLLECTIVE_RANGE):
+            dist.broadcast(y, src=g.ranks[0], group=g.group)
+        return y
 
     def pmax_model(self, x):
         return self.psum_axes((self.model_axis,) if self.model_axis else (),
@@ -262,11 +316,34 @@ class ParallelContext:
         return self.psum_axes((self.seq_axis,) if self.seq_axis else (), x,
                               dist.ReduceOp.MAX)
 
+    @property
+    def seq_shards(self) -> int:
+        """The ranks a sequence-sharded cache is split over: the size of
+        the sequence axis (the reference's field, here read off the
+        mesh)."""
+        return self.axis_size((self.seq_axis,) if self.seq_axis else ())
+
     def seq_index(self):
         return self.axis_index((self.seq_axis,) if self.seq_axis else ())
 
+    def axis_sizes(self) -> Dict[str, int]:
+        """Each mesh axis this context shards over (its model, data,
+        sequence and client axes) → its size; a dim of the mesh it does not
+        name is not among them (its ranks repeat the same work)."""
+        names = [a for a in (self.model_axis, self.data_axis, self.seq_axis)
+                 if a] + list(self.client_axes)
+        return {a: self.axis_size((a,)) for a in names}
+
     def with_(self, **kw) -> "ParallelContext":
-        return replace(self, **kw)
+        """A copy with ``kw`` replaced that keeps this context's groups (no
+        collective: the groups of an axis it lacks are built on first
+        use)."""
+        new = object.__new__(type(self))
+        for f in fields(self):
+            object.__setattr__(new, f.name, kw.get(f.name,
+                                                   getattr(self, f.name)))
+        object.__setattr__(new, "_groups", dict(self._groups))
+        return new
 
 
 @dataclass(frozen=True)

@@ -46,7 +46,7 @@ MODULES = [
     "repro_torch.configs.registry", "repro_torch.data",
     "repro_torch.models", "repro_torch.models.layers",
     "repro_torch.models.attention", "repro_torch.models.moe",
-    "repro_torch.models.stack",
+    "repro_torch.models.stack", "repro_torch.models.xlstm",
     "repro_torch.models.model", "repro_torch.launch.serve",
     "repro_torch.launch.train",
 ]

@@ -4,8 +4,8 @@ on the CPU at smoke size.
 
 * ``FederatedLMData`` draws the reference's tokens, bitwise.
 * The mesh round on the gemma2-2b, qwen2-moe, deepseek-v3 (MLA + MoE +
-  the MTP head) and recurrentgemma (RG-LRU + local attention) smoke
-  configs (fedcams,
+  the MTP head), recurrentgemma (RG-LRU + local attention) and xlstm
+  (mLSTM + sLSTM) smoke configs (fedcams,
   blockwise top-k 1/64 over the sparse collective, fused ingest), 2 gloo
   CPU ranks against the JAX mesh on 2 forced host devices, 3 rounds, each
   restarted from the JAX state before it. The initial params are drawn
@@ -19,7 +19,8 @@ on the CPU at smoke size.
   bitwise the plain one.
 * The train CLI for 2 rounds on ``--device cpu``: its lines, its
   checkpoint (read by both packages' ``load_pytree``), staged rounds
-  equal to the loop, and its refusals.
+  equal to the loop, its refusals, and ``--dp 2 --tp 2`` on 4 ranks
+  (gemma2-2b and xlstm).
 """
 import os
 import tempfile
@@ -225,6 +226,13 @@ def jax_vs_port_mla():
 
 
 @pytest.fixture(scope="module")
+def jax_vs_port_xlstm():
+    """xlstm-350m's smoke config: an mLSTM and an sLSTM layer (the sLSTM's
+    16 sequential steps in every local step), untied tables."""
+    return _jax_vs_port("xlstm-350m")
+
+
+@pytest.fixture(scope="module")
 def jax_vs_port_rglru():
     """recurrentgemma's smoke config: an RG-LRU layer and a local attention
     layer (window 16), a tied table."""
@@ -280,6 +288,19 @@ def test_rglru_mesh_round_matches_the_jax_mesh(jax_vs_port_rglru, r):
     recurrence into FMAs; the port's runs op by op): params within 5e-6
     (measured ≤ 8.9e-7), the rest within 1e-4 (measured ≤ 1.5e-5)."""
     _same_round(*jax_vs_port_rglru, r, params_tol=5e-6)
+
+
+@pytest.mark.parametrize("r", range(R))
+def test_xlstm_mesh_round_matches_the_jax_mesh(jax_vs_port_xlstm, r):
+    """As :func:`test_mesh_round_matches_the_jax_mesh`, on the xlstm smoke
+    config: params within 1e-5 (the sLSTM's recurrence carries the local
+    deltas' last-bit differences, as the MoE's gates do), the rest within
+    1e-4."""
+    _same_round(*jax_vs_port_xlstm, r, params_tol=1e-5)
+
+
+def test_xlstm_kernel_routed_mesh_round_is_the_plain_one(jax_vs_port_xlstm):
+    _same_paths(jax_vs_port_xlstm[1])
 
 
 def _same_round(jx, port, r, params_tol=2e-6):
@@ -384,12 +405,46 @@ def test_staged_rounds_equal_the_loop():
 
 
 def test_train_cli_refusals():
+    """The reference's refusals (``--tp 2`` and xlstm-350m run: the test
+    below)."""
     base = ["--smoke", "--dp", "2", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="tp = 1"):
-        ttrain.main(base + ["--tp", "2"])
     with pytest.raises(SystemExit):
         ttrain.main(base + ["--deadline-s", "1.0"])
     with pytest.raises(SystemExit):
         ttrain.main(base + ["--async-buffer", "2"])
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        ttrain.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "xlstm-350m"])
+def test_train_cli_runs_at_dp2_tp2(arch, tmp_path, capfd):
+    """``--dp 2 --tp 2`` on 4 gloo CPU ranks: the reference's lines
+    (``mesh=2x2``; the params count is rank 0's model-local total), finite
+    losses, and a checkpoint of the global state that the JAX package's
+    ``load_pytree`` restores into its tp = 2 layout."""
+    path = str(tmp_path / "ckpt")
+    ttrain.main(["--arch", arch, "--smoke", "--dp", "2", "--tp", "2",
+                 "--rounds", "2", "--seq-len", "16", "--global-batch", "4",
+                 "--aggregation", "sparse", "--device", "cpu",
+                 "--checkpoint", path])
+    out = capfd.readouterr().out
+    head = _lines(out, "arch=")
+    assert len(head) == 1 and head[0].endswith(
+        "clients=2 algo=fedcams/topk mesh=2x2"), out
+    rounds = _lines(out, "round ")
+    assert [ln.split()[1] for ln in rounds] == ["0", "1"]
+    assert all(np.isfinite(float(ln.split()[3])) for ln in rounds)
+    from repro.checkpoint import load_pytree as jax_load
+    from repro.configs.base import FedConfig as JaxFed
+    from repro.configs.registry import get_arch as jax_arch
+    from repro.core.mesh import fed_state_defs
+    from repro.models import params as jparams
+    from repro.models.model import Model as JaxModel
+    jfed = JaxFed(**dict(FED, mesh_sparse_impl="auto"))
+    defs = fed_state_defs(JaxModel(jax_arch(arch).smoke, tp=2), jfed)
+    like = {f: jax.tree.map(lambda d: np.zeros(d.shape, d.dtype),
+                            getattr(defs, f), is_leaf=jparams.is_def)
+            for f in defs._fields}
+    tree, meta = jax_load(path, like)
+    assert meta == {"arch": f"{arch}-smoke", "rounds": 2}
+    assert int(tree["round"]) == 2
+    assert all(np.isfinite(np.asarray(a)).all()
+               for a in jax.tree.leaves(tree["params"]))

@@ -629,16 +629,20 @@ def test_refusals_carry_the_reference_messages(kw, err, match):
 
 
 def test_int8_state_and_tp_are_refused():
+    """int8 server state has no mesh form; a model built at one tp on a
+    context whose model axis has another is refused (the model axis runs:
+    ``tests/test_torch_tp.py``)."""
     with pytest.raises(ValueError, match="simulation-only"):
         meshmod.fed_state_defs(ParityModel(),
                                FedConfig(server_state_dtype="int8"))
     fed = FedConfig(**common())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="built for tp=1 but the "
+                                         "context's model axis has tp=2"):
         meshmod.build_fed_round(ParityModel(), fed, train_cfg(),
                                 ParallelContext(tp=2))
     wide = ParityModel()
     wide.tp = 2
-    with pytest.raises(NotImplementedError, match="tp = 1"):
+    with pytest.raises(ValueError, match="built for tp=2"):
         meshmod.build_fed_round(wide, fed, train_cfg(), ParallelContext())
 
 

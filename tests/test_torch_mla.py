@@ -13,7 +13,8 @@ product rounds.
 * ``mla_decode`` (absorbed) against the JAX function, before and after the
   ring wraps, and against the decompressed forward;
 * the cache write copies the layer's cache alone;
-* a length the chunks do not tile is refused, as the reference refuses it.
+* a length the chunks do not tile is refused, as the reference refuses it;
+* the sequence-sharded decode branch on one shard.
 """
 import jax
 import jax.numpy as jnp
@@ -221,9 +222,28 @@ def test_a_ragged_chunking_is_refused_as_the_reference_refuses_it():
           1e-5)
 
 
-def test_decode_refuses_a_sequence_sharded_cache():
-    with pytest.raises(NotImplementedError, match="sequence-sharded"):
-        tmla.mla_decode(_t(_params()), torch.zeros(1, 1, D), tmla.MLACache(
-            torch.zeros(1, 4, 32), torch.zeros(1, 4, 16)), 0, M,
-            ParallelContext(seq_axis="data"), rope_theta=1e4, total_len=4)
-
+@pytest.mark.parametrize("pos", [5, 29])
+def test_decode_over_a_one_shard_sequence_axis_matches_jax(pos):
+    """The sequence-sharded branch (its slot offset and its log-sum-exp
+    combine of the blocks' partial softmaxes) on one shard of the axis,
+    in one process (every collective the identity), against the JAX
+    decode: the output within 1e-5 and the written cache bitwise the
+    unsharded port's. Over 4 gloo ranks it equals the unsharded decode:
+    ``tests/test_torch_tp.py::test_seq_sharded_decode_equals_unsharded``."""
+    r = np.random.default_rng(pos + 7)
+    p = _params(pos)
+    x = r.normal(size=(2, 1, D)).astype(np.float32)
+    ckv = r.normal(size=(2, 16, DIMS["kv_lora_rank"])).astype(np.float32)
+    kr = r.normal(size=(2, 16, DIMS["rope_head_dim"])).astype(np.float32)
+    kw = dict(rope_theta=1e4, total_len=16, cap=None, dtype="float32")
+    want, _ = jmla.mla_decode(_j(p), jnp.asarray(x), jmla.MLACache(
+        jnp.asarray(ckv), jnp.asarray(kr)), jnp.int32(pos), JM, JCTX, **kw)
+    cache = lambda: tmla.MLACache(torch.from_numpy(ckv), torch.from_numpy(kr))
+    seq = ParallelContext(seq_axis="data")
+    got, sc = tmla.mla_decode(_t(p), torch.from_numpy(x), cache(), pos, M,
+                              seq, **kw)
+    _, pc = tmla.mla_decode(_t(p), torch.from_numpy(x), cache(), pos, M, CTX,
+                            **kw)
+    close(got, want, 1e-5)
+    assert torch.equal(sc.c_kv, pc.c_kv) and torch.equal(sc.k_rope,
+                                                         pc.k_rope)

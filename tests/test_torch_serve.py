@@ -10,14 +10,17 @@ in summation order, and each tolerance is stated where it is set.
   with a band, then k ``decode_step``s past the window against JAX's, on
   every decoder arch the port builds (qwen2-moe's MoE FFN, deepseek-v3's
   MLA latent cache and recurrentgemma's RG-LRU state included), on
-  ``test_decode_consistency.py``'s two dense cases, its ``mla_moe`` and
-  ``hybrid_rglru`` cases, and on an attention + MoE case (its ``mla_moe``
+  ``test_decode_consistency.py``'s two dense cases, its ``mla_moe``,
+  ``hybrid_rglru`` and ``xlstm`` cases, on xlstm-350m's smoke config
+  (mLSTM + sLSTM state), and on an attention + MoE case (its ``mla_moe``
   case without MLA, capacity factor 8.0);
 * decoding from an empty cache equals the port's full-sequence forward;
 * the serve CLI on ``--device cpu`` prints the JAX CLI's tokens, both
   restoring the same checkpoint (the JAX package's files), on gemma2-2b,
-  deepseek-v3 (its checkpoint holds the MTP block serving never runs) and
-  recurrentgemma; ``examples/serve_batched_torch.py`` runs on
+  deepseek-v3 (its checkpoint holds the MTP block serving never runs),
+  recurrentgemma and xlstm, and at ``--tp 2`` (two gloo ranks against the
+  JAX CLI at tp = 1) on gemma2-2b and xlstm;
+  ``examples/serve_batched_torch.py`` runs on
   ``--device cpu``.
 """
 import dataclasses
@@ -52,12 +55,13 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
 DECODERS = ("gemma2-2b", "gemma2-27b", "qwen1.5-32b", "deepseek-coder-33b",
             "internvl2-1b", "qwen2-moe-a2.7b", "deepseek-v3-671b",
-            "recurrentgemma-2b")
+            "recurrentgemma-2b", "xlstm-350m")
 CASES = {a: (jax_arch(a).smoke, get_arch(a).smoke) for a in DECODERS}
 CASES.update({f"decode:{n}": (c, ModelConfig(**{
     f.name: getattr(c, f.name) for f in dataclasses.fields(c)}))
     for n, c in DECODE_CASES.items()
-    if n in ("dense_gqa", "local_global_softcap", "mla_moe", "hybrid_rglru")})
+    if n in ("dense_gqa", "local_global_softcap", "mla_moe", "hybrid_rglru",
+             "xlstm")})
 #: ``test_decode_consistency.py``'s ``mla_moe`` case without MLA: at
 #: capacity factor 8.0 (≥ E/k) an expert has a slot for every token, so
 #: decode (T = B) drops no token the forward keeps
@@ -137,7 +141,8 @@ def test_prefill_then_decode_past_the_window_matches_jax(name, chunk):
 @pytest.mark.parametrize("name", ["gemma2-2b", "decode:local_global_softcap",
                                   "qwen1.5-32b", "decode:attn_moe",
                                   "qwen2-moe-a2.7b", "decode:mla_moe",
-                                  "decode:hybrid_rglru", "recurrentgemma-2b"])
+                                  "decode:hybrid_rglru", "recurrentgemma-2b",
+                                  "decode:xlstm", "xlstm-350m"])
 def test_decode_from_an_empty_cache_matches_the_forward(name):
     """Decoding a sequence token by token from ``init_cache`` (the rings
     wrap after 16 / 6 tokens) gives the full-sequence forward's logits at
@@ -170,11 +175,12 @@ def _seq_lines(text):
             if ln.strip().startswith("seq[")]
 
 
-def _serve_clis(arch, tmp_path, capsys):
+def _serve_clis(arch, tmp_path, capsys, tp=1):
     """Both CLIs restore one checkpoint (the JAX init of ``arch``'s smoke
     config, its embedding table scaled by 0.05 so that the layers, not the
-    table, pick the tokens) and greedy-decode the same prompts: the
-    printed tokens are equal."""
+    table, pick the tokens) and greedy-decode the same prompts, the port's
+    at ``tp`` (on tp gloo ranks), the JAX CLI's at tp = 1: the printed
+    tokens are equal."""
     cfg = jax_arch(arch).smoke
     params = jax.device_get(JaxModel(cfg).init(jax.random.PRNGKey(4)))
     params["embed"]["table"] = params["embed"]["table"] * np.float32(0.05)
@@ -188,7 +194,7 @@ def _serve_clis(arch, tmp_path, capsys):
                          timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     want = _seq_lines(out.stdout)
-    tserve.main(argv + ["--device", "cpu"])
+    tserve.main(argv + ["--tp", str(tp), "--device", "cpu"])
     got = _seq_lines(capsys.readouterr().out)
     assert len(want) == 3 and got == want
     assert len({ln.split("->")[1] for ln in got}) > 1
@@ -198,24 +204,32 @@ def test_serve_cli_prints_the_jax_clis_tokens(tmp_path, capsys):
     _serve_clis("gemma2-2b", tmp_path, capsys)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
 def test_serve_cli_prints_the_jax_clis_tokens_on_mla_and_rglru(
         arch, tmp_path, capsys):
     """As :func:`test_serve_cli_prints_the_jax_clis_tokens`: deepseek-v3's
     MLA + MoE (the checkpoint holds the MTP block too, which serving
-    restores and never runs) and recurrentgemma's RG-LRU + local
-    attention."""
+    restores and never runs), recurrentgemma's RG-LRU + local attention
+    and xlstm's mLSTM + sLSTM."""
     _serve_clis(arch, tmp_path, capsys)
 
 
+@pytest.mark.parametrize("arch", ["gemma2-2b", "xlstm-350m"])
+def test_serve_cli_at_tp2_prints_the_jax_clis_tokens(arch, tmp_path, capfd):
+    """``--tp 2``: the port's two gloo ranks (rank 0 prints) against the
+    JAX CLI on one checkpoint. The JAX CLI's own ``--tp 2`` fails under
+    jax 0.9: its cache out_specs name ``"data"`` on a ``("model",)`` mesh
+    (ROADMAP Queue 3 item 23), so it serves at tp = 1 here."""
+    _serve_clis(arch, tmp_path, capfd, tp=2)
+
+
 def test_serve_refuses_what_the_port_does_not_run():
-    with pytest.raises(NotImplementedError, match="tp = 1"):
-        tserve.main(["--smoke", "--tp", "2", "--device", "cpu"])
+    """An encoder-only arch has no decode path (``--tp 2`` and xlstm-350m
+    run: the two tests above)."""
     with pytest.raises(SystemExit, match="encoder-only"):
         tserve.main(["--arch", "hubert-xlarge", "--smoke", "--device",
                      "cpu"])
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        tserve.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-moe-a2.7b",

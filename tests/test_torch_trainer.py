@@ -224,7 +224,7 @@ def test_trainer_tracks_the_jax_trainer(name, monkeypatch):
 
 def test_params_are_in_jax_shapes_and_mesh_is_refused():
     """The simulation trainer's params are views in JAX shapes; the mesh
-    trainer refuses a model axis > 1 (tp = 1 only, until the model zoo)
+    trainer refuses a model built at another tp than the mesh's model axis
     before it touches the process group, and the simulation backend
     without a loss or an init."""
     tt = _port_trainer("sparse")
@@ -234,8 +234,8 @@ def test_params_are_in_jax_shapes_and_mesh_is_refused():
     assert torch.equal(ravel(tt.params)[0], tt._state.params)
     tp2 = SimpleNamespace(mesh_dim_names=("data", "model"),
                           mesh=torch.zeros(2, 2, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="mesh backend runs at "
-                                                  "tp = 1"):
+    with pytest.raises(ValueError, match="model is built for tp=1 but "
+                                         "the mesh's model axis is 2"):
         FederatedTrainer(fed=FedConfig(), mesh=tp2, model=ParityModel(),
                          lm_data=TargetData(2), device="cpu")
     with pytest.raises(ValueError, match="loss_fn and init_params"):
