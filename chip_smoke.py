@@ -229,7 +229,24 @@ then, on the card:
    qwen2-moe-a2.7b at
    published widths, 2 layers and 58 experts at tp 4 (padded to 60): no
    pad expert chosen, decode = forward; a decode over a cache split across
-   2 ranks of the sequence axis against the unsharded one within 1e-5.
+   2 ranks of the sequence axis (the context of ``launch/steps.py``'s
+   ``serve_ctx``) against the unsharded one within 1e-5;
+16. runs ``launch/steps.py``'s decode entry at long_500k (route y):
+   gemma2-2b at full width and depth, bf16 weights drawn on the card,
+   built with ``steps.build_decode_step`` on a (2, 1) ("data", "model")
+   mesh of two gloo ranks sharing the card, each holding 262,144 of the
+   524,288 cache slots (the cache drawn as one global cache and cut):
+   8 tokens from position 524,280, ms a token and peak memory a rank beside
+   the peak ``launch/op_analysis`` reckons on meta; the same steps
+   unsharded in this process (the largest logit difference, unbounded at
+   bf16) and at 2 layers in fp32 within 1e-5. ``launch/op_analysis``'s
+   count of that step and of route n's decode shape (batch 4, 544 slots,
+   built on a one-rank mesh) on the card equals its count on meta (ops,
+   FLOPs, bytes, collective bytes by kind); the step roofline of both
+   and of route o's train round (built with ``steps.build_train_step``
+   and ``KernelImpl``: 3 rounds) against ``h100_sxm`` beside the measured
+   step; and the dry run of gemma2-2b at long_500k on the 16 × 16 mesh
+   (``python -m repro_torch.launch.dryrun``) prints ``[ok]``.
 Every model route prints its seconds.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
@@ -3475,10 +3492,12 @@ def _x_mesh_job(job: dict) -> dict:
     (weights drawn on the card, this rank's shards kept): prefill + decode
     against the forward, every dispatch's top-k recorded (no pad expert
     chosen, the pad experts' router probs 0); (2) the sequence-sharded
-    decode over ``X_SEQ_SHARDS`` ranks of "data" (the "model" dim's ranks
+    decode over ``X_SEQ_SHARDS`` ranks of "data" in the context
+    ``launch/steps.py``'s ``serve_ctx`` makes (the "rep" dim's ranks
     repeat it) against the unsharded decode."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as tserve
+    from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.model import Model
@@ -3507,9 +3526,11 @@ def _x_mesh_job(job: dict) -> dict:
     del params
     torch.cuda.empty_cache()
 
-    mesh = make_mesh((X_SEQ_SHARDS, X_MOE_TP // X_SEQ_SHARDS),
-                     ("data", "model"), "cuda")
-    seq = ParallelContext(seq_axis="data", mesh=mesh)
+    # the serving context of launch/steps.py over ("data", "model") with a
+    # model dim of 1; the "rep" dim's ranks repeat the work
+    mesh = make_mesh((X_MOE_TP // X_SEQ_SHARDS, X_SEQ_SHARDS, 1),
+                     ("rep", "data", "model"), "cuda")
+    seq = steps.serve_ctx(mesh, seq_sharded=True)
     check(seq.seq_shards == X_SEQ_SHARDS,
           f"route x: the sequence axis has {seq.seq_shards} ranks")
     m2 = Model(job["seq_cfg"])
@@ -3651,6 +3672,432 @@ def route_x() -> dict:
             "launches": dict(ops.launches)}
 
 
+# ---------------------------------------------------------------------------
+# route y: launch/steps.py's decode entry at long_500k, the step rooflines
+# and the dry run on the card's host
+# ---------------------------------------------------------------------------
+
+#: route y: gemma2-2b decoded at long_500k (batch 1, 524,288 slots) through
+#: ``steps.build_decode_step``, the cache's slots split over the ``Y_SHARDS``
+#: gloo ranks of a (2, 1) ("data", "model") mesh sharing the card:
+#: ``Y_STEPS`` tokens from position ``Y_POS0`` (the last slots, rank 1's
+#: block); held to the unsharded decode at ``Y_SMALL_LAYERS`` layers in fp32
+#: within route x's tolerance
+Y_SHARDS, Y_STEPS, Y_POS0, Y_SMALL_LAYERS = 2, 8, 524280, 2
+Y_TOL = X_SEQ_TOL
+#: route n's decode shape for the step roofline: batch 4, 544 slots
+Y_N_BATCH, Y_N_LEN = 4, 544
+
+
+def _y_spec(cfg=None):
+    """gemma2-2b's ``ArchSpec`` with ``cfg`` as its model (None: the
+    published one)."""
+    from repro_torch.configs.registry import get_arch
+    spec = get_arch("gemma2-2b")
+    return spec if cfg is None else dataclasses.replace(spec, model=cfg)
+
+
+def _y_cfg(layers: int = 0, dtype: str = ""):
+    """gemma2-2b's model cut to ``layers`` in ``dtype`` (0 / "": the
+    published depth and dtype)."""
+    from repro_torch.configs.base import mreplace
+    kw = dict(({"num_layers": layers} if layers else {}),
+              **({"dtype": dtype} if dtype else {}))
+    return mreplace(_y_spec().model, **kw)
+
+
+def _y_weights(model, dtype: str, seed: int, device):
+    """The model's weights in ``dtype``, drawn where ``device`` is from a
+    generator seeded ``seed`` (every rank draws the same: tp 1)."""
+    from repro_torch.models import params as pdefs
+    defs = pdefs.tree_map(lambda d: dataclasses.replace(d, dtype=dtype),
+                          model.defs())
+    return pdefs.init_params(
+        defs, torch.Generator(device=device).manual_seed(seed), device)
+
+
+def _y_cache(model, batch: int, max_len: int, ctx, seed: int, device,
+             seq_sharded: bool):
+    """A decode cache drawn as the global one (a generator seeded ``seed``,
+    one layer of the stack at a time), this rank keeping its block
+    (``take_shard``): every layout of the mesh holds the same global
+    cache."""
+    from repro_torch.models import params as pdefs
+    cdefs = model.cache_defs(batch, max_len, seq_sharded=seq_sharded)
+    caches = model.init_cache(batch, max_len, seq_sharded=seq_sharded,
+                              device=device, ctx=ctx)
+    g = torch.Generator(device=device).manual_seed(seed)
+    for (path, d), t in zip(pdefs.leaves_with_paths(cdefs),
+                            pdefs.tree_leaves(caches)):
+        check(path[0] == "groups", f"route y: an unstacked cache leaf {path}")
+        layer = pdefs.ParamDef(d.shape[1:], dtype=d.dtype,
+                               spec=d.dim_specs[1:])
+        for i in range(d.shape[0]):
+            full = torch.randn(layer.shape, generator=g, dtype=t.dtype,
+                               device=device)
+            t[i].copy_(pdefs.take_shard(full, layer, ctx))
+            del full
+    return caches
+
+
+def _y_decode(fn, params, make_caches, toks, pos0: int, steps: int):
+    """``steps`` calls of the decode step ``fn`` from ``pos0`` on the
+    caches ``make_caches()`` draws (made here, so that no caller holds
+    the first ones while the steps make new ones): the logits (host,
+    fp32), each call's host ms (the card synchronized before and after)
+    and the last caches."""
+    caches = make_caches()
+    out, ms = [], []
+    with torch.no_grad():
+        for i in range(steps):
+            _sync()
+            t0 = time.perf_counter()
+            lg, caches = fn(params, toks[:, i:i + 1], caches, pos0 + i)
+            _sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(lg.float().cpu())
+    return torch.stack(out), ms, caches
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _on_meta(args):
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta")
+                    if isinstance(t, torch.Tensor) else t, args)
+
+
+def _counts(c) -> list:
+    """What the card's count and the meta count are held equal on."""
+    return [c.ops, c.flops, c.bytes, c.rw_bytes,
+            sorted((k, int(v)) for k, v in c.coll_bytes.items())]
+
+
+def _y_step_cost(fn, args) -> dict:
+    """``launch/op_analysis``'s counts of one call of ``fn`` on ``args``
+    (real tensors on the card) and on meta copies of them; the meta
+    count's memory record."""
+    from repro_torch.launch import op_analysis as oa
+    with torch.no_grad():
+        card = oa.measure(fn, *args)
+        meta = oa.analyze(fn, *_on_meta(args))
+    return {"card": _counts(card), "meta": _counts(meta),
+            "memory": meta.memory, "cost": meta}
+
+
+def _roofline(cost, chips: int, cfg, kind: str, tokens: int,
+              local_steps: int = 1) -> dict:
+    from repro_torch.launch.mesh import backend_spec
+    from repro_torch.launch.roofline import model_flops_for, roofline_from_cost
+    spec = backend_spec()
+    rl = roofline_from_cost(cost, chips=chips, spec=spec,
+                            model_flops=model_flops_for(cfg, kind, tokens,
+                                                        local_steps))
+    return dict(rl.to_dict(), backend=spec.name)
+
+
+def _y_job(job: dict) -> dict:
+    """One of route y's ranks, in turn: (1) gemma2-2b at full depth, bf16
+    weights, decoded at long_500k through ``steps.build_decode_step`` on a
+    (2, 1) ("data", "model") mesh: the dry run's count of the step on meta
+    (its reckoned memory), the cache drawn as the global one and cut to
+    this rank's slots, ``Y_STEPS`` timed steps, then one more counted by
+    ``launch/op_analysis`` on the card and on meta; (2) the same at
+    ``Y_SMALL_LAYERS`` layers in fp32; (3) route o's train round built with
+    ``steps.build_train_step`` and ``KernelImpl``: 3 rounds timed (the
+    first a warm-up) and the round counted on meta. Returns rank 0's
+    logits and every rank's times, counts and peaks."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import INPUT_SHAPES, ShapeConfig, TrainConfig
+    from repro_torch.core.mesh import init_fed_state, shard_batch
+    from repro_torch.data.synthetic import FederatedLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = job.get("device", "cuda")
+    mesh = make_mesh((Y_SHARDS, 1), ("data", "model"), dev)
+    shape = job.get("shape", INPUT_SHAPES["long_500k"])
+    pos0 = shape.seq_len - Y_STEPS
+    out = {}
+    for name, (cfg, wdtype) in job["decodes"].items():
+        spec = _y_spec(cfg)
+        b = steps.build_decode_step(spec, shape, mesh)
+        check(b.ctx.seq_shards == Y_SHARDS and "seq-sharded" in
+              b.description, f"route y: {b.description}, "
+              f"{b.ctx.seq_shards} shards")
+        params = _y_weights(b.model, wdtype, 1, dev)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, spec.model.vocab_size, size=(1, Y_STEPS + 1)).astype(
+                np.int32)).to(dev)
+        if dev != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        logits, ms, caches = _y_decode(
+            b.fn, params, lambda: _y_cache(b.model, 1, shape.seq_len, b.ctx,
+                                           2, dev, True), toks, pos0, Y_STEPS)
+        peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
+        # one more step counted on the card and on meta (the same inputs)
+        counts = _y_step_cost(b.fn, (params, toks[:, -1:], caches,
+                                     shape.seq_len - 1))
+        out[name] = {"logits": logits if dist.get_rank() == 0 else None,
+                     "ms": ms, "peak_bytes": peak,
+                     "reckoned": counts["memory"],
+                     "counts": counts, "slots": b.abstract_args[2]
+                     ["groups"]["l1"]["k"].shape[2]}
+        del params, caches, b
+        gc.collect()
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+
+    # route o's train round through steps.build_train_step
+    spec = _y_spec(job["train_cfg"])
+    fed, tcfg = job["fed"], TrainConfig(remat_policy="none")
+    shape = ShapeConfig("route_o", 512, 2 * Y_SHARDS, "train")
+    b = steps.build_train_step(spec, shape, mesh, fed, tcfg,
+                               kernel_impl=ops.KernelImpl(device=dev))
+    tcfg = dataclasses.replace(tcfg, global_batch=shape.global_batch,
+                               seq_len=shape.seq_len)
+    meta = oa.analyze(b.fn, *b.abstract_args)
+    state = init_fed_state(b.model, b.fed, torch.Generator(
+        device=dev).manual_seed(0), b.ctx, dev)
+    data = FederatedLMData(num_clients=b.fed.num_clients,
+                           vocab_size=spec.model.vocab_size, seed=0)
+    ops.reset_launches()
+    round_ms, losses = [], []
+    for r in range(3):
+        batch = shard_batch(data.mesh_batch(r, b.fed.local_steps,
+                                            shape.global_batch,
+                                            shape.seq_len),
+                            b.model, b.fed, tcfg, b.ctx, dev)
+        dist.barrier()
+        _sync()
+        t0 = time.perf_counter()
+        state, met = b.fn(state, batch, r)
+        _sync()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    out["train"] = {"round_ms": round_ms, "losses": losses,
+                    "launches": dict(ops.launches), "cost": meta,
+                    "description": b.description}
+    return out
+
+
+def _y_unsharded(cfg, wdtype: str, shape, device="cuda"):
+    """The decode of one of :func:`_y_job`'s runs in this process, its
+    cache whole (``ParallelContext()``), the weights, cache and tokens
+    drawn as the ranks draw them; returns the logits and the step
+    times."""
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.rules import ParallelContext
+    model = Model(cfg)
+    ctx = ParallelContext()
+    params = _y_weights(model, wdtype, 1, device)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1, Y_STEPS + 1)).astype(
+            np.int32)).to(device)
+
+    def fn(p, t, c, pos):
+        return model.decode_step(p, t, c, pos, ctx, max_len=shape.seq_len)
+
+    logits, ms, _ = _y_decode(
+        fn, params, lambda: _y_cache(model, 1, shape.seq_len, ctx, 2, device,
+                                     False), toks, shape.seq_len - Y_STEPS,
+        Y_STEPS)
+    return logits, ms
+
+
+def _y_route_n_step(cfg, device="cuda") -> dict:
+    """Route n's decode shape (gemma2-2b, fp32 weights, bf16 compute,
+    batch ``Y_N_BATCH``, ``Y_N_LEN`` slots, tp 1) built with
+    ``steps.build_decode_step`` on a (1, 1) mesh of a one-rank gloo group:
+    a warm-up step, ``Y_STEPS`` timed, one counted on the card and on
+    meta."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        spec = _y_spec(cfg)
+        shape = ShapeConfig("decode_n", Y_N_LEN, Y_N_BATCH, "decode")
+        b = steps.build_decode_step(spec, shape,
+                                    make_mesh((1, 1), ("data", "model"),
+                                              device))
+        params = b.model.init(torch.Generator(device=device).manual_seed(0),
+                              device)
+        toks = torch.from_numpy(np.random.default_rng(5).integers(
+            0, spec.model.vocab_size, size=(Y_N_BATCH, Y_STEPS + 2)).astype(
+                np.int32)).to(device)
+        _, ms, caches = _y_decode(
+            b.fn, params, lambda: _y_cache(b.model, Y_N_BATCH, Y_N_LEN, b.ctx,
+                                           4, device, False), toks,
+            Y_N_LEN - Y_STEPS - 2, Y_STEPS + 1)
+        counts = _y_step_cost(b.fn, (params, toks[:, -1:], caches,
+                                     Y_N_LEN - 1))
+        del params, caches
+        return {"ms": ms[1:], "counts": counts, "model": b.model}
+    finally:
+        dist.destroy_process_group()
+
+
+def _y_dryrun(out_path: str) -> tuple:
+    """``python -m repro_torch.launch.dryrun`` on one case (gemma2-2b,
+    long_500k, the 16 × 16 mesh) in a subprocess; (stdout, the case)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gemma2-2b", "--shape", "long_500k", "--mesh", "single", "--out",
+         out_path, "--overwrite"], capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    check(res.returncode == 0, f"route y: the dry run exited "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    check("[ok] baseline/pod16x16/gemma2-2b/long_500k" in res.stdout,
+          f"route y: the dry run printed no [ok]: {res.stdout[-2000:]}")
+    case = json.loads(Path(out_path).read_text())[
+        "baseline/pod16x16/gemma2-2b/long_500k"]
+    return res.stdout.strip(), case, time.perf_counter() - t0
+
+
+def _rl_line(rl: dict, measured_ms: float) -> str:
+    share = max(rl["compute_s"], rl["memory_s"]) / (measured_ms / 1e3)
+    return (f"compute {rl['compute_s'] * 1e3:.4f} ms, memory "
+            f"{rl['memory_s'] * 1e3:.4f} ms, collective "
+            f"{rl['collective_s'] * 1e3:.4f} ms, dominant {rl['dominant']} "
+            f"(against {rl['backend']}); measured {measured_ms:.2f} ms: "
+            f"max(compute, memory) / measured = {share:.4f}")
+
+
+def route_y() -> dict:
+    """Route y: ``launch/steps.py``'s decode entry at long_500k on the card,
+    the step rooflines and the dry run. (a) gemma2-2b at full width and
+    depth (bf16 weights drawn on the card, bf16 compute) decoded through
+    ``steps.build_decode_step`` at long_500k (batch 1, 524,288 slots) on
+    ``Y_SHARDS`` gloo ranks sharing the card, each holding half the
+    slots: ms a token and peak memory a rank beside the dry run's reckoned
+    peak; the same steps unsharded in this process (the largest logit
+    difference, unbounded at bf16); at ``Y_SMALL_LAYERS`` layers in fp32
+    within ``Y_TOL``. (b) ``launch/op_analysis``'s count of route y's step
+    and of route n's decode shape on the card equals its count on meta:
+    ops, FLOPs, bytes, collective bytes by kind. (c) The roofline of
+    those two steps and of route o's train round (``steps.
+    build_train_step`` with ``KernelImpl``) against ``h100_sxm`` beside
+    the measured step. (d) The dry run of gemma2-2b at long_500k on the
+    16 × 16 mesh prints ``[ok]``."""
+    from repro_torch.configs.base import INPUT_SHAPES
+
+    card = card_line()
+    shape = INPUT_SHAPES["long_500k"]
+    free, total = torch.cuda.mem_get_info()
+    decodes = {"full": (_y_cfg(), "bfloat16"),
+               "fp32": (_y_cfg(Y_SMALL_LAYERS, "float32"), "float32")}
+    with expandable_segments():
+        rk = run_ranks(Y_SHARDS, "gloo", {"y": {
+            "decodes": decodes, "train_cfg": lm_cfg(), "fed": lm_fed()}},
+            fn=_y_job, timeout=600)
+    ys = [r["y"] for r in rk]
+    full, small, tr = ys[0]["full"], ys[0]["fp32"], ys[0]["train"]
+    cfg = _y_cfg()
+    # (a) the sharded steps, then the same unsharded here
+    for y in ys:
+        for name in ("full", "fp32"):
+            check(y[name]["counts"]["card"] == y[name]["counts"]["meta"],
+                  f"route y: {name}: the card's count "
+                  f"{y[name]['counts']['card']} != meta's "
+                  f"{y[name]['counts']['meta']}")
+    check(full["slots"] == shape.seq_len // Y_SHARDS,
+          f"route y: {full['slots']} slots a rank")
+    check(bool(torch.isfinite(full["logits"]).all()),
+          "route y: non-finite logits")
+    ref_full, ms_ref = _y_unsharded(*decodes["full"], shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_small, _ = _y_unsharded(*decodes["fp32"], shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_err = _rel_err(full["logits"], ref_full)
+    small_err = _rel_err(small["logits"], ref_small)
+    check(small_err <= Y_TOL, f"route y: fp32, {Y_SMALL_LAYERS} layers: "
+          f"sequence-sharded vs unsharded {small_err} (tolerance {Y_TOL})")
+    tok_ms = float(np.median([m for y in ys for m in y["full"]["ms"][1:]]))
+    peaks = [y["full"]["peak_bytes"] / 1e9 for y in ys]
+    reck = full["reckoned"]
+    reck_gb = (reck["argument_size"] + reck["temp_size"]) / 1e9
+    print(f"route y [{card}]: gemma2-2b, {cfg.num_layers} layers, bf16, "
+          f"long_500k through steps.build_decode_step on {Y_SHARDS} gloo "
+          f"ranks ({full['slots']:,} slots a rank): {Y_STEPS} tokens from "
+          f"position {Y_POS0:,}: {tok_ms:.2f} ms a token (median of steps "
+          f"2-{Y_STEPS}, both ranks; first step {full['ms'][0]:.2f} ms); "
+          f"peak a rank {[round(p, 2) for p in peaks]} GB, the dry run's "
+          f"reckoned peak {reck_gb:.2f} GB (arguments "
+          f"{reck['argument_size'] / 1e9:.2f} + temporaries "
+          f"{reck['temp_size'] / 1e9:.2f}); unsharded in one process "
+          f"{np.median(ms_ref[1:]):.2f} ms a token, logits vs sharded "
+          f"{full_err:.3g} of the largest (bf16, no bound); at "
+          f"{Y_SMALL_LAYERS} layers fp32 {small_err:.3g} (tolerance "
+          f"{Y_TOL}); {free / 1e9:.1f} of {total / 1e9:.1f} GB free before")
+    # (b) + (c): route n's decode shape, then the three rooflines
+    n_step = _y_route_n_step(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(n_step["counts"]["card"] == n_step["counts"]["meta"],
+          f"route y: route n's decode shape: the card's count "
+          f"{n_step['counts']['card']} != meta's {n_step['counts']['meta']}")
+    n_ms = float(np.median(n_step["ms"]))
+    rl = {"y_decode": _roofline(full["counts"]["cost"], Y_SHARDS, cfg,
+                                "decode", 1),
+          "n_decode": _roofline(n_step["counts"]["cost"], 1, cfg, "decode",
+                                Y_N_BATCH),
+          "o_train": _roofline(tr["cost"], Y_SHARDS, lm_cfg(), "train",
+                               2 * Y_SHARDS * 512, lm_fed().local_steps)}
+    train_ms = float(np.median(tr["round_ms"][1:]))
+    check(all(np.isfinite(y["train"]["losses"]).all() for y in ys),
+          f"route y: train losses {tr['losses']}")
+    counts = {k: [y[k]["counts"]["card"] for y in ys] for k in ("full",
+                                                               "fp32")}
+    print(f"route y [{card}]: op_analysis on the card = on meta (ops, "
+          f"FLOPs, bytes, rw bytes, collective bytes): y's step a rank "
+          f"{counts['full']}, route n's decode shape "
+          f"{n_step['counts']['card']}")
+    print(f"route y [{card}]: step roofline, y's decode (a rank; the two "
+          f"ranks share one card): {_rl_line(rl['y_decode'], tok_ms)}")
+    print(f"route y [{card}]: step roofline, route n's decode shape "
+          f"(batch {Y_N_BATCH}, {Y_N_LEN} slots, fp32 weights): "
+          f"{_rl_line(rl['n_decode'], n_ms)}")
+    print(f"route y [{card}]: step roofline, route o's train round "
+          f"({tr['description']}, rank 0 of {Y_SHARDS} sharing the card; "
+          f"rounds {[round(t, 1) for t in tr['round_ms']]} ms, launches "
+          f"{ {k: v for k, v in tr['launches'].items() if v} }): "
+          f"{_rl_line(rl['o_train'], train_ms)}")
+    # (d) the dry run on this host
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    dry_out, dry, dry_s = _y_dryrun(str(outdir / "dryrun_torch.json"))
+    print(f"route y [{card}]: dry run ({dry_s:.1f} s): {dry_out}")
+    for v in rl.values():
+        v.pop("backend")
+    return {"card": card, "ms_a_token": tok_ms, "first_ms": full["ms"][0],
+            "peak_gb": peaks, "reckoned_gb": reck_gb, "reckoned": reck,
+            "unsharded_ms_a_token": float(np.median(ms_ref[1:])),
+            "bf16_vs_unsharded_rel_err": full_err,
+            "fp32_vs_unsharded_rel_err": small_err,
+            "counts": counts, "n_counts": n_step["counts"]["card"],
+            "n_ms_a_token": n_ms, "train_round_ms": tr["round_ms"],
+            "train_losses": tr["losses"], "rooflines": rl,
+            "dryrun": {k: dry[k] for k in ("status", "trace_s", "memory",
+                                           "roofline")},
+            "launches": {k: sum(y["train"]["launches"][k] for y in ys)
+                         for k in tr["launches"]}}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False — this script needs a card")
@@ -3739,7 +4186,7 @@ def main():
                     "r": route_r, "s": lambda: route_s(mesh_held),
                     "t": route_t, "u": lambda: route_u(mesh_held),
                     "v": route_v, "w": lambda: route_w(mesh_held),
-                    "x": route_x}
+                    "x": route_x, "y": route_y}
     lm_rounds = {"o": LM_ROUNDS, "q": MOE_ROUNDS, "s": MLA_ROUNDS,
                  "u": RG_ROUNDS, "w": W_ROUNDS}
     zoo = {}

@@ -361,10 +361,12 @@ def topk_select_tree(comp: Compressor, delta, err, mask):
     def leaf(dd, ee):
         tot = (dd + ee).reshape(-1)
         sel = comp.select(tot)
-        keep = sel.idx < tot.numel()
-        res = tot.clone()
-        res[sel.idx[keep].long()] = 0.0
-        return sel, res.reshape(ee.shape)
+        d = tot.numel()
+        # padded-tail picks write a spare slot past the end, so the shapes
+        # do not depend on the data (a meta trace runs this too)
+        res = torch.cat([tot, tot.new_zeros(1)])
+        res[torch.where(sel.idx < d, sel.idx, d).long()] = 0.0
+        return sel, res[:d].reshape(ee.shape)
 
     return select_tree(leaf, delta, err, mask)
 

@@ -10,7 +10,12 @@ The ``*_cuda`` functions are the kernel wrappers themselves. They check
 device, dtype, shape and contiguity, allocate outputs with
 ``torch.empty``, launch on the current stream, raise on a nonzero
 ``cudaGetLastError()``, and count the launch in :data:`launches`. Called
-with CPU tensors they raise.
+with CPU tensors they raise. Every launch is charged to an active
+``launch/op_analysis.OpCost`` with the bytes of its bound (each input
+read once, each output written once). On ``meta`` tensors (the dry run)
+the public functions take the kernel's route too: the wrapper checks and
+allocates as on the card and charges the launch it would make, but
+launches nothing and counts nothing (there is no data).
 
 :class:`KernelImpl` is the mesh round's kernel provider (the JAX package's
 ``KernelImpl``): the per-leaf selection and fused ingest over the
@@ -25,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.launch.op_analysis import record_launch
 
 #: kernel name → launches since the last :func:`reset_launches`. A wrapper
 #: adds one where it launches its kernel and nowhere else.
@@ -40,10 +46,16 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def _kernel_route(t) -> bool:
+    """Whether ``t``'s device takes the kernel's route: CUDA, or ``meta``
+    (charged, not launched)."""
+    return t.is_cuda or t.is_meta
+
+
 def _check(t, what: str, dtype, shape=None, device=None):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
-    if not t.is_cuda:
+    if not _kernel_route(t):
         raise RuntimeError(f"{what}: the CUDA kernel needs a CUDA tensor, "
                            f"got one on {t.device}")
     if device is not None and t.device != device:
@@ -57,7 +69,12 @@ def _check(t, what: str, dtype, shape=None, device=None):
         raise ValueError(f"{what}: must be contiguous")
 
 
-def _launch(name: str, device, *args):
+def _launch(name: str, device, nbytes: int, *args):
+    """Launch ``name`` on ``device``'s current stream, its bound moving
+    ``nbytes``; on ``meta`` only charge it."""
+    record_launch(name, nbytes)
+    if device.type == "meta":
+        return
     fn = _build.kernel(name)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
@@ -69,14 +86,21 @@ def _launch(name: str, device, *args):
 
 
 def _ptr(t):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    if t is None or t.is_meta:
+        return None
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def _check_rows(rows, m: int, what: str = "topk_ef_sparse"):
     """``rows`` name the EF rows a call updates in place: they must lie in
     [0, m) (the kernel would write outside the buffer) and be distinct (the
-    kernel's CTAs of a repeated row would race). One host sync."""
-    if rows.numel() == 0:
+    kernel's CTAs of a repeated row would race). One host sync; none on
+    ``meta`` (no data to check)."""
+    if rows.numel() == 0 or rows.is_meta:
         return
     s = torch.sort(rows).values
     out_of_range, repeated = torch.stack(
@@ -109,7 +133,7 @@ def topk_ef_sparse(x, err, rows, *, k: int, block: int):
     :func:`repro_torch.kernels.ref.topk_ef_sparse` for the contract
     (``err[rows]`` is updated in place; returns ``(vals, idx)`` (c, nb, k)).
     """
-    if x.is_cuda:
+    if _kernel_route(x):
         return topk_ef_sparse_cuda(x, err, rows, k=k, block=block)
     _check_rows(rows, err.shape[0])
     return ref.topk_ef_sparse(x, err, rows, k=k, block=block)
@@ -130,7 +154,8 @@ def topk_ef_sparse_cuda(x, err, rows, *, k: int, block: int,
     nb = -(-d // block)
     vals = torch.empty((c, nb, k), dtype=torch.float32, device=dev)
     idx = torch.empty((c, nb, k), dtype=torch.int32, device=dev)
-    _launch("topk_ef_sparse", dev, _ptr(x), _ptr(err), _ptr(rows),
+    _launch("topk_ef_sparse", dev, 3 * _nbytes(x) + _nbytes(vals, idx),
+            _ptr(x), _ptr(err), _ptr(rows),
             _ptr(vals), _ptr(idx), d, block, nb, k, c)
     return vals, idx
 
@@ -139,7 +164,7 @@ def topk_ef(x, err, rows, *, k: int, block: int):
     """Dense-hat blockwise top-k with error feedback for ``c`` clients; see
     :func:`repro_torch.kernels.ref.topk_ef` for the contract (``err[rows]``
     becomes ``tot - hat`` in place; returns the (c, d) hat)."""
-    if x.is_cuda:
+    if _kernel_route(x):
         return topk_ef_cuda(x, err, rows, k=k, block=block)
     _check_rows(rows, err.shape[0], "topk_ef")
     return ref.topk_ef(x, err, rows, k=k, block=block)
@@ -157,8 +182,8 @@ def topk_ef_cuda(x, err, rows, *, k: int, block: int,
     c, d = x.shape
     nb = -(-d // block)
     hat = torch.empty((c, d), dtype=torch.float32, device=x.device)
-    _launch("topk_ef", x.device, _ptr(x), _ptr(err), _ptr(rows), _ptr(hat),
-            d, block, nb, k, c)
+    _launch("topk_ef", x.device, 4 * _nbytes(x), _ptr(x), _ptr(err),
+            _ptr(rows), _ptr(hat), d, block, nb, k, c)
     return hat
 
 
@@ -169,7 +194,7 @@ def sign_ef(x, err, rows):
     """Scaled sign with error feedback for ``c`` clients; see
     :func:`repro_torch.kernels.ref.sign_ef` for the contract (``err[rows]``
     becomes ``tot - hat`` in place; returns the (c, d) hat)."""
-    if x.is_cuda:
+    if _kernel_route(x):
         return sign_ef_cuda(x, err, rows)
     _check_rows(rows, err.shape[0], "sign_ef")
     return ref.sign_ef(x, err, rows)
@@ -207,8 +232,10 @@ def sign_ef_cuda(x, err, rows, *, check_rows: bool = True):
     dev = x.device
     hat = torch.empty((c, d), dtype=torch.float32, device=dev)
     partials = torch.empty((c, nb), dtype=torch.float32, device=dev)
-    _launch("sign_ef", dev, _ptr(x), _ptr(err), _ptr(rows), _ptr(hat),
-            _ptr(partials), _ptr(_sign_arrivals(dev, c)), d, nb, c)
+    arrivals = None if dev.type == "meta" else _sign_arrivals(dev, c)
+    _launch("sign_ef", dev, 4 * _nbytes(x), _ptr(x), _ptr(err), _ptr(rows),
+            _ptr(hat),
+            _ptr(partials), _ptr(arrivals), d, nb, c)
     return hat
 
 
@@ -253,7 +280,7 @@ def _check_block(buf, what: str, col: int, nbytes: int):
     hold ``nbytes`` from column ``col``."""
     if not isinstance(buf, torch.Tensor) or buf.dim() != 2:
         raise ValueError(f"{what}: expected a (c, W) uint8 tensor")
-    if not buf.is_cuda:
+    if not _kernel_route(buf):
         raise RuntimeError(f"{what}: the CUDA kernel needs a CUDA tensor, "
                            f"got one on {buf.device}")
     if buf.dtype != torch.uint8:
@@ -269,7 +296,7 @@ def pack_uint(vals, nbits: int):
     """MSB-first ``nbits``-bit packing of uint8 or int32 (uint32 bit
     pattern) values → uint8 bytes; the contract of
     :func:`repro_torch.kernels.ref.pack_uint`."""
-    if vals.is_cuda:
+    if _kernel_route(vals):
         return pack_uint_cuda(vals, nbits)
     return ref.pack_uint(vals, nbits)
 
@@ -281,9 +308,9 @@ def pack_uint_cuda(vals, nbits: int):
     out = torch.empty((1, (count * nbits + 7) // 8), dtype=torch.uint8,
                       device=vals.device)
     if count:
-        _launch("pack_uint", vals.device, _ptr(vals), count,
-                _PACK_KIND[vals.dtype], _ptr(out), out.shape[1], 0, count,
-                nbits, 1)
+        _launch("pack_uint", vals.device, _nbytes(vals, out), _ptr(vals),
+                count, _PACK_KIND[vals.dtype], _ptr(out), out.shape[1], 0,
+                count, nbits, 1)
     return out[0]
 
 
@@ -294,7 +321,7 @@ def pack_uint_rows(vals, nbits: int, out, col: int = 0):
     The contract of :func:`repro_torch.kernels.ref.pack_uint_rows`: uint8
     or int32 values, or, at ``nbits=1``, float32 totals packed as their
     ``>= 0`` predicate."""
-    if vals.is_cuda:
+    if _kernel_route(vals):
         return pack_uint_rows_cuda(vals, nbits, out, col)
     return ref.pack_uint_rows(vals, nbits, out, col)
 
@@ -310,9 +337,10 @@ def pack_uint_rows_cuda(vals, nbits: int, out, col: int = 0):
         raise ValueError(f"pack_uint_rows: out is {tuple(out.shape)} on "
                          f"{out.device}, expected {c} rows on {vals.device}")
     if c and count:
-        _launch("pack_uint", vals.device, _ptr(vals), count,
-                _PACK_KIND[vals.dtype], _ptr(out), out.stride(0), col, count,
-                nbits, c)
+        _launch("pack_uint", vals.device,
+                _nbytes(vals) + c * ((count * nbits + 7) // 8), _ptr(vals),
+                count, _PACK_KIND[vals.dtype], _ptr(out), out.stride(0), col,
+                count, nbits, c)
     return out
 
 
@@ -320,7 +348,7 @@ def unpack_uint(buf, nbits: int, count: int, dtype=torch.int32):
     """Inverse of :func:`pack_uint`: ``count`` values as int32 (uint32 bit
     patterns) or, for nbits <= 8, uint8; the contract of
     :func:`repro_torch.kernels.ref.unpack_uint`."""
-    if buf.is_cuda:
+    if _kernel_route(buf):
         return unpack_uint_cuda(buf, nbits, count, dtype)
     return ref.unpack_uint(buf, nbits, count, dtype)
 
@@ -333,9 +361,10 @@ def unpack_uint_cuda(buf, nbits: int, count: int, dtype=torch.int32):
     _check_unpack_dtype("unpack_uint", nbits, dtype, fused=False)
     out = torch.empty((1, count), dtype=dtype, device=buf.device)
     if count:
-        _launch("unpack_uint", buf.device, _ptr(buf), buf.numel(), 0,
-                buf.numel(), _ptr(out), count, _PACK_KIND[dtype], count,
-                nbits, 1, 0, 0)
+        _launch("unpack_uint", buf.device, _nbytes(out) + min(
+                    buf.numel(), (count * nbits + 7) // 8), _ptr(buf),
+                buf.numel(), 0, buf.numel(), _ptr(out), count,
+                _PACK_KIND[dtype], count, nbits, 1, 0, 0)
     return out[0]
 
 
@@ -349,7 +378,7 @@ def unpack_uint_rows(buf, col: int, nbits: int, count: int,
     ``buf[r, scale_col:scale_col + 4]`` (with ``scale_block > 0``, value i
     takes the scale at ``scale_col + 4·(i // scale_block)``). The contract
     of :func:`repro_torch.kernels.ref.unpack_uint_rows`."""
-    if buf.is_cuda:
+    if _kernel_route(buf):
         return unpack_uint_rows_cuda(buf, col, nbits, count, dtype,
                                      scale_col=scale_col,
                                      scale_block=scale_block)
@@ -374,9 +403,12 @@ def unpack_uint_rows_cuda(buf, col: int, nbits: int, count: int,
         _check_block(buf, "unpack_uint_rows scales", scale_col, 4 * nsc)
     out = torch.empty((c, count), dtype=dtype, device=buf.device)
     if c and count:
-        _launch("unpack_uint", buf.device, _ptr(buf), buf.stride(0), col,
-                nbytes, _ptr(out), count, _PACK_KIND[dtype], count, nbits, c,
-                scale_col or 0, scale_block)
+        scales = 4 * nsc if dtype == torch.float32 else 0
+        _launch("unpack_uint", buf.device,
+                _nbytes(out) + c * (nbytes + scales), _ptr(buf),
+                buf.stride(0), col, nbytes, _ptr(out), count,
+                _PACK_KIND[dtype], count, nbits, c, scale_col or 0,
+                scale_block)
     return out
 
 
@@ -391,7 +423,7 @@ def fedams_ingest(x, m, v, vhat, vals, idx, v_scale=None, vh_scale=None, *,
     :func:`repro_torch.kernels.ref.fedams_ingest_ref`."""
     kw = dict(n_div=n_div, eta=eta, beta1=beta1, beta2=beta2, eps=eps,
               option=option, block=block, state_dtype=state_dtype)
-    if x.is_cuda:
+    if _kernel_route(x):
         return fedams_ingest_cuda(x, m, v, vhat, vals, idx, v_scale,
                                   vh_scale, **kw)
     return ref.fedams_ingest_ref(x, m, v, vhat, vals, idx, v_scale, vh_scale,
@@ -435,7 +467,9 @@ def fedams_ingest_cuda(x, m, v, vhat, vals, idx, v_scale=None, vh_scale=None,
         vhs_out = torch.empty_like(vh_scale)
     else:
         v_scale = vh_scale = None
-    _launch("fedams_ingest", dev, _ptr(x), _ptr(m), _ptr(v), _ptr(vhat),
+    _launch("fedams_ingest", dev,
+            2 * _nbytes(x, m, v, vhat, v_scale, vh_scale)
+            + _nbytes(vals, idx), _ptr(x), _ptr(m), _ptr(v), _ptr(vhat),
             _ptr(vals), _ptr(idx), _ptr(v_scale), _ptr(vh_scale),
             _ptr(x_out), _ptr(m_out), _ptr(v_out), _ptr(vh_out),
             _ptr(vs_out), _ptr(vhs_out), d, block, n, nb, k,
@@ -455,7 +489,7 @@ def fedams_update(x, m, v, vhat, delta, *, eta: float, beta1: float,
     """Elementwise FedAMS step on (N,) fp32 vectors → ``(x, m, v, vhat)``;
     the contract of :func:`repro_torch.kernels.ref.fedams_update_ref`."""
     kw = dict(eta=eta, beta1=beta1, beta2=beta2, eps=eps, option=option)
-    if x.is_cuda:
+    if _kernel_route(x):
         return fedams_update_cuda(x, m, v, vhat, delta, **kw)
     return ref.fedams_update_ref(x, m, v, vhat, delta, **kw)
 
@@ -470,8 +504,8 @@ def fedams_update_cuda(x, m, v, vhat, delta, *, eta: float, beta1: float,
                     (delta, "delta")):
         _check(t, f"fedams_update {what}", torch.float32, (n,), dev)
     outs = [torch.empty_like(x) for _ in range(4)]
-    _launch("fedams_update", dev, _ptr(x), _ptr(m), _ptr(v), _ptr(vhat),
-            _ptr(delta), *(_ptr(o) for o in outs), n, float(beta1),
+    _launch("fedams_update", dev, 9 * _nbytes(x), _ptr(x), _ptr(m), _ptr(v),
+            _ptr(vhat), _ptr(delta), *(_ptr(o) for o in outs), n, float(beta1),
             float(1.0 - beta1), float(beta2), float(1.0 - beta2), float(eta),
             float(eps), int(option))
     return tuple(outs)
@@ -518,7 +552,7 @@ class KernelImpl:
         """``fn`` on the CPU (the twin), ``fn_cuda`` on CUDA without the
         host-synchronizing row check: ``rows = [0]`` of a one-row buffer
         is valid by construction."""
-        if x.is_cuda:
+        if _kernel_route(x):
             return fn_cuda(x, *args, check_rows=False, **kw)
         return fn(x, *args, **kw)
 

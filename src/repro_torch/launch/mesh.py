@@ -13,11 +13,19 @@ over ``shape``, as ``jax.make_mesh`` lays out devices.
 rank has a card of its own, else gloo with the ranks sharing the cards
 (NCCL refuses two ranks on one card).
 
-The reference's per-chip roofline constants (``BACKEND_SPECS``) are a
-TPU's and are not carried over.
+:class:`BackendSpec` holds one card's roofline constants (the
+reference's per-chip table, here the H100's: its TPU rows are not carried
+over); :func:`backend_spec` resolves one by name or ``REPRO_BACKEND``.
+:func:`make_production_mesh` is the reference's production layout over the
+initialized process group, and :func:`start_fake_world` initializes the
+``fake`` backend at rank 0 of a world of any size, so the dry run
+(``launch/dryrun.py``) builds rank 0's program of a 256- or 512-card mesh
+in one process, with no card — the counterpart of the reference's
+``--xla_force_host_platform_device_count=512``.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import socket
 import tempfile
@@ -26,6 +34,65 @@ import time
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendSpec:
+    """Per-card roofline constants for one accelerator backend."""
+    name: str
+    peak_flops_bf16: float     # FLOP/s
+    hbm_bw: float              # B/s
+    ici_bw_per_link: float     # B/s per link
+
+
+#: Known backends, per card. ``h100_sxm``: NVIDIA's data sheet for the SXM
+#: part at 700 W, dense bf16, HBM3, NVLink at 450 GB/s each way.
+BACKEND_SPECS = {
+    "h100_sxm": BackendSpec("h100_sxm", peak_flops_bf16=989e12,
+                            hbm_bw=3.35e12, ici_bw_per_link=450e9),
+}
+
+DEFAULT_BACKEND = "h100_sxm"
+
+
+def backend_spec(name: str | None = None) -> BackendSpec:
+    """Resolve a :class:`BackendSpec` by name; ``None`` reads the
+    ``REPRO_BACKEND`` env var and falls back to ``h100_sxm``."""
+    name = name or os.environ.get("REPRO_BACKEND") or DEFAULT_BACKEND
+    try:
+        return BACKEND_SPECS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}: pick one of "
+            f"{sorted(BACKEND_SPECS)} (or extend BACKEND_SPECS)") from None
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production mesh over the initialized process group: (16, 16)
+    over ``("data", "model")``, or (2, 16, 16) over ``("pod", "data",
+    "model")``; the world size must be 256 or 512."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def start_fake_world(world: int) -> None:
+    """Initialize the ``fake`` process group as rank 0 of ``world`` ranks:
+    every collective returns at once and moves nothing, so one process
+    builds rank 0's program of any mesh. Raises when this torch has no
+    fake backend (``torch.testing._internal.distributed.fake_pg``); it
+    never falls back to another backend."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "repro_torch: this torch has no fake process group "
+            "(torch.testing._internal.distributed.fake_pg), which the dry "
+            "run needs to build a mesh of many ranks in one process") from e
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def make_mesh(shape, axes, device="cuda"):

@@ -203,27 +203,31 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _cache_write(c, x, slot: int):
-    """A copy of the cache ``c`` with ``x`` in ``slot`` of dim 1. A copy of
-    ``c`` alone: ``slice_scatter`` copies the whole storage of a view, and
-    a layer's cache is a view of the stack's (n_groups, ...) one."""
-    out = c.clone()
+def _cache_write(c, x, slot: int, inplace: bool = False):
+    """The cache ``c`` with ``x`` in ``slot`` of dim 1: ``c`` itself
+    written in place with ``inplace``, else a copy of ``c`` alone
+    (``slice_scatter`` copies the whole storage of a view, and a layer's
+    cache is a view of the stack's (n_groups, ...) one)."""
+    out = c if inplace else c.clone()
     out[:, slot:slot + 1] = x
     return out
 
 
-def _write_slot(cache, new, gslot: int, total_len: int, ctx, kind):
+def _write_slot(cache, new, gslot: int, total_len: int, ctx, kind,
+                inplace: bool = False):
     """``cache`` (a NamedTuple of (B, C, ...) leaves) with ``new``'s
-    leaves written at the global slot ``gslot``, and the global slot ids
-    of this rank's slots. On a sequence-sharded cache the rank whose block
-    ``[lo, lo + Cl)`` holds the slot writes it; the others keep theirs."""
+    leaves written at the global slot ``gslot`` (in place with
+    ``inplace``), and the global slot ids of this rank's slots. On a
+    sequence-sharded cache the rank whose block ``[lo, lo + Cl)`` holds
+    the slot writes it; the others keep theirs."""
     if not ctx.seq_axis:
-        return (kind(*(_cache_write(c, x, gslot) for c, x in zip(cache, new))),
+        return (kind(*(_cache_write(c, x, gslot, inplace)
+                       for c, x in zip(cache, new))),
                 torch.arange(total_len, device=cache[0].device))
     Cl = cache[0].shape[1]
     lo = ctx.seq_index() * Cl
     if lo <= gslot < lo + Cl:
-        cache = kind(*(_cache_write(c, x, gslot - lo)
+        cache = kind(*(_cache_write(c, x, gslot - lo, inplace)
                        for c, x in zip(cache, new)))
     return cache, lo + torch.arange(Cl, device=cache[0].device)
 
@@ -246,11 +250,12 @@ def softmax_combine(s, vals, eq: str, ctx):
 
 def attn_decode(p, x, cache: KVCache, pos, dims: AttnDims, ctx, *,
                 window: int, cap: Optional[float], rope_theta: float,
-                total_len: int, dtype="bfloat16"):
+                total_len: int, dtype="bfloat16", inplace: bool = False):
     """One-token decode. x: (B,1,d); pos: the current position (an int).
     ``total_len`` is the global cache length C (a sequence-sharded cache
     holds C / seq_shards slots a rank). Returns (out (B,1,d), new_cache);
-    the input cache is not modified."""
+    the input cache is not modified, unless ``inplace``: then the new
+    token is written into it and it is the new cache."""
     pos = int(pos)
     B = x.shape[0]
     hd = dims.head_dim
@@ -261,7 +266,7 @@ def attn_decode(p, x, cache: KVCache, pos, dims: AttnDims, ctx, *,
     k = rope(k, posv, rope_theta)
     gslot = pos % total_len
     new_cache, slot_ids = _write_slot(cache, (k, v), gslot, total_len, ctx,
-                                      KVCache)
+                                      KVCache, inplace)
 
     ke = expand_kv(new_cache.k, dims, ctx)
     ve = expand_kv(new_cache.v, dims, ctx)

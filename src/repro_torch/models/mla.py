@@ -149,11 +149,13 @@ def mla_train(p, x, m: MLAConfig, ctx, *, rope_theta: float,
 
 def mla_decode(p, x, cache: MLACache, pos, m: MLAConfig, ctx, *,
                rope_theta: float, total_len: int,
-               cap: Optional[float] = None, dtype="bfloat16"):
+               cap: Optional[float] = None, dtype="bfloat16",
+               inplace: bool = False):
     """Absorbed one-token decode against the latent cache. x: (B,1,d);
     pos: the current position (an int); ``total_len`` is the cache length
     C (a sequence-sharded cache holds C / seq_shards slots a rank).
-    Returns (out (B,1,d), new_cache); the input cache is not modified."""
+    Returns (out (B,1,d), new_cache); the input cache is not modified,
+    unless ``inplace`` (``attention.attn_decode``'s)."""
     pos = int(pos)
     B = x.shape[0]
     dev = x.device
@@ -163,7 +165,7 @@ def mla_decode(p, x, cache: MLACache, pos, m: MLAConfig, ctx, *,
     c_new, kr_new = _latents(p, x, m, posv, rope_theta, dtype, ctx)
     gslot = pos % total_len
     new_cache, slot_ids = _write_slot(cache, (c_new, kr_new), gslot,
-                                      total_len, ctx, MLACache)
+                                      total_len, ctx, MLACache, inplace)
 
     # absorb W_uk into q:  q_lat[h] = q_nope[h] @ W_uk[:, h].T
     w_uk = cast(p["w_uk"], dtype).reshape(m.kv_lora_rank, Hl,

@@ -287,7 +287,9 @@ def init_cache_value(defs, device, axis_sizes=None):
 
 def layer_decode(p, x, cache, pos, cfg: ModelConfig, desc: LayerDesc,
                  dims: AttnDims, ctx, max_len: int):
-    """One-token decode through one layer. Returns (x, new_cache)."""
+    """One-token decode through one layer. Returns (x, new_cache); an
+    attention layer writes the new token into ``cache`` in place and
+    returns it (:func:`stack_decode` hands it a copy)."""
     h = rms_norm(p["norm1"], x, cfg.norm_eps)
     if desc.kind == "mlstm":
         with span("mlstm"):
@@ -317,13 +319,14 @@ def layer_decode(p, x, cache, pos, cfg: ModelConfig, desc: LayerDesc,
             out, nc = mla_mod.mla_decode(
                 p["mix"], h, mla_mod.MLACache(cache["c_kv"], cache["k_rope"]),
                 pos, cfg.mla, lctx, rope_theta=cfg.rope_theta, total_len=C,
-                cap=cfg.attn_softcap, dtype=cfg.dtype)
+                cap=cfg.attn_softcap, dtype=cfg.dtype, inplace=True)
             new_cache = {"c_kv": nc.c_kv, "k_rope": nc.k_rope}
         else:
             out, nc = attn.attn_decode(
                 p["mix"], h, attn.KVCache(cache["k"], cache["v"]), pos, dims,
                 lctx, window=desc.window, cap=cfg.attn_softcap,
-                rope_theta=cfg.rope_theta, total_len=C, dtype=cfg.dtype)
+                rope_theta=cfg.rope_theta, total_len=C, dtype=cfg.dtype,
+                inplace=True)
             new_cache = {"k": nc.k, "v": nc.v}
     x = x + out
     out2, _ = _mlp(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg,
@@ -425,6 +428,14 @@ def _stack_groups(per_group):
     return tree_map(lambda *ts: torch.stack(ts), *per_group)
 
 
+def _store(dst, src):
+    """Put a layer's new cache leaf ``src`` in ``dst``, its place in the
+    new caches, unless it is there already (an attention cache written in
+    place)."""
+    if src is not dst:
+        dst.copy_(src)
+
+
 def stack_prefill(p, x, cfg: ModelConfig, ctx, *, max_len: int,
                   chunk: int = 2048):
     """Full-sequence forward emitting decode caches. Returns (x, caches)."""
@@ -449,23 +460,23 @@ def stack_prefill(p, x, cfg: ModelConfig, ctx, *, max_len: int,
 
 
 def stack_decode(p, x, caches, pos, cfg: ModelConfig, ctx, max_len: int):
-    """One-token decode through the whole stack. Returns (x, new_caches)."""
+    """One-token decode through the whole stack. Returns (x, new_caches).
+    The new caches are one copy of ``caches`` (which are not modified),
+    each layer's entry written into it in place: the old and the new
+    caches and no third copy, as the reference's scan holds its input
+    and output stacks."""
     group, n_groups, tail = plan_stack(cfg)
     dims = _dims(cfg, ctx.tp)
-    per_group = []
+    new_caches = tree_map(torch.clone, caches)
     for g in range(n_groups):
-        gp, gc = _group(p["groups"], g), _group(caches["groups"], g)
-        ncs = {}
+        gp, gc = _group(p["groups"], g), _group(new_caches["groups"], g)
         for j, desc in enumerate(group):
-            x, ncs[f"l{j}"] = layer_decode(gp[f"l{j}"], x, gc[f"l{j}"], pos,
-                                           cfg, desc, dims, ctx, max_len)
-        per_group.append(ncs)
-    new_caches = {"groups": _stack_groups(per_group)}
-    if tail:
-        nt = {}
-        for j, desc in enumerate(tail):
-            x, nt[f"t{j}"] = layer_decode(p["tail"][f"t{j}"], x,
-                                          caches["tail"][f"t{j}"], pos, cfg,
-                                          desc, dims, ctx, max_len)
-        new_caches["tail"] = nt
+            x, nc = layer_decode(gp[f"l{j}"], x, gc[f"l{j}"], pos, cfg,
+                                 desc, dims, ctx, max_len)
+            tree_map(_store, gc[f"l{j}"], nc)
+    for j, desc in enumerate(tail):
+        lc = new_caches["tail"][f"t{j}"]
+        x, nc = layer_decode(p["tail"][f"t{j}"], x, lc, pos, cfg, desc,
+                             dims, ctx, max_len)
+        tree_map(_store, lc, nc)
     return x, new_caches

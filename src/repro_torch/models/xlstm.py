@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import XLSTMConfig
+from repro_torch.launch.op_analysis import loop_trips
 from repro_torch.models import params as pdefs
 from repro_torch.models.layers import (cast, ffn_apply, ffn_defs, mm,
                                        promoted, rms_norm)
@@ -312,9 +313,13 @@ def slstm_train(p, x, num_heads: int, ctx, dtype="bfloat16",
     st = SLSTMState(h=z, c=z, n=z, m=torch.full_like(z, -1e30))
     rr = _recurrent_mats(ctx.tp_copy(p["r"]))
     hs = []
-    for i in range(S):
+    n = loop_trips(S, pre)
+    for i in range(n):
         st = _slstm_step(rr, pre[:, i], st, num_heads)
         hs.append(st.h)
+    # a meta trace caps its steps (launch/op_analysis.loop_trips: n < S
+    # only there); the last step's output stands in for the rest
+    hs += hs[-1:] * (S - n)
     h = cast(torch.stack(hs, dim=1), dtype)
     out = _slstm_ffn(p, h, dtype, ctx)
     if return_state:

@@ -16,6 +16,10 @@ gathered dim in client-major order: position ``i`` holds the rank whose
 linear index over the gathered axes (first axis most significant) is
 ``i``. Every collective is a ``torch.distributed`` call on the tensor as
 given (its device included); none copies to the host of its own accord.
+Each tells an active ``launch/op_analysis.OpCost`` what it moves
+(``record_collective``, by the reference's kind names). On ``meta``
+tensors (the dry run) a collective is charged and moves nothing: there
+is no data, and the result has the shape it would have.
 
 ``pad_to``, ``padded_vocab``, ``AttnDims`` and ``attn_dims`` are copies of
 the originals (pure Python).
@@ -27,6 +31,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.op_analysis import record_collective
 
 
 def pad_to(n: int, multiple: int) -> int:
@@ -63,9 +69,23 @@ class _AxisGroup:
     def all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in self.ranks]
-        with torch.profiler.record_function(COLLECTIVE_RANGE):
-            dist.all_gather(parts, x, group=self.group)
+        record_collective("all-gather", _nbytes(x) * len(self.ranks))
+        if not x.is_meta:
+            with torch.profiler.record_function(COLLECTIVE_RANGE):
+                dist.all_gather(parts, x, group=self.group)
         return [parts[p] for p in self._pos]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _all_reduce(y: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """``dist.all_reduce`` of ``y`` in place, charged as an all-reduce."""
+    record_collective("all-reduce", _nbytes(y))
+    if not y.is_meta:
+        with torch.profiler.record_function(COLLECTIVE_RANGE):
+            dist.all_reduce(y, op=op, group=group)
 
 
 def _axis_groups(mesh, axes: Tuple[str, ...]) -> _AxisGroup:
@@ -109,18 +129,22 @@ class _PsumModel(torch.autograd.Function):
     def forward(ctx, x, group, rs_ag):
         y = x.clone()
         n = len(group.ranks)
-        with torch.profiler.record_function(COLLECTIVE_RANGE):
-            if not rs_ag:
-                dist.all_reduce(y, group=group.group)
-                return y
-            y = y.contiguous()
-            chunk = y.shape[0] // n
-            if dist.get_backend(group.group) == "nccl":
-                part = y.new_empty((chunk,) + tuple(y.shape[1:]))
+        if not rs_ag:
+            _all_reduce(y, group.group)
+            return y
+        y = y.contiguous()
+        chunk = y.shape[0] // n
+        record_collective("reduce-scatter", _nbytes(y))
+        if y.is_meta:
+            part = y.new_empty((chunk,) + tuple(y.shape[1:]))
+        elif dist.get_backend(group.group) == "nccl":
+            part = y.new_empty((chunk,) + tuple(y.shape[1:]))
+            with torch.profiler.record_function(COLLECTIVE_RANGE):
                 dist.reduce_scatter_tensor(part, y, group=group.group)
-            else:
+        else:
+            with torch.profiler.record_function(COLLECTIVE_RANGE):
                 dist.all_reduce(y, group=group.group)
-                part = y.narrow(0, group.index * chunk, chunk).contiguous()
+            part = y.narrow(0, group.index * chunk, chunk).contiguous()
         return torch.cat(group.all_gather(part), dim=0)
 
     @staticmethod
@@ -140,7 +164,7 @@ class _TPCopy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group.group)
+        _all_reduce(grad, ctx.group.group)
         return grad, None
 
 
@@ -204,8 +228,7 @@ class ParallelContext:
         if g is None:
             return x
         y = x.clone()
-        with torch.profiler.record_function(COLLECTIVE_RANGE):
-            dist.all_reduce(y, op=op, group=g.group)
+        _all_reduce(y, g.group, op)
         return y
 
     def gather_axes(self, axes, x, axis: int = 0):
@@ -244,8 +267,10 @@ class ParallelContext:
         if g is None:
             return x
         y = x.contiguous().clone()
-        with torch.profiler.record_function(COLLECTIVE_RANGE):
-            dist.broadcast(y, src=g.ranks[0], group=g.group)
+        record_collective("broadcast", _nbytes(y))
+        if not y.is_meta:
+            with torch.profiler.record_function(COLLECTIVE_RANGE):
+                dist.broadcast(y, src=g.ranks[0], group=g.group)
         return y
 
     def pmax_model(self, x):

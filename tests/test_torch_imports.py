@@ -48,7 +48,9 @@ MODULES = [
     "repro_torch.models.attention", "repro_torch.models.moe",
     "repro_torch.models.stack", "repro_torch.models.xlstm",
     "repro_torch.models.model", "repro_torch.launch.serve",
-    "repro_torch.launch.train",
+    "repro_torch.launch.train", "repro_torch.launch.steps",
+    "repro_torch.launch.op_analysis", "repro_torch.launch.roofline",
+    "repro_torch.launch.dryrun",
 ]
 
 
