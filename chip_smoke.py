@@ -52,14 +52,18 @@ then, on the card:
    them; route s's deepseek-v3 cut, 512 to 117,440,512 values (its
    (1, 8, 7168, 2048) expert stacks); recurrentgemma-2b's at 5 layers,
    2,560 to 655,360,000 values (its tied table); the ingest on 1 client;
-   route w's xlstm-350m leaves as a rank at tp 2 holds them, 1,024 to
-   50,331,648 values, the ingest on 2 clients).
+   route w's xlstm-350m leaves at 4 layers as a rank at tp 2 holds them,
+   1,024 to 25,755,648 values, the ingest on 2 clients); and ``topk_ef`` and
+   ``fedams_update`` at every shape route z launches them
+   (``phase_z_shapes``: xlstm-350m's leaves at 2 layers, 1,024 to the
+   51,511,296-value embedding table, both FedAMS options).
    All bitwise (a NaN must meet a NaN).
    Each kernel is timed with CUDA events (median of 30 launches, L2
    flushed before each) beside its twin and its bound, and the two large
    ones also alone on each LM route's largest leaf (route o's
    589,824,000, q's 311,164,928, s's 117,440,512, u's 655,360,000 and
-   w's 50,331,648 values) beside their bytes bounds;
+   w's 25,755,648 values; ``topk_ef`` and ``fedams_update`` on route z's
+   51,511,296) beside their bytes bounds;
 2. checks the round on the card against the same round on the CPU (the
    port's twins, which the CPU tests hold against the JAX package) on a
    small MLP problem, every route below (route g through the trainer, j
@@ -157,8 +161,8 @@ then, on the card:
    ``mesh_wire_bytes_tiers``; losses finite. Prints the reckoned and the
    measured peak memory a rank and rank 0's round ms;
 7. serves qwen2-moe-a2.7b at its published widths and full depth (route
-   p, 24 layers, 14,315,735,040 params, 57.3 GB of fp32 weights, bf16
-   compute) through ``launch/serve.py``: batch 4 × prompt 512 + 32 tokens
+   p, 24 layers, 14,315,735,040 params, 57.3 GB of fp32 weights drawn on
+   the card from a seeded CUDA generator, bf16 compute) through ``launch/serve.py``: batch 4 × prompt 512 + 32 tokens
    (``serve``), then batch 16 × prompt 128 + 16 on the same weights (decode
    at C = 2 slots an expert, not 1); tokens in range, logits finite;
    prefill + decode against the full-sequence forward at full width, 2
@@ -196,7 +200,8 @@ then, on the card:
    aux loss and MTP cross entropy finite and > 0;
 11. serves recurrentgemma-2b at its published widths and full depth (route
    t: 26 layers, (RG-LRU, RG-LRU, local attention) × 8 and two RG-LRU
-   layers, 2,658,690,560 params, 10.63 GB fp32, bf16 compute) as route n:
+   layers, 2,658,690,560 params, 10.63 GB fp32 drawn on the card, bf16
+   compute) as route n:
    the 4,608-token prompt is past the 2,048 window, so the rings wrap
    while the RG-LRU state carries. Decode against the forward at 5 layers,
    fp32, a prompt of 2,100 (past the window); the smoke config on the card
@@ -211,17 +216,18 @@ then, on the card:
    q-chunks of 2,304; the sLSTM steps 4,608 times a layer); decode against
    the forward at 4 layers, fp32; the smoke config on the card against the
    CPU;
-14. trains xlstm-350m at full depth on the mesh at dp 2 × tp 2 (route w:
+14. trains xlstm-350m at 4 of its 24 layers on the mesh at dp 2 × tp 2
+   (route w:
    four gloo ranks sharing the card, each holding its model shards) through
    ``launch/train.py``'s ``train``: fedcams, blockwise top-k 1/64 over the
-   sparse collective, the fused ingest, K = 2, batch 2 × 512 a client, 3
+   sparse collective, the fused ingest, K = 2, batch 2 × 512 a client, 2
    rounds, 19 ``topk_ef_sparse`` + 19 ``fedams_ingest`` a rank a round on
    its model-local leaves at shapes phase 1 held, every replicated leaf of
    the final state the same on all four ranks to the bit; then dense
-   FedAvg rounds in fp32 at one and two local steps, at dp 2 × tp 2 and
-   at dp 2 × tp 1 from the same seeded init, the loss and the gathered
-   params held together (at two steps within ten times what the tp 1
-   round reads on the card against the host's CPU);
+   FedAvg rounds in fp32 at one and two local steps, 2 of the 24 layers
+   and 128 tokens, at dp 2 × tp 2 and at dp 2 × tp 1 from the same seeded init, the loss
+   and the gathered params held together (at two steps within ten times
+   what the tp 1 round reads on the card against the host's CPU);
 15. runs the model axis on the card (route x): gemma2-2b at full width and
    depth served at tp 2 on two gloo ranks (route n's weights; the prefill
    logits against route n's, the share of greedy tokens that agree), and
@@ -246,7 +252,22 @@ then, on the card:
    and of route o's train round (built with ``steps.build_train_step``
    and ``KernelImpl``: 3 rounds) against ``h100_sxm`` beside the measured
    step; and the dry run of gemma2-2b at long_500k on the 16 × 16 mesh
-   (``python -m repro_torch.launch.dryrun``) prints ``[ok]``.
+   (``python -m repro_torch.launch.dryrun``) prints ``[ok]``;
+17. runs xlstm-350m's train_4k round on the card (route z): the step
+   ``steps.build_train_step`` builds with the dry run's settings (fedcams,
+   top-k 1/64 over the dense uplink, remat "full"; K = 2 where its CLI
+   says 4) at published
+   widths, 2 layers (one mLSTM, one sLSTM), one client's share of
+   train_4k (batch 16 × 4,096) on one NCCL rank: the peak op_analysis
+   reckons on meta first (at most 70 GB), then 2 rounds: losses and state
+   finite, round ms, peak memory beside the reckoning, 19 ``topk_ef`` +
+   19 ``fedams_update`` a round (meta's count) at shapes phase 1 held.
+   One sLSTM layer (batch 16, fp32) against a witness that indexes
+   ``pre[:, i]`` a step, the loop the port had before it stepped over
+   ``pre.unbind(1)``: at S = 512 the output and every gradient equal
+   (``==``; ``scripts/slstm_time.py`` times both at S = 4,096). The
+   card's count of the 2-layer loss and gradient at 16 × 512 equals
+   meta's.
 Every model route prints its seconds.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
@@ -1021,14 +1042,17 @@ def leaf_sizes(cfg, tp: int = 1) -> list:
             for d in tree_leaves(Model(cfg, tp=tp).defs())]
 
 
-#: route w: xlstm-350m at its published widths and depth (24 layers,
-#: 343,856,128 params in 19 leaves) on dp ``W_DP`` × tp ``W_TP``: four gloo
-#: ranks sharing the card. Its step sizes are the train CLI's ``--eta-l
+#: route w: xlstm-350m at its published widths, ``W_LAYERS`` of its 24
+#: layers (223,439,872 params in 19 leaves) on dp ``W_DP`` × tp ``W_TP``:
+#: four gloo ranks sharing the card. Its step sizes are the train CLI's ``--eta-l
 #: 0.001 --eta 0.01``: at the defaults (η_l = 0.05) the first local step
 #: drives an mLSTM input gate below -88, where the normalizer's exp(-m)
 #: overflows and the reference's and the port's backward give NaN (ROADMAP
-#: Queue 3 item 27); at η_l = 0.001 its rounds stay finite on the card
-W_DP, W_TP, W_ROUNDS, W_ETA, W_ETA_L = 2, 2, 3, 0.01, 0.001
+#: Queue 3 item 27); at η_l = 0.001 its rounds stay finite on the card.
+#: 4 layers and 2 rounds, where route z needed the time: all 24 took ~31 s
+#: a round, 12 took ~12 s
+W_DP, W_TP, W_ROUNDS, W_ETA, W_ETA_L = 2, 2, 2, 0.01, 0.001
+W_LAYERS = 4
 
 
 def w_fed():
@@ -1038,10 +1062,15 @@ def w_fed():
 
 
 def xlstm_cfg():
-    """Routes v and w's model: xlstm-350m at its published widths and
-    depth (bf16 compute, the config's)."""
+    """Route v's model: xlstm-350m at its published widths and depth (bf16
+    compute, the config's)."""
     from repro_torch.configs.registry import get_arch
     return get_arch("xlstm-350m").model
+
+
+def w_cfg():
+    """Route w's model: xlstm-350m at ``W_LAYERS`` layers."""
+    return lm_cfg("xlstm-350m", W_LAYERS)
 
 
 #: route s's model: deepseek-v3-671b at published d_model, heads and MLA
@@ -1084,7 +1113,7 @@ def lm_kernel_shapes() -> dict:
     out = {}
     for cfg, n, tp in ((lm_cfg(), LM_CLIENTS, 1), (moe_cfg(), 1, 1),
                        (mla_train_cfg(), 1, 1), (rg_train_cfg(), 1, 1),
-                       (xlstm_cfg(), W_DP, W_TP)):
+                       (w_cfg(), W_DP, W_TP)):
         for d in leaf_sizes(cfg, tp):
             out.setdefault(d, set()).add(n)
     return {d: sorted(out[d]) for d in sorted(out)}
@@ -1096,7 +1125,7 @@ def phase_lm_shapes(dev, out: dict) -> dict:
     the twins, into ``out`` (:func:`phase_mesh_shapes`'s record): for each
     leaf size d (512 to recurrentgemma-2b's 655,360,000-value tied
     embedding; route w's xlstm-350m leaves as a rank at tp = 2 holds them,
-    1,024 to 50,331,648 values) a
+    1,024 to 25,755,648 values) a
     (1, d) row on random inputs, and on ``ref.topk_hard_cases`` up to
     ``LM_HARD_MAX`` values; the fused ingest of the routes' client counts'
     selections (made by the selection kernel on random totals), option 1,
@@ -1106,7 +1135,7 @@ def phase_lm_shapes(dev, out: dict) -> dict:
     The largest leaf of each route (route o's 589,824,000-value table,
     route q's 311,164,928-value untied one, route s's 117,440,512-value
     expert stacks, route u's 655,360,000-value table, route w's
-    50,331,648-value replicated sLSTM input projections) is also timed
+    25,755,648-value embedding shard) is also timed
     alone:
     each
     kernel's CUDA-event ms (median of 30, L2 flushed, the EF row restored
@@ -1123,7 +1152,7 @@ def phase_lm_shapes(dev, out: dict) -> dict:
                max(leaf_sizes(moe_cfg())): ("q", 1),
                max(leaf_sizes(mla_train_cfg())): ("s", 1),
                max(leaf_sizes(rg_train_cfg())): ("u", 1),
-               max(leaf_sizes(xlstm_cfg(), W_TP)): ("w", W_DP)}
+               max(leaf_sizes(w_cfg(), W_TP)): ("w", W_DP)}
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)
     timed = {}
     seg = 2048
@@ -1194,6 +1223,112 @@ def phase_lm_shapes(dev, out: dict) -> dict:
                 del sel
                 torch.cuda.empty_cache()
         del st
+        torch.cuda.empty_cache()
+    return timed
+
+
+#: route z: xlstm-350m's train_4k round as the dry run builds it
+#: (``launch/dryrun.py``'s CLI at its defaults: fedcams, top-k 1/64 over the
+#: dense uplink, so ``topk_ef`` and the two-pass ``fedams_update``; remat
+#: "full"), one client's share of train_4k's 256 sequences over 16 clients
+#: (batch 16 x 4,096) on one NCCL rank at tp 1. Reduced: depth 24 -> 2, one
+#: mLSTM and one sLSTM layer (at 24 layers the dry run counts 40.2 M ops a
+#: round, a launch each), and the local steps 4 -> 2 (``--local-steps``):
+#: at K = 4 the 2 rounds took 124-139 s of the script's 1,200, host-bound
+#: on 3.35 M launches a round
+Z_LAYERS, Z_SEQ, Z_BATCH, Z_ROUNDS, Z_LOCAL_STEPS = 2, 4096, 16, 2, 2
+#: the most route z's step may reckon (op_analysis on meta: arguments +
+#: temporaries) on the card; over it the batch would have to be cut
+Z_MAX_GB = 70.0
+#: the sLSTM layer against its indexing witness: bitwise at Z_CHECK_SEQ
+#: (batch Z_BATCH, fp32; scripts/slstm_time.py times both at Z_SEQ); the
+#: card's count of the 2-layer loss and gradient against meta's at
+#: Z_CHECK_SEQ
+Z_CHECK_SEQ = 512
+
+
+def z_cfg():
+    """Route z's model: xlstm-350m at ``Z_LAYERS`` layers."""
+    return lm_cfg("xlstm-350m", Z_LAYERS)
+
+
+def z_configs():
+    """Route z's ``FedConfig`` and ``TrainConfig``: the dry run's, at
+    ``Z_LOCAL_STEPS`` local steps."""
+    from repro_torch.launch import dryrun
+    return dryrun.build_configs(dryrun.parser().parse_args(
+        ["--local-steps", str(Z_LOCAL_STEPS)]))
+
+
+def phase_z_shapes(dev, out: dict) -> dict:
+    """``topk_ef`` and ``fedams_update`` at every shape route z launches
+    them, bitwise against the twins, into ``out`` (:func:`phase_mesh_shapes`'
+    record): for each leaf size d of :func:`z_cfg` (1,024 to the
+    51,511,296-value embedding table) a (1, d) row at the leaf's block
+    layout and k on random inputs, and on ``ref.topk_hard_cases`` up to
+    ``LM_HARD_MAX`` values; ``fedams_update`` at N = d for both options.
+    The largest leaf is also timed alone: each kernel's CUDA-event ms
+    (median of 30, L2 flushed, the EF row restored before each selection)
+    beside its bytes bound. Returns those times by leaf size."""
+    from repro_torch.core.compressors import block_layout
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    hold = lambda *a, **k: _hold(out, "route z", *a, **k)
+    rows = torch.zeros(1, dtype=torch.int64, device=dev)
+    ratio = z_configs()[0].compress_ratio
+    leaves = sorted(set(leaf_sizes(z_cfg())))
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)
+    kw = dict(eta=0.1, beta1=0.9, beta2=0.99, eps=1e-4)
+    seg = 2048
+    timed = {}
+    for d in leaves:
+        bs, _ = block_layout(d, BLOCK)
+        k = max(1, int(round(ratio * bs)))
+        inputs = [("random", torch.randn(1, d, generator=g, device=dev)
+                   * 0.01, torch.randn(1, d, generator=g, device=dev) * 0.003)]
+        if d <= LM_HARD_MAX:
+            negz = torch.full((1, d), -0.0, device=dev)
+            if d >= 6 * seg:
+                inputs.append(("hard", ref.topk_hard_cases(1, d, seed=d).to(
+                    dev), negz))
+            else:
+                hard = ref.topk_hard_cases(1, 12 * seg, seed=3).to(dev)
+                inputs += [(f"hard segment {i}", hard[:, i * seg:i * seg + d]
+                            .contiguous(), negz) for i in range(6)]
+        for what, x, e in inputs:
+            hold("topk_ef", f"d={d}, block={bs}, k={k}, {what}",
+                 ops.topk_ef_cuda, ref.topk_ef, (x, e, rows),
+                 dict(k=k, block=bs), 1)
+        ins = (torch.randn(d, generator=g, device=dev),
+               torch.randn(d, generator=g, device=dev) * 1e-3,
+               torch.rand(d, generator=g, device=dev) * 1e-4,
+               torch.rand(d, generator=g, device=dev) * 2e-4,
+               torch.randn(d, generator=g, device=dev) * 1e-2)
+        for option in (1, 2):
+            hold("fedams_update", f"N={d}, option {option}",
+                 ops.fedams_update_cuda, ref.fedams_update_ref, ins,
+                 dict(kw, option=option))
+        if d == leaves[-1]:
+            xt, et0 = inputs[0][1:]
+            et = et0.clone()
+
+            def restore():
+                et.copy_(et0)
+                flush.sum()    # read 256 MB: L2 holds nothing used
+
+            # x read, the EF row read and written, the hat written
+            nb_topk, nb_upd = 4 * 4 * d + 8, 9 * 4 * d
+            timed[d] = {"route": "z", "topk_ef": dict(
+                ms=time_ms(lambda: ops.topk_ef_cuda(
+                    xt, et, rows, k=k, block=bs, check_rows=False), restore),
+                bytes=nb_topk, bound_ms=nb_topk / PEAK_BYTES_S * 1e3),
+                "fedams_update": dict(
+                ms=time_ms(lambda: ops.fedams_update_cuda(
+                    *ins, option=1, **kw), flush.sum),
+                bytes=nb_upd, bound_ms=nb_upd / PEAK_BYTES_S * 1e3)}
+            del xt, et, et0
+        del inputs, x, e, ins
         torch.cuda.empty_cache()
     return timed
 
@@ -2496,8 +2631,7 @@ def smoke_card_vs_cpu(arch: str, chunk: int = 2048) -> float:
 def serve_route(route: str, cfg, generator, runs=None) -> dict:
     """``cfg`` served through ``launch/serve.py``: ``serve`` on the first of
     ``runs`` ((batch, prompt, gen, q-chunk); default ``SERVE_RUNS``: batch
-    4, prompt 512, gen 32; weights from ``generator``, None: the host's
-    seed 0), then ``generate`` on the same weights for each other run
+    4, prompt 512, gen 32; weights from ``generator``), then ``generate`` on the same weights for each other run
     (``SERVE_RUNS``: batch 1, a 4,608-token prompt, gen 16, q-chunk 256).
     Tokens in range, logits finite, each run's peak memory beside
     ``serve_reckoning``'s; the port's kernels launch no time. Returns the
@@ -2617,14 +2751,6 @@ MOE_CARD_TOL = 1e-5
 MOE_DENSE_TOL = 1e-5
 
 
-def host_available_gb() -> float:
-    with open("/proc/meminfo") as f:
-        for line in f:
-            if line.startswith("MemAvailable:"):
-                return int(line.split()[1]) * 1024 / 1e9
-    return float("nan")
-
-
 def serve_reckoning(model, d: int, batch: int, max_len: int) -> float:
     """What a serving route holds at its peak, reckoned from the shapes
     (GB): the fp32 weights, a MoE layer's three bf16 expert casts, the bf16
@@ -2654,8 +2780,8 @@ def serve_reckoning(model, d: int, batch: int, max_len: int) -> float:
 
 def route_p() -> dict:
     """Route p: qwen2-moe-a2.7b served at its published widths and full
-    depth (24 layers, bf16 compute on fp32 weights from
-    ``torch.Generator().manual_seed(0)``) through ``launch/serve.py``:
+    depth (24 layers, bf16 compute on fp32 weights drawn on the card from
+    a CUDA generator seeded 0) through ``launch/serve.py``:
     ``serve`` (batch 4, prompt 512, gen 32), then ``generate`` on the same
     weights (batch 16, prompt 128, gen 16). Tokens in range and logits
     finite. Then, at published widths: prefill + decode against the
@@ -2676,15 +2802,8 @@ def route_p() -> dict:
     check(cfg.num_layers == 24 and cfg.d_model == 2048
           and cfg.moe.num_experts == 60 and cfg.moe.top_k == 4
           and cfg.vocab_size == 151936, "route p: not qwen2-moe's widths")
-    largest = max(leaf_sizes(cfg))
-    host = host_available_gb()
-    print(f"route p: the host has {host:.1f} GB available, the largest leaf "
-          f"is {4 * largest / 1e9:.1f} GB")
-    check(host * 1e9 > 1.5 * 4 * largest,
-          f"route p: {host:.1f} GB of host memory cannot draw a "
-          f"{4 * largest / 1e9:.1f} GB leaf")
-    res, params = serve_route("p", cfg, None, MOE_SERVE_RUNS)
-    res["host_available_gb"] = host
+    res, params = serve_route("p", cfg, torch.Generator(
+        device="cuda").manual_seed(0), MOE_SERVE_RUNS)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2828,8 +2947,8 @@ def route_r() -> dict:
 def route_t() -> dict:
     """Route t: recurrentgemma-2b served at its published widths and full
     depth (26 layers: (RG-LRU, RG-LRU, local attention) × 8 and two RG-LRU
-    layers, bf16 compute on fp32 weights from
-    ``torch.Generator().manual_seed(0)``) through :func:`serve_route`: the
+    layers, bf16 compute on fp32 weights drawn on the card from a CUDA
+    generator seeded 0) through :func:`serve_route`: the
     4,608-token prompt is past the 2,048 window, so the attention rings
     wrap while the RG-LRU state carries. Then decode against the
     full-sequence forward at ``RG_DECODE_LAYERS`` layers, fp32, past the
@@ -2842,7 +2961,8 @@ def route_t() -> dict:
     check(cfg.num_layers == 26 and cfg.d_model == 2560
           and cfg.rglru.lru_width == 2560 and cfg.sliding_window == 2048
           and cfg.vocab_size == 256000, "route t: not recurrentgemma's widths")
-    res, params = serve_route("t", cfg, None)
+    res, params = serve_route("t", cfg, torch.Generator(
+        device="cuda").manual_seed(0))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3248,36 +3368,45 @@ def route_v() -> dict:
 #: its largest |value|. At route w's own K = 2 the loss within
 #: W_LOSS_RTOL, and each leaf within W_WITNESS_FACTOR times what the same
 #: tp 1 round reads on the card against the host's CPU (other kernels,
-#: other orders of sums), or W_PARAMS_TOL where that is more. The round is
-#: ill-conditioned at K = 2 (ROADMAP Queue 3 item 29): the zero-initialised
-#: sLSTM bias, all update, read 1.05 at tp 1 card against CPU, and tp 2
-#: against tp 1 3.2e-4 at one local step and 0.50 at two; no leaf of tp
-#: 2's over 1.2 times its witness (H100 80GB HBM3, 700.00 W)
+#: other orders of sums), or W_PARAMS_TOL where that is more. At all 24
+#: layers the round is ill-conditioned at K = 2 (ROADMAP Queue 3 item 29):
+#: the zero-initialised sLSTM bias, all update, read 1.05 at tp 1 card
+#: against CPU, and tp 2 against tp 1 3.2e-4 at one local step and 0.50 at
+#: two; no leaf of tp 2's over 1.2 times its witness. At 4 layers the same
+#: bias read 1.2e-4 card against CPU, tp 2 against tp 1 1.2e-5 and 2.0e-5
+#: (H100 80GB HBM3, 700.00 W)
 W_LOSS_RTOL, W_PARAMS_TOL, W_WITNESS_FACTOR = 1e-4, 1e-3, 10.0
+#: the pairs' depth and sequence: 2 of the 24 layers (one mLSTM and one
+#: sLSTM) and 128 tokens (the main run's 512 / 4), so that the host's CPU
+#: round takes a few seconds, where at 512 tokens it took ~28 s (all 24
+#: layers: ~130 s; 4 layers: 56 s)
+W_PAIR_LAYERS, W_PAIR_SEQ = 2, 128
 
 
-def _w_jobs(tp: int, device: str = "cuda"):
+def _w_jobs(tp: int):
     """Route w's jobs at ``tp``: at W_TP the main run (fedcams, blockwise
     top-k 1/64 over the sparse collective, fused ingest, K = 2, batch 2 ×
     512 a client, η ``W_ETA``, η_l ``W_ETA_L``, W_ROUNDS rounds), then the
-    FedAvg rounds at one and at two local steps (the same η_l), each
-    keeping its ranks' digests; at 1 the two FedAvg rounds, on the CPU the
-    second alone."""
+    FedAvg rounds at one and at two local steps (the same η_l, sequences
+    of ``W_PAIR_SEQ``), each keeping its ranks' digests; at 1 the two
+    FedAvg rounds on the card, then the second on the host's CPU
+    (``"cpu2"``)."""
     from repro_torch.configs.base import TrainConfig, mreplace
-    cfg = xlstm_cfg()
+    cfg = w_cfg()
     train = TrainConfig(global_batch=2 * W_DP, seq_len=512, rounds=W_ROUNDS,
                         remat_policy="none")
     avg = dataclasses.replace(w_fed(), algorithm="fedavg",
                               compressor="none", aggregation="dense")
-    pair = dict(cfg=mreplace(cfg, dtype="float32"),
-                train=dataclasses.replace(train, rounds=1), tp=tp,
-                keep_params=True, digests=tp > 1, device=device)
+    pair = dict(cfg=mreplace(cfg, dtype="float32", num_layers=W_PAIR_LAYERS),
+                train=dataclasses.replace(train, rounds=1,
+                                          seq_len=W_PAIR_SEQ),
+                tp=tp, keep_params=True, digests=tp > 1)
     jobs = {f"avg{k}": dict(pair, fed=dataclasses.replace(avg, local_steps=k))
-            for k in ((2,) if device == "cpu" else (1, 2))}
+            for k in (1, 2)}
     if tp > 1:
         return {"w": dict(cfg=cfg, fed=w_fed(), train=train, tp=tp,
                           digests=True), **jobs}
-    return jobs
+    return {**jobs, "cpu2": dict(jobs["avg2"], device="cpu")}
 
 
 def _leaf_errs(got, want) -> dict:
@@ -3314,8 +3443,8 @@ def check_replicas(route: str, ranks: list, defs, tp: int) -> int:
 
 
 def route_w(held) -> dict:
-    """Route w: xlstm-350m at its published widths and depth trained
-    through ``launch/train.py``'s ``train`` on dp ``W_DP`` × tp ``W_TP``:
+    """Route w: xlstm-350m at its published widths and ``W_LAYERS`` layers
+    trained through ``launch/train.py``'s ``train`` on dp ``W_DP`` × tp ``W_TP``:
     four gloo ranks sharing the card, each holding its model shards.
     fedcams with blockwise top-k 1/64 over the sparse collective and the
     fused ingest, K = 2, batch 2 × 512 a client, η ``W_ETA``, η_l
@@ -3332,7 +3461,7 @@ def route_w(held) -> dict:
     from repro_torch.models.params import count_params, local_shape, \
         tree_leaves, tree_map
 
-    cfg, fed = xlstm_cfg(), w_fed()
+    cfg, fed = w_cfg(), w_fed()
     model = Model(cfg, tp=W_TP)
     local = tree_map(lambda d: dataclasses.replace(
         d, shape=local_shape(d, {"model": W_TP})), model.defs())
@@ -3341,16 +3470,19 @@ def route_w(held) -> dict:
     plan = lm_memory_reckoning(cfg, d, max(leaf_sizes(cfg, W_TP)), 512)
     world = W_DP * W_TP
     free, total = torch.cuda.mem_get_info()
-    print(f"route w: {cfg.name}, {d_all:,} params in {leaves} leaves; a "
+    print(f"route w: {cfg.name}, {cfg.num_layers} layers, {d_all:,} params "
+          f"in {leaves} leaves; a "
           f"rank at tp {W_TP} holds {d:,} (its model shards); reckoned "
           f"~{plan['per_rank_gb']:.1f} GB a rank at its peak ({plan}); "
           f"{world} ranks on a card with {free / 1e9:.1f} of "
           f"{total / 1e9:.1f} GB free")
     check(world * plan["per_rank_gb"] * 1e9 < free,
           f"route w: {world} ranks do not fit the card: {plan}")
+    t0 = time.perf_counter()
     with expandable_segments():
         ranks = run_ranks(world, "gloo", _w_jobs(W_TP), fn=_lm_job,
                           timeout=900, record=True)
+    seconds = {"tp2": time.perf_counter() - t0}
     rs = [rk["w"] for rk in ranks]
     n_shapes = check_shapes_held("w", rs, held)
     want = {"topk_ef_sparse": leaves * W_ROUNDS,
@@ -3382,9 +3514,9 @@ def route_w(held) -> dict:
     round_ms = [h["round_s"] * 1e3 for h in hist[0]]
     peaks = [r["peak_bytes"] / 1e9 for r in rs]
 
+    t0 = time.perf_counter()
     one = run_ranks(W_DP, "gloo", _w_jobs(1), fn=_lm_job, timeout=900)[0]
-    host = run_ranks(W_DP, "gloo", _w_jobs(1, "cpu"), fn=_lm_job,
-                     timeout=900)[0]
+    seconds["tp1_and_cpu_witness"] = time.perf_counter() - t0
     pairs = {}
     for k in ("avg1", "avg2"):
         a2, a1 = ranks[0][k], one[k]
@@ -3392,8 +3524,8 @@ def route_w(held) -> dict:
         pairs[k] = {"loss": [loss2, loss1],
                     "loss_rel_err": abs(loss2 - loss1) / abs(loss1),
                     "errs": _leaf_errs(a2["params"], a1["params"])}
-    witness = _leaf_errs(host["avg2"]["params"], one["avg2"]["params"])
-    w_loss = [host["avg2"]["history"][0]["loss"],
+    witness = _leaf_errs(one["cpu2"]["params"], one["avg2"]["params"])
+    w_loss = [one["cpu2"]["history"][0]["loss"],
               one["avg2"]["history"][0]["loss"]]
     one_err = pairs["avg1"]
     check(one_err["loss_rel_err"] <= W_LOSS_RTOL
@@ -3432,14 +3564,18 @@ def route_w(held) -> dict:
     print(f"route w: the same tp 1 round at 2 local steps on the host's "
           f"CPU against the card: loss {w_loss}, the worst leaves "
           f"{_worst(witness)}; tp 2's reading over it, the largest ratios "
-          f"{_worst(ratio)}")
+          f"{_worst(ratio)}; the pairs at {W_PAIR_LAYERS} layers, "
+          f"{W_PAIR_SEQ} tokens; seconds "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} } (dp {W_DP} x "
+          f"tp {W_TP}: the main run and its pairs; tp 1: its pairs and the "
+          f"CPU witness)")
     return {"losses": losses, "wire_up_bytes": wire, "tiers": tiers,
             "round_ms": round_ms, "peak_gb": peaks, "reckoned": plan,
             "d": d_all, "d_rank": d, "leaves": leaves, "shapes_held": n_shapes,
             "replicated_leaves": n_rep,
             "fedavg_tp2_vs_tp1": pairs,
             "fedavg_tp1_cpu_vs_card": {"loss": w_loss, "errs": witness},
-            "fedavg_tp2_over_cpu_witness": ratio,
+            "fedavg_tp2_over_cpu_witness": ratio, "part_seconds": seconds,
             "launches": {k: sum(r["launches"][k] for r in rs)
                          for k in rs[0]["launches"]}}
 
@@ -3875,7 +4011,7 @@ def _y_job(job: dict) -> dict:
         batch = shard_batch(data.mesh_batch(r, b.fed.local_steps,
                                             shape.global_batch,
                                             shape.seq_len),
-                            b.model, b.fed, tcfg, b.ctx, dev)
+                            b.model, b.fed, tcfg, b.ctx, "cuda")
         dist.barrier()
         _sync()
         t0 = time.perf_counter()
@@ -4098,6 +4234,231 @@ def route_y() -> dict:
                          for k in tr["launches"]}}
 
 
+def _z_job(job: dict) -> dict:
+    """Route z's rank: the train step ``steps.build_train_step`` builds for
+    :func:`z_cfg` with the dry run's settings on a (1, 1) ("data",
+    "model") mesh, one client of batch ``Z_BATCH`` x ``Z_SEQ``. Its count
+    on meta first (the reckoned peak; over ``Z_MAX_GB`` fails), then
+    ``Z_ROUNDS`` rounds on the card, the launch counters reset before
+    them: each round's ms and loss, the peak memory, the launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.mesh import init_fed_state, shard_batch
+    from repro_torch.data.synthetic import FederatedLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import tree_leaves
+
+    fed, train = z_configs()
+    spec = dataclasses.replace(get_arch("xlstm-350m"), model=z_cfg())
+    shape = ShapeConfig("train_4k, one client", Z_SEQ, Z_BATCH, "train")
+    b = steps.build_train_step(spec, shape,
+                               make_mesh((1, 1), ("data", "model"), "cuda"),
+                               fed, train)
+    t0 = time.perf_counter()
+    meta = oa.analyze(b.fn, *b.abstract_args)
+    meta_s = time.perf_counter() - t0
+    reck = meta.memory
+    reck_gb = (reck["argument_size"] + reck["temp_size"]) / 1e9
+    check(reck_gb <= Z_MAX_GB, f"route z: the step reckons {reck_gb:.2f} GB "
+          f"on meta, over {Z_MAX_GB}: cut the batch")
+    tcfg = dataclasses.replace(train, global_batch=shape.global_batch,
+                               seq_len=shape.seq_len)
+    state = init_fed_state(b.model, b.fed, torch.Generator(
+        device="cuda").manual_seed(0), b.ctx, "cuda")
+    data = FederatedLMData(num_clients=b.fed.num_clients,
+                           vocab_size=spec.model.vocab_size, seed=0)
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    round_ms, losses = [], []
+    for r in range(Z_ROUNDS):
+        batch = shard_batch(data.mesh_batch(r, b.fed.local_steps,
+                                            shape.global_batch,
+                                            shape.seq_len),
+                            b.model, b.fed, tcfg, b.ctx, "cuda")
+        _sync()
+        t0 = time.perf_counter()
+        state, met = b.fn(state, batch, r)
+        _sync()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        del batch
+    return {"round_ms": round_ms, "losses": losses,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": dict(ops.launches),
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in tree_leaves(state.params)),
+            "leaves": len(tree_leaves(b.model.defs())),
+            "description": b.description, "reckoned": reck,
+            "reckoned_gb": reck_gb, "meta_s": meta_s,
+            "meta": {"ops": meta.ops, "flops": meta.flops,
+                     "bytes": meta.bytes, "launches": meta.launch_count}}
+
+
+def witness_slstm_train(p, x, num_heads: int, ctx, dtype="bfloat16"):
+    """``models/xlstm.slstm_train`` as it stood while its loop read
+    ``pre[:, i]`` a step: the backward writes each step's gradient into a
+    zero-filled (B, S, 4d) tensor and adds the S of them (bytes quadratic
+    in S). Route z's witness of the port's loop over ``pre.unbind(1)``;
+    the port never runs it."""
+    from repro_torch.launch.op_analysis import loop_trips
+    from repro_torch.models import xlstm as xm
+    B, S, d = x.shape
+    pre = xm._slstm_pre(p, x, dtype, ctx)
+    z = pre.new_zeros((B, d))
+    st = xm.SLSTMState(h=z, c=z, n=z, m=torch.full_like(z, -1e30))
+    rr = xm._recurrent_mats(ctx.tp_copy(p["r"]))
+    hs = []
+    n = loop_trips(S, pre)
+    for i in range(n):
+        st = xm._slstm_step(rr, pre[:, i], st, num_heads)
+        hs.append(st.h)
+    hs += hs[-1:] * (S - n)
+    h = xm.cast(torch.stack(hs, dim=1), dtype)
+    return xm._slstm_ffn(p, h, dtype, ctx)
+
+
+def _z_fwd_bwd(fn, p, x, R):
+    """``fn``'s output and the gradients of ∑ out·R for every param of
+    ``p`` and for ``x`` (fp32)."""
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.sharding.rules import ParallelContext
+    pg = tree_map(lambda t: t.detach().requires_grad_(True), p)
+    xg = x.detach().requires_grad_(True)
+    out = fn(pg, xg, z_cfg().num_heads, ParallelContext(), "float32")
+    grads = torch.autograd.grad((out * R).sum(), tree_leaves(pg) + [xg])
+    return [out.detach()] + list(grads)
+
+
+def z_slstm_case(S: int) -> tuple:
+    """One sLSTM layer's params at :func:`z_cfg`'s widths (its bias drawn
+    too: the init's is zero), then x and the cotangent R, both
+    (``Z_BATCH``, S, d_model) fp32, from a CUDA generator seeded 6."""
+    from repro_torch.models import params as pdefs
+    from repro_torch.models import xlstm as xm
+    cfg, dev = z_cfg(), "cuda"
+    g = torch.Generator(device=dev).manual_seed(6)
+    p = pdefs.init_params(xm.slstm_defs(cfg.d_model, cfg.num_heads,
+                                        cfg.xlstm), g, dev)
+    p["b"] = torch.randn(p["b"].shape, generator=g, device=dev) * 0.3
+    x, R = (torch.randn(Z_BATCH, S, cfg.d_model, generator=g, device=dev)
+            for _ in range(2))
+    return p, x, R
+
+
+def _z_slstm() -> dict:
+    """One sLSTM layer at xlstm-350m's widths, batch ``Z_BATCH``, fp32,
+    ``Z_CHECK_SEQ`` steps: the port's ``slstm_train`` against
+    :func:`witness_slstm_train`, the output and the gradients of every
+    param and of x equal (``==``, so ±0.0 match; NaN where the witness
+    has NaN). ``scripts/slstm_time.py`` times both at ``Z_SEQ``."""
+    from repro_torch.models import xlstm as xm
+    p, x, R = z_slstm_case(Z_CHECK_SEQ)
+    got, want = (_z_fwd_bwd(f, p, x, R)
+                 for f in (xm.slstm_train, witness_slstm_train))
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.dtype == b.dtype and a.shape == b.shape and bool(
+            ((a == b) | (a.isnan() & b.isnan())).all()),
+            f"route z: the sLSTM at S = {Z_CHECK_SEQ}: output/gradient {i} "
+            f"differs from the witness's")
+    return {"equal_tensors": len(got)}
+
+
+def _z_counts() -> dict:
+    """op_analysis's count of :func:`z_cfg`'s ``Model.loss`` (remat
+    "full") and its gradient at batch ``Z_BATCH`` x ``Z_CHECK_SEQ``: one
+    full run on the card against meta's, extrapolated from its capped
+    sLSTM loop."""
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.sharding.rules import ParallelContext
+    model, dev = Model(z_cfg()), "cuda"
+    ctx = ParallelContext()
+    params = model.init(torch.Generator(device=dev).manual_seed(7), dev)
+    tok = torch.from_numpy(np.random.default_rng(8).integers(
+        0, model.cfg.vocab_size, size=(Z_BATCH, Z_CHECK_SEQ + 1)).astype(
+            np.int32)).to(dev)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+
+    def grad(p, b):
+        leaves = [t.requires_grad_(True) for t in tree_leaves(p)]
+        loss, _ = model.loss(p, b, ctx, remat_policy="full")
+        return torch.autograd.grad(loss, leaves)
+
+    card = oa.measure(grad, params, batch)
+    meta = oa.analyze(grad, *_on_meta((params, batch)))
+    return {"card": _counts(card), "meta": _counts(meta)}
+
+
+def route_z(held) -> dict:
+    """Route z: xlstm-350m's train_4k round on the card (ROADMAP Queue 3
+    item 32). (a) :func:`_z_job` on one NCCL rank: the step the dry run
+    builds, at ``Z_LAYERS`` layers and one client's share (batch
+    ``Z_BATCH`` x ``Z_SEQ``), ``Z_ROUNDS`` rounds: losses and state
+    finite, peak memory beside op_analysis's reckoning on meta, one
+    ``topk_ef`` and one ``fedams_update`` a leaf a round (as meta counts)
+    at shapes phase 1 held. (b) The sLSTM layer's loop over
+    ``pre.unbind(1)`` against the ``pre[:, i]`` witness
+    (:func:`_z_slstm`). (c) The card's count of the 2-layer loss and
+    gradient equals meta's (:func:`_z_counts`)."""
+    card = card_line()
+    fed, train = z_configs()
+    free, total = torch.cuda.mem_get_info()
+    with expandable_segments():
+        r = run_ranks(1, "nccl", {"z": {}}, fn=_z_job, timeout=900,
+                      record=True)[0]["z"]
+    n_shapes = check_shapes_held("z", [r], held)
+    leaves = r["leaves"]
+    want = {"topk_ef": leaves, "fedams_update": leaves}
+    check(r["meta"]["launches"] == want, f"route z: meta counts launches "
+          f"{r['meta']['launches']}, expected {want}")
+    got = {k: v for k, v in r["launches"].items() if v}
+    want = {k: v * Z_ROUNDS for k, v in want.items()}
+    check(got == want, f"route z: launches {got}, expected {want} "
+          f"({leaves} leaves a round)")
+    check(all(np.isfinite(r["losses"])) and r["finite"],
+          f"route z: losses {r['losses']} or a non-finite state")
+    peak = r["peak_bytes"] / 1e9
+    print(f"route z [{card}]: xlstm-350m, {Z_LAYERS} layers, "
+          f"{r['description']}, batch {Z_BATCH} x {Z_SEQ} on one NCCL rank "
+          f"(fedcams, {fed.compressor} {fed.compress_ratio:g} over the "
+          f"{fed.aggregation} uplink, K = {fed.local_steps}, remat "
+          f"{train.remat_policy}): losses {r['losses']}; round ms "
+          f"{[round(t, 1) for t in r['round_ms']]}; peak {peak:.2f} GB, "
+          f"reckoned on meta {r['reckoned_gb']:.2f} GB ({r['reckoned']}; "
+          f"{r['meta_s']:.1f} s); meta counts {r['meta']['ops']:,} ops, "
+          f"{r['meta']['flops']:.4g} FLOPs, {r['meta']['bytes']:,} bytes a "
+          f"round; launches a round {leaves} topk_ef + {leaves} "
+          f"fedams_update; distinct launch shapes, each held by phase 1: "
+          f"{n_shapes}; {free / 1e9:.1f} of {total / 1e9:.1f} GB free before")
+    sl = _z_slstm()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"route z [{card}]: one sLSTM layer, batch {Z_BATCH}, fp32: at S "
+          f"= {Z_CHECK_SEQ} the output and {sl['equal_tensors'] - 1} "
+          f"gradients equal the pre[:, i] witness's (==)")
+    counts = _z_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(counts["card"] == counts["meta"], f"route z: the card's count of "
+          f"the {Z_LAYERS}-layer loss + gradient {counts['card']} != meta's "
+          f"{counts['meta']}")
+    print(f"route z [{card}]: op_analysis on the card = on meta (ops, FLOPs, "
+          f"bytes, rw bytes, collective bytes) for the {Z_LAYERS}-layer "
+          f"Model.loss + gradient at {Z_BATCH} x {Z_CHECK_SEQ}: "
+          f"{counts['card']}")
+    return {"card": card, "losses": r["losses"], "round_ms": r["round_ms"],
+            "peak_gb": peak, "reckoned_gb": r["reckoned_gb"],
+            "reckoned": r["reckoned"], "meta": r["meta"],
+            "shapes_held": n_shapes, "slstm": sl, "counts": counts["card"],
+            "launches": r["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False — this script needs a card")
@@ -4124,15 +4485,17 @@ def main():
         kern = phase_kernels(dev, 704266)
         mesh_held = phase_mesh_shapes(dev)
         large = phase_lm_shapes(dev, mesh_held)
+        large.update(phase_z_shapes(dev, mesh_held))
     torch.cuda.empty_cache()
     print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
     for name, (cases, worst, sigs) in mesh_held.items():
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
         kern[name]["cases_routes_m_o_q"] = cases
-        print(f"kernel {name} vs twin at routes m, o and q's shapes: {cases} "
+        print(f"kernel {name} vs twin at routes m, o-w and z's shapes: "
+              f"{cases} "
               f"cases, {len(sigs)} shapes, bitwise")
     for d, row in large.items():
-        for name in ("topk_ef_sparse", "fedams_ingest"):
+        for name in (n for n in row if n != "route"):
             t = row[name]
             kern[name].setdefault("largest_rows", {})[d] = t
             print(f"kernel {name} alone on route {row['route']}'s largest "
@@ -4186,9 +4549,10 @@ def main():
                     "r": route_r, "s": lambda: route_s(mesh_held),
                     "t": route_t, "u": lambda: route_u(mesh_held),
                     "v": route_v, "w": lambda: route_w(mesh_held),
-                    "x": route_x, "y": route_y}
+                    "x": route_x, "y": route_y,
+                    "z": lambda: route_z(mesh_held)}
     lm_rounds = {"o": LM_ROUNDS, "q": MOE_ROUNDS, "s": MLA_ROUNDS,
-                 "u": RG_ROUNDS, "w": W_ROUNDS}
+                 "u": RG_ROUNDS, "w": W_ROUNDS, "z": Z_ROUNDS}
     zoo = {}
     for route, fn in model_routes.items():
         t_phase = time.perf_counter()

@@ -33,7 +33,7 @@ import time
 import traceback
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
@@ -59,10 +59,28 @@ def main(argv=None) -> None:
     ap.add_argument("--shard-server-state", action="store_true")
     ap.add_argument("--overwrite", action="store_true",
                     help="recompute cases already present in --out")
-    args = ap.parse_args(argv)
+    return ap
 
-    from repro_torch.configs.base import (INPUT_SHAPES, FedConfig,
-                                          TrainConfig)
+
+def build_configs(args):
+    """The ``FedConfig`` and ``TrainConfig`` every train case of the run
+    takes (the CLI's defaults: fedcams, top-k 1/64 over the dense uplink,
+    K = 4, remat ``"full"``)."""
+    from repro_torch.configs.base import FedConfig, TrainConfig
+    fed = FedConfig(algorithm=args.algorithm, compressor=args.compressor,
+                    compress_ratio=args.ratio, aggregation=args.aggregation,
+                    local_steps=args.local_steps,
+                    delta_dtype=args.delta_dtype,
+                    shard_server_state=args.shard_server_state)
+    train = TrainConfig(remat_policy=args.remat,
+                        tp_collective=args.tp_collective)
+    return fed, train
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
+
+    from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import ARCH_IDS, get_arch
     from repro_torch.launch.mesh import (make_production_mesh,
                                          start_fake_world)
@@ -76,13 +94,7 @@ def main(argv=None) -> None:
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
 
-    fed = FedConfig(algorithm=args.algorithm, compressor=args.compressor,
-                    compress_ratio=args.ratio, aggregation=args.aggregation,
-                    local_steps=args.local_steps,
-                    delta_dtype=args.delta_dtype,
-                    shard_server_state=args.shard_server_state)
-    train = TrainConfig(remat_policy=args.remat,
-                        tp_collective=args.tp_collective)
+    fed, train = build_configs(args)
 
     def apply_variants(spec):
         cfg = spec.model

@@ -175,10 +175,11 @@ def mlstm_train_chunkwise(p, x, num_heads: int, ctx, dtype="bfloat16",
     mask = torch.arange(c, device=dev)[:, None] >= torch.arange(
         c, device=dev)[None, :]
     hs = []
-    for j in range(S // c):
-        sl = slice(j * c, (j + 1) * c)
-        qi, ki, vi, li, lf = q[:, sl], k[:, sl], v[:, sl], log_i[:, sl], \
-            log_f[:, sl]
+    # iterate the chunks of one split a tensor: the backward cats the
+    # chunks' gradients once, where a slice a chunk would scatter each into
+    # a zero-filled copy of the whole tensor (bytes quadratic in S)
+    for qi, ki, vi, li, lf in zip(*(t.split(c, dim=1) for t in (
+            q, k, v, log_i, log_f))):
         Fl = torch.cumsum(lf, dim=1)                                # (B,c,nh)
         Ftot = Fl[:, -1]                                            # (B,nh)
         # intra-chunk decay D_ij = Fl_i - Fl_j + li_j (j <= i)
@@ -314,8 +315,11 @@ def slstm_train(p, x, num_heads: int, ctx, dtype="bfloat16",
     rr = _recurrent_mats(ctx.tp_copy(p["r"]))
     hs = []
     n = loop_trips(S, pre)
-    for i in range(n):
-        st = _slstm_step(rr, pre[:, i], st, num_heads)
+    # step over one unbind: the backward stacks the steps' gradients once,
+    # where ``pre[:, i]`` would scatter each into a zero-filled (B, S, 4d)
+    # copy (bytes quadratic in S)
+    for pre_i in pre.unbind(1)[:n]:
+        st = _slstm_step(rr, pre_i, st, num_heads)
         hs.append(st.h)
     # a meta trace caps its steps (launch/op_analysis.loop_trips: n < S
     # only there); the last step's output stands in for the rest

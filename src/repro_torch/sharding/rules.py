@@ -81,7 +81,9 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _all_reduce(y: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
-    """``dist.all_reduce`` of ``y`` in place, charged as an all-reduce."""
+    """``dist.all_reduce`` of ``y`` in place, charged as an all-reduce.
+    ``y`` must be contiguous: NCCL refuses any other (gloo takes it), so
+    the callers clone into ``torch.contiguous_format``."""
     record_collective("all-reduce", _nbytes(y))
     if not y.is_meta:
         with torch.profiler.record_function(COLLECTIVE_RANGE):
@@ -127,7 +129,7 @@ class _PsumModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group, rs_ag):
-        y = x.clone()
+        y = x.clone(memory_format=torch.contiguous_format)
         n = len(group.ranks)
         if not rs_ag:
             _all_reduce(y, group.group)
@@ -163,7 +165,9 @@ class _TPCopy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone()
+        # a view's cotangent arrives strided (the sLSTM's recurrent mats
+        # are a permuted copy of r)
+        grad = grad.clone(memory_format=torch.contiguous_format)
         _all_reduce(grad, ctx.group.group)
         return grad, None
 
@@ -227,7 +231,7 @@ class ParallelContext:
         g = self._group(axes)
         if g is None:
             return x
-        y = x.clone()
+        y = x.clone(memory_format=torch.contiguous_format)
         _all_reduce(y, g.group, op)
         return y
 

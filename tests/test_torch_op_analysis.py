@@ -25,6 +25,9 @@
 * The sLSTM's trip count: ``analyze``'s extrapolation from 2 and 3 steps
   equals a full trace to the integer at S = 16 and 32, alone and inside
   the xlstm smoke model's gradient.
+* The bytes of the sLSTM's and the chunkwise mLSTM's forward and backward
+  are affine in the sequence (their loops step over one ``unbind`` /
+  ``split``: ROADMAP Queue 3 item 32).
 * The roofline copy: ``_mk_roofline`` and ``model_flops_for`` equal the
   reference's given the same ``BackendSpec`` values.
 """
@@ -451,6 +454,43 @@ def test_xlstm_gradient_trip_count_equals_a_full_trace(seq):
 
     batch = {"tokens": tok, "labels": tok}
     assert _counted(grad, p, batch) == _full_trace(grad, p, batch)
+
+
+#: (layer, sequence lengths): the sLSTM at S, 2S, 4S; the chunkwise mLSTM
+#: at chunk 16 over 4, 8 and 16 chunks
+AFFINE = {"slstm": (128, 256, 512), "mlstm_chunkwise": (64, 128, 256)}
+
+
+@pytest.mark.parametrize("layer", sorted(AFFINE))
+def test_forward_and_backward_bytes_are_affine_in_the_sequence(layer):
+    """A sequential loop's forward and backward move bytes linear in S: a
+    full trace's bytes at S, 2S and 4S satisfy ``b(4S) - b(2S) == 2 · (b(2S)
+    - b(S))`` exactly (smoke widths, batch 2, fp32, the gradient of every
+    parameter). The loops step over one ``unbind`` / ``split`` of their
+    inputs; indexing a step (``pre[:, i]``) or slicing a chunk makes the
+    backward write each step's gradient into a zero-filled copy of the
+    whole tensor, and the sLSTM's bytes then read 1,727,347,712 against
+    922,041,344."""
+    cfg = get_arch("xlstm-350m").smoke
+    ctx = ParallelContext()
+    if layer == "slstm":
+        defs = xlstm_mod.slstm_defs(cfg.d_model, cfg.num_heads, cfg.xlstm)
+        run = lambda p, x: xlstm_mod.slstm_train(p, x, cfg.num_heads, ctx,
+                                                 "float32")
+    else:
+        defs = xlstm_mod.mlstm_defs(cfg.d_model, cfg.num_heads, cfg.xlstm)
+        run = lambda p, x: xlstm_mod.mlstm_train_chunkwise(
+            p, x, cfg.num_heads, ctx, "float32", chunk=16)
+
+    def fwd_bwd(p, x):
+        leaves = [t.requires_grad_(True) for t in pdefs.tree_leaves(p)]
+        return torch.autograd.grad(run(p, x).sum(), leaves)
+
+    b = []
+    for seq in AFFINE[layer]:
+        p = pdefs.tree_map(lambda d: _meta(d.shape), defs)
+        b.append(oa.measure(fwd_bwd, p, _meta((2, seq, cfg.d_model))).bytes)
+    assert b[2] - b[1] == 2 * (b[1] - b[0]), b
 
 
 def test_real_tensors_run_every_step():

@@ -16,6 +16,8 @@ matter). Each tolerance is stated where it is set.
   the stepwise decode (``test_mlstm_train_matches_stepwise_decode``), and
   the sLSTM's forward equals its decode.
 * The refusal of a length the chunks do not tile, in both forms.
+* ``slstm_train``'s gradients bitwise those of a loop indexing
+  ``pre[:, i]`` a step, in fp32 and bf16.
 """
 import jax
 import jax.numpy as jnp
@@ -253,6 +255,75 @@ def test_slstm_train_matches_stepwise_decode():
         outs.append(o[:, 0])
     assert torch.equal(torch.stack(outs, 1), full)
     assert all(torch.equal(a, b) for a, b in zip(st, fst))
+
+
+def _indexing_slstm(p, x, dtype):
+    """``slstm_train`` with its loop indexing ``pre[:, i]`` a step: the
+    witness of the form whose backward scattered each step's gradient
+    into a zero-filled copy of ``pre``."""
+    B, S, _ = x.shape
+    pre = tx._slstm_pre(p, x, dtype, CTX)
+    z = pre.new_zeros((B, D))
+    st = tx.SLSTMState(h=z, c=z, n=z, m=torch.full_like(z, -1e30))
+    rr = tx._recurrent_mats(p["r"])
+    hs = []
+    for i in range(S):
+        st = tx._slstm_step(rr, pre[:, i], st, NH)
+        hs.append(st.h)
+    return tx._slstm_ffn(p, tx.cast(torch.stack(hs, dim=1), dtype), dtype,
+                         CTX)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_gradients_equal_an_indexing_witness(dtype):
+    """The loop over ``pre.unbind(1)`` against the ``pre[:, i]`` witness:
+    the output and the gradients of every param and of x equal bitwise
+    (``==``: a -0.0 that the witness's sum of zero-filled copies made +0.0
+    counts as equal; NaN where the witness has NaN)."""
+    S = 24
+    p, x = sparams(26), _x(2, S, 27)
+    Rm = torch.from_numpy(np.random.default_rng(28).normal(
+        size=(2, S, D)).astype(np.float32))
+    res = []
+    for fn in (lambda pp, xx: tx.slstm_train(pp, xx, NH, CTX, dtype),
+               lambda pp, xx: _indexing_slstm(pp, xx, dtype)):
+        tp = tree_map(lambda a: a.requires_grad_(True), _t(p))
+        txx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(
+            True)
+        out = fn(tp, txx)
+        (out.float() * Rm).sum().backward()
+        res.append([out.detach(), txx.grad] + [t.grad for _, t in
+                                               leaves_with_paths(tp)])
+    for got, want in zip(*res):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+def test_the_model_axis_all_reduces_contiguous_tensors(monkeypatch):
+    """NCCL refuses to all-reduce a tensor that is not contiguous (gloo
+    takes it). The sLSTM's recurrent mats are a permuted copy of ``r``, so
+    ``r``'s cotangent reaches its ``tp_copy`` strided. Under a context
+    whose model axis is a group of one, every all-reduce of the sLSTM's
+    forward and backward (``tp_copy``'s, ``psum_model``'s) gets a
+    contiguous tensor; the gradients are those of the context without
+    collectives."""
+    from types import SimpleNamespace
+
+    from repro_torch.sharding import rules
+    seen = []
+    monkeypatch.setattr(rules, "_all_reduce", lambda y, group, op=None:
+                        seen.append(y.is_contiguous()))
+    monkeypatch.setattr(rules.ParallelContext, "_group", lambda self, axes:
+                        SimpleNamespace(group=None, ranks=[0], index=0)
+                        if axes else None)
+    grads = []
+    for ctx in (ParallelContext(model_axis="model"), CTX):
+        p = tree_map(lambda a: a.requires_grad_(True), _t(sparams(29)))
+        tx.slstm_train(p, torch.from_numpy(_x(2, 6, 30)), NH, ctx,
+                       "float32").sum().backward()
+        grads.append([t.grad for _, t in leaves_with_paths(p)])
+    assert len(seen) > 2 and all(seen), seen
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 @pytest.mark.parametrize("which", ["mlstm", "mlstm_chunkwise", "slstm"])
