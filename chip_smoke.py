@@ -134,9 +134,9 @@ then, on the card:
 4. runs the mesh backend (``core.mesh``): route m on four gloo ranks
    sharing the card — ConvMixer-256-8 as one flat leaf, 3 rounds of
    blocktopk ``sparse_topk`` fused and two-pass, equal to the port's
-   FedSim to the bit; then the model's 52-leaf tree, 6 rounds each of
+   FedSim to the bit; then the model's 52-leaf tree, 3 rounds each of
    sparse at n = 3 of 4, hierarchical (2 × 2), packed sign, dense
-   blocktopk, dense sign, ZeRO-sharded server state, crashes with bit
+   blocktopk, dense sign, ZeRO-sharded server state, 6 of crashes with bit
    flips, and 3 rounds through ``FederatedTrainer(mesh=...).run`` — and
    route m1, the sparse fused round on one NCCL rank. Each job checks its
    kernels' launches a round, finite losses, ``wire_up_bytes`` against
@@ -212,22 +212,21 @@ then, on the card:
    ``topk_ef_sparse`` + 67 ``fedams_ingest`` a round;
 13. serves xlstm-350m at its published widths and depth (route v: 24
    layers alternating mLSTM and sLSTM, 343,856,128 params, bf16 compute)
-   as route n: batch 4 × 512 + 32, then 1 × 4,608 + 16 (two mLSTM
-   q-chunks of 2,304; the sLSTM steps 4,608 times a layer); decode against
-   the forward at 4 layers, fp32; the smoke config on the card against the
-   CPU;
+   as route n: batch 4 × 512 + 32, then at 4 of the 24 layers 1 × 4,608 +
+   16 (two mLSTM q-chunks of 2,304; the sLSTM steps 4,608 times a layer);
+   decode against the forward at 4 layers, fp32; the smoke config on the
+   card against the CPU;
 14. trains xlstm-350m at 4 of its 24 layers on the mesh at dp 2 × tp 2
    (route w:
    four gloo ranks sharing the card, each holding its model shards) through
    ``launch/train.py``'s ``train``: fedcams, blockwise top-k 1/64 over the
-   sparse collective, the fused ingest, K = 2, batch 2 × 512 a client, 2
-   rounds, 19 ``topk_ef_sparse`` + 19 ``fedams_ingest`` a rank a round on
+   sparse collective, the fused ingest, K = 2, batch 2 × 512 a client, 1
+   round, 19 ``topk_ef_sparse`` + 19 ``fedams_ingest`` a rank a round on
    its model-local leaves at shapes phase 1 held, every replicated leaf of
    the final state the same on all four ranks to the bit; then dense
    FedAvg rounds in fp32 at one and two local steps, 2 of the 24 layers
-   and 128 tokens, at dp 2 × tp 2 and at dp 2 × tp 1 from the same seeded init, the loss
-   and the gathered params held together (at two steps within ten times
-   what the tp 1 round reads on the card against the host's CPU);
+   and 128 tokens, at dp 2 × tp 2 and at dp 2 × tp 1 from the same seeded
+   init, the loss and the gathered params held together;
 15. runs the model axis on the card (route x): gemma2-2b at full width and
    depth served at tp 2 on two gloo ranks (route n's weights; the prefill
    logits against route n's, the share of greedy tokens that agree), and
@@ -242,8 +241,9 @@ then, on the card:
    built with ``steps.build_decode_step`` on a (2, 1) ("data", "model")
    mesh of two gloo ranks sharing the card, each holding 262,144 of the
    524,288 cache slots (the cache drawn as one global cache and cut):
-   8 tokens from position 524,280, ms a token and peak memory a rank beside
-   the peak ``launch/op_analysis`` reckons on meta; the same steps
+   8 tokens from position 524,280, ms a token and peak memory a rank
+   within 3 % of the peak ``launch/op_analysis`` reckons on meta; the same
+   steps
    unsharded in this process (the largest logit difference, unbounded at
    bf16) and at 2 layers in fp32 within 1e-5. ``launch/op_analysis``'s
    count of that step and of route n's decode shape (batch 4, 544 slots,
@@ -255,20 +255,27 @@ then, on the card:
    (``python -m repro_torch.launch.dryrun``) prints ``[ok]``;
 17. runs xlstm-350m's train_4k round on the card (route z): the step
    ``steps.build_train_step`` builds with the dry run's settings (fedcams,
-   top-k 1/64 over the dense uplink, remat "full"; K = 2 where its CLI
+   top-k 1/64 over the dense uplink, remat "full"; K = 1 where its CLI
    says 4) at published
    widths, 2 layers (one mLSTM, one sLSTM), one client's share of
    train_4k (batch 16 × 4,096) on one NCCL rank: the peak op_analysis
-   reckons on meta first (at most 70 GB), then 2 rounds: losses and state
-   finite, round ms, peak memory beside the reckoning, 19 ``topk_ef`` +
-   19 ``fedams_update`` a round (meta's count) at shapes phase 1 held.
+   reckons on meta first (at most 70 GB), then 1 round: losses and state
+   finite, round ms, peak memory within 3 % of the reckoning, 19
+   ``topk_ef`` + 19 ``fedams_update`` a round (meta's count) at shapes
+   phase 1 held.
    One sLSTM layer (batch 16, fp32) against a witness that indexes
    ``pre[:, i]`` a step, the loop the port had before it stepped over
    ``pre.unbind(1)``: at S = 512 the output and every gradient equal
    (``==``; ``scripts/slstm_time.py`` times both at S = 4,096). The
    card's count of the 2-layer loss and gradient at 16 × 512 equals
-   meta's.
-Every model route prints its seconds.
+   meta's, and run plainly its peak is within 3 % of meta's reckoning.
+The routes' ranks start three times: four gloo ranks run routes m, w and
+x's four-rank jobs in turn, two gloo ranks those of o, w's tp 1 pairs, x's
+tp 2 serving and y, one NCCL rank those of m1, q, s, u and z; each group
+starts at its first route (a start and teardown cost 12-20 s). Every
+phase and route prints its seconds (a route that starts a group pays its
+start and all its jobs), each job its own, and a line before the kernels
+line all of them.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
@@ -1049,9 +1056,10 @@ def leaf_sizes(cfg, tp: int = 1) -> list:
 #: drives an mLSTM input gate below -88, where the normalizer's exp(-m)
 #: overflows and the reference's and the port's backward give NaN (ROADMAP
 #: Queue 3 item 27); at η_l = 0.001 its rounds stay finite on the card.
-#: 4 layers and 2 rounds, where route z needed the time: all 24 took ~31 s
-#: a round, 12 took ~12 s
-W_DP, W_TP, W_ROUNDS, W_ETA, W_ETA_L = 2, 2, 2, 0.01, 0.001
+#: 4 layers and 1 round, for the script's time: all 24 took ~31 s a
+#: round, 12 took ~12 s; the second of 2 rounds took 4.9 s and repeated the
+#: first's launches, shapes and checks
+W_DP, W_TP, W_ROUNDS, W_ETA, W_ETA_L = 2, 2, 1, 0.01, 0.001
 W_LAYERS = 4
 
 
@@ -1233,13 +1241,20 @@ def phase_lm_shapes(dev, out: dict) -> dict:
 #: "full"), one client's share of train_4k's 256 sequences over 16 clients
 #: (batch 16 x 4,096) on one NCCL rank at tp 1. Reduced: depth 24 -> 2, one
 #: mLSTM and one sLSTM layer (at 24 layers the dry run counts 40.2 M ops a
-#: round, a launch each), and the local steps 4 -> 2 (``--local-steps``):
-#: at K = 4 the 2 rounds took 124-139 s of the script's 1,200, host-bound
-#: on 3.35 M launches a round
-Z_LAYERS, Z_SEQ, Z_BATCH, Z_ROUNDS, Z_LOCAL_STEPS = 2, 4096, 16, 2, 2
+#: round, a launch each), the local steps 4 -> 1 (``--local-steps``: at
+#: K = 4 the 2 rounds took 124-139 s of the script's 1,200, host-bound on
+#: 3.35 M launches a round; at K = 2 one round took 44.5 s and repeated
+#: its first local step's peak), and the rounds 2 -> 1 (the second took
+#: 22.7 s and repeated the first's launches, shapes and peak)
+Z_LAYERS, Z_SEQ, Z_BATCH, Z_ROUNDS, Z_LOCAL_STEPS = 2, 4096, 16, 1, 1
 #: the most route z's step may reckon (op_analysis on meta: arguments +
 #: temporaries) on the card; over it the batch would have to be cut
 Z_MAX_GB = 70.0
+#: how far a step's peak on the card (``max_memory_allocated``) may be from
+#: op_analysis's reckoning on meta (arguments + temporaries), as a share of
+#: the reckoning: routes y and z and route z's loss + gradient at
+#: Z_CHECK_SEQ (ROADMAP Queue 3 item 35)
+RECKON_TOL = 0.03
 #: the sLSTM layer against its indexing witness: bitwise at Z_CHECK_SEQ
 #: (batch Z_BATCH, fp32; scripts/slstm_time.py times both at Z_SEQ); the
 #: card's count of the 2-layer loss and gradient against meta's at
@@ -2092,6 +2107,10 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
 
 M_MESH = 4          # route m's ranks, one client each
 ANCHOR_ROUNDS = 3   # the flat model's rounds held to FedSim's to the bit
+#: the per-leaf jobs' rounds (6 took 3.9-5.2 s a job; the script's time),
+#: but for ``faults``, which keeps ROUNDS: its seeded plan first rejects
+#: a payload in its fourth round
+LEAF_ROUNDS = 3
 #: ConvMixer-256-8's leaves: the mesh selects, ingests and updates per leaf
 LEAVES = 52
 
@@ -2175,8 +2194,8 @@ def mesh_jobs():
     per_leaf = lambda **k: {n: LEAVES for n in k["kernels"]}
     flat = dict(shape=(M_MESH,), axes=("data",), flat=True,
                 rounds=ANCHOR_ROUNDS, det=True, gather=True)
-    leaf = dict(shape=(M_MESH,), axes=("data",), flat=False, rounds=ROUNDS,
-                det=False, gather=False)
+    leaf = dict(shape=(M_MESH,), axes=("data",), flat=False,
+                rounds=LEAF_ROUNDS, det=False, gather=False)
     return {
         "anchor-fused": dict(flat, cfg={}, expect={"topk_ef_sparse": 1,
                                                    "fedams_ingest": 1}),
@@ -2202,7 +2221,7 @@ def mesh_jobs():
                                      state_shards=M_MESH),
                       expect=per_leaf(kernels=("topk_ef_sparse",
                                                "fedams_update"))),
-        "faults": dict(leaf, cfg=dict(fault=FaultConfig(
+        "faults": dict(leaf, rounds=ROUNDS, cfg=dict(fault=FaultConfig(
             crash_prob=0.25, corrupt_prob=0.25)), expect=per_leaf(
                 kernels=("topk_ef_sparse", "fedams_update"))),
         # the user's entry point: FederatedTrainer(mesh=...).run
@@ -2355,7 +2374,8 @@ def _mesh_rank(rank, world, port, outdir, backend, jobs, fn, record):
     ``backend``; runs ``fn`` on each of ``jobs`` (with ``record``, also
     the shapes of the kernels each launched, :func:`record_launch_shapes`,
     under ``"shapes"``) and writes the results to
-    ``outdir/rank{rank}.pt``."""
+    ``outdir/rank{rank}.pt``; each job's result also holds its seconds
+    (``"job_s"``)."""
     import torch.distributed as dist
     torch.cuda.set_device(0)
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
@@ -2367,7 +2387,11 @@ def _mesh_rank(rank, world, port, outdir, backend, jobs, fn, record):
     try:
         out = {}
         for name, job in jobs.items():
+            t0 = time.perf_counter()
             out[name] = fn(job)
+            out[name]["job_s"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
             if record:
                 out[name]["shapes"] = {k: set(v) for k, v in seen.items()}
                 for v in seen.values():
@@ -2446,7 +2470,9 @@ def route_m(loss, p0, data, held) -> dict:
     shape a kernel is launched at held by phase 1, ``held``), then the
     flat anchors against FedSim in this process, bitwise."""
     jobs = mesh_jobs()
-    ranks = run_ranks(M_MESH, "gloo", jobs)
+    t0 = time.perf_counter()
+    ranks = shared_ranks("gloo4", "m")
+    ranks_s = time.perf_counter() - t0
     res = {}
     for name, job in jobs.items():
         r0 = ranks[0][name]
@@ -2475,7 +2501,8 @@ def route_m(loss, p0, data, held) -> dict:
               f"{r0['wire_up_bytes'][0]:.0f} a round (tiers {r0['tiers']}); "
               f"launches a round, all ranks {per_round}; round ms "
               f"{[round(t, 1) for t in r0['round_ms']]}; distinct launch "
-              f"shapes, each held by phase 1: {n_shapes}")
+              f"shapes, each held by phase 1: {n_shapes}; {job['rounds']} "
+              f"rounds, the job {r0['job_s']:.1f} s on rank 0")
         if r0["survivors"]:
             check(sum(r0["rejected"]) > 0 and min(r0["survivors"]) < M_MESH,
                   f"route m {name}: no crash or no rejection in "
@@ -2495,7 +2522,18 @@ def route_m(loss, p0, data, held) -> dict:
         res[name]["equals_fedsim"] = True
         print(f"route m {name}: {ANCHOR_ROUNDS} rounds equal FedSim's to the "
               f"bit (params, m, v, v-hat, the {M_MESH} EF rows, losses)")
+    print(f"route m: its jobs {sum(r['job_s'] for r in ranks[0].values()):.1f}"
+          f" s on rank 0 of the {M_MESH} ranks (their group's start: "
+          f"{ranks_s:.1f} s), the FedSim anchors "
+          f"{time.perf_counter() - t0 - ranks_s:.1f} s")
     return res
+
+
+def m1_job() -> dict:
+    """Route m1's job: route m's sparse per-leaf round at one client."""
+    return dict(mesh_jobs()["sparse-3of4"], cfg=dict(num_clients=1),
+                shape=(1,), rounds=ANCHOR_ROUNDS, profile_last=ANCHOR_ROUNDS,
+                expect={"topk_ef_sparse": LEAVES, "fedams_ingest": LEAVES})
 
 
 def route_m1(held) -> dict:
@@ -2503,10 +2541,8 @@ def route_m1(held) -> dict:
     refuses two ranks on one card): the production backend starts, and
     the profiler sees its collectives run on the card. Every shape a
     kernel is launched at is held by phase 1 (``held``)."""
-    job = dict(mesh_jobs()["sparse-3of4"], cfg=dict(num_clients=1),
-               shape=(1,), rounds=ANCHOR_ROUNDS, profile_last=ANCHOR_ROUNDS,
-               expect={"topk_ef_sparse": LEAVES, "fedams_ingest": LEAVES})
-    r0 = run_ranks(1, "nccl", {"m1": job})[0]["m1"]
+    job = m1_job()
+    r0 = shared_ranks("nccl1", "m1")[0]["m1"]
     r0["shapes_held"] = check_shapes_held("m1", [r0], held)
     del r0["shapes"]
     want = {k: job["expect"].get(k, 0) * job["rounds"]
@@ -2521,7 +2557,8 @@ def route_m1(held) -> dict:
           "route m1: no NCCL kernel ran on the card")
     print(f"route m1 (nccl, 1 rank): loss {r0['loss']}; NCCL device events "
           f"{r0['nccl_device_events']}; round ms "
-          f"{[round(t, 1) for t in r0['round_ms']]}")
+          f"{[round(t, 1) for t in r0['round_ms']]}; the job {r0['job_s']:.1f}"
+          f" s")
     return r0
 
 
@@ -3003,6 +3040,7 @@ def lm_fed(dp: int = LM_CLIENTS):
          "sparse"]), ap)
 
 
+@contextlib.contextmanager
 def _recording_metrics(names, sink: dict):
     """Make ``Model.loss`` (in this process) also append each call's
     ``metrics[name]`` for each of ``names`` to ``sink[name]``: the mesh
@@ -3018,6 +3056,10 @@ def _recording_metrics(names, sink: dict):
         return out
 
     Model.loss = recorded
+    try:
+        yield
+    finally:
+        Model.loss = loss
 
 
 @contextlib.contextmanager
@@ -3057,8 +3099,8 @@ def _leaf_digests(tree) -> dict:
 def _lm_job(job: dict) -> dict:
     """One rank of route o, q, s, u or w: the launch counters at 0, then
     ``launch/train.py``'s ``train`` (model at ``job["tp"]``, state, data
-    and rounds, on ``job["device"]``, default the card; with
-    ``job["keep_params"]`` the gathered params back), then the counters
+    and rounds, on the card; with ``job["keep_params"]`` the gathered
+    params back), then the counters
     read (and every local step's metrics named in ``job["metrics"]``; with
     ``job["digests"]`` each leaf's digest of this rank's final params, m, v
     and v̂, and its model index)."""
@@ -3067,16 +3109,15 @@ def _lm_job(job: dict) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import train as ttrain
     sink, state = {}, {}
-    device = job.get("device", "cuda")
-    _recording_metrics(job.get("metrics", ()), sink)
     torch.cuda.synchronize()
     dist.barrier()
     ops.reset_launches()
     with contextlib.ExitStack() as stack:
+        stack.enter_context(_recording_metrics(job.get("metrics", ()), sink))
         if job.get("digests"):
             stack.enter_context(_recording_state(state))
         out = ttrain.train(job["cfg"], job["fed"], job["train"],
-                           device=device, tp=job.get("tp", 1),
+                           device="cuda", tp=job.get("tp", 1),
                            keep_params=job.get("keep_params", False))
     out["launches"] = dict(ops.launches)
     out["metrics"] = {k: [float(v) for v in vs] for k, vs in sink.items()}
@@ -3137,6 +3178,16 @@ def lm_memory_reckoning(cfg, d: int, largest: int, tokens: int,
             "per_rank_gb": max(local, server) / 1e9}
 
 
+def o_job() -> dict:
+    """Route o's job: gemma2-2b at ``LM_LAYERS`` layers, fedcams over
+    ``LM_CLIENTS`` clients, batch 2 × 512 a client, ``LM_ROUNDS``
+    rounds."""
+    from repro_torch.configs.base import TrainConfig
+    return dict(cfg=lm_cfg(), fed=lm_fed(),
+                train=TrainConfig(global_batch=2 * LM_CLIENTS, seq_len=512,
+                                  rounds=LM_ROUNDS, remat_policy="none"))
+
+
 def route_o(held) -> dict:
     """Route o: federated LM training through ``launch/train.py``'s
     ``train`` on gemma2-2b at published widths and ``LM_LAYERS`` layers,
@@ -3152,12 +3203,11 @@ def route_o(held) -> dict:
     from repro_torch.models.model import Model
     from repro_torch.models.params import count_params, tree_leaves
 
-    cfg, fed = lm_cfg(), lm_fed()
+    job = o_job()
+    cfg, fed, train = job["cfg"], job["fed"], job["train"]
     model = Model(cfg)
     leaves = len(tree_leaves(model.defs()))
     d = count_params(model.defs())
-    train = TrainConfig(global_batch=2 * LM_CLIENTS, seq_len=512,
-                        rounds=LM_ROUNDS, remat_policy="none")
     largest = max(int(np.prod(dref.shape)) for dref in
                   tree_leaves(model.defs()))
     plan = lm_memory_reckoning(cfg, d, largest,
@@ -3170,11 +3220,7 @@ def route_o(held) -> dict:
           f"{total / 1e9:.1f} GB free")
     check(LM_CLIENTS * plan["per_rank_gb"] * 1e9 < free,
           f"route o: {LM_CLIENTS} ranks do not fit the card: {plan}")
-    with expandable_segments():
-        ranks = run_ranks(LM_CLIENTS, "gloo", {"o": dict(
-            cfg=cfg, fed=fed, train=train)}, fn=_lm_job, timeout=900,
-            record=True)
-    rs = [rk["o"] for rk in ranks]
+    rs = [rk["o"] for rk in shared_ranks("gloo2", "o")]
     n_shapes = check_shapes_held("o", rs, held)
     want = {"topk_ef_sparse": leaves * LM_ROUNDS,
             "fedams_ingest": leaves * LM_ROUNDS}
@@ -3209,6 +3255,73 @@ def route_o(held) -> dict:
                          for k in rs[0]["launches"]}}
 
 
+def _job(job: dict) -> dict:
+    """``job["fn"]`` on ``job``: one spawn runs jobs of several kinds."""
+    return job["fn"](job)
+
+
+def _one_rank_job(cfg, rounds: int, positive=()) -> dict:
+    """:func:`route_one_rank`'s job on ``cfg``: :func:`_lm_job`, one
+    client, K = 2, batch 2 × 512, ``rounds`` rounds."""
+    from repro_torch.configs.base import TrainConfig
+    return dict(fn=_lm_job, cfg=cfg, fed=lm_fed(dp=1),
+                train=TrainConfig(global_batch=2, seq_len=512, rounds=rounds,
+                                  remat_policy="none"), metrics=positive)
+
+
+#: the spawns the routes share: group -> (ranks, backend). A group's ranks
+#: start once, at its first route, and run every route's jobs in turn (a
+#: start and its teardown cost 12-20 s of the script's time)
+GROUPS = {"gloo4": (4, "gloo"), "gloo2": (2, "gloo"), "nccl1": (1, "nccl")}
+#: each group's results, rank by rank, under "route/job"
+_SHARED = {}
+
+
+def _group_jobs(group: str) -> dict:
+    """``group``'s jobs, named "route/job", in the order they run."""
+    if group == "gloo4":
+        jobs = {f"m/{k}": dict(v, fn=_mesh_job)
+                for k, v in mesh_jobs().items()}
+        jobs.update({f"w/{k}": dict(v, fn=_lm_job)
+                     for k, v in _w_jobs(W_TP).items()})
+        jobs["x/moe"] = dict(x_mesh_job(), fn=_x_mesh_job)
+    elif group == "gloo2":
+        jobs = {"o/o": dict(o_job(), fn=_lm_job)}
+        jobs.update({f"w1/{k}": dict(v, fn=_lm_job)
+                     for k, v in _w_jobs(1).items()})
+        jobs["x/serve"] = dict(x_serve_job(), fn=_x_serve_job)
+        jobs["y/y"] = dict(y_job(), fn=_y_job)
+    else:
+        jobs = {"m1/m1": dict(m1_job(), fn=_mesh_job),
+                "q/q": _one_rank_job(moe_cfg(), MOE_ROUNDS, ("aux",)),
+                "s/s": _one_rank_job(mla_train_cfg(), MLA_ROUNDS,
+                                     ("aux", "mtp_ce")),
+                "u/u": _one_rank_job(rg_train_cfg(), RG_ROUNDS),
+                "z/z": dict(fn=_z_job)}
+    return jobs
+
+
+def shared_ranks(group: str, route: str) -> list:
+    """Route ``route``'s results in ``group``'s ranks, rank by rank, each
+    keyed by job; the first call starts the group and runs all its jobs."""
+    if group not in _SHARED:
+        world, backend = GROUPS[group]
+        jobs = _group_jobs(group)
+        t0 = time.perf_counter()
+        with expandable_segments():
+            _SHARED[group] = run_ranks(world, backend, jobs, fn=_job,
+                                       timeout=900, record=True)
+        took = time.perf_counter() - t0
+        jobs_s = sum(r["job_s"] for r in _SHARED[group][0].values())
+        print(f"{world} {backend} rank(s) ran {len(jobs)} jobs of routes "
+              f"{sorted({k.split('/')[0] for k in jobs})} in {took:.1f} s "
+              f"(the jobs {jobs_s:.1f} s on rank 0; start and teardown "
+              f"{took - jobs_s:.1f} s)")
+    pre = route + "/"
+    return [{k[len(pre):]: v for k, v in rank.items() if k.startswith(pre)}
+            for rank in _SHARED[group]]
+
+
 def route_one_rank(route: str, cfg, rounds: int, held,
                    positive=()) -> dict:
     """Federated training through ``launch/train.py``'s ``train`` on
@@ -3221,17 +3334,15 @@ def route_one_rank(route: str, cfg, rounds: int, held,
     ``wire_up_bytes`` is what ``mesh_wire_bytes_tiers`` bills; losses and
     state finite; every local step's metrics in ``positive`` finite and
     > 0."""
-    from repro_torch.configs.base import TrainConfig
     from repro_torch.core.mesh import mesh_wire_bytes_tiers
     from repro_torch.models.model import Model
     from repro_torch.models.params import count_params, tree_leaves
 
-    fed = lm_fed(dp=1)
+    job = _one_rank_job(cfg, rounds, positive)
+    fed, train = job["fed"], job["train"]
     model = Model(cfg)
     leaves = len(tree_leaves(model.defs()))
     d = count_params(model.defs())
-    train = TrainConfig(global_batch=2, seq_len=512, rounds=rounds,
-                        remat_policy="none")
     plan = lm_memory_reckoning(cfg, d, max(leaf_sizes(cfg)),
                                train.global_batch * train.seq_len)
     free, total = torch.cuda.mem_get_info()
@@ -3242,10 +3353,7 @@ def route_one_rank(route: str, cfg, rounds: int, held,
           f"{total / 1e9:.1f} GB; 1 rank on {free / 1e9:.1f} GB free")
     check(plan["per_rank_gb"] * 1e9 < free,
           f"route {route}: one rank does not fit the card: {plan}")
-    with expandable_segments():
-        r = run_ranks(1, "nccl", {route: dict(cfg=cfg, fed=fed, train=train,
-                                              metrics=positive)},
-                      fn=_lm_job, timeout=900, record=True)[0][route]
+    r = shared_ranks("nccl1", route)[0][route]
     n_shapes = check_shapes_held(route, [r], held)
     want = {"topk_ef_sparse": leaves * rounds, "fedams_ingest": leaves * rounds}
     got = {k: v for k, v in r["launches"].items() if v}
@@ -3272,7 +3380,7 @@ def route_one_rank(route: str, cfg, rounds: int, held,
           f"topk_ef_sparse + {leaves} fedams_ingest; round ms "
           f"{[round(t, 1) for t in round_ms]}; peak memory {peak:.2f} GB "
           f"(reckoned {plan['per_rank_gb']:.2f}); distinct launch shapes, "
-          f"each held by phase 1: {n_shapes}")
+          f"each held by phase 1: {n_shapes}; the job {r['job_s']:.1f} s")
     return {"losses": losses, "metrics": r["metrics"], "wire_up_bytes": wire,
             "tiers": tiers, "round_ms": round_ms, "peak_gb": peak,
             "reckoned": plan, "d": d, "leaves": leaves,
@@ -3303,10 +3411,13 @@ def route_u(held) -> dict:
     return route_one_rank("u", rg_train_cfg(), RG_ROUNDS, held)
 
 
-#: route v's runs through launch/serve.py: (batch, prompt, gen, q-chunk);
-#: the 4,608-token prompt is two mLSTM q-chunks of 2,304 at chunk 2048,
-#: and each sLSTM layer steps 4,608 times
-XLSTM_SERVE_RUNS = ((4, 512, 32, 2048), (1, 4608, 16, 2048))
+#: route v's runs through launch/serve.py: (batch, prompt, gen, q-chunk).
+#: The 4,608-token prompt is two mLSTM q-chunks of 2,304 at chunk 2048,
+#: and each sLSTM layer steps 4,608 times; it runs at XLSTM_LONG_LAYERS of
+#: the 24 layers (one sLSTM layer in two), for the script's time: at all
+#: 24 its prefill took 22.1 s of host-bound sLSTM steps
+XLSTM_SERVE_RUNS = ((4, 512, 32, 2048),)
+XLSTM_LONG_RUN, XLSTM_LONG_LAYERS = (1, 4608, 16, 2048), 4
 #: route v's decode against the forward: xlstm-350m's widths at 4 layers,
 #: fp32, a prompt of 96 and 8 decode steps
 XLSTM_DECODE_LAYERS = 4
@@ -3317,8 +3428,9 @@ def route_v() -> dict:
     layers alternating mLSTM and sLSTM, d_model 1024, 4 heads, the mLSTM 2048
     wide, vocabulary 50,304; 343,856,128 params, bf16 compute on fp32
     weights drawn on the card) through :func:`serve_route`: batch 4 × 512 +
-    32, then 1 × 4,608 + 16 (two mLSTM q-chunks of 2,304; the sLSTM state
-    carried over 4,608 sequential steps). Then decode against the
+    32; then 1 × 4,608 + 16 (two mLSTM q-chunks of 2,304; the sLSTM state
+    carried over 4,608 sequential steps) at ``XLSTM_LONG_LAYERS`` layers,
+    on weights drawn for them. Then decode against the
     full-sequence forward at ``XLSTM_DECODE_LAYERS`` layers, fp32; and the
     smoke config on the card against the CPU."""
     from repro_torch.configs.base import mreplace
@@ -3331,6 +3443,12 @@ def route_v() -> dict:
           and cfg.dtype == "bfloat16", "route v: not xlstm-350m's widths")
     res, params = serve_route("v", cfg, torch.Generator(
         device="cuda").manual_seed(0), runs=XLSTM_SERVE_RUNS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["long"], params = serve_route(
+        "v", mreplace(cfg, num_layers=XLSTM_LONG_LAYERS), torch.Generator(
+            device="cuda").manual_seed(3), runs=(XLSTM_LONG_RUN,))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3365,21 +3483,17 @@ def route_v() -> dict:
 #: is the same at tp 1 and 2) from the same seeded init, dp 2 × tp 2
 #: against dp 2 × tp 1. At one local step the loss within W_LOSS_RTOL
 #: relative and each gathered leaf of the params within W_PARAMS_TOL of
-#: its largest |value|. At route w's own K = 2 the loss within
-#: W_LOSS_RTOL, and each leaf within W_WITNESS_FACTOR times what the same
-#: tp 1 round reads on the card against the host's CPU (other kernels,
-#: other orders of sums), or W_PARAMS_TOL where that is more. At all 24
-#: layers the round is ill-conditioned at K = 2 (ROADMAP Queue 3 item 29):
-#: the zero-initialised sLSTM bias, all update, read 1.05 at tp 1 card
-#: against CPU, and tp 2 against tp 1 3.2e-4 at one local step and 0.50 at
-#: two; no leaf of tp 2's over 1.2 times its witness. At 4 layers the same
-#: bias read 1.2e-4 card against CPU, tp 2 against tp 1 1.2e-5 and 2.0e-5
-#: (H100 80GB HBM3, 700.00 W)
-W_LOSS_RTOL, W_PARAMS_TOL, W_WITNESS_FACTOR = 1e-4, 1e-3, 10.0
+#: its largest |value|, at one local step and at route w's own K = 2. At
+#: all 24 layers the round is ill-conditioned at K = 2 in the reference as
+#: in the port (ROADMAP Queue 3 item 29: the zero-initialised sLSTM bias,
+#: all update, read 0.50 tp 2 against tp 1 there); at these 2 layers tp 2
+#: against tp 1 read 6.79e-6 / 6.64e-6 at K = 1 / 2 and the same tp 1 round
+#: on the host's CPU against the card 7.58e-6 (H100 80GB HBM3, 700.00 W).
+#: That CPU witness is no longer run (15 s of the script's time): at 2
+#: layers its bound, ten times its reading, never rose above W_PARAMS_TOL
+W_LOSS_RTOL, W_PARAMS_TOL = 1e-4, 1e-3
 #: the pairs' depth and sequence: 2 of the 24 layers (one mLSTM and one
-#: sLSTM) and 128 tokens (the main run's 512 / 4), so that the host's CPU
-#: round takes a few seconds, where at 512 tokens it took ~28 s (all 24
-#: layers: ~130 s; 4 layers: 56 s)
+#: sLSTM) and 128 tokens (the main run's 512 / 4)
 W_PAIR_LAYERS, W_PAIR_SEQ = 2, 128
 
 
@@ -3389,8 +3503,7 @@ def _w_jobs(tp: int):
     512 a client, η ``W_ETA``, η_l ``W_ETA_L``, W_ROUNDS rounds), then the
     FedAvg rounds at one and at two local steps (the same η_l, sequences
     of ``W_PAIR_SEQ``), each keeping its ranks' digests; at 1 the two
-    FedAvg rounds on the card, then the second on the host's CPU
-    (``"cpu2"``)."""
+    FedAvg rounds."""
     from repro_torch.configs.base import TrainConfig, mreplace
     cfg = w_cfg()
     train = TrainConfig(global_batch=2 * W_DP, seq_len=512, rounds=W_ROUNDS,
@@ -3406,7 +3519,7 @@ def _w_jobs(tp: int):
     if tp > 1:
         return {"w": dict(cfg=cfg, fed=w_fed(), train=train, tp=tp,
                           digests=True), **jobs}
-    return {**jobs, "cpu2": dict(jobs["avg2"], device="cpu")}
+    return jobs
 
 
 def _leaf_errs(got, want) -> dict:
@@ -3454,8 +3567,8 @@ def route_w(held) -> dict:
     leaves × tp; losses and state finite; every replicated leaf of the
     final state the same on all four ranks. Then dense FedAvg rounds in
     fp32 at one and at two local steps on the same ranks and on dp 2 × tp
-    1 (two ranks), from the same seeded init, and the second on dp 2 × tp
-    1 on the host's CPU, held as the constants above say."""
+    1 (two ranks), from the same seeded init, held as the constants above
+    say."""
     from repro_torch.core.mesh import mesh_wire_bytes_tiers
     from repro_torch.models.model import Model
     from repro_torch.models.params import count_params, local_shape, \
@@ -3478,11 +3591,7 @@ def route_w(held) -> dict:
           f"{total / 1e9:.1f} GB free")
     check(world * plan["per_rank_gb"] * 1e9 < free,
           f"route w: {world} ranks do not fit the card: {plan}")
-    t0 = time.perf_counter()
-    with expandable_segments():
-        ranks = run_ranks(world, "gloo", _w_jobs(W_TP), fn=_lm_job,
-                          timeout=900, record=True)
-    seconds = {"tp2": time.perf_counter() - t0}
+    ranks = shared_ranks("gloo4", "w")
     rs = [rk["w"] for rk in ranks]
     n_shapes = check_shapes_held("w", rs, held)
     want = {"topk_ef_sparse": leaves * W_ROUNDS,
@@ -3514,9 +3623,7 @@ def route_w(held) -> dict:
     round_ms = [h["round_s"] * 1e3 for h in hist[0]]
     peaks = [r["peak_bytes"] / 1e9 for r in rs]
 
-    t0 = time.perf_counter()
-    one = run_ranks(W_DP, "gloo", _w_jobs(1), fn=_lm_job, timeout=900)[0]
-    seconds["tp1_and_cpu_witness"] = time.perf_counter() - t0
+    one = shared_ranks("gloo2", "w1")[0]
     pairs = {}
     for k in ("avg1", "avg2"):
         a2, a1 = ranks[0][k], one[k]
@@ -3524,25 +3631,14 @@ def route_w(held) -> dict:
         pairs[k] = {"loss": [loss2, loss1],
                     "loss_rel_err": abs(loss2 - loss1) / abs(loss1),
                     "errs": _leaf_errs(a2["params"], a1["params"])}
-    witness = _leaf_errs(one["cpu2"]["params"], one["avg2"]["params"])
-    w_loss = [one["cpu2"]["history"][0]["loss"],
-              one["avg2"]["history"][0]["loss"]]
-    one_err = pairs["avg1"]
-    check(one_err["loss_rel_err"] <= W_LOSS_RTOL
-          and max(one_err["errs"].values()) <= W_PARAMS_TOL,
-          f"route w: the FedAvg round at one local step, dp {W_DP} x tp "
-          f"{W_TP} vs dp {W_DP} x tp 1: loss {one_err['loss']} "
-          f"({one_err['loss_rel_err']:.3g}), the worst leaves "
-          f"{_worst(one_err['errs'])}")
-    two = pairs["avg2"]
-    over = {k: (e, witness[k]) for k, e in two["errs"].items()
-            if e > max(W_WITNESS_FACTOR * witness[k], W_PARAMS_TOL)}
-    check(two["loss_rel_err"] <= W_LOSS_RTOL and not over,
-          f"route w: the FedAvg round at two local steps, dp {W_DP} x tp "
-          f"{W_TP} vs dp {W_DP} x tp 1: loss {two['loss']} "
-          f"({two['loss_rel_err']:.3g}); leaves over {W_WITNESS_FACTOR} x "
-          f"the tp 1 round's card-vs-CPU reading (tp 2, card vs CPU): "
-          f"{over}")
+    for k, steps in (("avg1", "one"), ("avg2", "two")):
+        err = pairs[k]
+        check(err["loss_rel_err"] <= W_LOSS_RTOL
+              and max(err["errs"].values()) <= W_PARAMS_TOL,
+              f"route w: the FedAvg round at {steps} local step(s), dp "
+              f"{W_DP} x tp {W_TP} vs dp {W_DP} x tp 1: loss {err['loss']} "
+              f"({err['loss_rel_err']:.3g}), the worst leaves "
+              f"{_worst(err['errs'])}")
     print(f"route w: {cfg.name} at dp {W_DP} x tp {W_TP}, {world} gloo ranks "
           f"sharing the card: losses {losses}; wire_up_bytes {wire[0]:.0f} a "
           f"round (tiers {tiers}); launches a round, each rank {leaves} "
@@ -3560,22 +3656,16 @@ def route_w(held) -> dict:
               f"{pairs[k]['loss_rel_err']:.3g}, tolerance {W_LOSS_RTOL}); "
               f"the worst leaves of the gathered params, max |diff| over "
               f"the largest |value|: {_worst(pairs[k]['errs'])}")
-    ratio = {k: e / max(witness[k], 1e-30) for k, e in two["errs"].items()}
-    print(f"route w: the same tp 1 round at 2 local steps on the host's "
-          f"CPU against the card: loss {w_loss}, the worst leaves "
-          f"{_worst(witness)}; tp 2's reading over it, the largest ratios "
-          f"{_worst(ratio)}; the pairs at {W_PAIR_LAYERS} layers, "
-          f"{W_PAIR_SEQ} tokens; seconds "
-          f"{ {k: round(v, 1) for k, v in seconds.items()} } (dp {W_DP} x "
-          f"tp {W_TP}: the main run and its pairs; tp 1: its pairs and the "
-          f"CPU witness)")
+    jobs_s = {f"tp{tp} {k}": round(r["job_s"], 1)
+              for tp, rk in ((W_TP, ranks[0]), (1, one)) for k, r in rk.items()}
+    print(f"route w: the pairs at {W_PAIR_LAYERS} layers, {W_PAIR_SEQ} "
+          f"tokens; the jobs' seconds on rank 0 {jobs_s}")
     return {"losses": losses, "wire_up_bytes": wire, "tiers": tiers,
             "round_ms": round_ms, "peak_gb": peaks, "reckoned": plan,
             "d": d_all, "d_rank": d, "leaves": leaves, "shapes_held": n_shapes,
             "replicated_leaves": n_rep,
             "fedavg_tp2_vs_tp1": pairs,
-            "fedavg_tp1_cpu_vs_card": {"loss": w_loss, "errs": witness},
-            "fedavg_tp2_over_cpu_witness": ratio, "part_seconds": seconds,
+            "part_seconds": jobs_s,
             "launches": {k: sum(r["launches"][k] for r in rs)
                          for k in rs[0]["launches"]}}
 
@@ -3606,6 +3696,7 @@ def _x_serve_job(job: dict) -> dict:
     ops.reset_launches()
     ctx = tserve.model_context(X_TP, "cuda")
     out = {}
+    base = torch.cuda.memory_allocated()   # the rank's earlier jobs' own
     for name, (cfg, batch, prompt, gen, seed) in job["runs"].items():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3616,7 +3707,7 @@ def _x_serve_job(job: dict) -> dict:
                            log=print if name == "full" and
                            ctx.model_index() == 0 else None)
         res.pop("params")
-        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
         out[name] = res
         gc.collect()
     out["launches"] = dict(ops.launches)
@@ -3692,6 +3783,32 @@ def _x_mesh_job(job: dict) -> dict:
             "launches": dict(ops.launches)}
 
 
+def x_serve_job() -> dict:
+    """Route x's serving job at tp ``X_TP``: gemma2-2b at full width and
+    depth (route n's weights), and in fp32 at 2 and at 26 layers."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("gemma2-2b").model
+    small = mreplace(cfg, num_layers=2, dtype="float32")
+    deep = mreplace(cfg, dtype="float32")
+    return {"runs": {"full": (cfg, 4, 512, 32, 0),
+                     "fp32": (small, 2, 96, 2, 1),
+                     "fp32_full": (deep, 2, 96, 2, 3)}}
+
+
+def x_mesh_job() -> dict:
+    """Route x's job on four ranks: the MoE cut at tp ``X_MOE_TP``, and
+    gemma2-2b's widths at 2 layers for the sequence-sharded decode."""
+    from repro_torch.configs.base import mreplace
+    from repro_torch.configs.registry import get_arch
+    base = get_arch("qwen2-moe-a2.7b").model
+    moe_cfg = mreplace(base, num_layers=X_MOE_LAYERS, dtype="float32",
+                       moe=dataclasses.replace(
+                           base.moe, num_experts=X_MOE_EXPERTS,
+                           capacity_factor=X_MOE_CF))
+    return {"moe_cfg": moe_cfg, "seq_cfg": x_serve_job()["runs"]["fp32"][0]}
+
+
 def route_x() -> dict:
     """Route x: the model axis on the card. (1) gemma2-2b served at its
     published widths and depth at tp ``X_TP`` on two gloo ranks sharing the
@@ -3728,10 +3845,7 @@ def route_x() -> dict:
         del p1
         torch.cuda.empty_cache()
     ops.reset_launches()
-    rk = run_ranks(X_TP, "gloo", {"x": {"runs": {
-        "full": (cfg, 4, 512, 32, 0), "fp32": (small, 2, 96, 2, 1),
-        "fp32_full": (deep, 2, 96, 2, 3)}}},
-        fn=_x_serve_job, timeout=900)
+    rk = [{"x": r["serve"]} for r in shared_ranks("gloo2", "x")]
     full, fp32 = rk[0]["x"]["full"], rk[0]["x"]["fp32"]
     n_logits, n_tokens = SERVED["n"]
     full_err = _rel_err(full["logits0"], n_logits)
@@ -3760,15 +3874,8 @@ def route_x() -> dict:
           f"{X_FP32_TOL}), at 26 layers {deep_err:.3g} (tolerance "
           f"{X_FP32_FULL_TOL})")
 
-    base = get_arch("qwen2-moe-a2.7b").model
-    moe_cfg = mreplace(base, num_layers=X_MOE_LAYERS, dtype="float32",
-                       moe=dataclasses.replace(
-                           base.moe, num_experts=X_MOE_EXPERTS,
-                           capacity_factor=X_MOE_CF))
-    seq_cfg = small
-    r4 = run_ranks(X_MOE_TP, "gloo", {"x": {"moe_cfg": moe_cfg,
-                                            "seq_cfg": seq_cfg}},
-                   fn=_x_mesh_job, timeout=900)
+    moe_cfg = x_mesh_job()["moe_cfg"]
+    r4 = [{"x": r["moe"]} for r in shared_ranks("gloo4", "x")]
     mx = r4[0]["x"]
     check(all(r["x"]["dispatch"]["top"] < X_MOE_EXPERTS
               and r["x"]["dispatch"]["pad_prob"] == 0.0
@@ -3958,6 +4065,8 @@ def _y_job(job: dict) -> dict:
     from repro_torch.launch.mesh import make_mesh
 
     dev = job.get("device", "cuda")
+    # the peaks are read above what the rank's earlier jobs left allocated
+    base = torch.cuda.memory_allocated() if dev != "cpu" else 0
     mesh = make_mesh((Y_SHARDS, 1), ("data", "model"), dev)
     shape = job.get("shape", INPUT_SHAPES["long_500k"])
     pos0 = shape.seq_len - Y_STEPS
@@ -3978,7 +4087,8 @@ def _y_job(job: dict) -> dict:
         logits, ms, caches = _y_decode(
             b.fn, params, lambda: _y_cache(b.model, 1, shape.seq_len, b.ctx,
                                            2, dev, True), toks, pos0, Y_STEPS)
-        peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
+        peak = (torch.cuda.max_memory_allocated() - base if dev != "cpu"
+                else 0)
         # one more step counted on the card and on meta (the same inputs)
         counts = _y_step_cost(b.fn, (params, toks[:, -1:], caches,
                                      shape.seq_len - 1))
@@ -4112,6 +4222,16 @@ def _rl_line(rl: dict, measured_ms: float) -> str:
             f"max(compute, memory) / measured = {share:.4f}")
 
 
+def y_job() -> dict:
+    """Route y's job on ``Y_SHARDS`` ranks: gemma2-2b's decodes at long_500k
+    (bf16 at full depth, fp32 at ``Y_SMALL_LAYERS``) and route o's
+    round."""
+    return {"decodes": {"full": (_y_cfg(), "bfloat16"),
+                        "fp32": (_y_cfg(Y_SMALL_LAYERS, "float32"),
+                                 "float32")},
+            "train_cfg": lm_cfg(), "fed": lm_fed()}
+
+
 def route_y() -> dict:
     """Route y: ``launch/steps.py``'s decode entry at long_500k on the card,
     the step rooflines and the dry run. (a) gemma2-2b at full width and
@@ -4133,12 +4253,11 @@ def route_y() -> dict:
     card = card_line()
     shape = INPUT_SHAPES["long_500k"]
     free, total = torch.cuda.mem_get_info()
-    decodes = {"full": (_y_cfg(), "bfloat16"),
-               "fp32": (_y_cfg(Y_SMALL_LAYERS, "float32"), "float32")}
-    with expandable_segments():
-        rk = run_ranks(Y_SHARDS, "gloo", {"y": {
-            "decodes": decodes, "train_cfg": lm_cfg(), "fed": lm_fed()}},
-            fn=_y_job, timeout=600)
+    decodes = y_job()["decodes"]
+    t0 = time.perf_counter()
+    rk = shared_ranks("gloo2", "y")
+    seconds = {"ranks": time.perf_counter() - t0, "ranks_job": rk[0]["y"][
+        "job_s"]}
     ys = [r["y"] for r in rk]
     full, small, tr = ys[0]["full"], ys[0]["fp32"], ys[0]["train"]
     cfg = _y_cfg()
@@ -4153,12 +4272,16 @@ def route_y() -> dict:
           f"route y: {full['slots']} slots a rank")
     check(bool(torch.isfinite(full["logits"]).all()),
           "route y: non-finite logits")
+    t0 = time.perf_counter()
     ref_full, ms_ref = _y_unsharded(*decodes["full"], shape)
     gc.collect()
     torch.cuda.empty_cache()
+    seconds["unsharded_full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ref_small, _ = _y_unsharded(*decodes["fp32"], shape)
     gc.collect()
     torch.cuda.empty_cache()
+    seconds["unsharded_fp32"] = time.perf_counter() - t0
     full_err = _rel_err(full["logits"], ref_full)
     small_err = _rel_err(small["logits"], ref_small)
     check(small_err <= Y_TOL, f"route y: fp32, {Y_SMALL_LAYERS} layers: "
@@ -4167,13 +4290,18 @@ def route_y() -> dict:
     peaks = [y["full"]["peak_bytes"] / 1e9 for y in ys]
     reck = full["reckoned"]
     reck_gb = (reck["argument_size"] + reck["temp_size"]) / 1e9
+    for i, peak in enumerate(peaks):
+        check(abs(peak - reck_gb) <= RECKON_TOL * reck_gb,
+              f"route y rank {i}: peak {peak:.4f} GB against the reckoned "
+              f"{reck_gb:.4f} GB: more than {RECKON_TOL:.0%} apart")
     print(f"route y [{card}]: gemma2-2b, {cfg.num_layers} layers, bf16, "
           f"long_500k through steps.build_decode_step on {Y_SHARDS} gloo "
           f"ranks ({full['slots']:,} slots a rank): {Y_STEPS} tokens from "
           f"position {Y_POS0:,}: {tok_ms:.2f} ms a token (median of steps "
           f"2-{Y_STEPS}, both ranks; first step {full['ms'][0]:.2f} ms); "
-          f"peak a rank {[round(p, 2) for p in peaks]} GB, the dry run's "
-          f"reckoned peak {reck_gb:.2f} GB (arguments "
+          f"peak a rank {[round(p, 4) for p in peaks]} GB, the dry run's "
+          f"reckoned peak {reck_gb:.4f} GB, within {RECKON_TOL:.0%} "
+          f"(arguments "
           f"{reck['argument_size'] / 1e9:.2f} + temporaries "
           f"{reck['temp_size'] / 1e9:.2f}); unsharded in one process "
           f"{np.median(ms_ref[1:]):.2f} ms a token, logits vs sharded "
@@ -4181,9 +4309,11 @@ def route_y() -> dict:
           f"{Y_SMALL_LAYERS} layers fp32 {small_err:.3g} (tolerance "
           f"{Y_TOL}); {free / 1e9:.1f} of {total / 1e9:.1f} GB free before")
     # (b) + (c): route n's decode shape, then the three rooflines
+    t0 = time.perf_counter()
     n_step = _y_route_n_step(cfg)
     gc.collect()
     torch.cuda.empty_cache()
+    seconds["route_n_step"] = time.perf_counter() - t0
     check(n_step["counts"]["card"] == n_step["counts"]["meta"],
           f"route y: route n's decode shape: the card's count "
           f"{n_step['counts']['card']} != meta's {n_step['counts']['meta']}")
@@ -4217,7 +4347,10 @@ def route_y() -> dict:
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     dry_out, dry, dry_s = _y_dryrun(str(outdir / "dryrun_torch.json"))
+    seconds["dryrun"] = dry_s
     print(f"route y [{card}]: dry run ({dry_s:.1f} s): {dry_out}")
+    print(f"route y: seconds by part "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
     for v in rl.values():
         v.pop("backend")
     return {"card": card, "ms_a_token": tok_ms, "first_ms": full["ms"][0],
@@ -4228,6 +4361,7 @@ def route_y() -> dict:
             "counts": counts, "n_counts": n_step["counts"]["card"],
             "n_ms_a_token": n_ms, "train_round_ms": tr["round_ms"],
             "train_losses": tr["losses"], "rooflines": rl,
+            "part_seconds": seconds,
             "dryrun": {k: dry[k] for k in ("status", "trace_s", "memory",
                                            "roofline")},
             "launches": {k: sum(y["train"]["launches"][k] for y in ys)
@@ -4240,7 +4374,8 @@ def _z_job(job: dict) -> dict:
     "model") mesh, one client of batch ``Z_BATCH`` x ``Z_SEQ``. Its count
     on meta first (the reckoned peak; over ``Z_MAX_GB`` fails), then
     ``Z_ROUNDS`` rounds on the card, the launch counters reset before
-    them: each round's ms and loss, the peak memory, the launches."""
+    them: each round's ms and loss, the peak memory (above what the rank's
+    earlier jobs left allocated), the launches."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.mesh import init_fed_state, shard_batch
@@ -4251,6 +4386,8 @@ def _z_job(job: dict) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.params import tree_leaves
 
+    _sync()
+    base = torch.cuda.memory_allocated()
     fed, train = z_configs()
     spec = dataclasses.replace(get_arch("xlstm-350m"), model=z_cfg())
     shape = ShapeConfig("train_4k, one client", Z_SEQ, Z_BATCH, "train")
@@ -4287,7 +4424,8 @@ def _z_job(job: dict) -> dict:
         losses.append(float(met["loss"]))
         del batch
     return {"round_ms": round_ms, "losses": losses,
-            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "base_bytes": base,
             "launches": dict(ops.launches),
             "finite": all(bool(torch.isfinite(t).all())
                           for t in tree_leaves(state.params)),
@@ -4304,7 +4442,7 @@ def witness_slstm_train(p, x, num_heads: int, ctx, dtype="bfloat16"):
     zero-filled (B, S, 4d) tensor and adds the S of them (bytes quadratic
     in S). Route z's witness of the port's loop over ``pre.unbind(1)``;
     the port never runs it."""
-    from repro_torch.launch.op_analysis import loop_trips
+    from repro_torch.launch.op_analysis import loop_steps, loop_trips
     from repro_torch.models import xlstm as xm
     B, S, d = x.shape
     pre = xm._slstm_pre(p, x, dtype, ctx)
@@ -4313,7 +4451,7 @@ def witness_slstm_train(p, x, num_heads: int, ctx, dtype="bfloat16"):
     rr = xm._recurrent_mats(ctx.tp_copy(p["r"]))
     hs = []
     n = loop_trips(S, pre)
-    for i in range(n):
+    for i in loop_steps(range(n)):
         st = xm._slstm_step(rr, pre[:, i], st, num_heads)
         hs.append(st.h)
     hs += hs[-1:] * (S - n)
@@ -4392,7 +4530,16 @@ def _z_counts() -> dict:
 
     card = oa.measure(grad, params, batch)
     meta = oa.analyze(grad, *_on_meta((params, batch)))
-    return {"card": _counts(card), "meta": _counts(meta)}
+    # the same step run plainly (no recorder): its peak above what was
+    # allocated before, against meta's temporaries
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grad(params, batch)
+    _sync()
+    return {"card": _counts(card), "meta": _counts(meta),
+            "memory": meta.memory,
+            "plain_peak_temp": torch.cuda.max_memory_allocated() - base}
 
 
 def route_z(held) -> dict:
@@ -4409,9 +4556,9 @@ def route_z(held) -> dict:
     card = card_line()
     fed, train = z_configs()
     free, total = torch.cuda.mem_get_info()
-    with expandable_segments():
-        r = run_ranks(1, "nccl", {"z": {}}, fn=_z_job, timeout=900,
-                      record=True)[0]["z"]
+    r = shared_ranks("nccl1", "z")[0]["z"]
+    seconds = {"rank_job": r["job_s"], "meta": r["meta_s"],
+               "rounds": sum(r["round_ms"]) / 1e3}
     n_shapes = check_shapes_held("z", [r], held)
     leaves = r["leaves"]
     want = {"topk_ef": leaves, "fedams_update": leaves}
@@ -4424,38 +4571,60 @@ def route_z(held) -> dict:
     check(all(np.isfinite(r["losses"])) and r["finite"],
           f"route z: losses {r['losses']} or a non-finite state")
     peak = r["peak_bytes"] / 1e9
+    check(abs(peak - r["reckoned_gb"]) <= RECKON_TOL * r["reckoned_gb"],
+          f"route z: peak {peak:.4f} GB against the reckoned "
+          f"{r['reckoned_gb']:.4f} GB on meta: more than {RECKON_TOL:.0%} "
+          f"apart")
     print(f"route z [{card}]: xlstm-350m, {Z_LAYERS} layers, "
           f"{r['description']}, batch {Z_BATCH} x {Z_SEQ} on one NCCL rank "
           f"(fedcams, {fed.compressor} {fed.compress_ratio:g} over the "
           f"{fed.aggregation} uplink, K = {fed.local_steps}, remat "
           f"{train.remat_policy}): losses {r['losses']}; round ms "
-          f"{[round(t, 1) for t in r['round_ms']]}; peak {peak:.2f} GB, "
-          f"reckoned on meta {r['reckoned_gb']:.2f} GB ({r['reckoned']}; "
+          f"{[round(t, 1) for t in r['round_ms']]}; peak {peak:.4f} GB, "
+          f"reckoned on meta {r['reckoned_gb']:.4f} GB, within "
+          f"{RECKON_TOL:.0%} ({r['reckoned']}; "
           f"{r['meta_s']:.1f} s); meta counts {r['meta']['ops']:,} ops, "
           f"{r['meta']['flops']:.4g} FLOPs, {r['meta']['bytes']:,} bytes a "
           f"round; launches a round {leaves} topk_ef + {leaves} "
           f"fedams_update; distinct launch shapes, each held by phase 1: "
           f"{n_shapes}; {free / 1e9:.1f} of {total / 1e9:.1f} GB free before")
+    t0 = time.perf_counter()
     sl = _z_slstm()
     gc.collect()
     torch.cuda.empty_cache()
+    seconds["slstm_witness"] = time.perf_counter() - t0
     print(f"route z [{card}]: one sLSTM layer, batch {Z_BATCH}, fp32: at S "
           f"= {Z_CHECK_SEQ} the output and {sl['equal_tensors'] - 1} "
           f"gradients equal the pre[:, i] witness's (==)")
+    t0 = time.perf_counter()
     counts = _z_counts()
     gc.collect()
     torch.cuda.empty_cache()
+    seconds["counts"] = time.perf_counter() - t0
     check(counts["card"] == counts["meta"], f"route z: the card's count of "
           f"the {Z_LAYERS}-layer loss + gradient {counts['card']} != meta's "
           f"{counts['meta']}")
+    mem = counts["memory"]
+    small = (mem["argument_size"] + counts["plain_peak_temp"],
+             mem["argument_size"] + mem["temp_size"])
+    check(abs(small[0] - small[1]) <= RECKON_TOL * small[1],
+          f"route z: the loss + gradient at {Z_BATCH} x {Z_CHECK_SEQ} "
+          f"peaks at {small[0]:,} bytes (arguments + the plain run's peak "
+          f"above them) against {small[1]:,} reckoned on meta: more than "
+          f"{RECKON_TOL:.0%} apart")
     print(f"route z [{card}]: op_analysis on the card = on meta (ops, FLOPs, "
           f"bytes, rw bytes, collective bytes) for the {Z_LAYERS}-layer "
           f"Model.loss + gradient at {Z_BATCH} x {Z_CHECK_SEQ}: "
-          f"{counts['card']}")
+          f"{counts['card']}; run plainly it peaks at {small[0]:,} bytes "
+          f"(arguments {mem['argument_size']:,} + {counts['plain_peak_temp']:,}"
+          f"), meta reckons {small[1]:,} (temporaries {mem['temp_size']:,}): "
+          f"{small[0] / small[1]:.4f} of it; seconds by part "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
     return {"card": card, "losses": r["losses"], "round_ms": r["round_ms"],
             "peak_gb": peak, "reckoned_gb": r["reckoned_gb"],
             "reckoned": r["reckoned"], "meta": r["meta"],
             "shapes_held": n_shapes, "slstm": sl, "counts": counts["card"],
+            "small_step_peak_vs_reckoned": small, "part_seconds": seconds,
             "launches": r["launches"]}
 
 
@@ -4471,9 +4640,10 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
+    seconds = {"build": build_s}
     print(f"built {sorted(paths)} in {build_s:.1f} s")
     for p in paths.values():
         log = p.with_suffix(".log")
@@ -4487,7 +4657,8 @@ def main():
         large = phase_lm_shapes(dev, mesh_held)
         large.update(phase_z_shapes(dev, mesh_held))
     torch.cuda.empty_cache()
-    print(f"phase 1 took {time.perf_counter() - t_phase:.1f} s")
+    seconds["phase 1"] = time.perf_counter() - t_phase
+    print(f"phase 1 took {seconds['phase 1']:.1f} s")
     for name, (cases, worst, sigs) in mesh_held.items():
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], worst)
         kern[name]["cases_routes_m_o_q"] = cases
@@ -4519,15 +4690,19 @@ def main():
     t_phase = time.perf_counter()
     refcheck = phase_reference()
     print(f"card vs CPU round (small MLP): {refcheck}")
-    print(f"phase 2 took {time.perf_counter() - t_phase:.1f} s")
+    seconds["phase 2"] = time.perf_counter() - t_phase
+    print(f"phase 2 took {seconds['phase 2']:.1f} s")
     t_phase = time.perf_counter()
     sl = phase_slice()
-    print(f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
+    seconds["phase 3"] = time.perf_counter() - t_phase
+    print(f"phase 3 took {seconds['phase 3']:.1f} s")
     # route a again with deterministic algorithms: local training on the
     # card is not bit-reproducible otherwise, so only this run's final
     # state can be held equal to another build's to the bit
+    t_phase = time.perf_counter()
     with deterministic():
         det = phase_slice(rounds=3, routes=("a",))["a"]
+    seconds["route a, deterministic"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
     from repro_torch.data.synthetic import FederatedClassification
     from repro_torch.models import convmixer as cm
@@ -4540,8 +4715,12 @@ def main():
                                                image_shape=(32, 32, 3),
                                                alpha=0.3, seed=0),
                        mesh_held)
+    seconds["route m"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     m1 = route_m1(mesh_held)
-    print(f"routes m and m1 took {time.perf_counter() - t_phase:.1f} s")
+    seconds["route m1"] = time.perf_counter() - t_phase
+    print(f"routes m and m1 took {seconds['route m']:.1f} and "
+          f"{seconds['route m1']:.1f} s")
     #: the model routes in order (serving, then training, a family at a
     #: time), and the rounds each training route runs
     model_routes = {"n": route_n, "o": lambda: route_o(mesh_held),
@@ -4557,7 +4736,8 @@ def main():
     for route, fn in model_routes.items():
         t_phase = time.perf_counter()
         zoo[route] = fn()
-        zoo[route]["seconds"] = time.perf_counter() - t_phase
+        zoo[route]["seconds"] = seconds[f"route {route}"] = (
+            time.perf_counter() - t_phase)
         print(f"route {route} took {zoo[route]['seconds']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
@@ -4588,10 +4768,13 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"]})
+    seconds["all"] = time.perf_counter() - t_start
+    print(f"seconds by phase and route: "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "torch": torch.__version__,
+        {"card": card, "torch": torch.__version__, "seconds": seconds,
          "build_s": build_s, "kernels": kern, "kernel_rows": rows,
          "reference": refcheck, "slice": sl,
          "route_a_deterministic": det, "mesh": mesh_res, "mesh_m1": m1,

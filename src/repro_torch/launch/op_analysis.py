@@ -58,22 +58,45 @@ Conventions (held fixed so deltas are comparable):
     inputs, ``temp_size`` the peak of live bytes minus the arguments —
     the counterpart of ``compiled.memory_analysis()``
     (``generated_code_size`` is None: nothing is generated).
+  * The memory record is that of the step run plainly on the card. A
+    recorder is itself a dispatch mode, and a meta tensor is
+    "subclass-like" too (``at::isTensorSubclassLike``): either way
+    autograd takes the composite-compliant, out-of-place branch where a
+    plain eager run writes in place. Three such branches reach the zoo's
+    steps: the engine's gradient accumulation (``old + var`` for
+    ``old.add_(var)``), ``gather``'s backward
+    (``scatter_add`` for ``scatter_add_``) and advanced indexing's
+    (``index_put`` for ``_index_put_impl_``). Where the plain run would
+    write into an operand (dense, whole storage, the last reference: it
+    is freed before the next op), the output takes over that operand's
+    bytes, as it would on the card. Counts are not touched: the op is
+    charged as dispatched.
   * Trip counts: a long sequential loop (the sLSTM's steps,
-    ``models/xlstm.py``) asks :func:`loop_trips` how many steps to run. On
-    real tensors it runs them all. On ``meta`` under :func:`analyze` it
-    runs ``n`` and then ``n + 1`` (the outputs padded to the full length
-    either way), and every count is extrapolated to the full length: each
-    step's forward and backward ops are the same, so the counts are
-    affine in the steps run, and the extrapolation equals a full trace to
-    the integer. The memory peak is extrapolated alike (an estimate).
+    ``models/xlstm.py``) asks :func:`loop_trips` how many steps to run and
+    iterates them through :func:`loop_steps`. On real tensors it runs
+    them all. On ``meta`` under :func:`analyze` it runs ``n`` and then
+    ``n + 1`` (the outputs padded to the full length either way), and
+    every count is extrapolated to the full length: each step's forward
+    and backward ops are the same, so the counts are affine in the steps
+    run, and the extrapolation equals a full trace to the integer. The
+    peak is not affine (it moves between phases), so the live-bytes
+    curve is extrapolated instead: each storage event is tagged with the
+    loop step it runs in (``loop_steps`` marks the forward's steps, and a
+    backward op is tagged by the step whose autograd node it runs), the
+    ``n + 1`` trace's one extra middle step is repeated where it runs,
+    and the padding's per-step events (the zero gradients of the steps not
+    run) are dropped; the peak of that curve equals a full trace's to the
+    byte.
 """
 from __future__ import annotations
 
+import bisect
 import weakref
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
+from torch._prims_common import is_non_overlapping_and_dense_or_false
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_leaves
@@ -146,7 +169,8 @@ class OpCost(TorchDispatchMode):
     and charges it into ``rec.cost`` (a :class:`StepCost`) by the module's
     conventions; collectives and kernel launches reach it through
     :func:`record_collective` and :func:`record_launch`. ``max_trips`` > 0
-    caps a meta trace's loops (:func:`loop_trips`); :func:`analyze`
+    caps a meta trace's loops (:func:`loop_trips`) and tags its memory
+    events by loop step (:func:`loop_steps`); :func:`analyze`
     extrapolates."""
 
     def __init__(self, *, max_trips: int = 0):
@@ -156,11 +180,39 @@ class OpCost(TorchDispatchMode):
         self.loop_lengths = set()       # full lengths of the loops capped
         self._args = set()
         self._arg_bytes = 0
-        self._live = 0
-        self._peak = 0
         self._storages = {}             # storage key -> bytes (live)
+        #: the live-bytes curve: [bytes, tag] per storage made (+) or
+        #: freed (-); an event a plain run does not make reads 0
+        self.events = []
+        #: an in-place twin not yet settled: [its output's event, the
+        #: operand's storage key, the operand's free event, the op]
+        self._pending = None
+        #: the out-of-place twins reckoned in place, by op
+        self.in_place = {}
+        #: loop steps (capped traces only): the steps each loop ran, the
+        #: step the forward is in, and the autograd sequence numbers each
+        #: step's nodes took (starts, and (end, tag) alike)
+        self.steps_run = []
+        self._trip = None
+        self._span_starts = []
+        self._spans = []
+        self._mark = None
 
     # -- memory ------------------------------------------------------------
+    def _tag(self):
+        """The loop step an event runs in: the forward's (``loop_steps``),
+        else the step whose autograd node is running; None outside."""
+        if self._trip is not None or not self._spans:
+            return self._trip
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return None
+        seq = node._sequence_nr()
+        i = bisect.bisect_right(self._span_starts, seq) - 1
+        if i >= 0 and (self._spans[i][0] is None or seq < self._spans[i][0]):
+            return self._spans[i][1]
+        return None
+
     def _hold(self, t: torch.Tensor) -> Optional[int]:
         """Track ``t``'s storage from now until it is freed; returns its
         key (None if it was tracked already)."""
@@ -170,13 +222,63 @@ class OpCost(TorchDispatchMode):
             return None
         n = st.nbytes()
         self._storages[key] = n
-        self._live += n
-        self._peak = max(self._peak, self._live)
+        self.events.append([n, self._tag() if self.max_trips else None])
         weakref.finalize(st, self._free, key)
         return key
 
     def _free(self, key) -> None:
-        self._live -= self._storages.pop(key, 0)
+        n = self._storages.pop(key, None)
+        if n is None or self.cost.memory:
+            return
+        if self._pending is not None and key == self._pending[1]:
+            self._pending[2] = len(self.events)
+        self.events.append([-n, self._tag() if self.max_trips else None])
+
+    def _settle(self) -> None:
+        """An in-place twin's output takes over its operand if the operand
+        was freed since it ran (the last reference: the plain run wrote
+        into it): neither the output's bytes nor the operand's free are
+        events."""
+        if self._pending is None:
+            return
+        out_event, _, freed, op = self._pending
+        self._pending = None
+        if freed is not None:
+            self.events[out_event][0] = 0
+            self.events[freed][0] = 0
+            self.in_place[op] = self.in_place.get(op, 0) + 1
+
+    def _twin(self, func, args, kwargs, out, held: list) -> None:
+        """If ``func`` is an out-of-place twin of what a plain run writes
+        in place (the module's memory convention), note the operand it
+        would write into, to settle at the next op. ``held`` is
+        :meth:`_hold`'s answer for each output: a new storage's key, the
+        last event made."""
+        if torch.is_grad_enabled() or not isinstance(out, torch.Tensor) \
+                or held[0] is None:
+            return
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return
+        if func is _aten.add.Tensor:
+            # the engine's InputBuffer::accumulate: old + var, which a
+            # plain run writes into old (never into var)
+            if len(args) != 2 or kwargs.get("alpha", 1) != 1:
+                return
+        elif not ((func is _aten.scatter_add.default
+                   and node.name() == "GatherBackward0") or (
+                func is _aten.index_put.default
+                and node.name() == "IndexBackward0")):
+            return
+        t = args[0]
+        if not (isinstance(t, torch.Tensor) and t.shape == out.shape
+                and t.dtype == out.dtype and not t._is_view()
+                and is_non_overlapping_and_dense_or_false(t)):
+            return
+        key = t.untyped_storage()._cdata
+        if self._storages.get(key) == self._storages[held[0]]:
+            self._pending = [len(self.events) - 1, key, None,
+                             func.overloadpacket.__name__]
 
     def add_arguments(self, args) -> None:
         """The step's inputs: live throughout, ``argument_size``."""
@@ -188,15 +290,51 @@ class OpCost(TorchDispatchMode):
 
     def close(self, out) -> StepCost:
         """The memory record of a step that returned ``out``."""
+        self._settle()
+        self.events = [tuple(e) for e in self.events if e[0]]
         outs = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
                 for t in _tensors(out)}
         self.cost.memory = {
             "argument_size": self._arg_bytes,
             "output_size": sum(n for k, n in outs.items()
                                if k not in self._args),
-            "temp_size": self._peak - self._arg_bytes,
+            "temp_size": _peak(self.events) - self._arg_bytes,
             "generated_code_size": None}
         return self.cost
+
+    # -- loop steps (capped traces) -----------------------------------------
+    def _seq(self) -> Optional[int]:
+        """The autograd sequence number the next node takes (a view of a
+        marker leaf, made with this mode off)."""
+        if not torch.is_grad_enabled():
+            return None
+        with torch._C._DisableTorchDispatch():
+            if self._mark is None:
+                self._mark = torch.empty((), device="meta",
+                                         requires_grad=True)
+            return self._mark.view(()).grad_fn._sequence_nr() + 1
+
+    def _end_span(self) -> None:
+        if self._trip is not None and self._spans:
+            seq = self._seq()
+            if seq is not None and self._spans[-1][0] is None:
+                self._spans[-1] = (seq, self._spans[-1][1])
+
+    def enter_step(self, t: int) -> None:
+        self._end_span()
+        if t == 0:
+            self.steps_run.append(0)
+        tag = (len(self.steps_run) - 1, t)
+        self.steps_run[-1] = t + 1
+        self._trip = tag
+        seq = self._seq()
+        if seq is not None:
+            self._span_starts.append(seq)
+            self._spans.append((None, tag))
+
+    def exit_loop(self) -> None:
+        self._end_span()
+        self._trip = None
 
     # -- charging ---------------------------------------------------------
     def charge_collective(self, kind: str, nbytes: int) -> None:
@@ -215,13 +353,14 @@ class OpCost(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        self._settle()
         out = func(*args, **kwargs)
         if func.namespace in _UNCHARGED:
             return out
         self.cost.ops += 1
         self._charge(func, args, kwargs, out)
-        for t in _tensors(out):
-            self._hold(t)
+        held = [self._hold(t) for t in _tensors(out)]
+        self._twin(func, args, kwargs, out, held)
         return out
 
     def _charge(self, func, args, kwargs, out) -> None:
@@ -292,6 +431,32 @@ def loop_trips(length: int, t: torch.Tensor) -> int:
     return min(length, cap) if cap else length
 
 
+def loop_steps(steps):
+    """Iterate a sequential loop's ``steps`` (the :func:`loop_trips` it
+    runs): a capped recorder tags the memory events of each step, forward
+    and backward, with the step (:func:`analyze`)."""
+    recs = [r for r in _recorders() if r.max_trips]
+    if not recs:
+        yield from steps
+        return
+    try:
+        for t, step in enumerate(steps):
+            for rec in recs:
+                rec.enter_step(t)
+            yield step
+    finally:
+        for rec in recs:
+            rec.exit_loop()
+
+
+def _peak(events) -> int:
+    live = peak = 0
+    for d, _ in events:
+        live += d
+        peak = max(peak, live)
+    return peak
+
+
 def _measure(fn, args, max_trips: int) -> OpCost:
     rec = OpCost(max_trips=max_trips)
     with rec:
@@ -305,8 +470,12 @@ def measure(fn, *args) -> StepCost:
     return _measure(fn, args, 0).cost
 
 
-#: the steps a capped meta trace runs (and one more)
-TRACE_TRIPS = 2
+#: the steps a capped meta trace runs (and one more): enough that its
+#: middle steps are apart from the ends' (see :func:`_aligned`)
+TRACE_TRIPS = 4
+
+#: the step of the ``n + 1`` trace that a full run repeats
+_MIDDLE = 2
 
 
 def _extrapolate(a, b, steps: int):
@@ -319,11 +488,125 @@ def _extrapolate(a, b, steps: int):
     return a + steps * (b - a)
 
 
+def _period(x, p: int, y, q: int) -> int:
+    """The shortest m (at most ``_MAX_PERIOD``) such that ``x[p:p+m]``
+    repeats the m events before it and ``x[p+m]`` is ``y[q]``: an extra
+    copy in a run of ``x`` that ``y`` has one fewer of; 0 if none."""
+    for m in range(1, min(_MAX_PERIOD, p) + 1):
+        if p + m > len(x) or x[p:p + m] != x[p - m:p]:
+            continue
+        if (x[p + m] == y[q]) if p + m < len(x) and q < len(y) else (
+                p + m == len(x) and q == len(y)):
+            return m
+    return 0
+
+
+#: the longest block of events that repeats once a loop step in a run
+#: outside the steps (the padding's zero gradients, the steps' gradient
+#: frees)
+_MAX_PERIOD = 64
+
+
+def _aligned(a: OpCost, b: OpCost):
+    """``b``'s events (one more step a loop than ``a``) against ``a``'s.
+    A loop's steps are alike but at its ends: step 0 (its state needs no
+    gradient), step 1 (the storages all steps share are freed in its
+    backward), the step before the last (its backward makes the first sum
+    of the shared weights' gradients) and the last (the padding's). So in
+    a loop where ``a`` ran k >= 4 steps and ``b`` k + 1, ``b``'s step
+    ``_MIDDLE`` is the inserted one and its later steps are ``a``'s, one
+    down. Every other event of ``b`` is one of ``a``'s, in order, but for
+    the runs outside the steps whose length goes with the steps run: a
+    run ``b`` has one more copy of (the real steps' gradients, freed
+    together) or one fewer (the padding's zero gradients). Returns the
+    blocks ``b`` inserts, by the index of ``a``'s event they precede, and
+    ``a``'s blocks ``b`` lacks, as (start, length)."""
+    if len(a.steps_run) != len(b.steps_run):
+        raise ValueError(f"{len(a.steps_run)} against {len(b.steps_run)} "
+                         f"loops: the traces do not align")
+    ev, rest, step_ins = a.events, [], {}
+    for d, tag in b.events:
+        if tag is not None:
+            j, t = tag
+            if b.steps_run[j] == a.steps_run[j] + 1 and t >= _MIDDLE:
+                if t == _MIDDLE:
+                    blocks = step_ins.setdefault(len(rest), [])
+                    if not blocks or blocks[-1][0] != j:
+                        blocks.append((j, []))
+                    blocks[-1][1].append(d)
+                    continue
+                tag = (j, t - 1)
+        rest.append((d, tag))
+    ins, lacks, i, j = {}, [], 0, 0
+    while j <= len(rest):
+        if j in step_ins:
+            ins.setdefault(i, []).extend(step_ins.pop(j))
+        if j == len(rest):
+            break
+        if i < len(ev) and ev[i] == rest[j]:
+            i, j = i + 1, j + 1
+            continue
+        m = _period(rest, j, ev, i)
+        if m:
+            ins.setdefault(i, []).append((None, [d for d, _ in
+                                                rest[j:j + m]]))
+            j += m
+            continue
+        m = _period(ev, i, rest, j)
+        if not m:
+            raise ValueError(f"event {j} of the n + 1 trace, {rest[j]}, is "
+                             f"neither the n trace's {ev[i:i + 1]} nor one "
+                             f"more or one fewer in a run: the traces do "
+                             f"not align")
+        lacks.append((i, m))
+        i += m
+    if i != len(ev):
+        raise ValueError(f"the n trace's events {i}.. are not in the n + 1 "
+                         f"trace: the traces do not align")
+    return ins, lacks
+
+
+def _extrapolated_peak(a: OpCost, b: OpCost, steps: int) -> int:
+    """The peak of the live-bytes curve at ``steps`` more steps a loop
+    than ``a`` ran (``b`` ran one more): ``b``'s inserted blocks repeat
+    ``steps`` times where they ran (each copy's peak is its first's or its
+    last's), and each block ``a`` has one more of than ``b`` loses
+    ``steps`` copies of its run."""
+    if steps <= 0:
+        return _peak(a.events)
+    ins, lacks = _aligned(a, b)
+    ev = a.events
+    drop = [False] * len(ev)
+    for i, m in lacks:
+        lo = i - (steps - 1) * m
+        if lo < 0 or any(ev[lo + c] != ev[i + c % m] for c in range(i - lo)) \
+                or any(ins.get(k) for k in range(lo + 1, i + m)):
+            raise ValueError(f"events {i}..{i + m} of the n trace repeat "
+                             f"fewer than {steps} times: the run does not "
+                             f"extrapolate")
+        for c in range(lo, i + m):
+            drop[c] = True
+    live = peak = 0
+    for idx in range(len(ev) + 1):
+        for _, block in ins.get(idx, ()):
+            net = top = 0
+            for d in block:
+                net += d
+                top = max(top, net)
+            peak = max(peak, live + top, live + (steps - 1) * net + top)
+            live += steps * net
+        if idx < len(ev) and not drop[idx]:
+            live += ev[idx][0]
+            peak = max(peak, live)
+    return peak
+
+
 def analyze(fn, *args) -> StepCost:
     """The counts of ``fn(*args)``. On ``meta`` inputs a long sequential
-    loop is traced at ``TRACE_TRIPS`` and ``TRACE_TRIPS + 1`` steps and
-    every count extrapolated to its full length (the module's trip-count
-    convention); otherwise one full run."""
+    loop is traced at ``TRACE_TRIPS`` and ``TRACE_TRIPS + 1`` steps, every
+    count extrapolated to its full length and the memory record from the
+    extrapolated live-bytes curve (the module's trip-count convention);
+    otherwise one full run."""
     meta = any(t.is_meta for t in _tensors(args))
     rec = _measure(fn, args, TRACE_TRIPS if meta else 0)
     if not rec.loop_lengths:
@@ -333,7 +616,11 @@ def analyze(fn, *args) -> StepCost:
                          f" in one step: their trips cannot be extrapolated "
                          f"together")
     (length,) = rec.loop_lengths
-    a, b = rec.cost, _measure(fn, args, TRACE_TRIPS + 1).cost
+    a, b = rec.cost, _measure(fn, args, TRACE_TRIPS + 1)
     steps = length - TRACE_TRIPS
-    return StepCost(**{k: _extrapolate(getattr(a, k), getattr(b, k), steps)
-                       for k in a.__dataclass_fields__})
+    out = StepCost(**{k: _extrapolate(getattr(a, k), getattr(b.cost, k),
+                                      steps)
+                      for k in a.__dataclass_fields__ if k != "memory"})
+    out.memory = dict(a.memory, temp_size=_extrapolated_peak(rec, b, steps)
+                      - a.memory["argument_size"])
+    return out

@@ -37,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import XLSTMConfig
-from repro_torch.launch.op_analysis import loop_trips
+from repro_torch.launch.op_analysis import loop_steps, loop_trips
 from repro_torch.models import params as pdefs
 from repro_torch.models.layers import (cast, ffn_apply, ffn_defs, mm,
                                        promoted, rms_norm)
@@ -318,7 +318,7 @@ def slstm_train(p, x, num_heads: int, ctx, dtype="bfloat16",
     # step over one unbind: the backward stacks the steps' gradients once,
     # where ``pre[:, i]`` would scatter each into a zero-filled (B, S, 4d)
     # copy (bytes quadratic in S)
-    for pre_i in pre.unbind(1)[:n]:
+    for pre_i in loop_steps(pre.unbind(1)[:n]):
         st = _slstm_step(rr, pre_i, st, num_heads)
         hs.append(st.h)
     # a meta trace caps its steps (launch/op_analysis.loop_trips: n < S

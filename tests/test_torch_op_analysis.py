@@ -22,9 +22,17 @@
   JAX's per-device ``analyze``. Serving steps equal exactly; train steps
   equal in FLOPs but for the sLSTM gap above (K = 2 local steps), and
   their collectives differ as Queue 3 item 31 records (held here).
-* The sLSTM's trip count: ``analyze``'s extrapolation from 2 and 3 steps
-  equals a full trace to the integer at S = 16 and 32, alone and inside
-  the xlstm smoke model's gradient.
+* The sLSTM's trip count: ``analyze``'s extrapolation from 4 and 5 steps
+  equals a full trace to the integer at S = 16, 32 and 64, alone and
+  inside the xlstm smoke model's gradient, the memory record's peak
+  included (its live-bytes curve extrapolated), and inside a train round
+  (ROADMAP Queue 3 item 35).
+* The memory record is a plain run's: a recorder (a dispatch mode) and a
+  meta tensor make autograd write out of place where a plain run writes
+  in place (the engine's gradient sums, ``gather``'s and indexing's
+  backward), and the record counts those writes in place, as many as a
+  profiled plain run makes on the zoo's smoke gradients (Queue 3 item
+  35: route z's 13.19 GB over-count on the card).
 * The bytes of the sLSTM's and the chunkwise mLSTM's forward and backward
   are affine in the sequence (their loops step over one ``unbind`` /
   ``split``: ROADMAP Queue 3 item 32).
@@ -146,6 +154,18 @@ def test_memory_record():
     mem = rec.memory
     assert mem["argument_size"] == 1024 and mem["output_size"] == 1024
     assert mem["temp_size"] == 2048 and mem["generated_code_size"] is None
+
+    # a gradient summed over two uses: the plain run adds the second 1 KB
+    # term into the first (the engine's in-place sum); the record's peak
+    # is the loss, its cotangent and the two terms, not a third sum
+    def grad(t):
+        t = t.detach().requires_grad_(True)
+        return torch.autograd.grad((t * 2).sum() + (t * 3).sum(), t)
+
+    rec = oa._measure(grad, (x,), 0)
+    assert rec.in_place == {"add": 1}
+    assert rec.cost.memory["temp_size"] == 2 * 1024 + 2 * 4
+    assert rec.cost.memory["output_size"] == 1024
 
 
 def test_collectives_on_meta_are_charged_and_move_nothing():
@@ -409,16 +429,18 @@ def test_mesh_train_costs_against_hlo_analysis(mesh_costs, arch):
 def _full_trace(fn, *args):
     rec = oa.measure(fn, *args)
     return (rec.ops, rec.flops, rec.bytes, rec.rw_bytes, rec.coll_bytes,
-            rec.memory["argument_size"], rec.memory["output_size"])
+            rec.memory["argument_size"], rec.memory["output_size"],
+            rec.memory["temp_size"])
 
 
 def _counted(fn, *args):
     c = oa.analyze(fn, *args)
     return (c.ops, c.flops, c.bytes, c.rw_bytes, c.coll_bytes,
-            c.memory["argument_size"], c.memory["output_size"])
+            c.memory["argument_size"], c.memory["output_size"],
+            c.memory["temp_size"])
 
 
-@pytest.mark.parametrize("seq", (16, 32))
+@pytest.mark.parametrize("seq", (16, 32, 64))
 def test_slstm_trip_count_equals_a_full_trace(seq):
     cfg = get_arch("xlstm-350m").smoke
     defs = xlstm_mod.slstm_defs(cfg.d_model, cfg.num_heads, cfg.xlstm)
@@ -439,7 +461,7 @@ def test_slstm_trip_count_equals_a_full_trace(seq):
         assert _counted(fn, p, x) == _full_trace(fn, p, x)
 
 
-@pytest.mark.parametrize("seq", (16, 32))
+@pytest.mark.parametrize("seq", (16, 32, 64))
 def test_xlstm_gradient_trip_count_equals_a_full_trace(seq):
     model = Model(get_arch("xlstm-350m").smoke)
     p = pdefs.tree_map(lambda d: _meta(d.shape, getattr(torch, d.dtype)),
@@ -454,6 +476,161 @@ def test_xlstm_gradient_trip_count_equals_a_full_trace(seq):
 
     batch = {"tokens": tok, "labels": tok}
     assert _counted(grad, p, batch) == _full_trace(grad, p, batch)
+
+
+def test_train_round_memory_extrapolates_to_a_full_trace():
+    """The xlstm smoke config's train round (``steps.build_step``: K = 2
+    local steps, each with its sLSTM loop, remat "full" and "none") on a
+    (1, 1) mesh of the fake process group: ``analyze``'s memory record
+    and counts equal a full trace's at S = 48."""
+    code = f"""
+    import dataclasses, json, sys
+    sys.path.insert(0, {SRC!r})
+    from repro_torch.configs.base import FedConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import op_analysis as oa, steps
+    from repro_torch.launch.mesh import make_mesh, start_fake_world
+    start_fake_world(1)
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    fed = FedConfig(algorithm="fedcams", compressor="topk",
+                    compress_ratio=1/64, aggregation="dense", local_steps=2)
+    spec = get_arch("xlstm-350m")
+    spec = dataclasses.replace(spec, model=spec.smoke)
+    out = []
+    for remat in ("full", "none"):
+        b = steps.build_step(spec, ShapeConfig("train_4k", 48, 4, "train"),
+                             mesh, fed, TrainConfig(remat_policy=remat),
+                             chunk=8)
+        a, m = oa.analyze(b.fn, *b.abstract_args), oa.measure(
+            b.fn, *b.abstract_args)
+        out.append([[c.ops, c.flops, c.bytes, c.rw_bytes, c.coll_bytes,
+                     c.memory] for c in (a, m)])
+    print(json.dumps(out))
+    """
+    out = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=SRC))
+    assert out.returncode == 0, out.stderr[-3000:]
+    for counted, full in json.loads(out.stdout.strip().splitlines()[-1]):
+        assert counted == full
+
+
+# -- the memory record is a plain run's ---------------------------------------
+
+R, V = 8, 1000
+
+
+def _accumulate(x):
+    """x used twice: the engine sums its two (R, V) gradient terms."""
+    return torch.autograd.grad((x * 2).sum() + (x * 3).sum(), x)
+
+
+def _gather(x):
+    idx = torch.zeros((R, 1), dtype=torch.int64, device=x.device)
+    return torch.autograd.grad(x.gather(1, idx).sum(), x)
+
+
+def _index(x):
+    idx = torch.arange(3, device=x.device)
+    return torch.autograd.grad(x[idx].sum(), x)
+
+
+#: case -> (the step, the op a plain run writes in place, the twin a
+#: recorder dispatches, the peak a plain run holds above its argument: the
+#: loss and its cotangent (4 bytes each), the int64 indices and the (R, V)
+#: fp32 gradients)
+IN_PLACE = {
+    "accumulate": (_accumulate, "aten::add_", "add", 2 * R * V * 4 + 8),
+    "gather": (_gather, "aten::scatter_add_", "scatter_add",
+               R * V * 4 + 8 + R * 8),
+    "index": (_index, "aten::_index_put_impl_", "index_put",
+              R * V * 4 + 8 + 3 * 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(IN_PLACE))
+def test_the_recorder_makes_autograd_write_out_of_place_and_reckons_it_in_place(
+        case):
+    """Route z's over-count (Queue 3 item 35): ``at::isTensorSubclassLike``
+    holds while any dispatch mode is active and for every meta tensor, and
+    then autograd takes its composite-compliant branch, out of place,
+    where a plain run writes in place. A profiled plain run on real CPU
+    tensors shows the in-place op in its backward and not its twin; the
+    recorder sees the twin; its memory record holds what the plain run
+    holds (on real tensors and on meta alike), one (R, V) gradient fewer
+    than the recorded run allocates. At route z's shape the twin is ``gather``'s
+    backward over the (16, 4,096, 50,304) fp32 logits: 13.19 GB."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn, plain_op, twin, held = IN_PLACE[case]
+    x = torch.randn(R, V, generator=torch.Generator().manual_seed(0))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn(x.requires_grad_(True))
+
+    def in_backward(e):
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+            if "Backward" in e.name or "evaluate_function" in e.name:
+                return True
+        return False
+
+    names = {e.name for e in prof.events() if in_backward(e)}
+    assert plain_op in names and f"aten::{twin}" not in names
+
+    class Names(oa.OpCost):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen = getattr(self, "seen", set()) | {
+                func.overloadpacket.__name__}
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    for t in (x.detach(), _meta((R, V))):
+        rec = Names()
+        with rec:
+            rec.add_arguments((t,))
+            rec.close(fn(t.requires_grad_(True)))
+        assert twin in rec.seen and rec.in_place == {twin: 1}
+        assert rec.cost.memory["temp_size"] == held
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_in_place_writes_reckoned_are_a_plain_runs(arch):
+    """On each smoke config's loss + gradient (real CPU tensors, remat
+    "full"), the writes the record counts in place are, op by op, the
+    in-place writes a profiled plain run makes where the recorder's run
+    makes their twins: the engine's ``add_`` into a gradient it holds the
+    last reference to (never into a view: a view keeps its base), and
+    ``gather``'s and indexing's backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_arch(arch).smoke
+    model = Model(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = model.init(g, "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                        dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+
+    def grad(p, b):
+        p = pdefs.tree_map(lambda t: t.detach().requires_grad_(True), p)
+        loss, _ = model.loss(p, b, ParallelContext(), remat_policy="full",
+                             chunk=CHUNK)
+        return torch.autograd.grad(loss, pdefs.tree_leaves(p))
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        grad(params, batch)
+    #: (plain op, its parent) -> the twin the recorder dispatches
+    twins = {("aten::add_", "evaluate_function"): "add",
+             ("aten::scatter_add_", "aten::gather_backward"): "scatter_add",
+             ("aten::_index_put_impl_", "IndexBackward0"): "index_put"}
+    plain = {}
+    for e in prof.events():
+        parent = e.cpu_parent.name if e.cpu_parent is not None else ""
+        for (name, under), twin in twins.items():
+            if e.name == name and under in parent:
+                plain[twin] = plain.get(twin, 0) + 1
+    rec = oa._measure(grad, (params, batch), 0)
+    assert rec.in_place == plain and plain["add"] > 0
 
 
 #: (layer, sequence lengths): the sLSTM at S, 2S, 4S; the chunkwise mLSTM
