@@ -119,13 +119,31 @@ then, on the card:
    (l) randk 1/64 in memory, γ on (the default), ``client_chunk=5`` →
        ``fedams_update`` once a round; each round's drawn sets hold k
        distinct positions.
+   Then, under deterministic algorithms, routes a, b, c, h and l (6
+   rounds), make_problem's ConvMixer and MLP (``benchmarks/common.py``'s
+   two problems rebuilt from the port's modules, route a's configuration,
+   20 rounds) and routes d, e, f, g and i on that MLP (3 rounds) each run
+   as an eager loop of ``FedSim.round`` and as one ``FedSim.run_rounds``
+   call: one CUDA graph capture and R replays, the whole call under
+   ``torch.cuda.set_sync_debug_mode("warn")`` with no synchronizing CUDA
+   operation from the first replay to the last and one after it (the
+   metrics' read); the final state and every metric equal to the loop's
+   to the bit; the wrappers launching in the call only in the warm-up
+   run, the capture recording one round's launches, and the graph's
+   ``debug_dump`` holding one kernel node for each of them, so naming
+   ``topk_ef_sparse_kernel`` and ``fedams_ingest_kernel`` (a and the two
+   problems) and ``sign_ef_kernel`` (c). Routes a and b also run
+   ``run_rounds`` once in the default mode, which the eager rounds above
+   are timed in. Prints the eager round ms (host clock and CUDA events),
+   the graph's replay ms (CUDA events), the whole call against the whole
+   eager loop, and the card.
    On h and i every round has survivors + rejected + crashed +
    deadline_cut = n, the EF rows of the clients the server did not ingest
    equal their pre-round rows to the bit, and the state stays finite.
    Every kernel launch counter is reset before a route and read after it;
    a route whose kernels never launched fails. Each route's final params,
-   EF buffer and server state are hashed (``state_sha256``); route a runs
-   3 more rounds with deterministic algorithms, whose final state two
+   EF buffer and server state are hashed (``state_sha256``); route a's
+   run_rounds part, run under deterministic algorithms, is the one two
    builds can be held equal on to the bit (local training on the card is
    not bit-reproducible otherwise). Wire routes also check that
    ``pack_uint`` and ``unpack_uint`` launched once a round for all n
@@ -278,7 +296,9 @@ start and all its jobs), each job its own, and a line before the kernels
 line all of them.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
+(``launches``: the wrappers' counts over phase 3 and the later routes;
+``graph_launches``, apart: the run_rounds graphs' kernel nodes times their
+replays) and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
 without CUDA or when any check fails. Longer output goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -290,10 +310,12 @@ import gc
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1956,6 +1978,327 @@ def route_l(loss, p0, data, d: int, rounds: int):
                 launches=counts, k=k, state_sha256=state_digest(st))
 
 
+#: the routes whose rounds phase 3 also runs through ``FedSim.run_rounds``
+#: (one captured CUDA graph, replayed), each held to an eager loop
+GRAPH_ROUTES = ("a", "b", "c", "h", "l")
+#: the routes whose graph is also run in the default mode, where phase 3's
+#: eager rounds are timed
+DEFAULT_MODE_ROUTES = ("a", "b")
+#: make_problem's ConvMixer and MLP (``benchmarks/common.py``, rebuilt from
+#: the port's own modules: the card has no jax), and their rounds
+PROBLEMS = ("convmixer", "mlp")
+PROBLEM_ROUNDS = 20
+#: the other round paths' captures (codecs, two-way, dense EF, sign with
+#: faults), on make_problem's MLP
+MLP_ROUTES = ("d", "e", "f", "g", "i")
+MLP_ROUNDS = 3
+#: the hand-written kernels whose symbols a route's captured graph names
+GRAPH_SYMBOLS = {"a": ("topk_ef_sparse", "fedams_ingest"),
+                 "c": ("sign_ef",)}
+#: each kernel's device functions: its wrapper's C entry launches one of
+#: them, once a call
+KERNEL_SYMBOLS = {"topk_ef_sparse": ("topk_ef_sparse_kernel",),
+                  "topk_ef": ("topk_ef_kernel",),
+                  "sign_ef": ("sign_ef_kernel",),
+                  "fedams_ingest": ("fedams_ingest_kernel",),
+                  "fedams_update": ("fedams_update_kernel",),
+                  "pack_uint": ("pack_bits_kernel", "pack_groups_kernel"),
+                  "unpack_uint": ("unpack_bits_kernel",
+                                  "unpack_groups_kernel")}
+#: the warning of ``torch.cuda.set_sync_debug_mode("warn")``
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def graph_spy():
+    """Counts the CUDA graph captures and replays made inside and times
+    each replay by a pair of CUDA events on the stream it replays on. The
+    whole runs under ``torch.cuda.set_sync_debug_mode("warn")`` with each
+    warning of a synchronizing CUDA operation recorded: ``syncs_before``
+    holds, at each replay, how many came before it; ``syncs``, on exit,
+    how many came in all."""
+    G = torch.cuda.CUDAGraph
+    begin, replay = G.capture_begin, G.replay
+    rec = {"captures": 0, "events": [], "syncs_before": [], "syncs": 0}
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def syncs():
+            return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+        def spy_begin(self, *args, **kw):
+            rec["captures"] += 1
+            return begin(self, *args, **kw)
+
+        def spy_replay(self):
+            rec["syncs_before"].append(syncs())
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            replay(self)
+            e1.record()
+            rec["events"].append((e0, e1))
+
+        G.capture_begin, G.replay = spy_begin, spy_replay
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield rec
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+            G.capture_begin, G.replay = begin, replay
+            rec["syncs"] = syncs()
+
+
+def graph_nodes(sim) -> dict:
+    """The kernel nodes of the one graph ``sim.run_rounds`` captured, by
+    kernel, read from its ``debug_dump`` (each node names its function
+    once), and the capture's wrapper launches (``_Program.counts``)."""
+    progs = list(sim._programs.values())
+    check(len(progs) == 1 and progs[0].graph is not None,
+          f"{len(progs)} run_rounds programs")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "round.dot")
+        with warnings.catch_warnings():     # its "DEBUG: calling ..." notes
+            warnings.filterwarnings("ignore", message="DEBUG: calling")
+            progs[0].graph.debug_dump(path)
+        text = Path(path).read_text()
+    nodes = {name: sum(len(re.findall(rf"(?<![A-Za-z_]){sym}", text))
+                       for sym in syms)
+             for name, syms in KERNEL_SYMBOLS.items()}
+    return nodes, dict(progs[0].counts)
+
+
+def _same_metric(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().reshape(()).view(torch.int32)
+        return isinstance(b, torch.Tensor) and torch.equal(
+            a, b.reshape(()).view(torch.int32))
+    return a == b
+
+
+def graph_run(label, sim, st, batches, ids, rngs, rounds: int) -> dict:
+    """One ``FedSim.run_rounds`` call under :func:`graph_spy`, checked: one
+    capture, ``rounds`` replays, no synchronizing CUDA operation from the
+    first replay to the last and one after it (the metrics' one read), and
+    the graph's kernel nodes one for each launch its capture recorded.
+    Returns its state and metrics, the replays' ms (CUDA events), the
+    call's ms (host clock, to a synchronize after it), the wrappers'
+    launches in the call (the warm-up's), and the graph's launches: its
+    kernel nodes times the replays counted."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with graph_spy() as spy:
+        st, mets = sim.run_rounds(st, batches, ids, rngs)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    wrapper = dict(ops.launches)
+    replay_ms = [e0.elapsed_time(e1) for e0, e1 in spy["events"]]
+    check(spy["captures"] == 1 and len(replay_ms) == rounds,
+          f"run_rounds {label}: {spy['captures']} captures, "
+          f"{len(replay_ms)} replays for {rounds} rounds")
+    at = spy["syncs_before"]
+    check(at[-1] == at[0] and spy["syncs"] - at[-1] == 1,
+          f"run_rounds {label}: synchronizing CUDA operations counted "
+          f"{at} at the replays and {spy['syncs']} in all; none between "
+          f"the replays and one after them expected")
+    nodes, captured = graph_nodes(sim)
+    check(nodes == captured, f"run_rounds {label}: the graph's kernel "
+          f"nodes {nodes} against the capture's launches {captured}")
+    return dict(state=st, mets=mets, replay_ms=replay_ms, call_ms=call_ms,
+                syncs_before_replays=at[0], syncs=spy["syncs"],
+                wrapper=wrapper, captured=captured,
+                graph={k: n * len(replay_ms) for k, n in nodes.items()})
+
+
+def run_rounds_route(name, make, plan, expect, symbols=(),
+                     seeded: bool = False, default_mode: bool = False) -> dict:
+    """One configuration twice under deterministic algorithms from the same
+    init: ``rounds`` eager ``FedSim.round`` calls (each timed to a
+    synchronize on the host's clock, and by CUDA events), then one
+    ``FedSim.run_rounds`` call over the same staged rounds
+    (:func:`graph_run`). The final state and every metric equal the loop's
+    to the bit; the wrappers launch in the call only in the warm-up
+    (``WARMUP_ROUNDS`` rounds' worth of the loop's launches), the capture
+    recorded one round's, and the graph names the hand-written kernels
+    ``symbols``. ``seeded``: each round gets a generator seeded with its
+    index (randk's draws). ``default_mode``: one more ``run_rounds`` call
+    in the default mode, which phase 3's eager rounds are timed in, checked
+    as :func:`graph_run` checks and for a finite state (the default mode is
+    not bit-reproducible)."""
+    from repro_torch.core.sim import WARMUP_ROUNDS
+    from repro_torch.kernels import ops
+    rounds = len(plan)
+    gens = lambda: ([torch.Generator().manual_seed(r) for r in range(rounds)]
+                    if seeded else None)
+    ids, batches = stacked(plan)
+    t_route = time.perf_counter()
+    with deterministic():
+        sim, st = make()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ms, ev, mets_e = [], [], []
+        for r, (idx, b) in enumerate(plan):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+            st, met = sim.round(st, b, idx,
+                                torch.Generator().manual_seed(r)
+                                if seeded else None)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ev.append(e0.elapsed_time(e1))
+            mets_e.append(met)
+        eager = dict(ops.launches)
+        sim_g, st_g = make()
+        g = graph_run(name, sim_g, st_g, batches, ids, gens(), rounds)
+    diff = same_state(st, g["state"])
+    bad = [(r, key) for r, (a, b) in enumerate(zip(mets_e, g["mets"]))
+           for key in a if key not in b or not _same_metric(a[key], b[key])]
+    check(not diff and not bad and len(g["mets"]) == rounds,
+          f"run_rounds {name}: differs from the eager loop in {diff}, "
+          f"metrics {bad[:6]}")
+    for kname in expect:
+        check(eager[kname] > 0 and g["graph"][kname] > 0,
+              f"run_rounds {name}: {kname} launched {eager[kname]} times "
+              f"eagerly, {g['graph'][kname]} through the graph")
+    check(all(g["wrapper"][k] * rounds == eager[k] * WARMUP_ROUNDS
+              and g["captured"][k] * rounds == eager[k] for k in eager),
+          f"run_rounds {name}: the call's launches {g['wrapper']} and its "
+          f"capture's {g['captured']} against the loop's {eager} "
+          f"(warm-up {WARMUP_ROUNDS}, {rounds} rounds)")
+    for kname in symbols:
+        check(g["graph"][kname] > 0,
+              f"run_rounds {name}: the captured graph has no {kname} kernel")
+    runs = [g]
+    out = dict(eager_round_ms=ms[1:], eager_round0_ms=ms[0],
+               eager_round_event_ms=ev[1:], eager_total_ms=sum(ms),
+               graph_replay_ms=g["replay_ms"], run_rounds_call_ms=g["call_ms"],
+               syncs_before_replays=g["syncs_before_replays"],
+               syncs=g["syncs"], launches_eager=eager,
+               launches_graph_call=g["wrapper"],
+               graph_kernels=[k for k, n in g["graph"].items() if n],
+               loss=[float(m["loss"]) for m in g["mets"]],
+               state_sha256=state_digest(g["state"]))
+    if default_mode:
+        sim_d, st_d = make()
+        d = graph_run(f"{name} (default mode)", sim_d, st_d, batches, ids,
+                      gens(), rounds)
+        loss_d = [float(m["loss"]) for m in d["mets"]]
+        check(all(np.isfinite(loss_d)) and all(
+            bool(torch.isfinite(t).all()) for t in
+            (d["state"].params, d["state"].errors, d["state"].x_client)),
+            f"run_rounds {name} (default mode): a state or loss not finite")
+        runs.append(d)
+        out.update(default_graph_replay_ms=d["replay_ms"],
+                   default_run_rounds_call_ms=d["call_ms"],
+                   default_loss=loss_d)
+    out["launches_wrapper"] = {k: eager[k] + sum(x["wrapper"][k]
+                                                 for x in runs)
+                               for k in eager}
+    out["launches_in_graph"] = {k: sum(x["graph"][k] for x in runs)
+                                for k in eager}
+    out["seconds"] = time.perf_counter() - t_route
+    return out
+
+
+def phase_run_rounds(loss, p0, data, d: int, rounds: int,
+                     res: dict) -> dict:
+    """Routes ``GRAPH_ROUTES`` on ConvMixer-256-8 at ``rounds`` rounds;
+    make_problem's ConvMixer and MLP at ``PROBLEM_ROUNDS`` on route a's
+    configuration; and, for the capture of the other round paths (the
+    dense codecs' packing, the two-way downlink, the dense top-k EF, sign
+    with faults), routes ``MLP_ROUTES`` on the MLP at ``MLP_ROUNDS``. Each
+    through :func:`run_rounds_route`, ``DEFAULT_MODE_ROUTES`` also in the
+    default mode. ``res``: phase 3's routes, whose configuration and rounds
+    the ConvMixer-256-8 routes take, and whose eager round ms (default
+    mode) the default-mode graph is printed beside."""
+    from repro_torch.core.sim import FedSim
+    from repro_torch.data.synthetic import FederatedClassification
+    from repro_torch.models import convmixer as cm
+    from repro_torch.models.params import count_params, init_params
+
+    card = card_line()
+    out = {}
+    jobs = []   # (key, label, loss, p0, FedConfig, plan, kernels, symbols)
+    for route in GRAPH_ROUTES:
+        plan = _plan(data, M, rounds)
+        cfg = _route_cfg(route, M, N_CLI, K_STEPS, route_fault(
+            route, plan, M, N_CLI, K_STEPS, d, loss, p0, "cuda"))
+        jobs.append((route, route, loss, p0, cfg, plan, EXPECT[route],
+                     GRAPH_SYMBOLS.get(route, ())))
+    for model in PROBLEMS:
+        if model == "convmixer":
+            c = cm.ConvMixerConfig(dim=32, depth=4, kernel=5, patch=2,
+                                   num_classes=10, image=16)
+            pdata = FederatedClassification(num_clients=M,
+                                            image_shape=(16, 16, 3),
+                                            alpha=0.3, seed=0)
+            defs, ploss = cm.convmixer_defs(c), (
+                lambda p, b, c=c: cm.convmixer_loss(p, b, c))
+        else:
+            c = cm.MLPConfig(in_dim=32, hidden=64, depth=2, num_classes=10)
+            pdata = FederatedClassification(num_clients=M, feature_dim=32,
+                                            alpha=0.3, seed=0)
+            defs, ploss = cm.mlp_defs(c), (
+                lambda p, b, c=c: cm.mlp_loss(p, b, c))
+        pp0 = init_params(defs, torch.Generator().manual_seed(0))
+        pd = count_params(defs)
+        jobs.append((model, f"{model} (make_problem, d = {pd:,})", ploss,
+                     pp0, _route_cfg("a", M, N_CLI, K_STEPS),
+                     _plan(pdata, M, PROBLEM_ROUNDS), EXPECT["a"],
+                     GRAPH_SYMBOLS["a"]))
+    for route in MLP_ROUTES:        # the MLP's, the last model above
+        plan = _plan(pdata, M, MLP_ROUNDS)
+        fault = route_fault(route, plan, M, N_CLI, K_STEPS, pd, ploss, pp0,
+                            "cuda")
+        jobs.append((f"mlp {route}", f"route {route} on the MLP", ploss, pp0,
+                     _route_cfg(route, M, N_CLI, K_STEPS, fault), plan,
+                     EXPECT[route], GRAPH_SYMBOLS.get(route, ())))
+    med = lambda xs: float(np.median(xs))
+    for key, label, jl, jp0, cfg, plan, expect, symbols in jobs:
+        def make(jl=jl, jp0=jp0, cfg=cfg):
+            sim = FedSim(jl, cfg)
+            return sim, sim.init(jp0)
+        r = run_rounds_route(key, make, plan, expect, symbols,
+                             seeded=key == "l",
+                             default_mode=key in DEFAULT_MODE_ROUTES)
+        out[key] = r
+        n = len(plan)
+        print(f"run_rounds {label}, deterministic algorithms, {n} rounds: "
+              f"eager round ms (round 0 excluded) median "
+              f"{med(r['eager_round_ms']):.3f} on the host's clock "
+              f"{[round(t, 3) for t in r['eager_round_ms']]}, "
+              f"{med(r['eager_round_event_ms']):.3f} by CUDA events; the "
+              f"graph's replay ms (CUDA events) median "
+              f"{med(r['graph_replay_ms']):.3f} "
+              f"{[round(t, 3) for t in r['graph_replay_ms']]}, "
+              f"{med(r['eager_round_event_ms']) / med(r['graph_replay_ms']):.2f}"
+              f"x by events; whole: {n} eager rounds "
+              f"{r['eager_total_ms']:.1f} ms against the run_rounds call "
+              f"{r['run_rounds_call_ms']:.1f} ms (staging, warm-up, "
+              f"capture, replays, one read), "
+              f"{r['eager_total_ms'] / r['run_rounds_call_ms']:.2f}x; one "
+              f"capture, {n} replays, no sync between them and one after "
+              f"({r['syncs_before_replays']} before); state and metrics = "
+              f"the eager loop's to the bit; graph kernels "
+              f"{r['graph_kernels']}; {r['seconds']:.1f} s; {card}")
+        if "default_graph_replay_ms" in r:
+            eager_ms = res[key]["round_ms"]
+            print(f"run_rounds {label}, default mode, {n} rounds: the "
+                  f"graph's replay ms (CUDA events) median "
+                  f"{med(r['default_graph_replay_ms']):.3f} "
+                  f"{[round(t, 3) for t in r['default_graph_replay_ms']]}; "
+                  f"phase 3's eager round ms (host clock, round 0 "
+                  f"excluded) median {med(eager_ms):.3f}; the run_rounds "
+                  f"call {r['default_run_rounds_call_ms']:.1f} ms against "
+                  f"phase 3's {n} eager rounds "
+                  f"{res[key]['round0_ms'] + sum(eager_ms):.1f} ms; {card}")
+    return out
+
+
 def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
     from repro_torch.core.sim import FedSim
     from repro_torch.data.synthetic import FederatedClassification
@@ -2097,6 +2440,10 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
               f"{[round(t, 2) for t in ms[1:]]}, median "
               f"{np.median(ms[1:]):.2f}; loss {losses}; launches {counts}; "
               f"final state sha256 {res[route]['state_sha256']}")
+    t0 = time.perf_counter()
+    res["run_rounds"] = phase_run_rounds(loss, p0, data, d, rounds, res)
+    res["run_rounds_s"] = time.perf_counter() - t0
+    print(f"phase 3's run_rounds part took {res['run_rounds_s']:.1f} s")
     return res
 
 
@@ -4695,14 +5042,13 @@ def main():
     t_phase = time.perf_counter()
     sl = phase_slice()
     seconds["phase 3"] = time.perf_counter() - t_phase
+    seconds["phase 3, run_rounds"] = sl["run_rounds_s"]
     print(f"phase 3 took {seconds['phase 3']:.1f} s")
-    # route a again with deterministic algorithms: local training on the
-    # card is not bit-reproducible otherwise, so only this run's final
-    # state can be held equal to another build's to the bit
-    t_phase = time.perf_counter()
-    with deterministic():
-        det = phase_slice(rounds=3, routes=("a",))["a"]
-    seconds["route a, deterministic"] = time.perf_counter() - t_phase
+    # local training on the card is bit-reproducible only under
+    # deterministic algorithms, which route a's run_rounds part ran under
+    # (its 6 rounds, eager and through the graph): its final state is the
+    # one to hold equal to another build's to the bit
+    det = sl["run_rounds"]["a"]
     t_phase = time.perf_counter()
     from repro_torch.data.synthetic import FederatedClassification
     from repro_torch.models import convmixer as cm
@@ -4746,6 +5092,15 @@ def main():
     for name, r in kern.items():
         runs = [(route, sl[route]["launches"][name]) for route in ROUTES]
         per_round = {route: n / ROUNDS for route, n in runs if n}
+        # run_rounds' wrapper launches (its eager loops and warm-ups) count;
+        # the graph's are read from its kernel nodes and kept apart
+        rr = sl["run_rounds"].values()
+        wrapped = sum(x["launches_wrapper"][name] for x in rr)
+        in_graph = sum(x["launches_in_graph"][name] for x in rr)
+        runs.append(("run_rounds", wrapped))
+        if wrapped or in_graph:
+            per_round["run_rounds (all, eager + warm-up)"] = wrapped
+            per_round["run_rounds (all, graph nodes x replays)"] = in_graph
         mesh_n = sum(j["launches"][name] for j in mesh_res.values())
         runs += [("m", mesh_n), ("m1", m1["launches"][name])]
         runs += [(route, zoo[route]["launches"][name]) for route in lm_rounds]
@@ -4765,6 +5120,7 @@ def main():
                       f"{_build.SOURCES.get(name, name)}.cu",
             "replaces": REPLACES[name],
             "launches": sum(n for _, n in runs),
+            "graph_launches": in_graph,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"]})

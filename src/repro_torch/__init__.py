@@ -32,7 +32,11 @@ neither ``jax`` nor anything of ``repro``:
                                     and the port's state → the JAX layout
 
 Entry points take ``device=`` and default to CUDA; without a card they
-raise unless the caller asks for ``device="cpu"``.
+raise unless the caller asks for ``device="cpu"``. ``FedSim.run_rounds``
+(and ``FederatedTrainer.run(scan_rounds=R)``) runs R rounds as one
+program, as the reference's scan does: on CUDA one captured CUDA graph of
+a round, replayed R times, with one host read at the end; on the CPU the
+same round body, run eagerly.
 """
 from __future__ import annotations
 

@@ -212,13 +212,22 @@ class FaultInjector:
 
 def plan_to_device(plan: FaultPlan, device) -> FaultPlan:
     """The host plan as tensors on ``device``, ``xor_bits`` as the int32
-    view of the uint32 masks (torch has no uint32 XOR)."""
+    view of the uint32 masks (torch has no uint32 XOR). ``plan`` is one
+    round's, with (n,) arrays, or R rounds' stacked leaf by leaf into
+    (R, n) arrays (:func:`stack_plans`), as ``FedSim.run_rounds`` stages
+    them."""
     return FaultPlan(
         survivors=torch.from_numpy(plan.survivors).to(device),
         corrupt=torch.from_numpy(plan.corrupt).to(device),
         xor_bits=torch.from_numpy(
             np.ascontiguousarray(plan.xor_bits).view(np.int32)).to(device),
         trunc_keep=torch.from_numpy(plan.trunc_keep).to(device))
+
+
+def stack_plans(plans) -> FaultPlan:
+    """R rounds' host plans as one plan of (R, n) arrays, leaf by leaf (the
+    reference's ``FaultPlan(*(np.stack(leaf) for leaf in zip(*plans)))``)."""
+    return FaultPlan(*(np.stack(leaf) for leaf in zip(*plans)))
 
 
 def _flip_bits(x, xor_bits):

@@ -297,8 +297,7 @@ def make_blocktopk_codec(ratio: float, block: int = 2048,
         """Per-block int8 quantization of (..., nb, kb) kept values; returns
         (scale (..., nb), q (..., nb, kb) int8)."""
         amax = vals.abs().amax(dim=-1)
-        scale = ref.div_rn(torch.maximum(amax, amax.new_tensor(1e-30)),
-                           127.0)
+        scale = ref.div_rn(amax.clamp_min(1e-30), 127.0)
         return scale, torch.round(vals / scale[..., None]).to(torch.int8)
 
     def _bases(nb: int, bs: int, device):

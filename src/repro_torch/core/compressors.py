@@ -231,8 +231,7 @@ def randk_positions(rng: Optional[torch.Generator], d: int, k: int,
 
 def make_int8() -> Compressor:
     def compress(x, rng=None):
-        scale = ref.div_rn(x.abs().amax(), 127.0)
-        scale = torch.maximum(scale, scale.new_tensor(1e-30))
+        scale = ref.div_rn(x.abs().amax(), 127.0).clamp_min(1e-30)
         return torch.round(x / scale) * scale
 
     return Compressor(

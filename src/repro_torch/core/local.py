@@ -13,7 +13,7 @@ The port trains each client on the flat (d,) parameter vector, so a rule's
   drawn from a ``torch.Generator`` (the JAX PRNG stream is not reproduced;
   parity tests hand both packages the same counts).
 * :func:`run_local_steps` — the K-step loop, with steps ``t >= k_i``
-  masked to no-ops.
+  masked to no-ops on the device (no host read of ``k_i``).
 """
 from __future__ import annotations
 
@@ -68,7 +68,9 @@ def make_local_update(fed: FedConfig) -> LocalUpdate:
 
 def local_lr(fed: FedConfig, round_idx: int) -> float:
     """η_l for this round: ``eta_l · eta_l_decay^t``, the decay power taken
-    in fp32 as the JAX schedule takes it."""
+    in fp32 as the JAX schedule takes it. Computed on the host; FedSim
+    hands it to the round as a 0-d fp32 tensor on the round's device, so a
+    captured round reads each round's value rather than baking one in."""
     if fed.eta_l_decay == 1.0:
         return fed.eta_l
     decay = torch.tensor(fed.eta_l_decay, dtype=torch.float32)
@@ -93,23 +95,33 @@ def run_local_steps(rule: LocalUpdate, grad_fn: Callable, params, batches,
     """K local steps of ``rule`` from the flat ``params`` over ``batches``
     (a dict of tensors with leading dim K).
 
-    ``grad_fn(params, batch) -> (loss, grads)``. ``k_i`` (an int or a 0-d
-    tensor) masks steps ``t >= k_i`` to no-ops — params, carry and loss
-    freeze. Returns ``(local_params, mean_loss)``, the mean over the steps
-    actually executed."""
+    ``grad_fn(params, batch) -> (loss, grads)``; ``eta_l``: a float or a
+    0-d tensor. ``k_i`` (an int or a 0-d integer tensor, moved to
+    ``params``' device; FedSim stages it there) masks
+    steps ``t >= k_i`` to no-ops with ``torch.where`` — params, carry and
+    loss freeze — so the loop never reads ``k_i`` on the host, as the
+    reference's scan takes a traced ``k_i``. Returns ``(local_params,
+    mean_loss)``, the mean over the steps actually executed: a true
+    division by the 0-d ``max(k_i, 1)``."""
     anchor = params
     p, c = params, rule.init_carry(params)
     k = next(iter(batches.values())).shape[0]
+    if k_i is not None:
+        k_i = torch.as_tensor(k_i, device=params.device)
     losses = []
     for t in range(k):
-        if k_i is not None and not t < int(k_i):
-            losses.append(torch.zeros((), dtype=torch.float32,
-                                      device=params.device))
-            continue
         loss, g = grad_fn(p, {key: val[t] for key, val in batches.items()})
-        p, c = rule.step(p, c, g, eta_l, anchor)
-        losses.append(loss)
+        pn, cn = rule.step(p, c, g, eta_l, anchor)
+        if k_i is None:
+            p, c = pn, cn
+            losses.append(loss)
+            continue
+        active = k_i > t
+        p = torch.where(active, pn, p)
+        if isinstance(c, torch.Tensor):
+            c = torch.where(active, cn, c)
+        losses.append(torch.where(active, loss, 0.0))
     losses = torch.stack(losses)
     if k_i is None:
         return p, losses.mean()
-    return p, losses.sum() / max(int(k_i), 1)
+    return p, losses.sum() / k_i.clamp_min(1).to(losses.dtype)

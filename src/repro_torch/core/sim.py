@@ -53,11 +53,32 @@ chunk on the sparse path), summing into a running aggregate; and
 ``fed.agg_groups`` aggregates in two tiers (a dense partial per group,
 then their sum), billing the g partials as tier-2 wire bytes.
 
+Many rounds, one program (:meth:`FedSim.run_rounds`, the reference's
+``lax.scan`` over rounds): the host stages all R rounds first — the ids (checked
+once), each round's network timing and fault plan, its step counts and
+randk's positions drawn from its generator, η_l, the batches — and one
+body (:meth:`FedSim._rounds_body`) runs round after round on a static copy
+of the state, reading its round's inputs at a round counter on the device
+and writing the new state back into the copy. On CUDA the body is captured
+once into a CUDA graph (per shape and setting, kept with the FedSim) and
+replayed R times, with no host work between replays and one host read of
+the stacked metrics; on the CPU it runs eagerly. Every kernel of the round
+runs inside the graph as itself; the launch counters count what the
+wrappers launched (the warm-up run's), and the capture's launches are kept
+with the program. The host counters (``bits``, the wire bytes and times,
+the fault verdicts) are booked after, as in the reference.
+:meth:`FedSim.round` stages its one round the same way and books through
+the same helper; a round takes η_l as a 0-d tensor and masks
+heterogeneous steps on the device (``core.local``), so the two drivers
+compute one thing, to the bit.
+
 With ``fed.async_buffer`` the rounds are event-driven
 (``comm.async_engine.AsyncRoundEngine``): :meth:`FedSim.run_rounds`
 dispatches the staged cohorts (:meth:`FedSim._async_dispatch`) and flushes
 every B deliveries (:meth:`FedSim._async_flush`); :meth:`FedSim.round`
-refuses.
+refuses. With ``fed.ef_store`` :meth:`FedSim.run_rounds` is a loop of
+:meth:`FedSim.round` (the cohort's rows move host↔device each round), as
+in the reference.
 
 randk draws its positions every round (``compressors.randk_positions``,
 from the round's generator): the n clients' sets, γ's and the two-way
@@ -66,9 +87,10 @@ downlink's.
 Differences from the JAX class: the state holds the FLAT (d,) model
 (``FedSim.unravel`` gives the dict of views in JAX shapes); a round updates
 the input state's EF buffer in place, as the JAX round donates it, so keep
-only the returned state; per-client local training is a loop of
-``torch.autograd`` steps; ``run_rounds`` is a plain loop; randk takes
-drawn positions where the JAX compressor takes a PRNG key.
+only the returned state (``run_rounds`` works on its own copy and leaves
+the input state as it was); per-client local training is a loop of
+``torch.autograd`` steps, where the reference vmaps the clients; randk
+takes drawn positions where the JAX compressor takes a PRNG key.
 """
 from __future__ import annotations
 
@@ -77,14 +99,15 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.store import EFStore
 from repro_torch.comm.async_engine import AsyncRoundEngine
-from repro_torch.comm.faults import (FaultConfig, FaultInjector,
+from repro_torch.comm.faults import (FaultConfig, FaultInjector, FaultPlan,
                                      corrupt_dense, corrupt_selection,
-                                     plan_to_device, validate_dense,
-                                     validate_selection)
+                                     plan_to_device, stack_plans,
+                                     validate_dense, validate_selection)
 from repro_torch.comm.metrics import CommLog
 from repro_torch.comm.transport import NetworkConfig, SimulatedNetwork
 from repro_torch.comm.wire import make_dense32_codec, make_wire_codec
@@ -104,8 +127,14 @@ from repro_torch.core.stages import (client_uplink, client_uplink_sparse,
                                      server_aggregate_sparse_masked,
                                      server_aggregate_sparse_weighted,
                                      server_downlink, stage)
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.models.params import ravel
+
+#: runs of a round's body on a side stream before its capture, so that what
+#: initializes lazily (the cuBLAS/cuDNN handles and workspaces, the
+#: autograd engine's device thread, the kernels' first-use attributes, the
+#: codecs' cached headers) does so outside the capture
+WARMUP_ROUNDS = 1
 
 
 class SimState(NamedTuple):
@@ -118,6 +147,119 @@ class SimState(NamedTuple):
     x_client: torch.Tensor      # (d,) model as clients see it
     bits: int                   # cumulative one-way communicated bits
     round: int
+
+
+class _Staged(NamedTuple):
+    """R rounds' inputs on the device, each leading with R: what
+    :meth:`FedSim._rounds_body` reads at its round counter."""
+    batches: dict                   # name → (R, n, K, ...)
+    idx: torch.Tensor               # (R, n) int64 client ids
+    eta_l: torch.Tensor             # (R,) fp32
+    k_all: Optional[torch.Tensor]   # (R, n) int64 step counts, or None
+    draws: Optional[torch.Tensor]   # (R, n + 2, k) int64 randk positions
+    fplan: Optional[FaultPlan]      # (R, n) device plan, or None
+
+
+def _host_ids(client_idx) -> np.ndarray:
+    """Client ids (a host array or a tensor) as a host int64 array."""
+    if isinstance(client_idx, torch.Tensor):
+        client_idx = client_idx.cpu().numpy()
+    return np.array(client_idx, dtype=np.int64)
+
+
+def _core(state: SimState):
+    """The device part of a state: params, opt, errors, server_error,
+    x_client."""
+    return tuple(state[:5])
+
+
+def _tensors(tree) -> list:
+    return [t for t in pytree.tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
+def _shapes(tree) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in _tensors(tree))
+
+
+class _Program:
+    """R rounds of one FedSim as one program: a static carry (copies of the
+    state's tensors, so the caller's stay as they were), static inputs (a
+    :class:`_Staged`), a round counter on the device and the (keys, R)
+    metric slots. On CUDA the body is captured once into a CUDA graph,
+    after :data:`WARMUP_ROUNDS` runs on the carry on its own stream, which
+    are undone by loading the state again; each later run replays it.
+    ``counts``: the kernel launches the capture recorded into the graph
+    (:func:`repro_torch.kernels.ops.captured_launches`), which each replay
+    runs again; :data:`repro_torch.kernels.ops.launches` counts only the
+    launches a wrapper made (the warm-up's)."""
+
+    def __init__(self, core, staged: _Staged, keys, device):
+        self.keys = keys
+        self.device = device
+        R = staged.idx.shape[0]
+        self.carry = pytree.tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t, core)
+        self.inputs = staged
+        self.ctr = torch.zeros(1, dtype=torch.int64, device=device)
+        self.out = torch.zeros((len(keys), R), dtype=torch.float32,
+                               device=device)
+        self.graph = self.counts = None
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def load(self, core, staged: _Staged):
+        """The state into the carry, the inputs into the static inputs
+        (unless they are them), the counter to 0."""
+        for dst, src in zip(_tensors(self.carry), _tensors(core)):
+            dst.copy_(src)
+        if staged is not self.inputs:
+            for dst, src in zip(_tensors(self.inputs), _tensors(staged)):
+                dst.copy_(src)
+        self.ctr.zero_()
+
+    def write(self, core, met):
+        """A round's new state into the carry (a part the round left as it
+        was, or updated in place, is its slot already), its metrics into
+        column ``ctr``; the counter + 1."""
+        for dst, src in zip(_tensors(self.carry), _tensors(core)):
+            if src is not dst:
+                dst.copy_(src)
+        for j, key in enumerate(self.keys):
+            self.out[j].index_copy_(0, self.ctr,
+                                    met[key].reshape(1).to(self.out.dtype))
+        self.ctr.add_(1)
+
+    def run(self, sim: "FedSim", R: int, core):
+        """R rounds from the loaded state ``core`` → the (keys, R) metrics
+        on the host: the one host read."""
+        if self.stream is None:
+            for _ in range(R):
+                sim._rounds_body(self)
+            return self.out.clone()
+        here = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            if self.graph is None:
+                for _ in range(WARMUP_ROUNDS):
+                    sim._rounds_body(self)
+                self.load(core, self.inputs)
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with ops.captured_launches() as counts:
+                    with torch.cuda.graph(graph, stream=self.stream):
+                        sim._rounds_body(self)
+                graph.instantiate()
+                self.graph, self.counts = graph, counts
+            for _ in range(R):
+                self.graph.replay()
+        here.wait_stream(self.stream)
+        return self.out.cpu()
+
+    def result(self):
+        """The state after the run, as tensors of its own."""
+        return pytree.tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+            self.carry)
 
 
 class FedSim:
@@ -192,6 +334,8 @@ class FedSim:
         self._randk = (self.comp is not None
                        and self.comp.name.startswith("randk"))
         self._efs = None   # EFStore, made in init() once d is known
+        #: run_rounds' programs by shape and setting (CUDA graphs on CUDA)
+        self._programs = {}
         self.unravel = None
         self.codec = self.network = self.comm_log = None
         if network is not None and not fed.wire:
@@ -288,6 +432,18 @@ class FedSim:
                 fplan = plan_to_device(fplan, self.device)
         return batches, rows, fplan
 
+    def _eta_l(self, round_idx: int):
+        """η_l of round ``round_idx`` (computed on the host) as a 0-d fp32
+        tensor on the round's device, filled there."""
+        return torch.full((), local_lr(self.fed, round_idx),
+                          dtype=torch.float32, device=self.device)
+
+    def _step_counts(self, rng, n: int):
+        """The heterogeneous step counts of one round, drawn from ``rng``
+        on the host, on the round's device; None when they are off."""
+        k_all = hetero_step_counts(self.fed, rng, n)
+        return None if k_all is None else k_all.to(self.device)
+
     def _draws(self, rng, n: int):
         """randk's positions for one round — (n + 2, k): the n clients'
         sets, γ's and the two-way downlink's — or None for every other
@@ -317,67 +473,184 @@ class FedSim:
                 "buffered engine, which consumes ALL staged cohorts in one "
                 "call — use run_rounds(...) (FederatedTrainer.run stages "
                 "this automatically)")
-        if isinstance(client_idx, torch.Tensor):
-            client_idx = client_idx.cpu().numpy()
         if isinstance(prefetch_idx, torch.Tensor):
             prefetch_idx = prefetch_idx.cpu().numpy()
-        ids = np.array(client_idx, dtype=np.int64)
-        if np.unique(ids).size != ids.size:
-            raise ValueError("client_idx must hold distinct client ids")
-        # the network's timing and the fault plan are host-side numpy,
-        # drawn before the round: the deadline cut needs the client times
-        timing = self._round_timing(ids, state.round)
-        fplan = finfo = None
-        if self.faults is not None:
-            fplan, finfo = self.faults.plan(ids, state.round, timing)
-        batches, idx, fplan = self._host_to_device(client_batches, ids, fplan)
-        k_all = hetero_step_counts(self.fed, rng, ids.size)
-        draws = self._draws(rng, ids.size)
-        if self._efs is None:
-            new_state, met = self._round_impl(state, batches, idx,
-                                              state.round, k_all, fplan,
-                                              draws)
-        else:
+        ids = _host_ids(client_idx)
+        staged, timings, finfos = self._stage_rounds(
+            state, {k: torch.as_tensor(v)[None]
+                    for k, v in client_batches.items()}, ids[None], [rng])
+        at = lambda t: None if t is None else t[0]
+        batches = {k: v[0] for k, v in staged.batches.items()}
+        fplan = (None if staged.fplan is None
+                 else FaultPlan(*(t[0] for t in staged.fplan)))
+        cohort, rows = state, staged.idx[0]
+        if self._efs is not None:
             with stage("ef_store"):
-                rows = torch.from_numpy(self._efs.gather(ids))
-                cohort = state._replace(errors=rows.to(self.device))
-            pos = torch.arange(ids.size, device=self.device)
-            new_state, met = self._round_impl(cohort, batches, pos,
-                                              state.round, k_all, fplan,
-                                              draws)
+                held = torch.from_numpy(self._efs.gather(ids))
+                cohort = state._replace(errors=held.to(self.device))
+            rows = torch.arange(ids.size, device=self.device)
+        with ops.rows_prechecked():
+            new_state, met = self._round_impl(
+                cohort, batches, rows, at(staged.eta_l), at(staged.k_all),
+                fplan, at(staged.draws))
+        if self._efs is not None:
             with stage("ef_store"):
                 if prefetch_idx is not None:
                     self._efs.prefetch(np.asarray(prefetch_idx))
                 # the copy back waits for the round; the prefetch overlaps
                 self._efs.scatter(ids, new_state.errors.cpu().numpy())
         bits = state.bits + self._bits_per_round(ids.size)
+        return (new_state._replace(bits=bits, round=state.round + 1),
+                self._book(met, bits, timings[0], finfos[0]))
+
+    def _book(self, met: dict, bits: int, timing, finfo) -> dict:
+        """A round's metrics, ``met`` (its device values), completed with
+        its host counters: ``bits``, the wire timing booked into the
+        CommLog, the fault verdicts. Both drivers book through here."""
         met["bits"] = bits
         if timing is not None:
             met.update(self._record_timing(timing, finfo))
         if finfo is not None:
             met["crashed"] = finfo["crashed"]
             met["deadline_cut"] = finfo["deadline_cut"]
-        return new_state._replace(bits=bits, round=state.round + 1), met
+        return met
 
     def run_rounds(self, state: SimState, client_batches, client_idx,
                    rngs=None):
-        """R rounds as a loop of :meth:`round`. ``client_batches``: leading
-        (R, n, K, ...); ``client_idx``: (R, n); ``rngs``: R generators or
-        None. Returns ``(new_state, mets)``. With ``fed.ef_store`` each
-        round prefetches the next round's rows. With ``fed.async_buffer``
-        the async engine consumes all R cohorts and returns one metric dict
-        per FLUSH — ``ceil(deliveries / B)`` of them, not R."""
+        """R synchronous rounds as one program, as the reference's scan.
+        ``client_batches``: leading (R, n, K, ...); ``client_idx``: (R, n);
+        ``rngs``: R generators or None. Returns ``(new_state, mets)``, the
+        per-round metric dicts :meth:`round` gives (``loss``, ``gamma`` and
+        the fault counts as 0-d CPU tensors), bit for bit.
+
+        Everything the rounds draw on the host is staged first
+        (:meth:`_stage_rounds`); then one body (:meth:`_rounds_body`) runs
+        round after round on a static copy of the state, reading its round's
+        inputs at a round counter on the device. On CUDA the body is
+        captured once into a ``torch.cuda.CUDAGraph`` (one per shape and
+        setting, kept with this FedSim) and replayed R times, with no host
+        work between replays and one host read of the stacked metrics at the
+        end; on the CPU it runs eagerly. A capture or launch that fails
+        raises. The input state is left as it was.
+
+        With ``fed.ef_store`` each round's cohort rows move host↔device
+        around the round, which no static carry holds, so the rounds are a
+        loop of :meth:`round` that prefetches the next round's rows. With
+        ``fed.async_buffer`` the async engine consumes all R cohorts and
+        returns one metric dict per FLUSH — ``ceil(deliveries / B)`` of them,
+        not R."""
         if self._async is not None:
             return self._async.run(state, client_batches, client_idx, rngs)
-        mets = []
-        R = len(client_idx)
-        for r in range(R):
-            b_r = {k: v[r] for k, v in client_batches.items()}
-            state, met = self.round(
-                state, b_r, client_idx[r], None if rngs is None else rngs[r],
-                prefetch_idx=client_idx[r + 1] if r + 1 < R else None)
-            mets.append(met)
-        return state, mets
+        if self._efs is not None:
+            mets = []
+            R = len(client_idx)
+            for r in range(R):
+                b_r = {k: v[r] for k, v in client_batches.items()}
+                state, met = self.round(
+                    state, b_r, client_idx[r],
+                    None if rngs is None else rngs[r],
+                    prefetch_idx=client_idx[r + 1] if r + 1 < R else None)
+                mets.append(met)
+            return state, mets
+        ids = _host_ids(client_idx)
+        R, n = ids.shape
+        staged, timings, finfos = self._stage_rounds(state, client_batches,
+                                                     ids, rngs)
+        prog = self._program(state, staged)
+        stacked = prog.run(self, R, _core(state))
+        bpr = self._bits_per_round(n)
+        mets = [self._book({key: stacked[j, r]
+                            for j, key in enumerate(prog.keys)},
+                           state.bits + bpr * (r + 1), timings[r], finfos[r])
+                for r in range(R)]
+        return SimState(*prog.result(), bits=state.bits + bpr * R,
+                        round=state.round + R), mets
+
+    def _stage_rounds(self, state: SimState, client_batches, ids, rngs):
+        """What R rounds draw and read, made before the first of them, for
+        both drivers (:meth:`round` stages its one round here): the ids
+        ``(R, n)``, checked (distinct in each round, in ``[0, m)``), so the
+        EF kernels' row checks are off in the rounds; each round's network
+        timing and fault plan (host numpy, the plans stacked into (R, n)
+        arrays); its step counts and randk's positions, drawn from
+        ``rngs[r]`` in that order; η_l, computed on the host; and the
+        batches. Returns ``(staged, timings, finfos)``: a :class:`_Staged`
+        of (R, …)-leading tensors on the device, and the host-side timings
+        and fault verdicts."""
+        R, n = ids.shape
+        m = self.fed.num_clients
+        for row in ids:
+            if np.unique(row).size != n:
+                raise ValueError("client_idx must hold distinct client ids")
+        if ids.size and (ids.min() < 0 or ids.max() >= m):
+            raise ValueError(f"client_idx must lie in [0, {m})")
+        timings = [self._round_timing(ids[r], state.round + r)
+                   for r in range(R)]
+        finfos = [None] * R
+        plans = []
+        if self.faults is not None:
+            for r in range(R):
+                p, finfos[r] = self.faults.plan(ids[r], state.round + r,
+                                                timings[r])
+                plans.append(p)
+        with stage("host_to_device"):
+            k_all, draws = [], []
+            for r in range(R):
+                rng = None if rngs is None else rngs[r]
+                k_all.append(self._step_counts(rng, n))
+                draws.append(self._draws(rng, n))
+            eta_l = torch.tensor([local_lr(self.fed, state.round + r)
+                                  for r in range(R)], dtype=torch.float32)
+            staged = _Staged(
+                batches={k: torch.as_tensor(v).to(self.device)
+                         for k, v in client_batches.items()},
+                idx=torch.from_numpy(ids).to(self.device),
+                eta_l=eta_l.to(self.device),
+                k_all=None if k_all[0] is None else torch.stack(k_all),
+                draws=None if draws[0] is None else torch.stack(draws),
+                fplan=(plan_to_device(stack_plans(plans), self.device)
+                       if plans else None))
+        return staged, timings, finfos
+
+    def _program(self, state: SimState, staged) -> "_Program":
+        """The program for this state's and these inputs' shapes and the
+        settings that pick kernels (deterministic algorithms, TF32), made
+        on first use and kept; loaded with ``state`` and ``staged``."""
+        core = _core(state)
+        key = (_shapes(core), _shapes(staged),
+               str(pytree.tree_structure(staged)),
+               torch.are_deterministic_algorithms_enabled(),
+               torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32)
+        prog = self._programs.get(key)
+        if prog is None:
+            keys = ("loss", "gamma") + (("survivors", "rejected")
+                                        if self.faults is not None else ())
+            prog = self._programs[key] = _Program(core, staged, keys,
+                                                  self.device)
+        prog.load(core, staged)
+        return prog
+
+    def _rounds_body(self, prog: "_Program"):
+        """One round of :meth:`run_rounds`: round ``prog.ctr``'s inputs,
+        :meth:`_round_impl` on the static carry, the new state written back
+        into it (the EF buffer is updated in place, as the reference's
+        donated carry), the metrics into their slot, and the counter
+        advanced. No host read: every value that varies by round is read on
+        the device."""
+        st, ctr = prog.inputs, prog.ctr
+        at = lambda t: None if t is None else t.index_select(0, ctr)[0]
+        fplan = (None if st.fplan is None
+                 else FaultPlan(*(at(t) for t in st.fplan)))
+        state = SimState(*prog.carry, bits=0, round=0)
+        with ops.rows_prechecked():
+            new, met = self._round_impl(
+                state, {k: at(v) for k, v in st.batches.items()},
+                at(st.idx), at(st.eta_l), at(st.k_all), fplan, at(st.draws))
+        if set(met) != set(prog.keys):
+            raise RuntimeError(f"run_rounds: the round's metrics {sorted(met)}"
+                               f" are not the program's {prog.keys}")
+        prog.write(_core(new), met)
 
     def _grad(self, p, batch):
         p = p.detach().requires_grad_(True)
@@ -398,7 +671,7 @@ class FedSim:
             losses.append(loss)
         return torch.stack(deltas), torch.stack(losses)
 
-    def _fault_round(self, state: SimState, batches, client_idx, round_idx,
+    def _fault_round(self, state: SimState, batches, client_idx, eta_l,
                      k_all, fplan, draws=None):
         """Fault-tolerant round: every client trains and uplinks as usual —
         the damage is in transit — then the server masks the aggregate down
@@ -424,8 +697,7 @@ class FedSim:
         d = flat0.numel()
         n = client_idx.numel()
         with stage("local_training"):
-            delta, losses = self._train_block(flat0, batches,
-                                              local_lr(fed, round_idx), k_all)
+            delta, losses = self._train_block(flat0, batches, eta_l, k_all)
             # the cohort mean: every client trained, delivered or not
             loss = losses.mean()
         errors = state.errors
@@ -532,16 +804,20 @@ class FedSim:
         return (agg, torch.cat(losses), ref.div_rn(s_tot, n),
                 ref.div_rn(s_delta, n))
 
-    def _round_impl(self, state: SimState, batches, client_idx, round_idx,
+    def _round_impl(self, state: SimState, batches, client_idx, eta_l,
                     k_all, fplan=None, draws=None):
+        """One round on the device: ``eta_l`` a 0-d fp32 tensor, ``k_all``
+        the (n,) step counts on the device or None, ``fplan`` a device
+        plan or None, ``draws`` randk's (n + 2, k) positions or None.
+        Returns ``(state, met)``, ``met`` holding 0-d device tensors; the
+        host counters are the caller's."""
         if fplan is not None:
-            return self._fault_round(state, batches, client_idx, round_idx,
+            return self._fault_round(state, batches, client_idx, eta_l,
                                      k_all, fplan, draws)
         fed = self.fed
         n = client_idx.numel()
         flat0 = state.x_client
         d = flat0.numel()
-        eta_l = local_lr(fed, round_idx)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         errors = state.errors
         cc = fed.client_chunk
@@ -631,7 +907,7 @@ class FedSim:
         fed = self.fed
         with stage("local_training"):
             delta, losses = self._train_block(x_client, batches,
-                                              local_lr(fed, round_idx), k_all)
+                                              self._eta_l(round_idx), k_all)
         with stage("uplink"):
             old_rows = errors[client_idx] if fplan is not None else None
             vals, sidx = client_uplink_sparse(self.comp, errors, client_idx,

@@ -127,11 +127,13 @@ def ef_update_sparse(errors, rows, idx, sel_vals, rx_vals):
     """Finish sparse-path error feedback in place on the (m, d) buffer:
     the selected coordinates become ``sel_vals − rx_vals`` (exact zeros on
     a float32 wire). ``rows``: (c,); ``idx``/``sel_vals``/``rx_vals``:
-    (c, k). Padded-block positions (``idx >= d``) are dropped."""
+    (c, k). Padded-block positions (``idx >= d``) are dropped: they write a
+    spare column past the end, so no boolean mask (and its host sync)
+    decides the shapes."""
     d = errors.shape[1]
-    r = rows[:, None].expand(idx.shape)
-    keep = idx < d
-    errors[r[keep], idx[keep].long()] = (sel_vals - rx_vals)[keep]
+    buf = torch.cat([errors[rows], errors.new_zeros(rows.numel(), 1)], 1)
+    buf.scatter_(1, torch.where(idx < d, idx, d).long(), sel_vals - rx_vals)
+    errors[rows] = buf[:, :d]
 
 
 def scatter_add_clients(acc, vals, idx):

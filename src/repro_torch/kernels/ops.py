@@ -23,6 +23,8 @@ functions above, each leaf a (1, d_leaf) row with ``rows = [0]``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 from dataclasses import dataclass
 from typing import Optional
@@ -44,6 +46,40 @@ _STATE_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph's capture: yields a dict that holds, on exit,
+    each kernel's launches recorded into the graph. Capture runs no kernel,
+    so :data:`launches` is left as it was; a replay runs the recorded
+    launches and counts in no wrapper (read a graph's kernel nodes from its
+    ``debug_dump``)."""
+    before = dict(launches)
+    counts = {}
+    try:
+        yield counts
+    finally:
+        counts.update({name: launches[name] - before[name]
+                       for name in launches})
+        launches.update(before)
+
+
+#: true (in this thread or task) while :func:`rows_prechecked` is open
+_ROWS_PRECHECKED = contextvars.ContextVar("rows_prechecked", default=False)
+
+
+@contextlib.contextmanager
+def rows_prechecked():
+    """Within: the EF kernels' ``rows`` were checked before (``FedSim``
+    checks its client ids on the host, once a call of ``round`` or
+    ``run_rounds``), so the public wrappers skip :func:`_check_rows` and
+    its host sync."""
+    token = _ROWS_PRECHECKED.set(True)
+    try:
+        yield
+    finally:
+        _ROWS_PRECHECKED.reset(token)
 
 
 def _kernel_route(t) -> bool:
@@ -134,8 +170,10 @@ def topk_ef_sparse(x, err, rows, *, k: int, block: int):
     (``err[rows]`` is updated in place; returns ``(vals, idx)`` (c, nb, k)).
     """
     if _kernel_route(x):
-        return topk_ef_sparse_cuda(x, err, rows, k=k, block=block)
-    _check_rows(rows, err.shape[0])
+        return topk_ef_sparse_cuda(x, err, rows, k=k, block=block,
+                                   check_rows=not _ROWS_PRECHECKED.get())
+    if not _ROWS_PRECHECKED.get():
+        _check_rows(rows, err.shape[0])
     return ref.topk_ef_sparse(x, err, rows, k=k, block=block)
 
 
@@ -165,8 +203,10 @@ def topk_ef(x, err, rows, *, k: int, block: int):
     :func:`repro_torch.kernels.ref.topk_ef` for the contract (``err[rows]``
     becomes ``tot - hat`` in place; returns the (c, d) hat)."""
     if _kernel_route(x):
-        return topk_ef_cuda(x, err, rows, k=k, block=block)
-    _check_rows(rows, err.shape[0], "topk_ef")
+        return topk_ef_cuda(x, err, rows, k=k, block=block,
+                            check_rows=not _ROWS_PRECHECKED.get())
+    if not _ROWS_PRECHECKED.get():
+        _check_rows(rows, err.shape[0], "topk_ef")
     return ref.topk_ef(x, err, rows, k=k, block=block)
 
 
@@ -195,8 +235,10 @@ def sign_ef(x, err, rows):
     :func:`repro_torch.kernels.ref.sign_ef` for the contract (``err[rows]``
     becomes ``tot - hat`` in place; returns the (c, d) hat)."""
     if _kernel_route(x):
-        return sign_ef_cuda(x, err, rows)
-    _check_rows(rows, err.shape[0], "sign_ef")
+        return sign_ef_cuda(x, err, rows,
+                            check_rows=not _ROWS_PRECHECKED.get())
+    if not _ROWS_PRECHECKED.get():
+        _check_rows(rows, err.shape[0], "sign_ef")
     return ref.sign_ef(x, err, rows)
 
 
