@@ -69,6 +69,16 @@ then, on the card:
    small MLP problem, every route below (route g through the trainer, j
    through the async engine, l on randk positions drawn on the host), with
    the fault verdicts of routes h and i and j's flushes equal;
+   then the block part: FedSim's local phase, one ``torch.func.vmap``
+   program over a block of clients (``FedSim._train_block``), against its
+   plain twin ``core.local.train_clients_loop`` (the clients one after
+   another, autograd's gradient) on route a's round-0 block (n = 10, K = 3,
+   batch 20) of ConvMixer-256-8 and make_problem's ConvMixer and MLP: under
+   deterministic algorithms the per-client largest difference beside the
+   largest |Δ| (fails past ``BLOCK_TOL``) and whether the two are bitwise
+   equal; each form's CUDA-event ms (deterministic and default mode) and
+   peak memory over the baseline, beside the batched block's activations
+   reckoned on the ConvMixers;
 3. runs the FedCAMS round on ConvMixer-256-8 (random weights from a seed,
    synthetic CIFAR-shaped data), 6 rounds on each route:
    (a) blocktopk, ``track_gamma=False``, fused ingest → ``topk_ef_sparse``
@@ -152,7 +162,9 @@ then, on the card:
 4. runs the mesh backend (``core.mesh``): route m on four gloo ranks
    sharing the card — ConvMixer-256-8 as one flat leaf, 3 rounds of
    blocktopk ``sparse_topk`` fused and two-pass, equal to the port's
-   FedSim to the bit; then the model's 52-leaf tree, 3 rounds each of
+   FedSim to the bit (on that FedSim alone the local phase is the loop
+   twin: the mesh trains a client a rank, and the batched block's grouped
+   convolution is not the per-client one's bits on the card); then the model's 52-leaf tree, 3 rounds each of
    sparse at n = 3 of 4, hierarchical (2 × 2), packed sign, dense
    blocktopk, dense sign, ZeRO-sharded server state, 6 of crashes with bit
    flips, and 3 rounds through ``FederatedTrainer(mesh=...).run`` — and
@@ -2204,6 +2216,140 @@ def run_rounds_route(name, make, plan, expect, symbols=(),
     return out
 
 
+def problem(model: str):
+    """``(loss, p0, data, d, cfg)`` of one model: make_problem's
+    ``"convmixer"`` or ``"mlp"``, or ConvMixer-256-8 (``"convmixer-256-8"``,
+    routes a-l's, on CIFAR-shaped data); weights seeded, data Dirichlet
+    α = 0.3 over M clients."""
+    from repro_torch.data.synthetic import FederatedClassification
+    from repro_torch.models import convmixer as cm
+    from repro_torch.models.params import count_params, init_params
+    if model == "mlp":
+        c = cm.MLPConfig(in_dim=32, hidden=64, depth=2, num_classes=10)
+        data = FederatedClassification(num_clients=M, feature_dim=32,
+                                       alpha=0.3, seed=0)
+        defs, loss = cm.mlp_defs(c), (lambda p, b: cm.mlp_loss(p, b, c))
+    else:
+        c = (cm.ConvMixerConfig() if model == "convmixer-256-8" else
+             cm.ConvMixerConfig(dim=32, depth=4, kernel=5, patch=2,
+                                num_classes=10, image=16))
+        data = FederatedClassification(
+            num_clients=M, image_shape=(c.image, c.image, 3), alpha=0.3,
+            seed=0)
+        defs, loss = cm.convmixer_defs(c), (
+            lambda p, b: cm.convmixer_loss(p, b, c))
+    return (loss, init_params(defs, torch.Generator().manual_seed(0)), data,
+            count_params(defs), c)
+
+
+# ---------------------------------------------------------------------------
+# the block part: FedSim's local phase, batched, against its loop twin
+# ---------------------------------------------------------------------------
+
+#: the blocks: route a's on ConvMixer-256-8 and on make_problem's two models,
+#: each n = N_CLI clients, K_STEPS steps, batch BATCH
+BLOCK_MODELS = ("convmixer-256-8", "convmixer", "mlp")
+#: the batched deltas against the loop's, absolute, per element (the CPU
+#: reads 1.49e-8 to 2.98e-8 on make_problem's ConvMixer and 0 on the MLP,
+#: tests/test_torch_local_block.py); past it is a fault, not a bound to raise
+BLOCK_TOL = 1e-6
+BLOCK_ITERS = 3     # timed runs of each form (one more to warm up)
+
+
+def _block_run(fn, iters: int = BLOCK_ITERS):
+    """``fn()``'s output, the CUDA-event ms of ``iters`` runs after one
+    warm-up run (each to a synchronize), and the card's peak memory over
+    the baseline in GB."""
+    out = fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(iters):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def phase_block() -> dict:
+    """FedSim's local phase, one ``torch.func.vmap`` program over the block
+    (``FedSim._train_block``), against ``core.local.train_clients_loop``
+    (the clients one after another on the autograd gradient) on the same
+    inputs: route a's round-0 block of each of ``BLOCK_MODELS``, under
+    deterministic algorithms, then both forms timed in the default mode.
+    Fails past ``BLOCK_TOL``; prints the per-client largest difference
+    beside the largest |Δ|, whether the two are bitwise equal, each form's
+    ms and its peak memory (and, on the ConvMixers, the activations the
+    batched block holds, reckoned)."""
+    from repro_torch.core.local import autograd_grad_fn, train_clients_loop
+    from repro_torch.core.sim import FedSim
+
+    card = card_line()
+    med = lambda xs: float(np.median(xs))
+    out = {}
+    for model in BLOCK_MODELS:
+        t0 = time.perf_counter()
+        loss, p0, data, d, c = problem(model)
+        sim = FedSim(loss, _route_cfg("a", M, N_CLI, K_STEPS))
+        flat0 = sim.init(p0).x_client
+        _, b = _plan(data, M, 1)[0]
+        batches = {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+        eta_l = torch.tensor(sim.fed.eta_l, device="cuda")
+        grad_fn = autograd_grad_fn(sim.loss_fn, sim.unravel)
+        forms = {
+            "batched": lambda: sim._train_block(flat0, batches, eta_l),
+            "loop": lambda: train_clients_loop(sim.rule, grad_fn, flat0,
+                                               batches, eta_l)}
+        r = {}
+        with deterministic():
+            for form, fn in forms.items():
+                r[form], r[f"{form}_det_ms"], r[f"{form}_det_gb"] = (
+                    _block_run(fn))
+        for form, fn in forms.items():
+            _, r[f"{form}_ms"], r[f"{form}_gb"] = _block_run(fn)
+        (db, lb), (dl, ll) = r.pop("batched"), r.pop("loop")
+        err = (db - dl).abs().amax(dim=1).tolist()
+        big = dl.abs().amax(dim=1).tolist()
+        bitwise = torch.equal(db, dl) and torch.equal(lb, ll)
+        check(db.shape == (N_CLI, d) and bool(torch.isfinite(db).all()),
+              f"block {model}: deltas {tuple(db.shape)} or not finite")
+        check(max(err) <= BLOCK_TOL, f"block {model}: the batched deltas "
+              f"differ from the loop's by {max(err)} > {BLOCK_TOL}")
+        r.update(d=d, max_abs_err=err, max_abs_delta=big, bitwise=bitwise,
+                 loss_max_abs_err=float((lb - ll).abs().max()))
+        saved = ""
+        if model != "mlp":
+            # the (B, dim, H/p, W/p) fp32 tensors autograd keeps a client:
+            # 6 a layer (the depthwise conv's input, both GELUs' inputs and
+            # outputs, the 1x1 conv's input) and the patch GELU's input
+            side = c.image // c.patch
+            r["reckoned_gb"] = (N_CLI * (6 * c.depth + 1) * BATCH * c.dim
+                                * side * side * 4 / 1e9)
+            saved = (f", reckoned activations of the batched block "
+                     f"{r['reckoned_gb']:.3f} GB")
+        r["seconds"] = time.perf_counter() - t0
+        out[model] = r
+        print(f"block {model} (d = {d:,}, n = {N_CLI}, K = {K_STEPS}, batch "
+              f"{BATCH}): batched vs loop, deterministic algorithms, largest "
+              f"|Δ_batched − Δ_loop| a client "
+              f"{[f'{e:.3g}' for e in err]} beside largest |Δ| "
+              f"{[f'{e:.3g}' for e in big]} (bound {BLOCK_TOL}); bitwise "
+              f"{bitwise}; ms (CUDA events, median of {BLOCK_ITERS}) batched "
+              f"{med(r['batched_det_ms']):.3f} / loop "
+              f"{med(r['loop_det_ms']):.3f} deterministic, batched "
+              f"{med(r['batched_ms']):.3f} / loop {med(r['loop_ms']):.3f} "
+              f"default mode; peak over the baseline batched "
+              f"{r['batched_gb']:.3f} GB / loop {r['loop_gb']:.3f} GB"
+              f"{saved}; {r['seconds']:.1f} s; {card}")
+        del sim, flat0, batches, db, dl
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_run_rounds(loss, p0, data, d: int, rounds: int,
                      res: dict) -> dict:
     """Routes ``GRAPH_ROUTES`` on ConvMixer-256-8 at ``rounds`` rounds;
@@ -2216,9 +2362,6 @@ def phase_run_rounds(loss, p0, data, d: int, rounds: int,
     the ConvMixer-256-8 routes take, and whose eager round ms (default
     mode) the default-mode graph is printed beside."""
     from repro_torch.core.sim import FedSim
-    from repro_torch.data.synthetic import FederatedClassification
-    from repro_torch.models import convmixer as cm
-    from repro_torch.models.params import count_params, init_params
 
     card = card_line()
     out = {}
@@ -2230,22 +2373,7 @@ def phase_run_rounds(loss, p0, data, d: int, rounds: int,
         jobs.append((route, route, loss, p0, cfg, plan, EXPECT[route],
                      GRAPH_SYMBOLS.get(route, ())))
     for model in PROBLEMS:
-        if model == "convmixer":
-            c = cm.ConvMixerConfig(dim=32, depth=4, kernel=5, patch=2,
-                                   num_classes=10, image=16)
-            pdata = FederatedClassification(num_clients=M,
-                                            image_shape=(16, 16, 3),
-                                            alpha=0.3, seed=0)
-            defs, ploss = cm.convmixer_defs(c), (
-                lambda p, b, c=c: cm.convmixer_loss(p, b, c))
-        else:
-            c = cm.MLPConfig(in_dim=32, hidden=64, depth=2, num_classes=10)
-            pdata = FederatedClassification(num_clients=M, feature_dim=32,
-                                            alpha=0.3, seed=0)
-            defs, ploss = cm.mlp_defs(c), (
-                lambda p, b, c=c: cm.mlp_loss(p, b, c))
-        pp0 = init_params(defs, torch.Generator().manual_seed(0))
-        pd = count_params(defs)
+        ploss, pp0, pdata, pd, _ = problem(model)
         jobs.append((model, f"{model} (make_problem, d = {pd:,})", ploss,
                      pp0, _route_cfg("a", M, N_CLI, K_STEPS),
                      _plan(pdata, M, PROBLEM_ROUNDS), EXPECT["a"],
@@ -2781,13 +2909,26 @@ def run_ranks(world: int, backend: str, jobs: dict, fn=None,
 def _anchor_fedsim(loss, p0, data, fused: bool):
     """FedSim on route m's flat anchor: m = n = 4 (cohort [0, 4)), the
     fused round (``track_gamma=False``) or the two-pass one (γ on),
-    ANCHOR_ROUNDS rounds under deterministic algorithms."""
+    ANCHOR_ROUNDS rounds under deterministic algorithms.
+
+    The mesh trains one client a rank, as the reference's does; FedSim's
+    batched local phase, one vmap program over the four, runs cuDNN's
+    grouped convolution, whose deterministic algorithm is not the
+    per-client one's: its deltas differ from the loop's in the last bits
+    (the block part holds them within BLOCK_TOL; a probe read params
+    1.0e-5 apart after 3 rounds). So on this instance alone the local
+    phase is the loop twin, and the anchor holds the mesh's uplink,
+    collectives and server step to FedSim's to the bit."""
+    from repro_torch.core.local import autograd_grad_fn, train_clients_loop
     from repro_torch.core.sim import FedSim
     fed = mesh_cfg(client_axes=(), track_gamma=not fused, wire_block=BLOCK)
     sim = FedSim(loss, fed)
     check(sim._fused == ("kernel" if fused else "off"),
           f"route m anchor: FedSim resolved fused_ingest={sim._fused}")
     st = sim.init(p0)
+    grad_fn = autograd_grad_fn(sim.loss_fn, sim.unravel)
+    sim._train_block = lambda flat0, batches, eta_l, k_blk=None: \
+        train_clients_loop(sim.rule, grad_fn, flat0, batches, eta_l, k_blk)
     ids = np.arange(M_MESH)
     losses = []
     with deterministic():
@@ -5040,6 +5181,10 @@ def main():
     seconds["phase 2"] = time.perf_counter() - t_phase
     print(f"phase 2 took {seconds['phase 2']:.1f} s")
     t_phase = time.perf_counter()
+    block = phase_block()
+    seconds["block"] = time.perf_counter() - t_phase
+    print(f"the block part took {seconds['block']:.1f} s")
+    t_phase = time.perf_counter()
     sl = phase_slice()
     seconds["phase 3"] = time.perf_counter() - t_phase
     seconds["phase 3, run_rounds"] = sl["run_rounds_s"]
@@ -5132,7 +5277,7 @@ def main():
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "seconds": seconds,
          "build_s": build_s, "kernels": kern, "kernel_rows": rows,
-         "reference": refcheck, "slice": sl,
+         "reference": refcheck, "block": block, "slice": sl,
          "route_a_deterministic": det, "mesh": mesh_res, "mesh_m1": m1,
          "zoo": zoo},
         indent=1))

@@ -14,6 +14,13 @@ The port trains each client on the flat (d,) parameter vector, so a rule's
   parity tests hand both packages the same counts).
 * :func:`run_local_steps` — the K-step loop, with steps ``t >= k_i``
   masked to no-ops on the device (no host read of ``k_i``).
+* :func:`train_clients` — a block of clients as one batched program:
+  ``torch.func.vmap`` of :func:`run_local_steps` over the clients, with the
+  ``torch.func`` gradient of :func:`func_grad_fn` (the reference's
+  ``jax.vmap`` over ``_local_train``). FedSim's local phase.
+* :func:`train_clients_loop` — its plain twin: the same clients one after
+  another, for tests and the card's comparison; nothing in the port calls
+  it.
 """
 from __future__ import annotations
 
@@ -125,3 +132,67 @@ def run_local_steps(rule: LocalUpdate, grad_fn: Callable, params, batches,
     if k_i is None:
         return p, losses.mean()
     return p, losses.sum() / k_i.clamp_min(1).to(losses.dtype)
+
+
+def func_grad_fn(loss_fn: Callable, unravel: Callable) -> Callable:
+    """``grad_fn(p, batch) -> (loss, grads)`` for :func:`run_local_steps`
+    through ``torch.func.grad_and_value`` of ``loss_fn(unravel(p), batch)``
+    (``loss_fn`` returns ``(loss, aux)``), which ``torch.func.vmap`` can
+    batch; ``torch.autograd.grad`` cannot run under vmap."""
+    grad_and_value = torch.func.grad_and_value(
+        lambda p, batch: loss_fn(unravel(p), batch), has_aux=True)
+
+    def grad_fn(p, batch):
+        g, (loss, _) = grad_and_value(p, batch)
+        return loss, g
+
+    return grad_fn
+
+
+def autograd_grad_fn(loss_fn: Callable, unravel: Callable) -> Callable:
+    """The same ``grad_fn`` through ``torch.autograd.grad`` on one client:
+    what :func:`train_clients_loop` ran as FedSim's local phase before the
+    batched block, and what the mesh's ranks run."""
+
+    def grad_fn(p, batch):
+        p = p.detach().requires_grad_(True)
+        loss, _ = loss_fn(unravel(p), batch)
+        (g,) = torch.autograd.grad(loss, p)
+        return loss.detach(), g
+
+    return grad_fn
+
+
+def train_clients(rule: LocalUpdate, grad_fn: Callable, flat0, batches,
+                  eta_l, k_blk=None):
+    """Local training for a block of c clients as ONE program:
+    ``torch.func.vmap`` over the clients of :func:`run_local_steps` from
+    the shared ``flat0``, each client on its row of ``batches`` (a dict of
+    (c, K, ...) tensors) with its step count from ``k_blk`` ((c,) integer
+    tensor, or None). ``grad_fn`` must be one vmap can batch
+    (:func:`func_grad_fn`); ``flat0``, the prox anchor, and ``eta_l`` are
+    shared. Returns ``((c, d) deltas local − flat0, (c,) mean losses)``."""
+
+    def one(batch, k_i):
+        local, loss = run_local_steps(rule, grad_fn, flat0, batch, eta_l,
+                                      k_i)
+        return local - flat0, loss
+
+    return torch.func.vmap(one, in_dims=(0, None if k_blk is None else 0))(
+        batches, k_blk)
+
+
+def train_clients_loop(rule: LocalUpdate, grad_fn: Callable, flat0, batches,
+                       eta_l, k_blk=None):
+    """:func:`train_clients`' plain twin: the c clients one after another,
+    each through :func:`run_local_steps`. Same arguments (any ``grad_fn``:
+    :func:`autograd_grad_fn` too) and the same ``((c, d), (c,))`` pair."""
+    n = next(iter(batches.values())).shape[0]
+    deltas, losses = [], []
+    for i in range(n):
+        local, loss = run_local_steps(
+            rule, grad_fn, flat0, {k: v[i] for k, v in batches.items()},
+            eta_l, None if k_blk is None else k_blk[i])
+        deltas.append(local - flat0)
+        losses.append(loss)
+    return torch.stack(deltas), torch.stack(losses)

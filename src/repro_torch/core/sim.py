@@ -88,9 +88,16 @@ Differences from the JAX class: the state holds the FLAT (d,) model
 (``FedSim.unravel`` gives the dict of views in JAX shapes); a round updates
 the input state's EF buffer in place, as the JAX round donates it, so keep
 only the returned state (``run_rounds`` works on its own copy and leaves
-the input state as it was); per-client local training is a loop of
-``torch.autograd`` steps, where the reference vmaps the clients; randk
-takes drawn positions where the JAX compressor takes a PRNG key.
+the input state as it was); randk takes drawn positions where the JAX
+compressor takes a PRNG key.
+
+Local training is the reference's: each block of clients (the cohort, a
+``client_chunk`` chunk or an async cohort) trains as one
+``torch.func.vmap`` program over the clients (``core.local.train_clients``,
+the gradient by ``torch.func.grad_and_value``), on every path and inside
+``run_rounds``' graph; a ``loss_fn`` that torch.func cannot take raises at
+the first round, naming the cause. ``core.local.train_clients_loop`` is its
+plain twin, one client after another, which FedSim never calls.
 """
 from __future__ import annotations
 
@@ -114,8 +121,9 @@ from repro_torch.comm.wire import make_dense32_codec, make_wire_codec
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.compressors import (Compressor, block_layout,
                                           make_compressor, randk_positions)
-from repro_torch.core.local import (hetero_step_counts, local_lr,
-                                    make_local_update, run_local_steps)
+from repro_torch.core.local import (func_grad_fn, hetero_step_counts,
+                                    local_lr, make_local_update,
+                                    train_clients)
 from repro_torch.core.server_opt import (FUSED_INGEST_GROUPS_DETAIL,
                                          init_server_state, server_ingest,
                                          server_update)
@@ -135,6 +143,33 @@ from repro_torch.models.params import ravel
 #: autograd engine's device thread, the kernels' first-use attributes, the
 #: codecs' cached headers) does so outside the capture
 WARMUP_ROUNDS = 1
+
+#: what torch.func refuses in a loss_fn: the phrases of its messages, and
+#: the cause FedSim names
+_VMAP_CAUSES = (
+    ((".item() on a Tensor",),
+     "it reads a tensor's value on the host (.item(), or Python control "
+     "flow on a tensor's value)"),
+    (("mutate a captured Tensor",),
+     "it writes in place into a tensor it did not make"),
+    (("autograd.Function", "does not have vmap support"),
+     "an autograd.Function in it has no vmap rule"),
+    (("saved tensor hooks",),
+     "it recomputes activations through torch.utils.checkpoint (saved "
+     "tensor hooks; a zoo loss's remat_policy other than 'none')"),
+)
+
+
+def _vmap_refusal(err: RuntimeError) -> Optional[str]:
+    """The named cause of a ``torch.func`` refusal, or None when ``err``
+    is not one."""
+    msg = str(err)
+    for phrases, cause in _VMAP_CAUSES:
+        if any(phrase in msg for phrase in phrases):
+            return cause
+    if any(word in msg for word in ("vmap", "functorch", "torch.func")):
+        return "torch.func refused an operation of it"
+    return None
 
 
 class SimState(NamedTuple):
@@ -652,24 +687,25 @@ class FedSim:
                                f" are not the program's {prog.keys}")
         prog.write(_core(new), met)
 
-    def _grad(self, p, batch):
-        p = p.detach().requires_grad_(True)
-        loss, _ = self.loss_fn(self.unravel(p), batch)
-        (g,) = torch.autograd.grad(loss, p)
-        return loss.detach(), g
-
     def _train_block(self, flat0, batches, eta_l, k_blk=None):
-        """Local training for every client → ((n, d) deltas, (n,) losses)."""
-        n = next(iter(batches.values())).shape[0]
-        deltas, losses = [], []
-        for i in range(n):
-            local, loss = run_local_steps(
-                self.rule, self._grad, flat0,
-                {k: v[i] for k, v in batches.items()}, eta_l,
-                None if k_blk is None else k_blk[i])
-            deltas.append(local - flat0)
-            losses.append(loss)
-        return torch.stack(deltas), torch.stack(losses)
+        """Local training for a block of clients → ((c, d) deltas, (c,)
+        losses): one ``torch.func.vmap`` program over the block
+        (``core.local.train_clients``), as the reference vmaps
+        ``_local_train``. A ``loss_fn`` torch.func cannot take raises
+        here, naming the cause; there is no fallback to a loop over the
+        clients."""
+        try:
+            return train_clients(self.rule,
+                                 func_grad_fn(self.loss_fn, self.unravel),
+                                 flat0, batches, eta_l, k_blk)
+        except RuntimeError as e:
+            cause = _vmap_refusal(e)
+            if cause is None:
+                raise
+            raise RuntimeError(
+                f"FedSim trains each block of clients as one torch.func.vmap "
+                f"program (its gradient by torch.func.grad_and_value), and "
+                f"torch.func cannot take this loss_fn: {cause}.\n{e}") from e
 
     def _fault_round(self, state: SimState, batches, client_idx, eta_l,
                      k_all, fplan, draws=None):

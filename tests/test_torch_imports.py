@@ -50,7 +50,8 @@ MODULES = [
     "repro_torch.models.model", "repro_torch.launch.serve",
     "repro_torch.launch.train", "repro_torch.launch.steps",
     "repro_torch.launch.op_analysis", "repro_torch.launch.roofline",
-    "repro_torch.launch.dryrun",
+    "repro_torch.launch.dryrun", "repro_torch.models.mla",
+    "repro_torch.models.rglru", "repro_torch.kernels",
 ]
 
 
@@ -77,7 +78,8 @@ def test_chip_scripts_load_no_jax_and_no_repro():
     where there is no jax: importing them loads neither jax nor repro."""
     root = os.path.join(os.path.dirname(__file__), "..")
     scripts = ["chip_smoke", "ingest_floor", "pack_floor", "sign_floor",
-               "topk_floor", "profile_round"]
+               "topk_floor", "profile_round", "slstm_time", "step_memory",
+               "layer_bytes"]
     code = ("import importlib, sys\n"
             f"for m in {scripts!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -247,26 +247,29 @@ def test_program_is_reused_and_resumes_mid_stream(no_host_reads):
 
 @pytest.mark.parametrize("plant", ["item", "bool", "nonzero"])
 def test_the_dispatch_mode_catches_a_planted_host_read(plant, no_host_reads):
-    """The guard is live: a loss that reads its value on the host fails
-    the body."""
+    """The guard is live: a round that reads a value on the host fails the
+    body. The read is planted just after the local phase: inside it, in the
+    loss, torch.func's vmap refuses a host read by itself, in every round
+    (test_torch_local_block.py::test_a_loss_vmap_cannot_take_raises_by_name).
+    """
     sim, st = _make()
-    loss_fn = sim.loss_fn
+    train = sim._train_block
 
-    def reading(p, b):
-        loss, aux = loss_fn(p, b)
+    def reading(*args):
+        delta, losses = train(*args)
         if plant == "item":
-            loss.item()
+            losses[0].item()
         elif plant == "bool":
-            bool(loss > 0)
+            bool(losses[0] > 0)
         else:
-            torch.nonzero(b["y"])
-        return loss, aux
+            torch.nonzero(delta)
+        return delta, losses
 
-    sim.loss_fn = reading
+    sim._train_block = reading
     ids, batches = _stage(2)
     with pytest.raises(AssertionError, match="host read"):
         sim.run_rounds(st, batches, ids, _rngs(2))
-    # the same loss outside the body is fine
+    # the same read outside the body is fine
     sim.round(st, {k: v[0] for k, v in batches.items()}, ids[0])
 
 
