@@ -167,8 +167,19 @@ then, on the card:
    convolution is not the per-client one's bits on the card); then the model's 52-leaf tree, 3 rounds each of
    sparse at n = 3 of 4, hierarchical (2 × 2), packed sign, dense
    blocktopk, dense sign, ZeRO-sharded server state, 6 of crashes with bit
-   flips, and 3 rounds through ``FederatedTrainer(mesh=...).run`` — and
-   route m1, the sparse fused round on one NCCL rank. Each job checks its
+   flips, and 3 rounds through ``FederatedTrainer(mesh=...).run``; the
+   flat anchor's fused rounds once more as one call of
+   ``core.mesh.build_fed_rounds_scan`` (on gloo its staged body, run
+   eagerly, ``captured`` false), equal to the loop to the bit — and route
+   m1, the sparse fused round on one NCCL rank, then its rounds through
+   ``build_fed_rounds_scan`` (6 eager rounds, then one program call: one
+   round captured into a CUDA graph on the rank's NCCL stream after a
+   warm-up round, replayed 6 times with no synchronizing CUDA operation
+   between the first replay and the last and one after them; the graph's
+   52 + 52 kernel nodes read from ``debug_dump``; under deterministic
+   algorithms state and metrics bitwise the loop's, and once more in the
+   default mode; eager rounds and replays timed by CUDA events). Each job
+   checks its
    kernels' launches a round, finite losses, ``wire_up_bytes`` against
    ``mesh_wire_bytes_tiers``, and that every shape at which a rank
    launched a kernel (``record_launch_shapes``) is one phase 1 held
@@ -189,7 +200,12 @@ then, on the card:
    launches ``topk_ef_sparse`` and ``fedams_ingest`` once a leaf a round,
    at shapes phase 1 held; ``wire_up_bytes`` equals
    ``mesh_wire_bytes_tiers``; losses finite. Prints the reckoned and the
-   measured peak memory a rank and rank 0's round ms;
+   measured peak memory a rank and rank 0's round ms. Route o1: the same
+   configuration at one client on one NCCL rank, ``train`` with
+   ``scan_rounds=0`` against ``scan_rounds=3`` (the 3 rounds as one
+   captured graph replayed 3 times, 20 + 20 kernel nodes), bitwise under
+   deterministic algorithms, timed in both modes, its peak against
+   ``lm_memory_reckoning``'s (the graph's pool: the round's temporaries);
 7. serves qwen2-moe-a2.7b at its published widths and full depth (route
    p, 24 layers, 14,315,735,040 params, 57.3 GB of fp32 weights drawn on
    the card from a seeded CUDA generator, bf16 compute) through ``launch/serve.py``: batch 4 × prompt 512 + 32 tokens
@@ -301,7 +317,7 @@ then, on the card:
    meta's, and run plainly its peak is within 3 % of meta's reckoning.
 The routes' ranks start three times: four gloo ranks run routes m, w and
 x's four-rank jobs in turn, two gloo ranks those of o, w's tp 1 pairs, x's
-tp 2 serving and y, one NCCL rank those of m1, q, s, u and z; each group
+tp 2 serving and y, one NCCL rank those of m1, o1, q, s, u and z; each group
 starts at its first route (a start and teardown cost 12-20 s). Every
 phase and route prints its seconds (a route that starts a group pays its
 start and all its jobs), each job its own, and a line before the kernels
@@ -309,8 +325,8 @@ line all of them.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (``launches``: the wrappers' counts over phase 3 and the later routes;
-``graph_launches``, apart: the run_rounds graphs' kernel nodes times their
-replays) and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
+``graph_launches``, apart: the run_rounds graphs' and the mesh programs'
+(m1, o1) kernel nodes times their replays) and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
 without CUDA or when any check fails. Longer output goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -1147,13 +1163,14 @@ def rg_train_cfg():
 
 
 def lm_kernel_shapes() -> dict:
-    """The leaf sizes routes o, q, s, u and w select and ingest (one
+    """The leaf sizes routes o, o1, q, s, u and w select and ingest (one
     (1, d_leaf) row a leaf; route w's are each rank's model-local leaves
     at tp = ``W_TP``) → the client counts their fused ingests gather at
     that size (route o's ``LM_CLIENTS``, route w's ``W_DP``, the others'
     one)."""
     out = {}
-    for cfg, n, tp in ((lm_cfg(), LM_CLIENTS, 1), (moe_cfg(), 1, 1),
+    for cfg, n, tp in ((lm_cfg(), LM_CLIENTS, 1), (lm_cfg(), 1, 1),
+                       (moe_cfg(), 1, 1),
                        (mla_train_cfg(), 1, 1), (rg_train_cfg(), 1, 1),
                        (w_cfg(), W_DP, W_TP)):
         for d in leaf_sizes(cfg, tp):
@@ -2061,23 +2078,28 @@ def graph_spy():
             rec["syncs"] = syncs()
 
 
-def graph_nodes(sim) -> dict:
-    """The kernel nodes of the one graph ``sim.run_rounds`` captured, by
-    kernel, read from its ``debug_dump`` (each node names its function
-    once), and the capture's wrapper launches (``_Program.counts``)."""
-    progs = list(sim._programs.values())
-    check(len(progs) == 1 and progs[0].graph is not None,
-          f"{len(progs)} run_rounds programs")
+def dump_nodes(graph) -> dict:
+    """A captured graph's kernel nodes, by kernel, read from its
+    ``debug_dump`` (each node names its function once)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "round.dot")
         with warnings.catch_warnings():     # its "DEBUG: calling ..." notes
             warnings.filterwarnings("ignore", message="DEBUG: calling")
-            progs[0].graph.debug_dump(path)
+            graph.debug_dump(path)
         text = Path(path).read_text()
-    nodes = {name: sum(len(re.findall(rf"(?<![A-Za-z_]){sym}", text))
-                       for sym in syms)
-             for name, syms in KERNEL_SYMBOLS.items()}
-    return nodes, dict(progs[0].counts)
+    return {name: sum(len(re.findall(rf"(?<![A-Za-z_]){sym}", text))
+                      for sym in syms)
+            for name, syms in KERNEL_SYMBOLS.items()}
+
+
+def graph_nodes(sim) -> dict:
+    """The kernel nodes of the one graph ``sim.run_rounds`` captured
+    (:func:`dump_nodes`), and the capture's wrapper launches
+    (``_Program.counts``)."""
+    progs = list(sim._programs.values())
+    check(len(progs) == 1 and progs[0].graph is not None,
+          f"{len(progs)} run_rounds programs")
+    return dump_nodes(progs[0].graph), dict(progs[0].counts)
 
 
 def _same_metric(a, b) -> bool:
@@ -2677,6 +2699,11 @@ def mesh_jobs():
         "anchor-twopass": dict(flat, cfg=dict(fused_ingest="off"),
                                expect={"topk_ef_sparse": 1,
                                        "fedams_update": 1}),
+        # anchor-fused's rounds as one call of build_fed_rounds_scan: on
+        # gloo its staged body, run eagerly, equal to the loop to the bit
+        "anchor-program": dict(flat, cfg={}, program=True,
+                               expect={"topk_ef_sparse": 1,
+                                       "fedams_ingest": 1}),
         "sparse-3of4": dict(leaf, cfg=dict(participating=3), expect=per_leaf(
             kernels=("topk_ef_sparse", "fedams_ingest"))),
         "hier": dict(leaf, shape=(2, 2), axes=("cgroup", "data"),
@@ -2706,21 +2733,18 @@ def mesh_jobs():
     }
 
 
-def _mesh_job(job: dict) -> dict:
-    """One mesh run on this rank: build the round with a CUDA KernelImpl,
-    stage its batches, then — launch counters at 0 — drive ``rounds``
-    rounds and read the counters. Returns the per-round metrics, round ms,
-    the launches, the wire bytes ``mesh_wire_bytes_tiers`` bills, and
-    (``gather``) the global state."""
-    import torch.distributed as dist
-
+def _mesh_setup(job: dict):
+    """A mesh job's parts on this rank: its ``FedConfig``, the model (the
+    flat one or the per-leaf tree), ``lm_data``, the mesh and context, the
+    ``TrainConfig``, the round built with a CUDA KernelImpl, and
+    ``init()``, a fresh initial state on the card (the same each call)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import mesh as meshmod
     from repro_torch.data.synthetic import FederatedClassification
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import convmixer as cm
-    from repro_torch.models.params import init_params, ravel, tree_leaves
+    from repro_torch.models.params import init_params, ravel
     from repro_torch.sharding.rules import ParallelContext
 
     fed = mesh_cfg(**job["cfg"])
@@ -2740,16 +2764,41 @@ def _mesh_job(job: dict) -> dict:
                         remat_policy="none")
     rnd = meshmod.build_fed_round(model, fed, train, ctx,
                                   kernel_impl=ops.KernelImpl())
-    state = meshmod.init_fed_state(model, fed,
-                                   torch.Generator().manual_seed(0), ctx,
-                                   "cuda")
-    if job["flat"]:
-        state = state._replace(params={"w": flat0})
+
+    def init():
+        state = meshmod.init_fed_state(model, fed,
+                                       torch.Generator().manual_seed(0), ctx,
+                                       "cuda")
+        if job["flat"]:
+            state = state._replace(params={"w": flat0.clone()})
+        return state
+
+    return fed, model, data, mesh, ctx, train, rnd, init
+
+
+def _mesh_job(job: dict) -> dict:
+    """One mesh run on this rank: build the round with a CUDA KernelImpl,
+    stage its batches, then — launch counters at 0 — drive ``rounds``
+    rounds and read the counters. Returns the per-round metrics, round ms,
+    the launches, the wire bytes ``mesh_wire_bytes_tiers`` bills, and
+    (``gather``) the global state. With ``program`` the rounds are one
+    call of ``build_fed_rounds_scan`` (on gloo its staged body runs
+    eagerly, round by round; ``captured`` says which ran)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import mesh as meshmod
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import tree_leaves
+
+    fed, model, data, mesh, ctx, train, rnd, init = _mesh_setup(job)
+    m = fed.num_clients
+    state = init()
     if job.get("trainer"):
         return _trainer_job(job, fed, model, data, mesh, train)
-    batches = [meshmod.shard_batch(data.mesh_batch(r, K_STEPS, m * BATCH, 1),
-                                   model, fed, train, ctx, "cuda")
-               for r in range(job["rounds"])]
+    raws = [data.mesh_batch(r, K_STEPS, m * BATCH, 1)
+            for r in range(job["rounds"])]
+    batches = [meshmod.shard_batch(raw, model, fed, train, ctx, "cuda")
+               for raw in raws]
     tiers = meshmod.mesh_wire_bytes_tiers(fed, model.defs())
     res = {"loss": [], "wire_up_bytes": [], "survivors": [], "rejected": [],
            "round_ms": [], "expected_wire": float(np.float32(
@@ -2763,6 +2812,20 @@ def _mesh_job(job: dict) -> dict:
         torch.cuda.synchronize()
         dist.barrier()
         ops.reset_launches()
+        if job.get("program"):
+            scan = meshmod.build_fed_rounds_scan(rnd)
+            staged = meshmod.shard_batch(
+                {k: np.stack([raw[k] for raw in raws]) for k in raws[0]},
+                model, fed, train, ctx, "cuda", staged=True)
+            t0 = time.perf_counter()
+            state, stacked = scan(state, staged, list(range(len(raws))))
+            torch.cuda.synchronize()
+            res["round_ms"] = [(time.perf_counter() - t0) * 1e3 / len(raws)]
+            res["captured"] = scan.last["captured"]
+            for k, col in stacked.items():
+                res[k] = [float(v) for v in col]
+            batches = []
+            del scan
         for r, b in enumerate(batches):
             if r == len(batches) - job.get("profile_last", 0):
                 prof = profile(activities=[ProfilerActivity.CPU,
@@ -3010,6 +3073,20 @@ def route_m(loss, p0, data, held) -> dict:
         res[name]["equals_fedsim"] = True
         print(f"route m {name}: {ANCHOR_ROUNDS} rounds equal FedSim's to the "
               f"bit (params, m, v, v-hat, the {M_MESH} EF rows, losses)")
+    prog, loop = ranks[0]["anchor-program"], ranks[0]["anchor-fused"]
+    bad = [f for f in loop["state"] if not torch.equal(
+        prog["state"][f]["w"].view(torch.int32),
+        loop["state"][f]["w"].view(torch.int32))]
+    check(all(rk["anchor-program"]["captured"] is False for rk in ranks)
+          and not bad and prog["loss"] == loop["loss"],
+          f"route m anchor-program: captured "
+          f"{[rk['anchor-program']['captured'] for rk in ranks]}; differs "
+          f"from the loop in {bad}; losses {prog['loss']} vs {loop['loss']}")
+    res["anchor-program"]["equals_loop"] = True
+    print(f"route m anchor-program: {ANCHOR_ROUNDS} rounds through "
+          f"build_fed_rounds_scan on gloo (the staged body run eagerly, "
+          f"captured: False on all {M_MESH} ranks) equal anchor-fused's loop "
+          f"to the bit (params, m, v, v-hat, the EF rows, losses)")
     print(f"route m: its jobs {sum(r['job_s'] for r in ranks[0].values()):.1f}"
           f" s on rank 0 of the {M_MESH} ranks (their group's start: "
           f"{ranks_s:.1f} s), the FedSim anchors "
@@ -3018,10 +3095,135 @@ def route_m(loss, p0, data, held) -> dict:
 
 
 def m1_job() -> dict:
-    """Route m1's job: route m's sparse per-leaf round at one client."""
+    """Route m1's job: route m's sparse per-leaf round at one client (its
+    last round profiled: the NCCL kernels on the card)."""
     return dict(mesh_jobs()["sparse-3of4"], cfg=dict(num_clients=1),
-                shape=(1,), rounds=ANCHOR_ROUNDS, profile_last=ANCHOR_ROUNDS,
+                shape=(1,), rounds=ANCHOR_ROUNDS, profile_last=1,
                 expect={"topk_ef_sparse": LEAVES, "fedams_ingest": LEAVES})
+
+
+#: the rounds route m1's rounds run through build_fed_rounds_scan, in
+#: each mode (eager loop, then one program call)
+M1_GRAPH_ROUNDS = ROUNDS
+#: the two modes the mesh programs (m1, o1) run in: bitwise the eager loop
+#: under deterministic algorithms; timed in both
+GRAPH_MODES = ("deterministic", "default")
+
+
+def m1_graph_job() -> dict:
+    """Route m1's rounds through the program (:func:`_mesh_graph_job`)."""
+    return dict(m1_job(), rounds=M1_GRAPH_ROUNDS, fn=_mesh_graph_job)
+
+
+def _differs(a, b) -> list:
+    """The fields of two mesh states (on the card) that differ in any bit."""
+    from repro_torch.models.params import tree_leaves
+    return [f for f in ("params", "m", "v", "vhat", "errors", "round")
+            if not all(torch.equal(x.reshape(-1).view(torch.uint8),
+                                   y.reshape(-1).view(torch.uint8))
+                       for x, y in zip(tree_leaves(getattr(a, f)),
+                                       tree_leaves(getattr(b, f))))]
+
+
+def _graph_checks(label, scan, spy, rounds: int, whole: bool) -> dict:
+    """A mesh program's call (``core.mesh.build_fed_rounds_scan``) under
+    :func:`graph_spy`, checked: it captured (decided up front, and
+    reported), once, and replayed ``rounds`` times with no synchronizing
+    CUDA operation between the first replay and the last; with ``whole``
+    (the spy around the program's call alone) exactly one after them, the
+    metrics' read. Its graph's kernel nodes (``debug_dump``) are one for
+    each launch its capture recorded. Returns the replays' ms, the nodes
+    and the sync counts."""
+    prog = scan.last["program"]
+    replay_ms = [e0.elapsed_time(e1) for e0, e1 in spy["events"]]
+    check(scan.last["captured"] and scan.last["built"]
+          and spy["captures"] == 1 and len(replay_ms) == rounds,
+          f"{label}: captured {scan.last['captured']}, {spy['captures']} "
+          f"captures, {len(replay_ms)} replays for {rounds} rounds")
+    at = spy["syncs_before"]
+    after = spy["syncs"] - at[-1]
+    check(at[-1] == at[0] and (after == 1 if whole else after >= 1),
+          f"{label}: synchronizing CUDA operations counted {at} at the "
+          f"replays and {spy['syncs']} in all; none between the replays "
+          f"and {'one' if whole else 'some'} after them expected")
+    nodes = dump_nodes(prog.graph)
+    check(nodes == dict(prog.counts), f"{label}: the graph's kernel nodes "
+          f"{nodes} against the capture's launches {dict(prog.counts)}")
+    return dict(replay_ms=replay_ms, nodes=nodes, syncs=spy["syncs"],
+                syncs_before_replays=at[0])
+
+
+def _mesh_graph_job(job: dict) -> dict:
+    """Route m1's rounds through ``build_fed_rounds_scan`` on this NCCL
+    rank, in each of :data:`GRAPH_MODES`: ``rounds`` eager ``fed_round``
+    calls from the init (each timed on the host to a synchronize, and by
+    CUDA events), then from the same init one program call (one round
+    captured into a CUDA graph after a warm-up round, replayed ``rounds``
+    times: :func:`_graph_checks`), timed on the host to a synchronize.
+    Under deterministic algorithms the program's state and every metric
+    equal the loop's to the bit. Returns, by mode, the times, the wrappers'
+    launches (the loop's; the call's: the warm-up's) and the graph's kernel
+    nodes."""
+    from repro_torch.core import mesh as meshmod
+    from repro_torch.kernels import ops
+
+    fed, model, data, mesh, ctx, train, rnd, init = _mesh_setup(job)
+    m, R = fed.num_clients, job["rounds"]
+    raws = [data.mesh_batch(r, K_STEPS, m * BATCH, 1) for r in range(R)]
+    batches = [meshmod.shard_batch(raw, model, fed, train, ctx, "cuda")
+               for raw in raws]
+    staged = meshmod.shard_batch(
+        {k: np.stack([raw[k] for raw in raws]) for k in raws[0]}, model,
+        fed, train, ctx, "cuda", staged=True)
+    out = {}
+    for mode in GRAPH_MODES:
+        with (deterministic() if mode == "deterministic"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            st, mets, ms, ev = init(), [], [], []
+            t_loop = time.perf_counter()
+            for r, b in enumerate(batches):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0 = time.perf_counter()
+                e0.record()
+                st, met = rnd(st, b, r)
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                ev.append(e0.elapsed_time(e1))
+                mets.append(met)
+            loop_ms = (time.perf_counter() - t_loop) * 1e3
+            eager = dict(ops.launches)
+            scan = meshmod.build_fed_rounds_scan(rnd)
+            st0 = init()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with graph_spy() as spy:
+                st_g, stacked = scan(st0, staged, list(range(R)))
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+            wrapper = dict(ops.launches)
+            g = _graph_checks(f"route m1 graph ({mode})", scan, spy, R, True)
+        if mode == "deterministic":
+            bad = _differs(st, st_g)
+            badm = [(k, r) for k, col in stacked.items() for r in range(R)
+                    if not torch.equal(col[r].view(torch.int32), mets[r][
+                        k].detach().cpu().reshape(()).view(torch.int32))]
+            check(not bad and not badm, f"route m1 graph: differs from the "
+                  f"eager loop in {bad}, metrics {badm}")
+        out[mode] = dict(
+            g, eager_round_ms=ms, eager_event_ms=ev, eager_loop_ms=loop_ms,
+            call_ms=call_ms, eager_launches=eager, wrapper_launches=wrapper,
+            loss=[float(v) for v in stacked["loss"]],
+            eager_loss=[float(mt["loss"]) for mt in mets],
+            captured=scan.last["captured"])
+        del st, st_g, st0, mets, scan, stacked
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def route_m1(held) -> dict:
@@ -3047,7 +3249,60 @@ def route_m1(held) -> dict:
           f"{r0['nccl_device_events']}; round ms "
           f"{[round(t, 1) for t in r0['round_ms']]}; the job {r0['job_s']:.1f}"
           f" s")
+    r0["graph"] = graph_report("m1", shared_ranks("nccl1", "m1")[0]["graph"],
+                               job["expect"], M1_GRAPH_ROUNDS, held)
+    r0["launches"] = {k: v + r0["graph"]["launches"][k]
+                      for k, v in r0["launches"].items()}
     return r0
+
+
+def graph_report(route: str, g: dict, expect: dict, rounds: int,
+                 held) -> dict:
+    """Check and print a mesh program job's result (:func:`_mesh_graph_job`
+    or :func:`_o1_job`), mode by mode: the wrappers launch ``expect`` a
+    round in the eager loop and one round's worth in the program's call
+    (its warm-up); the graph holds one node of each kernel a launch of one
+    round; every launch shape held by phase 1. Returns the result with
+    ``launches`` (the wrappers', both modes) and ``graph_launches`` (the
+    graphs' nodes × replays), kept apart."""
+    shapes = g.pop("shapes")
+    g["shapes_held"] = check_shapes_held(f"{route} graph",
+                                         [{"shapes": shapes}], held)
+    card = card_line()
+    launches = {k: 0 for k in KERNEL_SYMBOLS}
+    in_graph = {k: 0 for k in KERNEL_SYMBOLS}
+    for mode in GRAPH_MODES:
+        r = g[mode]
+        want = {k: expect.get(k, 0) for k in KERNEL_SYMBOLS}
+        check({k: r["eager_launches"].get(k, 0) for k in KERNEL_SYMBOLS}
+              == {k: n * rounds for k, n in want.items()}
+              and {k: r["wrapper_launches"].get(k, 0)
+                   for k in KERNEL_SYMBOLS} == want
+              and {k: r["nodes"].get(k, 0) for k in KERNEL_SYMBOLS} == want,
+              f"route {route} graph ({mode}): launches a round {want} "
+              f"expected; the loop's {r['eager_launches']}, the call's "
+              f"{r['wrapper_launches']}, the graph's nodes {r['nodes']}")
+        check(all(np.isfinite(r["loss"])),
+              f"route {route} graph ({mode}): losses {r['loss']}")
+        for k in KERNEL_SYMBOLS:
+            launches[k] += (r["eager_launches"].get(k, 0)
+                            + r["wrapper_launches"].get(k, 0))
+            in_graph[k] += r["nodes"].get(k, 0) * len(r["replay_ms"])
+        med = lambda xs: float(np.median(xs[1:] if len(xs) > 1 else xs))
+        print(f"route {route} graph, {mode}: eager round ms (host clock, "
+              f"rounds 1..) {[round(t, 3) for t in r['eager_round_ms'][1:]]}"
+              f", by CUDA events {[round(t, 3) for t in r['eager_event_ms']]}"
+              f" (median of 1.. {med(r['eager_event_ms']):.3f}); the graph's"
+              f" replay ms {[round(t, 3) for t in r['replay_ms']]} (median "
+              f"{float(np.median(r['replay_ms'])):.3f}); whole: the eager "
+              f"loop {r['eager_loop_ms']:.1f} ms vs the program's call "
+              f"{r['call_ms']:.1f} ms (staging, warm-up, capture, "
+              f"{len(r['replay_ms'])} replays, one read); kernel nodes "
+              f"{ {k: n for k, n in r['nodes'].items() if n} }; "
+              f"{'state and metrics bitwise the loop' if mode == 'deterministic' else 'losses finite'}"
+              f"; {card}")
+    g.update(launches=launches, graph_launches=in_graph)
+    return g
 
 
 
@@ -3552,28 +3807,57 @@ def _recording_metrics(names, sink: dict):
 
 @contextlib.contextmanager
 def _recording_state(sink: dict):
-    """Each round body that ``core.mesh.build_fed_round`` builds (in this
-    process) leaves its last state in ``sink["state"]`` and its context's
-    model index in ``sink["model_index"]``."""
+    """Each mesh round (``core.mesh.MeshRound``) and each multi-round call
+    (``MeshRounds``) run in this process leaves the state it returns in
+    ``sink["state"]`` and its context's model index in
+    ``sink["model_index"]``; a multi-round call also leaves its ``MeshRounds`` in
+    ``sink["rounds"]``."""
     from repro_torch.core import mesh as meshmod
-    build = meshmod.build_fed_round
+    one, many = meshmod.MeshRound.__call__, meshmod.MeshRounds.__call__
 
-    def recorded(model, fed, train, ctx, **kw):
-        rnd = build(model, fed, train, ctx, **kw)
-        sink["model_index"] = ctx.model_index()
+    def rec_one(self, state, batch, seed):
+        out = one(self, state, batch, seed)
+        sink.update(state=out[0], model_index=self.ctx.model_index())
+        return out
 
-        def fed_round(state, batch, seed):
-            out = rnd(state, batch, seed)
-            sink["state"] = out[0]
-            return out
+    def rec_many(self, state, batches, seeds):
+        out = many(self, state, batches, seeds)
+        sink.update(state=out[0], model_index=self.rnd.ctx.model_index(),
+                    rounds=self)
+        return out
 
-        return fed_round
-
-    meshmod.build_fed_round = recorded
+    meshmod.MeshRound.__call__ = rec_one
+    meshmod.MeshRounds.__call__ = rec_many
     try:
         yield
     finally:
-        meshmod.build_fed_round = build
+        meshmod.MeshRound.__call__ = one
+        meshmod.MeshRounds.__call__ = many
+
+
+@contextlib.contextmanager
+def _cached_params():
+    """``models.params.init_params`` (in this process) draws each set of
+    params once — per generator seed, device and leaf shapes — and hands
+    every later call a copy on the card: the same values, without drawing
+    ~745 M values on the host again for each run of a job."""
+    from repro_torch.models import params as pdefs
+    from repro_torch.models.params import leaves_with_paths, tree_map
+    draw, cache = pdefs.init_params, {}
+
+    def cached(defs, generator, device="cpu", ctx=None):
+        key = (generator.initial_seed(), str(device), tuple(
+            (p, tuple(d.shape)) for p, d in leaves_with_paths(defs)),
+            None if ctx is None else (ctx.tp, ctx.model_index()))
+        if key not in cache:
+            cache[key] = draw(defs, generator, device, ctx=ctx)
+        return tree_map(lambda t: t.clone(), cache[key])
+
+    pdefs.init_params = cached
+    try:
+        yield cache
+    finally:
+        pdefs.init_params = draw
 
 
 def _leaf_digests(tree) -> dict:
@@ -3743,6 +4027,167 @@ def route_o(held) -> dict:
                          for k in rs[0]["launches"]}}
 
 
+#: route o1's chunk: its LM_ROUNDS rounds as one call of the program
+O1_SCAN = LM_ROUNDS
+
+
+def o1_job() -> dict:
+    """Route o1's job: route o's configuration at one client on one NCCL
+    rank (:func:`_o1_job`)."""
+    return dict(_one_rank_job(lm_cfg(), LM_ROUNDS), fn=_o1_job)
+
+
+def _tree_bytes(tree) -> int:
+    """The bytes of a mesh state's (a tuple of trees) or a params tree's
+    tensors."""
+    from repro_torch.models.params import tree_leaves
+    parts = tree if isinstance(tree, tuple) else (tree,)
+    return sum(t.numel() * t.element_size() for p in parts
+               for t in tree_leaves(p))
+
+
+def _o1_job(job: dict) -> dict:
+    """Route o1 on this NCCL rank, in each of :data:`GRAPH_MODES`:
+    ``launch/train.py``'s ``train`` with ``scan_rounds=0`` (the per-round
+    loop; each round timed on the host to a synchronize and by CUDA
+    events), then ``train`` with ``scan_rounds=O1_SCAN`` (the rounds as one
+    program: one round captured into a CUDA graph on the rank's NCCL
+    stream and replayed; :func:`_graph_checks`, the spy around the whole
+    ``train`` call). Both draw the same init (:func:`_cached_params` hands
+    the second a copy of the first's). Under deterministic algorithms the
+    program's final state and every round's loss and wire bytes equal the
+    loop's to the bit. Returns, by mode, the times, the wrappers' launches,
+    the graph's kernel nodes and each run's peak and reserved device
+    memory beside what the job holds across runs (the cached init; the
+    loop's final state, kept for the check)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    sink, out = {}, {}
+    run = lambda **kw: ttrain.train(job["cfg"], job["fed"], job["train"],
+                                    device="cuda", log=None, **kw)
+    with _cached_params() as cache, _recording_state(sink):
+        for mode in GRAPH_MODES:
+            with (deterministic() if mode == "deterministic"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                loop = run()
+                loop_ms = (time.perf_counter() - t0) * 1e3
+                eager = dict(ops.launches)
+                held_loop = held = sum(_tree_bytes(p)
+                                       for p in cache.values())
+                loop_state = sink.pop("state")
+                sink.clear()
+                if mode == "deterministic":
+                    held += _tree_bytes(loop_state)
+                else:
+                    del loop_state
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                with graph_spy() as spy:
+                    staged = run(scan_rounds=O1_SCAN)
+                call_s = time.perf_counter() - t0
+                wrapper = dict(ops.launches)
+                scan, st = sink.pop("rounds"), sink.pop("state")
+                g = _graph_checks(f"route o1 graph ({mode})", scan, spy,
+                                  job["train"].rounds, False)
+                reserved = torch.cuda.memory_reserved()
+            key = lambda h: [(x["round"], x["loss"], x["wire_up_bytes"])
+                             for x in h["history"]]
+            if mode == "deterministic":
+                bad = _differs(loop_state, st)
+                check(not bad and key(loop) == key(staged),
+                      f"route o1: the program differs from the loop in {bad};"
+                      f" history {key(staged)} vs {key(loop)}")
+                del loop_state
+            hs = staged["history"]
+            out[mode] = dict(
+                g, eager_round_ms=[h["round_s"] * 1e3
+                                   for h in loop["history"]],
+                eager_event_ms=[h["event_ms"] for h in loop["history"]],
+                eager_loop_ms=sum(h["round_s"] for h in loop["history"])
+                * 1e3, call_ms=sum(h["round_s"] for h in hs) * 1e3,
+                train_call_ms=call_s * 1e3, train_loop_ms=loop_ms,
+                train_event_ms=[h["event_ms"] for h in hs],
+                eager_launches=eager, wrapper_launches=wrapper,
+                loss=[h["loss"] for h in hs],
+                eager_loss=[h["loss"] for h in loop["history"]],
+                wire_up_bytes=[h["wire_up_bytes"] for h in hs],
+                finite=loop["finite"] and staged["finite"],
+                params=staged["params"], peak_loop=loop["peak_bytes"],
+                peak_program=staged["peak_bytes"], reserved=reserved,
+                held=held, held_loop=held_loop,
+                captured=scan.last["captured"])
+            del scan, st, loop, staged
+            sink.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def route_o1(held) -> dict:
+    """Route o1: route o's configuration (gemma2-2b at published widths,
+    ``LM_LAYERS`` layers, fedcams with blockwise top-k 1/64 over the
+    sparse collective, the fused ingest, K = 2, batch 2 × 512) at one
+    client on one NCCL rank, through ``launch/train.py``'s ``train``: the
+    per-round loop against ``scan_rounds=O1_SCAN``, one round captured into
+    a CUDA graph and replayed (:func:`_o1_job`; :func:`graph_report`: 20
+    ``topk_ef_sparse`` and 20 ``fedams_ingest`` nodes in the graph). The
+    peak is reckoned first (``lm_memory_reckoning``: the eager round's;
+    the graph's private pool holds the round's temporaries on top of the
+    carry, the state) and printed beside ``max_memory_allocated``."""
+    from repro_torch.core.mesh import mesh_wire_bytes_tiers
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params, tree_leaves
+
+    job = o1_job()
+    cfg, fed, train = job["cfg"], job["fed"], job["train"]
+    model = Model(cfg)
+    leaves = len(tree_leaves(model.defs()))
+    d = count_params(model.defs())
+    plan = lm_memory_reckoning(cfg, d, max(leaf_sizes(cfg)),
+                               train.global_batch * train.seq_len)
+    pool_gb = plan["per_rank_gb"] - plan["state_gb"]
+    free, total = torch.cuda.mem_get_info()
+    print(f"route o1: {cfg.name} at published widths, {cfg.num_layers} "
+          f"layers, d = {d:,} ({leaves} leaves), one client on one NCCL "
+          f"rank; reckoned peak {plan['per_rank_gb']:.2f} GB (the eager "
+          f"round), of which the graph's private pool holds the round's "
+          f"temporaries, {pool_gb:.2f} GB, beside the carry's "
+          f"{plan['state_gb']:.2f} GB state; {free / 1e9:.1f} of "
+          f"{total / 1e9:.1f} GB free")
+    check(plan["per_rank_gb"] * 1e9 < free,
+          f"route o1: one rank does not fit the card: {plan}")
+    g = graph_report("o1", shared_ranks("nccl1", "o1")[0]["o1"],
+                     {"topk_ef_sparse": leaves, "fedams_ingest": leaves},
+                     train.rounds, held)
+    tiers = mesh_wire_bytes_tiers(fed, model.defs())
+    expected = float(np.float32(fed.num_clients * tiers["tier1"]))
+    for mode in GRAPH_MODES:
+        r = g[mode]
+        check(r["finite"] and r["wire_up_bytes"] == [expected] * train.rounds,
+              f"route o1 ({mode}): a non-finite state, or wire_up_bytes "
+              f"{r['wire_up_bytes']} against {expected}")
+        gb = lambda b: b / 1e9
+        print(f"route o1, {mode}: losses {r['loss']} (the loop's "
+              f"{r['eager_loss']}); peak memory, the loop "
+              f"{gb(r['peak_loop'] - r['held_loop']):.2f} GB, the program "
+              f"{gb(r['peak_program'] - r['held']):.2f} GB "
+              f"(max_memory_allocated less what the job holds across the "
+              f"runs: {gb(r['held_loop']):.2f} and {gb(r['held']):.2f} GB); "
+              f"reserved after the program "
+              f"{gb(r['reserved']):.2f} GB; reckoned {plan['per_rank_gb']:.2f}"
+              f" GB (the graph's pool {pool_gb:.2f}); train's own clock: the "
+              f"loop {r['train_loop_ms']:.1f} ms, the program's call "
+              f"{r['train_call_ms']:.1f} ms (both with the init and the "
+              f"finite checks)")
+    g["reckoned"] = dict(plan, graph_pool_gb=pool_gb)
+    g["d"], g["leaves"] = d, leaves
+    return g
+
+
 def _job(job: dict) -> dict:
     """``job["fn"]`` on ``job``: one spawn runs jobs of several kinds."""
     return job["fn"](job)
@@ -3781,6 +4226,8 @@ def _group_jobs(group: str) -> dict:
         jobs["y/y"] = dict(y_job(), fn=_y_job)
     else:
         jobs = {"m1/m1": dict(m1_job(), fn=_mesh_job),
+                "m1/graph": m1_graph_job(),
+                "o1/o1": o1_job(),
                 "q/q": _one_rank_job(moe_cfg(), MOE_ROUNDS, ("aux",)),
                 "s/s": _one_rank_job(mla_train_cfg(), MLA_ROUNDS,
                                      ("aux", "mtp_ce")),
@@ -5215,7 +5662,7 @@ def main():
     #: the model routes in order (serving, then training, a family at a
     #: time), and the rounds each training route runs
     model_routes = {"n": route_n, "o": lambda: route_o(mesh_held),
-                    "p": route_p, "q": lambda: route_q(mesh_held),
+                    "o1": lambda: route_o1(mesh_held), "p": route_p, "q": lambda: route_q(mesh_held),
                     "r": route_r, "s": lambda: route_s(mesh_held),
                     "t": route_t, "u": lambda: route_u(mesh_held),
                     "v": route_v, "w": lambda: route_w(mesh_held),
@@ -5247,11 +5694,22 @@ def main():
             per_round["run_rounds (all, eager + warm-up)"] = wrapped
             per_round["run_rounds (all, graph nodes x replays)"] = in_graph
         mesh_n = sum(j["launches"][name] for j in mesh_res.values())
-        runs += [("m", mesh_n), ("m1", m1["launches"][name])]
+        runs += [("m", mesh_n), ("m1", m1["launches"][name]),
+                 ("o1", zoo["o1"]["launches"][name])]
         runs += [(route, zoo[route]["launches"][name]) for route in lm_rounds]
         if mesh_n or m1["launches"][name]:
             per_round["m (all jobs, all ranks)"] = mesh_n
-            per_round["m1"] = m1["launches"][name]
+            per_round["m1 (eager rounds + program warm-ups)"] = (
+                m1["launches"][name])
+        # the mesh programs' graphs (m1's and o1's): nodes × replays, apart
+        for route, res in (("m1", m1["graph"]), ("o1", zoo["o1"])):
+            if res["graph_launches"][name]:
+                in_graph += res["graph_launches"][name]
+                per_round[f"{route} (graph nodes x replays, both modes)"] = (
+                    res["graph_launches"][name])
+        if zoo["o1"]["launches"][name]:
+            per_round["o1 (eager rounds + program warm-ups)"] = (
+                zoo["o1"]["launches"][name])
         for route, rounds in lm_rounds.items():
             if zoo[route]["launches"][name]:
                 per_round[f"{route} (a round, all ranks)"] = (

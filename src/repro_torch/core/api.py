@@ -111,6 +111,7 @@ class FederatedTrainer:
         self._rnd = meshmod.build_fed_round(
             self.model, self.fed, self.train, self._ctx,
             kernel_impl=KernelImpl(device=self._device))
+        self._scan = None
         self._state = meshmod.init_fed_state(
             self.model, self.fed, torch.Generator().manual_seed(
                 self.train.seed), self._ctx, self._device)
@@ -208,8 +209,11 @@ class FederatedTrainer:
         """The mesh loop: one ``fed_round`` call a round on this rank's
         shard of ``lm_data.mesh_batch`` (seed = the round index, as the
         JAX trainer's), or with ``scan_rounds=R > 1`` R staged rounds at a
-        time through ``build_fed_rounds_scan`` (the same history).
-        Checkpoints as the simulation loop writes them; only rank 0 logs."""
+        time through ``build_fed_rounds_scan`` (the same history): one
+        program, kept with the trainer, that on CUDA + NCCL replays one
+        captured round R times and reads the metrics once a chunk (the
+        state is its carry). Checkpoints as the simulation loop writes
+        them; only rank 0 logs."""
         fed, train = self.fed, self.train
         ce = train.checkpoint_every
         log = log if dist.get_rank() == 0 else None
@@ -224,7 +228,9 @@ class FederatedTrainer:
                     f"({time.time() - t0:.1f}s)")
 
         if scan_rounds and scan_rounds > 1:
-            step = meshmod.build_fed_rounds_scan(self._rnd)
+            if self._scan is None:
+                self._scan = meshmod.build_fed_rounds_scan(self._rnd, log)
+            step = self._scan
             r = 0
             while r < rounds:
                 chunk = min(scan_rounds, rounds - r)

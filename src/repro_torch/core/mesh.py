@@ -31,6 +31,13 @@ replicated weights' gradients over the model axis (``models.layers``); a
 replicated leaf's local update is model rank 0's on every model rank
 (:func:`sync_model_replicas`), so its copies never drift apart.
 
+Many rounds, one program (:func:`build_fed_rounds_scan`, the reference's
+``lax.scan`` of the round): the host draws of R rounds are staged first
+(:meth:`MeshRound.stage_inputs`, which the eager round runs at R = 1),
+then the round body runs round after round on the state's own tensors,
+reading its round's slot at a round counter on the device; on CUDA +
+NCCL one round is captured into a CUDA graph and replayed R times.
+
 A model is duck-typed as the JAX one: ``defs()`` (a nested dict of
 ``ParamDef``), ``loss(p, b, ctx, remat_policy=..., chunk=...) -> (loss,
 aux)``, ``train_batch_defs(global_batch, seq_len)`` and ``tp``.
@@ -42,6 +49,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.comm.faults import (FaultPlan, corrupt_selection,
@@ -56,9 +64,11 @@ from repro_torch.core.server_opt import (FUSED_INGEST_GROUPS_DETAIL,
                                          ServerState, server_ingest_tree,
                                          server_update_tree)
 from repro_torch.core.stages import (mesh_agg_strategy, mesh_select_tree,
-                                     mesh_uplink, resolve_fused_ingest,
+                                     mesh_uplink, randk_leaf_positions,
+                                     resolve_fused_ingest,
                                      resolve_mesh_sparse_impl,
                                      sparse_topk_leaf_validated, stage)
+from repro_torch.kernels import ops
 from repro_torch.models import params as pdefs
 from repro_torch.models.params import tree_leaves, tree_map, tree_unzip
 
@@ -174,6 +184,14 @@ def gather_fed_state(state: FedMeshState, model, fed: FedConfig,
                       defs)
 
 
+def _mesh_sizes(ctx) -> dict:
+    """Every named dim of the mesh → its size, as ``take_shard`` cuts
+    leaves (the ZeRO state shards over "data" with no client axes)."""
+    if ctx.mesh is None:
+        return {}
+    return {ax: ctx.axis_size((ax,)) for ax in ctx.mesh.mesh_dim_names}
+
+
 def init_fed_state(model, fed: FedConfig, generator: torch.Generator, ctx,
                    device=None) -> FedMeshState:
     """This rank's initial state: params from ``generator`` (the global
@@ -183,10 +201,7 @@ def init_fed_state(model, fed: FedConfig, generator: torch.Generator, ctx,
     device = resolve_device(device)
     defs = fed_state_defs(model, fed)
     params = pdefs.init_params(defs.params, generator, device, ctx=ctx)
-    # every named dim of the mesh, as take_shard cuts them (the ZeRO state
-    # shards over "data" with no client axes)
-    sizes = ({} if ctx.mesh is None else
-             {ax: ctx.axis_size((ax,)) for ax in ctx.mesh.mesh_dim_names})
+    sizes = _mesh_sizes(ctx)
     zeros = lambda t: tree_map(
         lambda d: torch.zeros(pdefs.local_shape(d, sizes),
                               dtype=getattr(torch, d.dtype), device=device),
@@ -312,15 +327,51 @@ def sync_model_replicas(delta, defs, ctx):
         t.copy_(part.view_as(t))
 
 
+class MeshRoundInputs(NamedTuple):
+    """What R mesh rounds draw or compute on the host, made before the
+    first of them (:meth:`MeshRound.stage_inputs`) and stacked on the
+    state's device, each leading with R. The round body reads its round's
+    slot of them and nothing else from the host."""
+    eta_l: torch.Tensor                # (R,) fp32 local learning rates
+    k_i: Optional[torch.Tensor]        # (R,) int64 this rank's step counts
+    mask: torch.Tensor                 # (R, m) fp32 participation × alive
+    plan: Optional[FaultPlan]          # (R, 1) this rank's corruption row
+    randk: Optional[dict]              # per leaf (R, k_leaf) int64 positions
+
+
+class MeshRound:
+    """This rank's mesh round (:func:`build_fed_round`): calling it,
+    ``fed_round(state, batch, seed) -> (state, metrics)``, runs one round
+    eagerly. Its two halves are shared with :func:`build_fed_rounds_scan`:
+    :meth:`stage_inputs`, the host prelude that makes every value a round
+    takes from the host for R rounds at once, and :meth:`body`, the round
+    on the device from its slot of those values. A call is the prelude at
+    R = 1 and the body on slot 0, so the eager round and the program run
+    one round."""
+
+    def __init__(self, stage_inputs, body, keys, ctx):
+        self.stage_inputs = stage_inputs
+        self.body = body
+        #: the metrics the body emits, in the order the program stacks them
+        self.keys = keys
+        self.ctx = ctx
+
+    def __call__(self, state: FedMeshState, batch, seed):
+        inputs = self.stage_inputs(state, [seed])
+        return self.body(state, batch, _map(lambda t: t[0], inputs))
+
+
 def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
-                    chunk: int = 2048, kernel_impl: Optional[object] = None):
-    """Returns ``fed_round(state, batch, seed) -> (state, metrics)``, this
-    rank's round body. ``batch``: this rank's shard of the round's batch
-    (:func:`shard_batch`), tensors with a leading K dim on the state's
-    device; ``seed``: the round's shared seed, the same on every rank.
-    ``kernel_impl``: a ``kernels.ops.KernelImpl`` (the selection and the
-    fused ingest through their kernels; the dense-hat EF and the two-pass
-    server step launch theirs on CUDA tensors without one)."""
+                    chunk: int = 2048,
+                    kernel_impl: Optional[object] = None) -> MeshRound:
+    """Returns this rank's round, ``fed_round(state, batch, seed) ->
+    (state, metrics)`` (a :class:`MeshRound`). ``batch``: this rank's
+    shard of the round's batch (:func:`shard_batch`), tensors with a
+    leading K dim on the state's device; ``seed``: the round's shared
+    seed, the same on every rank. ``kernel_impl``: a
+    ``kernels.ops.KernelImpl`` (the selection and the fused ingest through
+    their kernels; the dense-hat EF and the two-pass server step launch
+    theirs on CUDA tensors without one)."""
     if getattr(model, "tp", 1) != max(ctx.tp, 1):
         raise ValueError(f"the model is built for tp={model.tp} but the "
                          f"context's model axis has tp={ctx.tp}")
@@ -395,14 +446,74 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
             sparse_block = kernel_impl.block
     comp = (make_compressor(comp_name, fed.compress_ratio, sparse_block)
             if fed.algorithm == "fedcams" else None)
+    randk = comp is not None and comp.name.startswith("randk")
     rule = make_local_update(fed)
     m_clients = fed.num_clients
     n_part = fed.participating or m_clients
     hierarchical = "data" not in fed.client_axes  # within-client DP on "data"
     defs = model.defs()
+    # measured uplink bytes (a host constant, as JAX's trace-time one): all
+    # m clients feed the tier-1 collective (non-participants send masked
+    # zeros), the root tier one dense partial per GROUP — billed on this
+    # rank's leaves (its model shards), as init_fed_state shapes them
+    sizes = _mesh_sizes(ctx)
+    tiers = mesh_wire_bytes_tiers(
+        fed, tree_map(lambda d: torch.empty(pdefs.local_shape(d, sizes),
+                                            device="meta"), defs),
+        block=sparse_block, tp=ctx.tp)
+    wire_bytes = float(m_clients * tiers["tier1"]
+                       + fed.agg_groups * tiers["tier2"])
+    keys = tuple(mesh_metric_specs(fed))
 
-    def fed_round(state: FedMeshState, batch, seed):
-        seed = int(seed)
+    def stage_inputs(state: FedMeshState, seeds) -> MeshRoundInputs:
+        """R rounds' host draws (``seeds``: the rounds' shared seeds), each
+        from the generator and in the order the round has always drawn it:
+        η_l of rounds ``int(state.round)`` + r (the state's one host read
+        a call); this rank's step count (``round_generator(seed, 0)``); the
+        participation mask (``round_generator(seed, 1)``) times the crash
+        mask of ``mesh_fault_mask``; this rank's row of
+        ``mesh_corruption_plan``; randk's positions
+        (``round_generator(seed, 2)``, leaf by leaf). Stacked on the
+        state's device."""
+        round0 = int(state.round)
+        dev = tree_leaves(state.params)[0].device
+        ci = ctx.client_index()
+        eta, ks, masks, plans, draws = [], [], [], [], []
+        for r, seed in enumerate(seeds):
+            seed = int(seed)
+            eta.append(local_lr(fed, round0 + r))
+            k_all = hetero_step_counts(fed, round_generator(seed, 0),
+                                       m_clients)
+            ks.append(None if k_all is None else k_all[ci])
+            mask = participation_mask(round_generator(seed, 1), m_clients,
+                                      n_part)
+            if fcfg is not None:
+                # crashed clients drop out of the round like
+                # non-participants: zero contribution, stale EF row
+                mask = mask * mesh_fault_mask(fcfg, seed, m_clients,
+                                              round0 + r)
+            masks.append(mask)
+            if validating:
+                plan = mesh_corruption_plan(fcfg, seed, m_clients)
+                plans.append(FaultPlan(*(a[ci:ci + 1] for a in plan)))
+            if randk:
+                draws.append(randk_leaf_positions(
+                    comp, state.params, round_generator(seed, 2)))
+        with stage("host_to_device", "mesh"):
+            return MeshRoundInputs(
+                eta_l=torch.tensor(eta, dtype=torch.float32).to(dev),
+                k_i=None if ks[0] is None else torch.stack(ks).to(dev),
+                mask=torch.stack(masks).to(dev),
+                plan=(FaultPlan(*(torch.stack(f).to(dev)
+                                  for f in zip(*plans)))
+                      if plans else None),
+                randk=(tree_map(lambda *t: torch.stack(t), *draws)
+                       if draws else None))
+
+    def body(state: FedMeshState, batch, inp: MeshRoundInputs):
+        """One round from ``state`` on ``batch`` with its slot of the
+        staged inputs (0-d and (m,) tensors on the device). Reads nothing
+        on the host."""
         params = state.params
         flat0, unravel = pdefs.ravel(params)
         flat0 = flat0.float()
@@ -418,14 +529,10 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
                                                   dtype=g.dtype, device=dev)
             return loss.detach(), g
 
-        round_idx = int(state.round)
         ci = ctx.client_index()
-        eta_l = local_lr(fed, round_idx)
-        k_all = hetero_step_counts(fed, round_generator(seed, 0), m_clients)
-        k_i = None if k_all is None else k_all[ci]
         with stage("local_training", "mesh"):
             local, loss_local = run_local_steps(rule, grad_fn, flat0, batch,
-                                                eta_l, k_i=k_i)
+                                                inp.eta_l, k_i=inp.k_i)
             delta = unravel((local - flat0).float())
             # neither is read again: free their 2·d floats before the
             # uplink and the server step allocate theirs
@@ -433,17 +540,9 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
             sync_model_replicas(delta, defs, ctx)
 
         # participation: the same mask on every rank (shared draw)
-        mask = participation_mask(round_generator(seed, 1), m_clients,
-                                  n_part)
-        if fcfg is not None:
-            # crashed clients drop out of the round like non-participants:
-            # zero contribution, stale EF row
-            mask = mask * mesh_fault_mask(fcfg, seed, m_clients, round_idx)
-            mask = mask.to(dev)
-            n_eff = mask.sum().clamp_min(1.0)
-        else:
-            mask = mask.to(dev)
-            n_eff = float(n_part)
+        mask = inp.mask
+        n_eff = (mask.sum().clamp_min(1.0) if fcfg is not None
+                 else float(n_part))
         my_mask = mask[ci]
 
         my_err = tree_map(lambda e: e[0], state.errors)
@@ -483,12 +582,10 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
             # validate server-side, aggregate over alive ∧ valid; a
             # rejected client's EF row rolls back to its pre-round value
             sels, new_err = select()
-            plan = mesh_corruption_plan(fcfg, seed, m_clients)
-            myplan = FaultPlan(*(a[ci:ci + 1].to(dev) for a in plan))
 
             def leaf_fault(s, lf):
                 cv, cidx = corrupt_selection(s.vals[None], s.idx[None],
-                                             myplan, fcfg.corrupt_mode)
+                                             inp.plan, fcfg.corrupt_mode)
                 bs, nb = block_layout(lf.numel(), sparse_block)
                 return sparse_topk_leaf_validated(
                     Selection(vals=cv[0], idx=cidx[0]), lf, mask, ctx,
@@ -510,8 +607,8 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
         else:
             with stage("uplink", "mesh"):
                 agg, new_err = mesh_uplink(fed, comp, ctx, kernel_impl,
-                                           round_generator(seed, 2), delta,
-                                           my_err, my_mask, n_eff)
+                                           inp.randk, delta, my_err,
+                                           my_mask, n_eff)
             new_params, new_st = _server_step(agg)
 
         errors = tree_map(lambda ne: ne.unsqueeze(0), new_err)
@@ -528,21 +625,15 @@ def build_fed_round(model, fed: FedConfig, train: TrainConfig, ctx, *,
         new_state = FedMeshState(params=new_params, m=new_st.m, v=new_st.v,
                                  vhat=new_st.vhat, errors=errors,
                                  round=new_st.t)
-        # measured uplink bytes (a host constant, as JAX's trace-time one):
-        # all m clients feed the tier-1 collective (non-participants send
-        # masked zeros), the root tier one dense partial per GROUP
-        tiers = mesh_wire_bytes_tiers(fed, delta, block=sparse_block,
-                                      tp=ctx.tp)
-        wire = torch.tensor(float(m_clients * tiers["tier1"]
-                                  + fed.agg_groups * tiers["tier2"]),
-                            dtype=torch.float32, device=dev)
-        met = {"loss": loss, "wire_up_bytes": wire}
+        met = {"loss": loss,
+               "wire_up_bytes": torch.full((), wire_bytes,
+                                           dtype=torch.float32, device=dev)}
         if fcfg is not None:
             met["survivors"] = mask.sum()
             met["rejected"] = rejected
         return new_state, met
 
-    return fed_round
+    return MeshRound(stage_inputs, body, keys, ctx)
 
 
 def mesh_metric_specs(fed: FedConfig, *, scan: bool = False):
@@ -558,20 +649,235 @@ def mesh_metric_specs(fed: FedConfig, *, scan: bool = False):
     return specs
 
 
-def build_fed_rounds_scan(fed_round):
-    """Lift a per-round mesh body to the multi-round body
-    ``(state, batches[R], seeds[R]) -> (state, stacked metrics)`` — JAX's
-    ``lax.scan`` as a plain loop over the staged rounds."""
+def captures_rounds(device, ctx) -> bool:
+    """Whether :func:`build_fed_rounds_scan` captures a round into a CUDA
+    graph on this rank: on a CUDA state whose collectives run over NCCL (or
+    that runs none: no mesh). gloo's collectives run on the host and cannot
+    be captured, so on gloo, as on the CPU, the staged body runs eagerly.
+    Decided from the device and the backend before anything runs."""
+    if torch.device(device).type != "cuda":
+        return False
+    if ctx.mesh is None or not dist.is_initialized():
+        return True
+    return dist.get_backend() == "nccl"
 
-    def rounds_fn(state, batches, seeds):
-        mets = []
-        for r in range(len(seeds)):
-            state, met = fed_round(state, {k: v[r] for k, v in batches.items()},
-                                   int(seeds[r]))
-            mets.append(met)
-        return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
 
-    return rounds_fn
+def _map(fn, tree):
+    """``fn`` over the tensors of a tree of named tuples, tuples, dicts
+    and Nones (kept)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        parts = [_map(fn, v) for v in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree
+
+
+def _tensors(tree) -> list:
+    """The tensors of such a tree, a dict's by sorted key (so two trees
+    built in another key order pair leaf by leaf)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _structure(tree):
+    """The shape of such a tree without its tensors' shapes."""
+    if isinstance(tree, dict):
+        return tuple((k, _structure(tree[k])) for k in sorted(tree))
+    if isinstance(tree, tuple):
+        return (type(tree).__name__,) + tuple(_structure(v) for v in tree)
+    return type(tree).__name__
+
+
+class _RoundsProgram:
+    """R mesh rounds as one program: the carry (the state's own tensors,
+    adopted on the first call: no second copy of the state), static inputs
+    of ``capacity`` rounds (the staged batches and :class:`MeshRoundInputs`),
+    a round counter on the device that the body reads its slot at, and
+    (keys, capacity) metric slots. With ``captured`` one round is captured
+    into a CUDA graph on a stream of its own, after a warm-up round on that
+    stream whose result is dropped (it makes the lazy state — the NCCL
+    communicator, cuBLAS handles, the autograd engine's device thread —
+    before capture), and each run replays it; else the body runs eagerly.
+    ``counts``: the kernel launches the capture recorded into the graph
+    (:func:`repro_torch.kernels.ops.captured_launches`)."""
+
+    def __init__(self, rnd: MeshRound, state: FedMeshState, batches,
+                 inputs: MeshRoundInputs, captured: bool):
+        self.rnd = rnd
+        self.captured = captured
+        dev = tree_leaves(state.params)[0].device
+        self.capacity = len(inputs.eta_l)
+        self.carry = state
+        self.inputs = _map(torch.empty_like, (batches, inputs))
+        self.ctr = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.out = torch.zeros((len(rnd.keys), self.capacity),
+                               dtype=torch.float32, device=dev)
+        self.graph = self.counts = None
+        self.stream = torch.cuda.Stream(dev) if captured else None
+
+    def load(self, state: FedMeshState, batches, inputs) -> None:
+        """The state into the carry (unless it is the carry), the R rounds'
+        inputs into the first R slots, the counter to 0."""
+        for dst, src in zip(_tensors(self.carry), _tensors(state)):
+            if dst is not src:
+                dst.copy_(src)
+        for dst, src in zip(_tensors(self.inputs),
+                            _tensors((batches, inputs))):
+            dst[:src.shape[0]].copy_(src)
+        self.ctr.zero_()
+
+    def step(self, write: bool = True) -> None:
+        """One round of the body on the carry at round ``ctr``'s inputs;
+        with ``write`` its new state copied into the carry (a leaf the
+        round left as it was is its slot already), its metrics into column
+        ``ctr``, the counter + 1."""
+        at = lambda t: t.index_select(0, self.ctr)[0]
+        batches, inputs = _map(at, self.inputs)
+        with ops.rows_prechecked():
+            new, met = self.rnd.body(self.carry, batches, inputs)
+        if not write:
+            return
+        for dst, src in zip(_tensors(self.carry), _tensors(new)):
+            if src is not dst:
+                dst.copy_(src)
+        for j, key in enumerate(self.rnd.keys):
+            self.out[j].index_copy_(0, self.ctr,
+                                    met[key].reshape(1).to(self.out.dtype))
+        self.ctr.add_(1)
+
+    def run(self, R: int):
+        """R rounds from the loaded carry → the (keys, R) metrics on the
+        host (the one host read) and, on CUDA, each round's ms by CUDA
+        events (a replay's, or an eager body's)."""
+        dev = self.out.device
+        timed = dev.type == "cuda"
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(R + 1)] if timed else []
+        if not self.captured:
+            for r in range(R):
+                if timed:
+                    events[r].record()
+                self.step()
+            if timed:
+                events[R].record()
+            return self.out[:, :R].cpu(), events
+        here = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            if self.graph is None:
+                self.step(write=False)
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                # thread-local: another thread's CUDA calls (the NCCL
+                # watchdog's event queries) do not void this capture
+                with ops.captured_launches() as counts:
+                    with torch.cuda.graph(graph, stream=self.stream,
+                                          capture_error_mode="thread_local"):
+                        self.step()
+                graph.instantiate()
+                self.graph, self.counts = graph, counts
+            for r in range(R):
+                events[r].record()
+                self.graph.replay()
+            events[R].record()
+        here.wait_stream(self.stream)
+        return self.out[:, :R].cpu(), events
+
+
+class MeshRounds:
+    """``rounds_fn(state, batches, seeds) -> (state, stacked metrics)``:
+    :func:`build_fed_rounds_scan`'s multi-round program. ``last`` holds what
+    the latest call did: ``captured`` (one CUDA graph of a round replayed,
+    or the staged body run eagerly), ``built`` (whether the call made its
+    program: a capture, on CUDA + NCCL), ``rounds``, ``round_ms`` (each
+    round's ms by CUDA events, None on the CPU) and ``program``."""
+
+    def __init__(self, rnd: MeshRound, log=None):
+        self.rnd = rnd
+        self.log = log
+        self.programs = {}
+        self.last = None
+
+    def _program(self, state, batches, inputs):
+        dev = tree_leaves(state.params)[0].device
+        shapes = lambda tree: tuple((tuple(t.shape), t.dtype)
+                                    for t in _tensors(tree))
+        rows = lambda tree: tuple((tuple(t.shape[1:]), t.dtype)
+                                  for t in _tensors(tree))
+        key = (str(dev), shapes(state), rows((batches, inputs)),
+               _structure((batches, inputs)),
+               torch.are_deterministic_algorithms_enabled(),
+               torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32)
+        R = len(inputs.eta_l)
+        prog = self.programs.get(key)
+        built = prog is None or prog.capacity < R
+        if built:
+            captured = captures_rounds(dev, self.rnd.ctx)
+            prog = self.programs[key] = _RoundsProgram(
+                self.rnd, state, batches, inputs, captured)
+            if self.log:
+                backend = (dist.get_backend() if dist.is_initialized()
+                           else "no process group")
+                self.log(
+                    f"staged mesh rounds on {dev} ({backend}): "
+                    + ("one round captured into a CUDA graph, replayed "
+                       "once a round" if captured
+                       else "the staged body run eagerly, round by round"))
+        return prog, built
+
+    def __call__(self, state: FedMeshState, batches, seeds):
+        """R = len(seeds) rounds on ``batches`` (this rank's (R, K, ...)
+        shard, :func:`shard_batch` with ``staged``) from ``state``, which
+        the call consumes: the state returned is the program's carry, the
+        input state's own tensors on the first call (any other state is
+        copied into the carry). Returns it and the metrics, each a (R,)
+        tensor on the host."""
+        inputs = self.rnd.stage_inputs(state, seeds)
+        prog, built = self._program(state, batches, inputs)
+        prog.load(state, batches, inputs)
+        R = len(seeds)
+        stacked, events = prog.run(R)
+        self.last = dict(captured=prog.captured, built=built, rounds=R,
+                         events=events, program=prog)
+        return prog.carry, {k: stacked[j] for j, k in
+                            enumerate(self.rnd.keys)}
+
+    def round_ms(self):
+        """The latest call's rounds' ms by CUDA events (after the call's
+        read, so reading them waits for nothing); None on the CPU."""
+        ev = (self.last or {}).get("events")
+        if not ev:
+            return None
+        return [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+
+
+def build_fed_rounds_scan(fed_round: MeshRound, log=None) -> MeshRounds:
+    """Lift this rank's round to the multi-round program ``(state,
+    batches[R], seeds[R]) -> (state, stacked metrics)``, the reference's
+    ``lax.scan`` over rounds: R rounds as one program, with no host work
+    between the first round and the one host read of the (keys, R)
+    metrics at the end. The host draws of all R rounds are staged first
+    (:meth:`MeshRound.stage_inputs`, the prelude the eager round runs at R
+    = 1); then the round body runs round after round on the state's own
+    tensors (donated, as the reference's jit donates its carry: the input
+    state is consumed), reading its round's inputs at a round counter on
+    the device. On a CUDA state whose process group is NCCL
+    (:func:`captures_rounds`) one round is captured into a
+    ``torch.cuda.CUDAGraph`` after a warm-up round and replayed R times;
+    on gloo or the CPU the same body runs eagerly. The choice is made up
+    front, reported in ``last["captured"]`` and logged (``log``) when a
+    program is made; a capture or launch that fails raises. A program is
+    kept per shape and setting (deterministic algorithms, TF32) and reused
+    by later calls of as many rounds or fewer (chunks of 3, then 1)."""
+    return MeshRounds(fed_round, log)
 
 
 def stage_mesh_rounds(lm_data, r0: int, count: int, local_steps: int,

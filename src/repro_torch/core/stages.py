@@ -27,7 +27,8 @@ from repro_torch.comm.faults import validate_selection
 from repro_torch.core.compressors import randk_positions
 from repro_torch.core.error_feedback import ef_compress_masked, ef_compress_rows
 from repro_torch.kernels import ops, ref
-from repro_torch.models.params import tree_map, tree_unzip
+from repro_torch.models.params import (leaves_with_paths, tree_map,
+                                       tree_unzip, unflatten)
 
 
 def stage(name: str, backend: str = "fedsim"):
@@ -472,27 +473,38 @@ def packed_sign_leaf(tot, my_mask, n_eff, ctx):
     return agg.reshape(tot.shape), hat.reshape(tot.shape)
 
 
-def ef_compress_tree(comp, delta, err, mask, draw):
+def randk_leaf_positions(comp: Compressor, params, draw):
+    """randk's positions for one mesh round, a tree like ``params`` (this
+    rank's leaves) of (k_leaf,) int64 tensors on their device, drawn from
+    ``draw`` (a generator every rank seeds alike) leaf by leaf in
+    ``ravel_pytree`` order: one set per leaf for all clients, as the JAX
+    round folds one shared key."""
+    paths, pos = [], []
+    for path, leaf in leaves_with_paths(params):
+        n = leaf.numel()
+        k = max(1, int(round(comp.ratio * n)))
+        paths.append(path)
+        pos.append(randk_positions(draw, n, k, 1, leaf.device)[0])
+    return unflatten(paths, pos)
+
+
+def ef_compress_tree(comp, delta, err, mask, positions=None):
     """Dense-hat EF over this rank's tree: ``ef_compress_masked`` on each
     flattened leaf, a (1, d_leaf) row (sign/packedsign and blocktopk
     through ``ops.sign_ef``/``ops.topk_ef``: the kernels on CUDA, their
-    twins on the CPU); randk's positions come from ``draw``, a generator
-    every rank seeds alike (one set per leaf for all clients, as the JAX
-    round folds one shared key)."""
-    def leaf(dd, ee):
-        flat = dd.reshape(-1)
-        pos = None
-        if comp.name.startswith("randk"):
-            k = max(1, int(round(comp.ratio * flat.numel())))
-            pos = randk_positions(draw, flat.numel(), k, 1, flat.device)[0]
-        h, ne = ef_compress_masked(comp, flat, ee.reshape(-1), mask, pos)
+    twins on the CPU); ``positions``: randk's drawn positions, a tree like
+    ``delta`` (:func:`randk_leaf_positions`), else None."""
+    def leaf(dd, ee, pos=None):
+        h, ne = ef_compress_masked(comp, dd.reshape(-1), ee.reshape(-1), mask,
+                                   pos)
         return h.reshape(dd.shape), ne.reshape(ee.shape)
 
-    return tree_unzip(tree_map(leaf, delta, err), 2)
+    trees = (delta, err) if positions is None else (delta, err, positions)
+    return tree_unzip(tree_map(leaf, *trees), 2)
 
 
 def mesh_uplink(fed: FedConfig, comp: Optional[Compressor], ctx, kernel_impl,
-                draw, delta, my_err, my_mask, n_eff):
+                positions, delta, my_err, my_mask, n_eff):
     """This rank's delta tree → (aggregated update, next EF error).
 
     Resolves the aggregation strategy (:func:`mesh_agg_strategy`) — dense
@@ -502,8 +514,9 @@ def mesh_uplink(fed: FedConfig, comp: Optional[Compressor], ctx, kernel_impl,
     top-k strategy each leaf is selected ONCE (``fed.mesh_sparse_impl``:
     the ``topk_ef_sparse`` kernel through ``KernelImpl``, or
     ``Compressor.select`` — bit-identical), and the collective carries
-    that Selection, never a dense hat. ``draw``: the generator randk's
-    positions come from (None for every other compressor)."""
+    that Selection, never a dense hat. ``positions``: randk's drawn
+    positions (:func:`randk_leaf_positions`; None for every other
+    compressor)."""
     if comp is None:
         return agg_dense(delta, my_mask, n_eff, ctx, fed.delta_dtype), my_err
 
@@ -526,7 +539,7 @@ def mesh_uplink(fed: FedConfig, comp: Optional[Compressor], ctx, kernel_impl,
                        delta)
         return agg, new_err
 
-    hat, new_err = ef_compress_tree(comp, delta, my_err, my_mask, draw)
+    hat, new_err = ef_compress_tree(comp, delta, my_err, my_mask, positions)
     if fed.delta_dtype != "float32":
         # error feedback must track the value actually sent
         wd = getattr(torch, fed.delta_dtype)

@@ -49,10 +49,15 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
     the mesh over the initialized process group, params from
     ``torch.Generator().manual_seed(train_cfg.seed)`` on ``device`` (None:
     CUDA), ``train_cfg.rounds`` rounds of ``FederatedLMData``
-    (``scan_rounds`` > 1: that many staged rounds a call), then with
+    (``scan_rounds`` > 1: that many staged rounds a call through
+    ``core.mesh.build_fed_rounds_scan``: on CUDA + NCCL one captured
+    round replayed, on gloo the staged body run eagerly), then with
     ``checkpoint`` the global state written by rank 0 in the JAX package's
     layout. Rank 0 prints the reference's lines. Returns the rounds'
-    metrics, each with its host time (the device synchronized), the
+    metrics, each with its host time ``round_s`` (the device synchronized;
+    a staged chunk's whole call, shared by its rounds) and its ``event_ms``
+    by CUDA events (a staged round's: its graph replay's on NCCL; None on
+    the CPU), the
     parameter count (this rank's: its model shards) and this rank's peak
     device memory (CUDA); with ``keep_params``, the final params gathered
     over the model axis, on the host (every rank calls the gather; rank 0
@@ -92,9 +97,9 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
     history = []
     t0 = time.time()
 
-    def record(met, r, secs):
+    def record(met, r, secs, **extra):
         rec = {k: float(v) for k, v in met.items()}
-        rec.update(round=r, round_s=secs)
+        rec.update(round=r, round_s=secs, **extra)
         history.append(rec)
         if log and (r % log_every == 0 or r == train_cfg.rounds - 1):
             extra = ""
@@ -110,7 +115,7 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
         return time.perf_counter()
 
     if scan_rounds and scan_rounds > 1:
-        step = meshmod.build_fed_rounds_scan(rnd)
+        step = meshmod.build_fed_rounds_scan(rnd, log)
         r = 0
         while r < train_cfg.rounds:
             chunk = min(scan_rounds, train_cfg.rounds - r)
@@ -123,19 +128,32 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
                 ts = synced()
                 state, stacked = step(state, batch, seeds)
                 secs = (synced() - ts) / chunk
+            # each round's ms by CUDA events (its graph replay on NCCL, the
+            # staged body on gloo), beside the whole call's share
+            ev = step.round_ms() or [None] * chunk
             for i in range(chunk):
-                record({k: v[i] for k, v in stacked.items()}, r + i, secs)
+                record({k: v[i] for k, v in stacked.items()}, r + i, secs,
+                       event_ms=ev[i])
             r += chunk
     else:
         for r in range(train_cfg.rounds):
             raw = data.mesh_batch(r, fed.local_steps, train_cfg.global_batch,
                                   train_cfg.seq_len)
             batch = meshmod.shard_batch(raw, model, fed, train_cfg, ctx, dev)
+            timed = dev.type == "cuda"
+            if timed:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
             with torch.profiler.record_function(ROUND_RANGE):
                 ts = synced()
+                if timed:
+                    e0.record()
                 state, met = rnd(state, batch, r)
+                if timed:
+                    e1.record()
                 secs = synced() - ts
-            record(met, r, secs)
+            record(met, r, secs,
+                   event_ms=e0.elapsed_time(e1) if timed else None)
     out = {"history": history, "params": nparams,
            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                           if dev.type == "cuda" else None),
