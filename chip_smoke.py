@@ -80,7 +80,14 @@ then, on the card:
    peak memory over the baseline, beside the batched block's activations
    reckoned on the ConvMixers;
 3. runs the FedCAMS round on ConvMixer-256-8 (random weights from a seed,
-   synthetic CIFAR-shaped data), 6 rounds on each route:
+   synthetic CIFAR-shaped data), 6 rounds on each route, as users run it:
+   each round a call of ``FedSim.round``, one replay of its program (one
+   CUDA graph, captured at the first call after one dropped warm-up run;
+   route j's dispatches and flushes replay two programs), so a route's
+   launches are its graphs' ``debug_dump`` kernel nodes times their
+   replays and the wrappers count the warm-ups' (route i's clip share is
+   read from its rounds run eagerly under ``disable_graphs``, where the
+   payloads' norms can be read on the host):
    (a) blocktopk, ``track_gamma=False``, fused ingest → ``topk_ef_sparse``
        + ``fedams_ingest``;
    (b) blocktopk, ``track_gamma=True`` → ``topk_ef_sparse``, scatter-mean
@@ -129,12 +136,18 @@ then, on the card:
    (l) randk 1/64 in memory, γ on (the default), ``client_chunk=5`` →
        ``fedams_update`` once a round; each round's drawn sets hold k
        distinct positions.
-   Then, under deterministic algorithms, routes a, b, c, h and l (6
+   Then, under deterministic algorithms, routes a, b, c, h and l (4
    rounds), make_problem's ConvMixer and MLP (``benchmarks/common.py``'s
    two problems rebuilt from the port's modules, route a's configuration,
    20 rounds) and routes d, e, f, g and i on that MLP (3 rounds) each run
-   as an eager loop of ``FedSim.round`` and as one ``FedSim.run_rounds``
-   call: one CUDA graph capture and R replays, the whole call under
+   as an eager loop of ``FedSim.round`` under ``disable_graphs``, as R
+   calls of ``FedSim.round`` through its program (one program, one
+   capture, a replay a call; state, metrics and host counters bitwise the
+   eager loop's; the graph's launches the eager loop's; each route's line
+   prints the replay ms by CUDA events beside the eager round's, and a
+   call's host ms beside the eager round's), and as one
+   ``FedSim.run_rounds`` call: one CUDA graph capture and R replays, the
+   whole call under
    ``torch.cuda.set_sync_debug_mode("warn")`` with no synchronizing CUDA
    operation from the first replay to the last and one after it (the
    metrics' read); the final state and every metric equal to the loop's
@@ -147,6 +160,10 @@ then, on the card:
    are timed in. Prints the eager round ms (host clock and CUDA events),
    the graph's replay ms (CUDA events), the whole call against the whole
    eager loop, and the card.
+   Route j's line: its configuration over 3 cohorts through the dispatch
+   and flush programs against the same under ``disable_graphs``, bitwise;
+   route k's: 3 rounds through the round's program (the store's rows its
+   static input) against the eager rounds, bitwise, the store's rows too.
    On h and i every round has survivors + rejected + crashed +
    deadline_cut = n, the EF rows of the clients the server did not ingest
    equal their pre-round rows to the bit, and the state stays finite.
@@ -178,8 +195,10 @@ then, on the card:
    between the first replay and the last and one after them; the graph's
    52 + 52 kernel nodes read from ``debug_dump``; under deterministic
    algorithms state and metrics bitwise the loop's, and once more in the
-   default mode; eager rounds and replays timed by CUDA events). Each job
-   checks its
+   default mode; eager rounds and replays timed by CUDA events; then, under
+   deterministic algorithms, the 6 rounds through the per-round step,
+   ``MeshRounds.round``: one program, one capture, a replay a round,
+   bitwise the eager loop). Each job checks its
    kernels' launches a round, finite losses, ``wire_up_bytes`` against
    ``mesh_wire_bytes_tiers``, and that every shape at which a rank
    launched a kernel (``record_launch_shapes``) is one phase 1 held
@@ -202,10 +221,18 @@ then, on the card:
    ``mesh_wire_bytes_tiers``; losses finite. Prints the reckoned and the
    measured peak memory a rank and rank 0's round ms. Route o1: the same
    configuration at one client on one NCCL rank, ``train`` with
-   ``scan_rounds=0`` against ``scan_rounds=3`` (the 3 rounds as one
-   captured graph replayed 3 times, 20 + 20 kernel nodes), bitwise under
-   deterministic algorithms, timed in both modes, its peak against
-   ``lm_memory_reckoning``'s (the graph's pool: the round's temporaries);
+   ``scan_rounds=0`` under ``disable_graphs`` (the eager loop) against
+   ``scan_rounds=3`` (the 3 rounds as one captured graph replayed 3 times,
+   20 + 20 kernel nodes), bitwise under deterministic algorithms, timed in
+   both modes, its peak against ``lm_memory_reckoning``'s (the graph's
+   pool: the round's temporaries); and, deterministic, ``train`` without
+   ``scan_rounds`` through its per-round step (one capture, a replay a
+   round), bitwise the eager loop. Routes o, q, s, u and w run ``train``
+   as a user does, without ``scan_rounds``: each round one call of the
+   per-round program (on o's and w's gloo ranks its staged body, run
+   eagerly; on q's, s's and u's NCCL rank one captured round replayed a
+   round, its kernel nodes the capture's launches, its peak printed
+   beside the reckoning);
 7. serves qwen2-moe-a2.7b at its published widths and full depth (route
    p, 24 layers, 14,315,735,040 params, 57.3 GB of fp32 weights drawn on
    the card from a seeded CUDA generator, bf16 compute) through ``launch/serve.py``: batch 4 × prompt 512 + 32 tokens
@@ -223,10 +250,13 @@ then, on the card:
    1,192,890,368 params in 19 leaves, ~53.7 GB: one rank) through
    ``launch/train.py``'s ``train`` on one NCCL rank: fedcams, blockwise
    top-k 1/64 over the sparse collective, the fused ingest, K = 2, batch
-   2 × 512, 3 rounds. 19 ``topk_ef_sparse`` + 19 ``fedams_ingest`` a
-   round at shapes phase 1 held; ``wire_up_bytes`` as billed; losses and
-   every local step's aux loss finite, the aux loss > 0. Prints round ms
-   and peak memory;
+   2 × 512, 3 rounds, each one replay of ``train``'s per-round program
+   (one capture). 19 ``topk_ef_sparse`` + 19 ``fedams_ingest`` a round
+   (the graph's kernel nodes; the wrappers' in the warm-up) at shapes
+   phase 1 held; ``wire_up_bytes`` as billed; losses and the local steps'
+   aux loss (the warm-up round's steps and the last replay's) finite, the
+   aux loss > 0. Prints round ms, the replays' ms and the peak memory with
+   the graph's pool beside the reckoned eager peak;
 9. serves deepseek-v3-671b at its published widths (route r: MLA with the
    absorbed decode over its latent cache, 256 experts top-8 and a shared
    one; reduced to 1 of 61 layers and no MTP block, which serving never
@@ -242,7 +272,7 @@ then, on the card:
    MLA dims with the MTP block; reduced to 1 layer, 8 of 256 experts at
    the published expert width, top-2, a vocabulary of 8,192;
    1,387,296,768 params in 41 leaves) on one NCCL rank, as route q: 41
-   ``topk_ef_sparse`` + 41 ``fedams_ingest`` a round; every local step's
+   ``topk_ef_sparse`` + 41 ``fedams_ingest`` a round; the local steps'
    aux loss and MTP cross entropy finite and > 0;
 11. serves recurrentgemma-2b at its published widths and full depth (route
    t: 26 layers, (RG-LRU, RG-LRU, local attention) × 8 and two RG-LRU
@@ -324,8 +354,9 @@ start and all its jobs), each job its own, and a line before the kernels
 line all of them.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(``launches``: the wrappers' counts over phase 3 and the later routes;
-``graph_launches``, apart: the run_rounds graphs' and the mesh programs'
+(``launches``: the wrappers' counts over phase 3 and the later routes —
+the programs' warm-ups and the eager twins; ``graph_launches``, apart:
+phase 3's round programs', the run_rounds graphs' and the mesh programs'
 (m1, o1) kernel nodes times their replays) and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
 without CUDA or when any check fails. Longer output goes to
 ``chiprun_out/chip_smoke.json``.
@@ -1523,7 +1554,8 @@ def i_fault(plan, m: int, n: int, k: int, loss, p0, dev):
     sim = FedSim(loss, _route_cfg("i", m, n, k, FaultConfig(
         crash_trace=trace, **FAULT_I)), device=dev)
     norms = []
-    with recording_norms(norms):
+    # the recording reads the norms on the host: the eager round
+    with recording_norms(norms), disable_graphs():
         sim.round(sim.init(p0), plan[0][1], plan[0][0])
     return FaultConfig(crash_trace=trace,
                        max_update_norm=float(torch.cat(norms).median()),
@@ -1737,13 +1769,16 @@ def route_g(loss, p0, data, d: int, rounds: int):
           f"route g: saved meta {meta}")
     diff = same_state(restored, tr._state)
     check(not diff, f"route g: the restored state differs in {diff}")
-    check(counts["pack_uint"] == counts["unpack_uint"] == 2 * rounds,
-          f"route g: pack_uint/unpack_uint launched {counts['pack_uint']}/"
-          f"{counts['unpack_uint']} times in {rounds} rounds (2 a round)")
-    check(counts["fedams_update"] == rounds,
-          f"route g: fedams_update launched {counts['fedams_update']} times")
+    # the trainer's rounds replay the round's program
+    graph = round_launches("route g", tr._sim, rounds, counts)
+    check(graph["pack_uint"] == graph["unpack_uint"] == 2 * rounds,
+          f"route g: pack_uint/unpack_uint launched {graph['pack_uint']}/"
+          f"{graph['unpack_uint']} times in {rounds} rounds (2 a round)")
+    check(graph["fedams_update"] == rounds,
+          f"route g: fedams_update launched {graph['fedams_update']} times")
     nbytes = tr._sim.codec.nbytes(d)
-    check(len(sizes) == rounds * (N_CLI + 1) and set(sizes) == {nbytes},
+    # encoded in the warm-up and the capture; the replays rerun them
+    check(len(sizes) == 2 * (N_CLI + 1) and set(sizes) == {nbytes},
           f"route g: encoded sizes {sorted(set(sizes))} over {len(sizes)} "
           f"messages, codec.nbytes(d)={nbytes}")
     check(all(h["wire_up_bytes"] == h["wire_down_bytes"] == N_CLI * nbytes
@@ -1761,7 +1796,8 @@ def route_g(loss, p0, data, d: int, rounds: int):
                                "wire_bytes", "round_time_s", "sim_time_s")}
             for h in hist]
     return dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses,
-                gamma=[h["gamma"] for h in hist], launches=counts, wire=wire,
+                gamma=[h["gamma"] for h in hist], launches=counts,
+                graph_launches=graph, wire=wire,
                 checkpoints=ckpts, ef_buffer_mb=st.errors.numel() * 4 / 1e6,
                 state_sha256=state_digest(st))
 
@@ -1827,6 +1863,38 @@ def deterministic():
         torch.use_deterministic_algorithms(False)
 
 
+def disable_graphs():
+    """``repro_torch.disable_graphs()``: inside it the per-round entry
+    points run their eager bodies, the twins the programs are held to."""
+    from repro_torch import disable_graphs as eager
+    return eager()
+
+
+def round_launches(label, sim, rounds: int, wrapper: dict) -> dict:
+    """The launches of ``rounds`` rounds (cohorts and flushes on route j)
+    through ``sim``'s programs: each graph's kernel nodes (``debug_dump``,
+    held to its capture's record) times its replays, summed; the wrappers
+    (``wrapper``, counted over the same rounds) launched only in the
+    warm-ups, one run of each program. Returns the graphs' launches."""
+    from repro_torch.core.sim import WARMUP_ROUNDS
+    graph = {k: 0 for k in KERNEL_SYMBOLS}
+    warm = {k: 0 for k in KERNEL_SYMBOLS}
+    for key, prog in sim._programs.items():
+        check(prog.graph is not None, f"{label}: its {key[0]} program has no "
+              f"graph")
+        nodes = dump_nodes(prog.graph)
+        check(nodes == {k: prog.counts.get(k, 0) for k in nodes},
+              f"{label}: the {key[0]} graph's kernel nodes {nodes} against "
+              f"its capture's launches {dict(prog.counts)}")
+        for k, n in nodes.items():
+            graph[k] += n * prog.replays
+            warm[k] += n * WARMUP_ROUNDS
+    check(warm == {k: wrapper.get(k, 0) for k in warm},
+          f"{label}: the wrappers launched {wrapper} in {rounds} rounds, the "
+          f"programs' warm-ups {warm}")
+    return graph
+
+
 def route_j(loss, p0, data, d: int, rounds: int):
     """Route j: the async engine over the staged cohorts, its launches
     counted per cohort and per flush; then B = n, uniform weights, 3
@@ -1856,10 +1924,13 @@ def route_j(loss, p0, data, d: int, rounds: int):
     flushes = -(-rounds * N_CLI // bsz)
     check(len(mets) == flushes and st.round == flushes,
           f"route j: {len(mets)} flushes, expected {flushes}")
-    check(counts["topk_ef_sparse"] == rounds and
-          counts["fedams_ingest"] == flushes and
-          counts["fedams_update"] == 0,
-          f"route j: launches {counts} for {rounds} cohorts and {flushes} "
+    # the dispatches and flushes replay their two programs
+    graph = round_launches("route j", sim, rounds, counts)
+    check(len(sim._programs) == 2 and
+          graph["topk_ef_sparse"] == rounds and
+          graph["fedams_ingest"] == flushes and
+          graph["fedams_update"] == 0,
+          f"route j: launches {graph} for {rounds} cohorts and {flushes} "
           f"flushes")
     check(any(m["buffer_fill"] < bsz or m["staleness_max"] > 0
               for m in mets), "route j: no flush partial or stale")
@@ -1890,9 +1961,98 @@ def route_j(loss, p0, data, d: int, rounds: int):
           f"in {diff}")
     print("route j: B = n, uniform weights, 3 cohorts under deterministic "
           "algorithms: equal to 3 sync rounds to the bit")
+    pair = async_pair(loss, p0, {k: v[:3] for k, v in batches.items()},
+                      ids[:3], p)
     return dict(cohorts=rounds, flushes=len(mets), run_ms=ms, loss=losses,
                 straggler_prob=p, per_flush=per_flush, launches=counts,
-                anchor_bitwise=True, state_sha256=state_digest(st))
+                graph_launches=graph, anchor_bitwise=True, programs=pair,
+                state_sha256=state_digest(st))
+
+
+def _timed_calls(fn, events: list):
+    """``fn`` with each call timed by a pair of CUDA events (appended to
+    ``events``)."""
+    def timed(*args, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn(*args, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+    return timed
+
+
+def async_pair(loss, p0, batches, ids, p) -> dict:
+    """Route j's line: its configuration (B = 5 of 10, ``inv_sqrt``) over
+    ``len(ids)`` cohorts under deterministic algorithms, the async engine's
+    ``run_rounds`` through its dispatch and flush programs against its
+    run under ``disable_graphs`` (each eager step timed by CUDA events):
+    the state and every flush's metrics to the bit; two programs, two
+    captures, a replay a step (each timed by events); the whole calls on
+    the host's clock. Returns the numbers."""
+    from repro_torch.core.sim import FedSim
+    from repro_torch.kernels import ops
+    card = card_line()
+    med = lambda xs: float(np.median(xs))
+    cohorts = len(ids)
+    make = lambda: FedSim(loss, _route_cfg("j", M, N_CLI, K_STEPS),
+                          network=wire_network(M, p))
+    with deterministic():
+        sim_e = make()
+        st_e = sim_e.init(p0)
+        steps = {"dispatch": [], "flush": []}
+        sim_e._async_dispatch = _timed_calls(sim_e._async_dispatch,
+                                             steps["dispatch"])
+        sim_e._async_flush = _timed_calls(sim_e._async_flush, steps["flush"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with disable_graphs():
+            st_e, mets_e = sim_e.run_rounds(st_e, batches, ids)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        sim_p = make()
+        st_p = sim_p.init(p0)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with graph_spy() as spy:
+            st_p, mets_p = sim_p.run_rounds(st_p, batches, ids)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        graph = round_launches("route j programs", sim_p, cohorts,
+                               dict(ops.launches))
+    kind = {id(prog.graph): key[0] for key, prog in sim_p._programs.items()}
+    replay = {"dispatch": [], "flush": []}
+    for g, (e0, e1) in zip(spy["graphs"], spy["events"]):
+        replay[kind[g]].append(e0.elapsed_time(e1))
+    eager = {k: [e0.elapsed_time(e1) for e0, e1 in v]
+             for k, v in steps.items()}
+    diff = same_state(st_e, st_p)
+    bad = [(r, key) for r, (a, b) in enumerate(zip(mets_e, mets_p))
+           for key in a if key not in b or not _same_metric(a[key], b[key])]
+    check(not diff and not bad and len(mets_p) == len(mets_e),
+          f"route j programs: differ from the eager steps in {diff}, "
+          f"metrics {bad[:6]}")
+    check(len(sim_p._programs) == 2 and spy["captures"] == 2
+          and len(replay["dispatch"]) == cohorts
+          and len(replay["flush"]) == len(mets_p),
+          f"route j programs: {len(sim_p._programs)} programs, "
+          f"{spy['captures']} captures, replays "
+          f"{ {k: len(v) for k, v in replay.items()} }")
+    out = dict(programs=len(sim_p._programs), captures=spy["captures"],
+               replay_ms=replay, eager_step_ms=eager, call_ms=call_ms,
+               eager_call_ms=eager_ms, graph_launches=graph, bitwise=True)
+    print(f"route j programs, deterministic algorithms, {cohorts} cohorts, "
+          f"{len(mets_p)} flushes: programs built {out['programs']}, "
+          f"captures {out['captures']}; replay ms (CUDA events) median "
+          f"dispatch {med(replay['dispatch']):.3f} / flush "
+          f"{med(replay['flush']):.3f} beside the eager steps' "
+          f"{med(eager['dispatch']):.3f} / {med(eager['flush']):.3f}; the "
+          f"whole run_rounds call {call_ms:.1f} ms (with both warm-ups and "
+          f"captures) beside the eager call's {eager_ms:.1f} ms; state, "
+          f"every flush's metrics and host counters bitwise the eager "
+          f"steps'; {card}")
+    return out
 
 
 def route_k(loss, p0, d: int, rounds: int):
@@ -1923,9 +2083,10 @@ def route_k(loss, p0, d: int, rounds: int):
         tier2.append(met["wire_tier2_bytes"])
         nbytes.append(sim._efs.nbytes)
     counts = dict(ops.launches)
-    check(counts["topk_ef_sparse"] == 2 * rounds and
-          counts["fedams_update"] == rounds and counts["fedams_ingest"] == 0,
-          f"route k: launches {counts} in {rounds} rounds")
+    graph = round_launches("route k", sim, rounds, counts)
+    check(graph["topk_ef_sparse"] == 2 * rounds and
+          graph["fedams_update"] == rounds and graph["fedams_ingest"] == 0,
+          f"route k: launches {graph} in {rounds} rounds")
     check(tier2 == [2 * 4 * d] * rounds, f"route k: tier-2 bytes {tier2}")
     check_finite("k", st, losses)
     print(f"route k: device EF block {block} ({st.errors.numel() * 4 / 1e6:.1f}"
@@ -1954,8 +2115,21 @@ def route_k(loss, p0, d: int, rounds: int):
           f"buffer in {diff}")
     print(f"route k: 3 rounds under deterministic algorithms: params, server "
           f"state and all {M_K} EF rows equal the resident buffer's to the bit")
+    # the rounds through the round's program against its eager twin: the
+    # store's (n, d) block is the program's static input
+    with deterministic():
+        pair = round_pair("k", lambda: (lambda s: (s, s.init(p0)))(FedSim(
+            loss, _route_cfg("k", M_K, N_CLI, K_STEPS))), plan[:3],
+            prefetch=True)
+        (s_e, s_p), touched = pair["sims"], np.unique(stacked(plan[:3])[0])
+        check(np.array_equal(s_e._efs.gather(touched).view(np.int32),
+                             s_p._efs.gather(touched).view(np.int32)),
+              "route k: the store's rows differ between the round's "
+              "program and the eager rounds")
+    prog = round_pair_line("k (the EF store)", pair, card_line())
     return dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses,
-                launches=counts, ef_block=list(block),
+                launches=counts, graph_launches=graph, ef_block=list(block),
+                programs=prog,
                 store_nbytes=nbytes, wire_tier2_bytes=tier2[0],
                 resident_bitwise=True, state_sha256=state_digest(st))
 
@@ -1990,8 +2164,9 @@ def route_l(loss, p0, data, d: int, rounds: int):
     finally:
         simmod.randk_positions = draw
     counts = dict(ops.launches)
-    check(counts["fedams_update"] == rounds and sum(counts.values()) ==
-          rounds, f"route l: launches {counts} in {rounds} rounds")
+    graph = round_launches("route l", sim, rounds, counts)
+    check(graph["fedams_update"] == rounds and sum(graph.values()) ==
+          rounds, f"route l: launches {graph} in {rounds} rounds")
     k = max(1, int(round(RATIO * d)))
     for sets in drawn:
         srt = sets.sort(dim=1).values
@@ -2004,12 +2179,17 @@ def route_l(loss, p0, data, d: int, rounds: int):
     check_finite("l", st, losses)
     check(all(np.isfinite(gammas)), f"route l: gamma {gammas}")
     return dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses, gamma=gammas,
-                launches=counts, k=k, state_sha256=state_digest(st))
+                launches=counts, graph_launches=graph, k=k,
+                state_sha256=state_digest(st))
 
 
 #: the routes whose rounds phase 3 also runs through ``FedSim.run_rounds``
 #: (one captured CUDA graph, replayed), each held to an eager loop
 GRAPH_ROUTES = ("a", "b", "c", "h", "l")
+#: their rounds there: each runs them three times (eager, the round's
+#: program, run_rounds), a and b four; fewer than phase 3's own, for the
+#: script's time
+GRAPH_ROUNDS = 4
 #: the routes whose graph is also run in the default mode, where phase 3's
 #: eager rounds are timed
 DEFAULT_MODE_ROUTES = ("a", "b")
@@ -2045,10 +2225,12 @@ def graph_spy():
     whole runs under ``torch.cuda.set_sync_debug_mode("warn")`` with each
     warning of a synchronizing CUDA operation recorded: ``syncs_before``
     holds, at each replay, how many came before it; ``syncs``, on exit,
-    how many came in all."""
+    how many came in all; ``graphs``, the ``id`` of the graph each replay
+    replayed (not the graph: a kept graph would keep its memory pool)."""
     G = torch.cuda.CUDAGraph
     begin, replay = G.capture_begin, G.replay
-    rec = {"captures": 0, "events": [], "syncs_before": [], "syncs": 0}
+    rec = {"captures": 0, "events": [], "syncs_before": [], "syncs": 0,
+           "graphs": []}
     mode = torch.cuda.get_sync_debug_mode()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2067,6 +2249,7 @@ def graph_spy():
             replay(self)
             e1.record()
             rec["events"].append((e0, e1))
+            rec["graphs"].append(id(self))
 
         G.capture_begin, G.replay = spy_begin, spy_replay
         torch.cuda.set_sync_debug_mode("warn")
@@ -2078,18 +2261,30 @@ def graph_spy():
             rec["syncs"] = syncs()
 
 
+#: the seconds :func:`dump_nodes` took in this process, in all
+DUMP_S = [0.0]
+
+
 def dump_nodes(graph) -> dict:
     """A captured graph's kernel nodes, by kernel, read from its
-    ``debug_dump`` (each node names its function once)."""
+    ``debug_dump`` (each node names its function once), in one pass over
+    the dump."""
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "round.dot")
         with warnings.catch_warnings():     # its "DEBUG: calling ..." notes
             warnings.filterwarnings("ignore", message="DEBUG: calling")
             graph.debug_dump(path)
         text = Path(path).read_text()
-    return {name: sum(len(re.findall(rf"(?<![A-Za-z_]){sym}", text))
-                      for sym in syms)
-            for name, syms in KERNEL_SYMBOLS.items()}
+    owner = {sym: name for name, syms in KERNEL_SYMBOLS.items()
+             for sym in syms}
+    # the longest symbol first: none is a prefix match of another's node
+    alt = "|".join(sorted(map(re.escape, owner), key=len, reverse=True))
+    out = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for sym in re.findall(rf"(?<![A-Za-z_])({alt})", text):
+        out[owner[sym]] += 1
+    DUMP_S[0] += time.perf_counter() - t0
+    return out
 
 
 def graph_nodes(sim) -> dict:
@@ -2106,8 +2301,102 @@ def _same_metric(a, b) -> bool:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().reshape(()).view(torch.int32)
         return isinstance(b, torch.Tensor) and torch.equal(
-            a, b.reshape(()).view(torch.int32))
+            a, b.detach().cpu().reshape(()).view(torch.int32))
     return a == b
+
+
+def round_pair(label, make, plan, seeded: bool = False,
+               prefetch: bool = False) -> dict:
+    """One configuration twice from the same init, under deterministic
+    algorithms (the caller's): ``len(plan)`` eager ``FedSim.round`` calls
+    under ``disable_graphs`` (each timed to a synchronize on the host's
+    clock, and by CUDA events), then as many calls through the round's
+    program, as users run it (each timed on the host to a synchronize; its
+    replays by CUDA events under :func:`graph_spy`). The final state, every
+    metric and the host counters equal the eager loop's to the bit; one
+    program, one capture and a replay a call; the graph's launches (kernel
+    nodes × replays) equal the eager loop's wrapper launches, and the
+    wrappers launched in the calls only in the warm-up. ``seeded``: each
+    round a generator seeded with its index; ``prefetch``: each round
+    names the next round's ids (the EF store's prefetch). Returns the two
+    sims, states, metrics and the numbers."""
+    from repro_torch.kernels import ops
+    rounds = len(plan)
+    gen = lambda r: torch.Generator().manual_seed(r) if seeded else None
+    nxt = lambda r: (plan[r + 1][0] if prefetch and r + 1 < rounds
+                     else None)
+    sim, st = make()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    ms, ev, mets = [], [], []
+    with disable_graphs():
+        for r, (idx, b) in enumerate(plan):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+            st, met = sim.round(st, b, idx, gen(r), prefetch_idx=nxt(r))
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ev.append(e0.elapsed_time(e1))
+            mets.append(met)
+    eager = dict(ops.launches)
+    check(not sim._programs, f"round {label}: the eager loop made a program")
+    sim_p, st_p = make()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    pms, mets_p = [], []
+    with graph_spy() as spy:
+        for r, (idx, b) in enumerate(plan):
+            t0 = time.perf_counter()
+            st_p, met = sim_p.round(st_p, b, idx, gen(r),
+                                    prefetch_idx=nxt(r))
+            torch.cuda.synchronize()
+            pms.append((time.perf_counter() - t0) * 1e3)
+            mets_p.append(met)
+    wrapper = dict(ops.launches)
+    graph = round_launches(f"round {label}", sim_p, rounds, wrapper)
+    replay = [e0.elapsed_time(e1) for e0, e1 in spy["events"]]
+    diff = same_state(st, st_p)
+    bad = [(r, key) for r, (a, b) in enumerate(zip(mets, mets_p))
+           for key in a if key not in b or not _same_metric(a[key], b[key])]
+    check(not diff and not bad, f"round {label}: the program differs from "
+          f"the eager loop in {diff}, metrics {bad[:6]}")
+    check(len(sim_p._programs) == 1 and spy["captures"] == 1
+          and len(replay) == rounds,
+          f"round {label}: {len(sim_p._programs)} programs, "
+          f"{spy['captures']} captures, {len(replay)} replays for {rounds} "
+          f"calls")
+    check(graph == {k: eager.get(k, 0) for k in graph},
+          f"round {label}: the graph's launches {graph} against the eager "
+          f"loop's {eager}")
+    return dict(sims=(sim, sim_p), states=(st, st_p), mets=(mets, mets_p),
+                eager_ms=ms, eager_event_ms=ev, eager=eager,
+                program_ms=pms, replay_ms=replay, wrapper=wrapper,
+                graph=graph, programs=len(sim_p._programs),
+                captures=spy["captures"])
+
+
+def round_pair_line(label, r: dict, card: str) -> dict:
+    """Print a :func:`round_pair`'s line; its numbers, for the record."""
+    med = lambda xs: float(np.median(xs))
+    rest = lambda xs: xs[1:] if len(xs) > 1 else xs
+    n = len(r["replay_ms"])
+    print(f"round {label}, deterministic algorithms, {n} calls: programs "
+          f"built {r['programs']}, captures {r['captures']}; the replay ms "
+          f"(CUDA events) median {med(r['replay_ms']):.3f} "
+          f"{[round(t, 3) for t in r['replay_ms']]} beside the eager "
+          f"round's {med(rest(r['eager_event_ms'])):.3f} by events (round 0"
+          f" excluded), {med(rest(r['eager_event_ms'])) / med(r['replay_ms']):.2f}x;"
+          f" round's whole call on the host's clock median "
+          f"{med(rest(r['program_ms'])):.3f} ms (call 0, with the warm-up "
+          f"and the capture, {r['program_ms'][0]:.1f}) beside the eager "
+          f"round's {med(rest(r['eager_ms'])):.3f} (round 0 "
+          f"{r['eager_ms'][0]:.1f}); state, metrics and host counters "
+          f"bitwise the eager loop's; graph launches "
+          f"{ {k: v for k, v in r['graph'].items() if v} }; {card}")
+    return {k: v for k, v in r.items() if k not in ("sims", "states",
+                                                    "mets")}
 
 
 def graph_run(label, sim, st, batches, ids, rngs, rounds: int) -> dict:
@@ -2148,12 +2437,13 @@ def graph_run(label, sim, st, batches, ids, rngs, rounds: int) -> dict:
 
 def run_rounds_route(name, make, plan, expect, symbols=(),
                      seeded: bool = False, default_mode: bool = False) -> dict:
-    """One configuration twice under deterministic algorithms from the same
-    init: ``rounds`` eager ``FedSim.round`` calls (each timed to a
-    synchronize on the host's clock, and by CUDA events), then one
-    ``FedSim.run_rounds`` call over the same staged rounds
-    (:func:`graph_run`). The final state and every metric equal the loop's
-    to the bit; the wrappers launch in the call only in the warm-up
+    """One configuration three times under deterministic algorithms from
+    the same init: ``rounds`` eager ``FedSim.round`` calls under
+    ``disable_graphs`` and as many through the round's program
+    (:func:`round_pair`), then one ``FedSim.run_rounds`` call over the same
+    staged rounds (:func:`graph_run`). The final state and every metric
+    equal the eager loop's to the bit; the wrappers launch in the call only
+    in the warm-up
     (``WARMUP_ROUNDS`` rounds' worth of the loop's launches), the capture
     recorded one round's, and the graph names the hand-written kernels
     ``symbols``. ``seeded``: each round gets a generator seeded with its
@@ -2169,23 +2459,11 @@ def run_rounds_route(name, make, plan, expect, symbols=(),
     ids, batches = stacked(plan)
     t_route = time.perf_counter()
     with deterministic():
-        sim, st = make()
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        ms, ev, mets_e = [], [], []
-        for r, (idx, b) in enumerate(plan):
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0 = time.perf_counter()
-            e0.record()
-            st, met = sim.round(st, b, idx,
-                                torch.Generator().manual_seed(r)
-                                if seeded else None)
-            e1.record()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            ev.append(e0.elapsed_time(e1))
-            mets_e.append(met)
-        eager = dict(ops.launches)
+        pair = round_pair(name, make, plan, seeded)
+        st, mets_e = pair["states"][0], pair["mets"][0]
+        ms, ev, eager = (pair["eager_ms"], pair["eager_event_ms"],
+                         pair["eager"])
+        del pair["sims"], pair["states"], pair["mets"]
         sim_g, st_g = make()
         g = graph_run(name, sim_g, st_g, batches, ids, gens(), rounds)
     diff = same_state(st, g["state"])
@@ -2207,7 +2485,8 @@ def run_rounds_route(name, make, plan, expect, symbols=(),
         check(g["graph"][kname] > 0,
               f"run_rounds {name}: the captured graph has no {kname} kernel")
     runs = [g]
-    out = dict(eager_round_ms=ms[1:], eager_round0_ms=ms[0],
+    out = dict(round_program=pair, eager_round_ms=ms[1:],
+               eager_round0_ms=ms[0],
                eager_round_event_ms=ev[1:], eager_total_ms=sum(ms),
                graph_replay_ms=g["replay_ms"], run_rounds_call_ms=g["call_ms"],
                syncs_before_replays=g["syncs_before_replays"],
@@ -2229,10 +2508,11 @@ def run_rounds_route(name, make, plan, expect, symbols=(),
         out.update(default_graph_replay_ms=d["replay_ms"],
                    default_run_rounds_call_ms=d["call_ms"],
                    default_loss=loss_d)
-    out["launches_wrapper"] = {k: eager[k] + sum(x["wrapper"][k]
-                                                 for x in runs)
+    out["launches_wrapper"] = {k: eager[k] + pair["wrapper"][k]
+                               + sum(x["wrapper"][k] for x in runs)
                                for k in eager}
-    out["launches_in_graph"] = {k: sum(x["graph"][k] for x in runs)
+    out["launches_in_graph"] = {k: pair["graph"][k]
+                                + sum(x["graph"][k] for x in runs)
                                 for k in eager}
     out["seconds"] = time.perf_counter() - t_route
     return out
@@ -2372,9 +2652,8 @@ def phase_block() -> dict:
     return out
 
 
-def phase_run_rounds(loss, p0, data, d: int, rounds: int,
-                     res: dict) -> dict:
-    """Routes ``GRAPH_ROUTES`` on ConvMixer-256-8 at ``rounds`` rounds;
+def phase_run_rounds(loss, p0, data, d: int, res: dict) -> dict:
+    """Routes ``GRAPH_ROUTES`` on ConvMixer-256-8 at ``GRAPH_ROUNDS`` rounds;
     make_problem's ConvMixer and MLP at ``PROBLEM_ROUNDS`` on route a's
     configuration; and, for the capture of the other round paths (the
     dense codecs' packing, the two-way downlink, the dense top-k EF, sign
@@ -2389,7 +2668,7 @@ def phase_run_rounds(loss, p0, data, d: int, rounds: int,
     out = {}
     jobs = []   # (key, label, loss, p0, FedConfig, plan, kernels, symbols)
     for route in GRAPH_ROUTES:
-        plan = _plan(data, M, rounds)
+        plan = _plan(data, M, GRAPH_ROUNDS)
         cfg = _route_cfg(route, M, N_CLI, K_STEPS, route_fault(
             route, plan, M, N_CLI, K_STEPS, d, loss, p0, "cuda"))
         jobs.append((route, route, loss, p0, cfg, plan, EXPECT[route],
@@ -2416,6 +2695,7 @@ def phase_run_rounds(loss, p0, data, d: int, rounds: int,
                              seeded=key == "l",
                              default_mode=key in DEFAULT_MODE_ROUTES)
         out[key] = r
+        r["round_program"] = round_pair_line(label, r["round_program"], card)
         n = len(plan)
         print(f"run_rounds {label}, deterministic algorithms, {n} rounds: "
               f"eager round ms (round 0 excluded) median "
@@ -2436,15 +2716,16 @@ def phase_run_rounds(loss, p0, data, d: int, rounds: int,
               f"the eager loop's to the bit; graph kernels "
               f"{r['graph_kernels']}; {r['seconds']:.1f} s; {card}")
         if "default_graph_replay_ms" in r:
-            eager_ms = res[key]["round_ms"]
+            eager_ms = res[key]["round_ms"][:n - 1]
             print(f"run_rounds {label}, default mode, {n} rounds: the "
                   f"graph's replay ms (CUDA events) median "
                   f"{med(r['default_graph_replay_ms']):.3f} "
                   f"{[round(t, 3) for t in r['default_graph_replay_ms']]}; "
-                  f"phase 3's eager round ms (host clock, round 0 "
-                  f"excluded) median {med(eager_ms):.3f}; the run_rounds "
-                  f"call {r['default_run_rounds_call_ms']:.1f} ms against "
-                  f"phase 3's {n} eager rounds "
+                  f"phase 3's round ms through the round's program (host "
+                  f"clock, round 0 excluded) median {med(eager_ms):.3f}; "
+                  f"the run_rounds call "
+                  f"{r['default_run_rounds_call_ms']:.1f} ms against "
+                  f"phase 3's {n} round calls "
                   f"{res[key]['round0_ms'] + sum(eager_ms):.1f} ms; {card}")
     return out
 
@@ -2464,15 +2745,19 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
                                    alpha=0.3, seed=0)
     loss = lambda p, b: cm.convmixer_loss(p, b, cfg)
     p0 = init_params(defs, torch.Generator().manual_seed(0))
-    res = {}
+    res, starts = {}, []
     for route in routes:
+        starts.append((route, time.perf_counter()))
         if route == "g":
             res[route] = route_g(loss, p0, data, d, rounds)
             r = res[route]
-            print(f"route g: round ms (round 0 excluded) "
+            print(f"route g: round ms through the round's program "
+                  f"(round 0 excluded) "
                   f"{[round(t, 2) for t in r['round_ms']]}, median "
                   f"{np.median(r['round_ms']):.2f}; loss {r['loss']}; "
-                  f"launches {r['launches']}; checkpoints "
+                  f"the graph's launches "
+                  f"{ {k: n for k, n in r['graph_launches'].items() if n} }"
+                  f", the wrappers' {r['launches']}; checkpoints "
                   f"{sorted(r['checkpoints'])}; the restored state equals "
                   f"the trainer's; final state sha256 {r['state_sha256']}")
             continue
@@ -2485,9 +2770,11 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
                       f"round ms (round 0 excluded) "
                       f"{[round(t, 2) for t in r['round_ms']]}, median "
                       f"{np.median(r['round_ms']):.2f}")
-            print(f"route {route}: {timing}; loss {r['loss']}; launches "
-                  f"{r['launches']}; final state sha256 "
-                  f"{r['state_sha256']}")
+            graph = {k: n for k, n in r["graph_launches"].items() if n}
+            print(f"route {route}: {timing} (through the programs); loss "
+                  f"{r['loss']}; the graphs' launches {graph}, the "
+                  f"wrappers' (the warm-ups) {r['launches']}; final state "
+                  f"sha256 {r['state_sha256']}")
             continue
         plan = _plan(data, M, rounds)
         fault = route_fault(route, plan, M, N_CLI, K_STEPS, d, loss, p0,
@@ -2499,56 +2786,61 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
         if sim.codec is not None:
             sim.codec = _recording(sim.codec, sizes)
         st = sim.init(p0)
-        norms, verdicts = [], []
-        record = (recording_norms(norms) if route == "i"
-                  else contextlib.nullcontext())
+        verdicts = []
         torch.cuda.synchronize()
         ops.reset_launches()
         ms, losses, gammas, wire = [], [], [], []
-        with record:
-            for idx, b in plan:
-                if fault is not None:
-                    rows = torch.as_tensor(idx, device="cuda")
-                    before = (rows, st.errors[rows])
-                    fplan, _ = sim.faults.plan(idx, st.round,
-                                               sim._round_timing(idx,
-                                                                 st.round))
-                t0 = time.perf_counter()
-                st, met = sim.round(st, b, idx)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-                losses.append(float(met["loss"]))
-                gammas.append(float(met["gamma"]))
-                if sim.codec is not None:
-                    wire.append({key: met[key] for key in (
-                        "wire_up_bytes", "wire_down_bytes", "wire_bytes",
-                        "round_time_s", "sim_time_s")})
-                if fault is not None:
-                    verdicts.append(check_fault_round(route, sim, st, met,
-                                                      before, fplan))
+        for idx, b in plan:
+            if fault is not None:
+                rows = torch.as_tensor(idx, device="cuda")
+                before = (rows, st.errors[rows])
+                fplan, _ = sim.faults.plan(idx, st.round,
+                                           sim._round_timing(idx, st.round))
+            t0 = time.perf_counter()
+            st, met = sim.round(st, b, idx)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            gammas.append(float(met["gamma"]))
+            if sim.codec is not None:
+                wire.append({key: met[key] for key in (
+                    "wire_up_bytes", "wire_down_bytes", "wire_bytes",
+                    "round_time_s", "sim_time_s")})
+            if fault is not None:
+                verdicts.append(check_fault_round(route, sim, st, met,
+                                                  before, fplan))
         counts = dict(ops.launches)
+        # the rounds replayed the round's program: its launches are its
+        # graph's nodes times the replays; the wrappers', its warm-up's
+        graph = round_launches(f"route {route}", sim, rounds, counts)
+        check(len(sim._programs) == 1, f"route {route}: "
+              f"{len(sim._programs)} round programs")
         for name in EXPECT[route]:
-            check(counts[name] > 0, f"route {route}: {name} never launched")
+            check(graph[name] > 0, f"route {route}: {name} never launched")
         if fault is not None:
-            check(counts["fedams_ingest"] == 0,
+            check(graph["fedams_ingest"] == 0,
                   f"route {route}: fedams_ingest launched under faults")
             for name in EXPECT[route]:
-                check(counts[name] == rounds, f"route {route}: {name} "
-                      f"launched {counts[name]} times in {rounds} rounds")
+                check(graph[name] == rounds, f"route {route}: {name} "
+                      f"launched {graph[name]} times in {rounds} rounds")
         # the dense wire routes encode the (n, d) block: one launch of each
         # a round for all n clients (route h's sparse fp32 wire skips the
         # byte shuffle: its selections go through as what decoding gives)
         packed = sim.codec is not None and not sim.sparse
         if packed:
-            check(counts["pack_uint"] == rounds and
-                  counts["unpack_uint"] == rounds,
+            check(graph["pack_uint"] == rounds and
+                  graph["unpack_uint"] == rounds,
                   f"route {route}: pack_uint/unpack_uint launched "
-                  f"{counts['pack_uint']}/{counts['unpack_uint']} times in "
+                  f"{graph['pack_uint']}/{graph['unpack_uint']} times in "
                   f"{rounds} rounds")
             nbytes = sim.codec.nbytes(d)
-            check(len(sizes) == rounds * N_CLI and set(sizes) == {nbytes},
+            # the codec encodes in the warm-up and the capture: the
+            # replays run what they recorded
+            check(len(sizes) == 2 * N_CLI and set(sizes) == {nbytes},
                   f"route {route}: encoded buffer sizes {sorted(set(sizes))}"
                   f" over {len(sizes)} messages, codec.nbytes(d)={nbytes}")
+        # the host counters, booked after each replay as after an eager
+        # round, and the state the program hands back
         if sim.codec is not None:
             nbytes = sim.codec.nbytes(d)
             delivered = [N_CLI - v["crashed"] - v["deadline_cut"]
@@ -2570,7 +2862,8 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
         check(bool(torch.isfinite(st.errors).all()),
               f"route {route}: non-finite EF buffer")
         res[route] = dict(round_ms=ms[1:], round0_ms=ms[0], loss=losses,
-                          gamma=gammas, launches=counts, wire=wire,
+                          gamma=gammas, launches=counts,
+                          graph_launches=graph, wire=wire,
                           ef_buffer_mb=st.errors.numel() * 4 / 1e6,
                           state_sha256=state_digest(st))
         if fault is not None:
@@ -2579,6 +2872,15 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
             print(f"route {route}: {fault}; verdicts {VERDICTS} per round "
                   f"{[list(v.values()) for v in verdicts]}")
         if route == "i":
+            # the payloads' norms, read on the host as each round
+            # validates them: the eager rounds of the same configuration
+            norms = []
+            twin = FedSim(loss, _route_cfg(route, M, N_CLI, K_STEPS, fault))
+            st_i = twin.init(p0)
+            with recording_norms(norms), disable_graphs():
+                for idx, b in plan:
+                    st_i, _ = twin.round(st_i, b, idx)
+            del twin, st_i
             cap = fault.max_update_norm
             seen = torch.cat(norms)
             share = float((seen > cap).float().mean())
@@ -2586,12 +2888,19 @@ def phase_slice(rounds: int = ROUNDS, routes=ROUTES):
             res[route].update(clip_norm=cap, clipped_share=share)
             print(f"route i: clip norm {cap:.6g}, {share:.3f} of "
                   f"{seen.numel()} validated payloads clipped")
-        print(f"route {route}: round ms (round 0 excluded) "
+        print(f"route {route}: round ms through the round's program (host "
+              f"clock; round 0, with its warm-up and capture, excluded) "
               f"{[round(t, 2) for t in ms[1:]]}, median "
-              f"{np.median(ms[1:]):.2f}; loss {losses}; launches {counts}; "
-              f"final state sha256 {res[route]['state_sha256']}")
+              f"{np.median(ms[1:]):.2f}; loss {losses}; the graph's launches "
+              f"{ {k: n for k, n in graph.items() if n} }, the wrappers' "
+              f"(the warm-up) {counts}; final state sha256 "
+              f"{res[route]['state_sha256']}")
     t0 = time.perf_counter()
-    res["run_rounds"] = phase_run_rounds(loss, p0, data, d, rounds, res)
+    res["route_s"] = {route: t1 - t for (route, t), (_, t1) in zip(
+        starts, starts[1:] + [("", t0)])}
+    print(f"phase 3's seconds by route "
+          f"{ {k: round(v, 1) for k, v in res['route_s'].items()} }")
+    res["run_rounds"] = phase_run_rounds(loss, p0, data, d, res)
     res["run_rounds_s"] = time.perf_counter() - t0
     print(f"phase 3's run_rounds part took {res['run_rounds_s']:.1f} s")
     return res
@@ -2930,6 +3239,9 @@ def _mesh_rank(rank, world, port, outdir, backend, jobs, fn, record):
             out[name]["job_s"] = time.perf_counter() - t0
             gc.collect()
             torch.cuda.empty_cache()
+            free, _ = torch.cuda.mem_get_info()
+            out[name]["after_gb"] = (free / 1e9,
+                                     torch.cuda.memory_reserved() / 1e9)
             if record:
                 out[name]["shapes"] = {k: set(v) for k, v in seen.items()}
                 for v in seen.values():
@@ -2994,7 +3306,8 @@ def _anchor_fedsim(loss, p0, data, fused: bool):
         train_clients_loop(sim.rule, grad_fn, flat0, batches, eta_l, k_blk)
     ids = np.arange(M_MESH)
     losses = []
-    with deterministic():
+    # eager rounds (``disable_graphs``), as the mesh's own rounds run here
+    with deterministic(), disable_graphs():
         for r in range(ANCHOR_ROUNDS):
             st, met = sim.round(st, data.round_batches(ids, r, K_STEPS,
                                                        BATCH), ids)
@@ -3214,6 +3527,10 @@ def _mesh_graph_job(job: dict) -> dict:
                         k].detach().cpu().reshape(()).view(torch.int32))]
             check(not bad and not badm, f"route m1 graph: differs from the "
                   f"eager loop in {bad}, metrics {badm}")
+            with deterministic():
+                out["per_round"] = _mesh_per_round(
+                    "route m1", meshmod.build_fed_rounds_scan(rnd), init(),
+                    batches, st, mets)
         out[mode] = dict(
             g, eager_round_ms=ms, eager_event_ms=ev, eager_loop_ms=loop_ms,
             call_ms=call_ms, eager_launches=eager, wrapper_launches=wrapper,
@@ -3224,6 +3541,68 @@ def _mesh_graph_job(job: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def _mesh_per_round(label, step, st0, batches, want, want_mets) -> dict:
+    """The mesh's per-round step, as the trainer and ``train`` take it:
+    ``len(batches)`` calls of ``MeshRounds.round`` (``step``) from ``st0``,
+    one program at R = 1 kept across them, under :func:`graph_spy`: one
+    capture, a replay a call (each timed by CUDA events; each call on the
+    host's clock to a synchronize), the graph's kernel nodes its capture's
+    launches; the state (``want``) and every round's metrics
+    (``want_mets``) those of the eager ``fed_round`` loop to the bit.
+    Returns the numbers."""
+    from repro_torch.kernels import ops
+    st, ms, mets = st0, [], []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with graph_spy() as spy:
+        for r, b in enumerate(batches):
+            t0 = time.perf_counter()
+            st, met = step.round(st, b, r)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mets.append(met)
+    wrapper = dict(ops.launches)
+    replay = [e0.elapsed_time(e1) for e0, e1 in spy["events"]]
+    prog = step.last["program"]
+    check(step.last["captured"] and len(step.programs) == 1
+          and spy["captures"] == 1 and len(replay) == len(batches),
+          f"{label} per-round step: captured {step.last['captured']}, "
+          f"{len(step.programs)} programs, {spy['captures']} captures, "
+          f"{len(replay)} replays for {len(batches)} calls")
+    nodes = dump_nodes(prog.graph)
+    check(nodes == {k: prog.counts.get(k, 0) for k in nodes},
+          f"{label} per-round step: the graph's kernel nodes {nodes} "
+          f"against the capture's launches {dict(prog.counts)}")
+    bad = _differs(want, st)
+    badm = [(k, r) for r, (a, b) in enumerate(zip(want_mets, mets))
+            for k in a if not torch.equal(
+                a[k].detach().cpu().reshape(()).view(torch.int32),
+                b[k].reshape(()).view(torch.int32))]
+    check(not bad and not badm, f"{label} per-round step: differs from the "
+          f"eager loop in {bad}, metrics {badm}")
+    return dict(replay_ms=replay, call_ms=ms, nodes=nodes,
+                wrapper_launches=wrapper, captures=spy["captures"],
+                programs=len(step.programs), bitwise=True)
+
+
+def per_round_line(route: str, p: dict, eager_event_ms, eager_ms,
+                   card: str) -> None:
+    """Print a :func:`_mesh_per_round`'s line beside the eager loop's
+    CUDA-event and host-clock ms a round (round 0 excluded)."""
+    med = lambda xs: float(np.median(xs[1:] if len(xs) > 1 else xs))
+    print(f"route {route} per-round step (MeshRounds.round), deterministic "
+          f"algorithms, {len(p['replay_ms'])} calls: programs built "
+          f"{p['programs']}, captures {p['captures']}; the replay ms (CUDA "
+          f"events) {[round(t, 3) for t in p['replay_ms']]} (median "
+          f"{float(np.median(p['replay_ms'])):.3f}) beside the eager "
+          f"round's {med(eager_event_ms):.3f} by events; a call on the "
+          f"host's clock median {med(p['call_ms']):.3f} ms (call 0, with "
+          f"the warm-up and the capture, {p['call_ms'][0]:.1f}) beside the "
+          f"eager round's {med(eager_ms):.3f}; kernel nodes "
+          f"{ {k: n for k, n in p['nodes'].items() if n} }; state and "
+          f"metrics bitwise the eager loop's; {card}")
 
 
 def route_m1(held) -> dict:
@@ -3301,6 +3680,21 @@ def graph_report(route: str, g: dict, expect: dict, rounds: int,
               f"{ {k: n for k, n in r['nodes'].items() if n} }; "
               f"{'state and metrics bitwise the loop' if mode == 'deterministic' else 'losses finite'}"
               f"; {card}")
+    p = g.get("per_round")
+    if p is not None:
+        r = g["deterministic"]
+        per_round_line(route, p, r["eager_event_ms"], r["eager_round_ms"],
+                       card)
+        want = {k: expect.get(k, 0) for k in KERNEL_SYMBOLS}
+        check({k: p["nodes"].get(k, 0) for k in KERNEL_SYMBOLS} == want
+              and {k: p["wrapper_launches"].get(k, 0)
+                   for k in KERNEL_SYMBOLS} == want,
+              f"route {route} per-round step: launches a round {want} "
+              f"expected; the calls' {p['wrapper_launches']}, the graph's "
+              f"nodes {p['nodes']}")
+        for k in KERNEL_SYMBOLS:
+            launches[k] += p["wrapper_launches"].get(k, 0)
+            in_graph[k] += p["nodes"].get(k, 0) * len(p["replay_ms"])
     g.update(launches=launches, graph_launches=in_graph)
     return g
 
@@ -3870,12 +4264,20 @@ def _leaf_digests(tree) -> dict:
 
 def _lm_job(job: dict) -> dict:
     """One rank of route o, q, s, u or w: the launch counters at 0, then
-    ``launch/train.py``'s ``train`` (model at ``job["tp"]``, state, data
-    and rounds, on the card; with ``job["keep_params"]`` the gathered
-    params back), then the counters
-    read (and every local step's metrics named in ``job["metrics"]``; with
-    ``job["digests"]`` each leaf's digest of this rank's final params, m, v
-    and v̂, and its model index)."""
+    ``launch/train.py``'s ``train`` as a user calls it, without
+    ``scan_rounds`` (model at ``job["tp"]``, state, data and rounds, on the
+    card; with ``job["keep_params"]`` the gathered params back): each round
+    one call of the per-round program (``MeshRounds.round``: on NCCL one
+    round captured into a CUDA graph and replayed once a round, on gloo
+    its staged body run eagerly), under :func:`graph_spy`. Then the
+    counters read; the program's report: whether it captured, the
+    programs, captures and replays, the replays' ms, its graph's kernel
+    nodes and the capture's launches; every local step's metrics named in
+    ``job["metrics"]``, recorded in the loss and read after the call (on a
+    captured program the warm-up round's steps, then the capture's, whose
+    tensors hold the last replay's values); with ``job["digests"]`` each
+    leaf's digest of this rank's final params, m, v and v̂, and its model
+    index."""
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
@@ -3886,19 +4288,30 @@ def _lm_job(job: dict) -> dict:
     ops.reset_launches()
     with contextlib.ExitStack() as stack:
         stack.enter_context(_recording_metrics(job.get("metrics", ()), sink))
-        if job.get("digests"):
-            stack.enter_context(_recording_state(state))
+        stack.enter_context(_recording_state(state))
+        # a gloo rank's program runs eagerly: nothing to capture or replay
+        spy = (stack.enter_context(graph_spy())
+               if dist.get_backend() == "nccl"
+               else {"captures": 0, "events": []})
         out = ttrain.train(job["cfg"], job["fed"], job["train"],
                            device="cuda", tp=job.get("tp", 1),
                            keep_params=job.get("keep_params", False))
     out["launches"] = dict(ops.launches)
     out["metrics"] = {k: [float(v) for v in vs] for k, vs in sink.items()}
+    step = state.pop("rounds")
+    prog = step.last["program"]
+    out.update(captured=step.last["captured"], programs=len(step.programs),
+               captures=spy["captures"],
+               replay_ms=[e0.elapsed_time(e1) for e0, e1 in spy["events"]],
+               nodes=dump_nodes(prog.graph) if prog.graph is not None
+               else {}, capture_launches=dict(prog.counts or {}))
+    st = state.pop("state")
     if job.get("digests"):
-        st = state.pop("state")
         out["model_index"] = state["model_index"]
         out["digests"] = {f: _leaf_digests(getattr(st, f))
                           for f in ("params", "m", "v", "vhat")}
-        del st
+    del st, step, prog
+    sink.clear()
     return out
 
 
@@ -4072,7 +4485,8 @@ def _o1_job(job: dict) -> dict:
                 torch.cuda.synchronize()
                 ops.reset_launches()
                 t0 = time.perf_counter()
-                loop = run()
+                with disable_graphs():      # the eager fed_round loop
+                    loop = run()
                 loop_ms = (time.perf_counter() - t0) * 1e3
                 eager = dict(ops.launches)
                 held_loop = held = sum(_tree_bytes(p)
@@ -4081,6 +4495,8 @@ def _o1_job(job: dict) -> dict:
                 sink.clear()
                 if mode == "deterministic":
                     held += _tree_bytes(loop_state)
+                    out["per_round"] = _o1_per_round(run, sink, loop,
+                                                     loop_state)
                 else:
                     del loop_state
                 torch.cuda.synchronize()
@@ -4124,6 +4540,50 @@ def _o1_job(job: dict) -> dict:
             sink.clear()
             gc.collect()
             torch.cuda.empty_cache()
+    return out
+
+
+def _o1_per_round(run, sink, loop, loop_state) -> dict:
+    """Route o1's per-round step: ``train`` without ``scan_rounds``, each
+    round one call of ``MeshRounds.round`` (one program at R = 1: one
+    capture, a replay a round), under :func:`graph_spy`; its final state
+    and every round's loss and wire bytes the eager loop's (``loop``,
+    ``loop_state``) to the bit; the graph's kernel nodes its capture's
+    launches. Returns the numbers."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with graph_spy() as spy:
+        res = run()
+    wrapper = dict(ops.launches)
+    step, st = sink.pop("rounds"), sink.pop("state")
+    sink.clear()
+    rounds = len(res["history"])
+    replay = [e0.elapsed_time(e1) for e0, e1 in spy["events"]]
+    prog = step.last["program"]
+    check(step.last["captured"] and len(step.programs) == 1
+          and spy["captures"] == 1 and len(replay) == rounds,
+          f"route o1 per-round step: captured {step.last['captured']}, "
+          f"{len(step.programs)} programs, {spy['captures']} captures, "
+          f"{len(replay)} replays for {rounds} rounds")
+    nodes = dump_nodes(prog.graph)
+    check(nodes == {k: prog.counts.get(k, 0) for k in nodes},
+          f"route o1 per-round step: the graph's kernel nodes {nodes} "
+          f"against the capture's launches {dict(prog.counts)}")
+    key = lambda h: [(x["round"], x["loss"], x["wire_up_bytes"])
+                     for x in h["history"]]
+    bad = _differs(loop_state, st)
+    check(not bad and key(loop) == key(res), f"route o1 per-round step: "
+          f"differs from the eager loop in {bad}; history {key(res)} vs "
+          f"{key(loop)}")
+    out = dict(replay_ms=replay,
+               call_ms=[h["round_s"] * 1e3 for h in res["history"]],
+               nodes=nodes, wrapper_launches=wrapper,
+               captures=spy["captures"], programs=len(step.programs),
+               peak=res["peak_bytes"], bitwise=True)
+    del step, st, res, prog
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4225,14 +4685,16 @@ def _group_jobs(group: str) -> dict:
         jobs["x/serve"] = dict(x_serve_job(), fn=_x_serve_job)
         jobs["y/y"] = dict(y_job(), fn=_y_job)
     else:
+        # each job's programs and graph pools go with it (q's ~54 GB and
+        # s's ~61 GB peaks need the card with no other graph memory held)
         jobs = {"m1/m1": dict(m1_job(), fn=_mesh_job),
-                "m1/graph": m1_graph_job(),
-                "o1/o1": o1_job(),
                 "q/q": _one_rank_job(moe_cfg(), MOE_ROUNDS, ("aux",)),
                 "s/s": _one_rank_job(mla_train_cfg(), MLA_ROUNDS,
                                      ("aux", "mtp_ce")),
                 "u/u": _one_rank_job(rg_train_cfg(), RG_ROUNDS),
-                "z/z": dict(fn=_z_job)}
+                "z/z": dict(fn=_z_job),
+                "m1/graph": m1_graph_job(),
+                "o1/o1": o1_job()}
     return jobs
 
 
@@ -4242,6 +4704,10 @@ def shared_ranks(group: str, route: str) -> list:
     if group not in _SHARED:
         world, backend = GROUPS[group]
         jobs = _group_jobs(group)
+        # the ranks share the card with this process: free what its earlier
+        # phases cached (the round programs' graph pools among it)
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         with expandable_segments():
             _SHARED[group] = run_ranks(world, backend, jobs, fn=_job,
@@ -4251,7 +4717,9 @@ def shared_ranks(group: str, route: str) -> list:
         print(f"{world} {backend} rank(s) ran {len(jobs)} jobs of routes "
               f"{sorted({k.split('/')[0] for k in jobs})} in {took:.1f} s "
               f"(the jobs {jobs_s:.1f} s on rank 0; start and teardown "
-              f"{took - jobs_s:.1f} s)")
+              f"{took - jobs_s:.1f} s); the card's free and rank 0's "
+              f"reserved GB after each job "
+              f"{ {k: tuple(round(x, 2) for x in r['after_gb']) for k, r in _SHARED[group][0].items()} }")
     pre = route + "/"
     return [{k[len(pre):]: v for k, v in rank.items() if k.startswith(pre)}
             for rank in _SHARED[group]]
@@ -4290,18 +4758,34 @@ def route_one_rank(route: str, cfg, rounds: int, held,
           f"route {route}: one rank does not fit the card: {plan}")
     r = shared_ranks("nccl1", route)[0][route]
     n_shapes = check_shapes_held(route, [r], held)
-    want = {"topk_ef_sparse": leaves * rounds, "fedams_ingest": leaves * rounds}
+    # train's per-round program on the NCCL rank: one round captured, a
+    # replay a round; the wrappers launched the warm-up round's kernels,
+    # the graph holds a round's, run once a replay
+    replays = len(r["replay_ms"])
+    check(r["captured"] and r["programs"] == 1 and r["captures"] == 1
+          and replays == rounds, f"route {route}: the per-round program "
+          f"captured {r['captured']}, {r['programs']} programs, "
+          f"{r['captures']} captures, {replays} replays for {rounds} rounds")
+    check(r["nodes"] == {k: r["capture_launches"].get(k, 0)
+                         for k in r["nodes"]},
+          f"route {route}: the graph's kernel nodes {r['nodes']} against "
+          f"the capture's launches {r['capture_launches']}")
+    want = {"topk_ef_sparse": leaves, "fedams_ingest": leaves}
     got = {k: v for k, v in r["launches"].items() if v}
-    check(got == want, f"route {route}: launches {got}, expected {want} "
+    nodes = {k: v for k, v in r["nodes"].items() if v}
+    check(got == want and nodes == want, f"route {route}: the warm-up's "
+          f"launches {got}, the graph's nodes {nodes}, expected {want} "
           f"({leaves} leaves a round)")
+    graph = {k: v * replays for k, v in r["nodes"].items()}
     tiers = mesh_wire_bytes_tiers(fed, model.defs())
     expected = float(np.float32(fed.num_clients * tiers["tier1"]))
     losses = [h["loss"] for h in r["history"]]
     check(all(np.isfinite(losses)) and r["finite"],
           f"route {route}: losses {losses} or a non-finite state")
     for name in positive:
+        # the warm-up round's steps and the capture's (the last replay's)
         vals = r["metrics"][name]
-        check(len(vals) == rounds * fed.local_steps and all(
+        check(len(vals) == 2 * fed.local_steps and all(
             np.isfinite(vals)) and min(vals) > 0,
             f"route {route}: the local steps' {name} {vals}")
     wire = [h["wire_up_bytes"] for h in r["history"]]
@@ -4309,17 +4793,22 @@ def route_one_rank(route: str, cfg, rounds: int, held,
           f"{wire}, mesh_wire_bytes_tiers bills {expected}")
     round_ms = [h["round_s"] * 1e3 for h in r["history"]]
     peak = r["peak_bytes"] / 1e9
-    print(f"route {route}: {cfg.name}, {r['params']:,} params, 1 NCCL rank: "
-          f"losses {losses}; local steps' {r['metrics']}; wire_up_bytes "
-          f"{wire[0]:.0f} a round (tiers {tiers}); launches a round {leaves} "
-          f"topk_ef_sparse + {leaves} fedams_ingest; round ms "
-          f"{[round(t, 1) for t in round_ms]}; peak memory {peak:.2f} GB "
-          f"(reckoned {plan['per_rank_gb']:.2f}); distinct launch shapes, "
+    print(f"route {route}: {cfg.name}, {r['params']:,} params, 1 NCCL rank, "
+          f"train's per-round program: losses {losses}; local steps' (the "
+          f"warm-up's, the last replay's) {r['metrics']}; wire_up_bytes "
+          f"{wire[0]:.0f} a round (tiers {tiers}); a round's graph {leaves} "
+          f"topk_ef_sparse + {leaves} fedams_ingest nodes; round ms (host, "
+          f"the call) {[round(t, 1) for t in round_ms]}, the replays' by "
+          f"CUDA events {[round(t, 2) for t in r['replay_ms']]}; peak "
+          f"memory {peak:.2f} GB with the graph's pool (reckoned for the "
+          f"eager round {plan['per_rank_gb']:.2f}); distinct launch shapes, "
           f"each held by phase 1: {n_shapes}; the job {r['job_s']:.1f} s")
     return {"losses": losses, "metrics": r["metrics"], "wire_up_bytes": wire,
-            "tiers": tiers, "round_ms": round_ms, "peak_gb": peak,
+            "tiers": tiers, "round_ms": round_ms,
+            "replay_ms": r["replay_ms"], "peak_gb": peak,
             "reckoned": plan, "d": d, "leaves": leaves,
-            "shapes_held": n_shapes, "launches": r["launches"]}
+            "shapes_held": n_shapes, "launches": r["launches"],
+            "graph_launches": graph}
 
 
 def route_q(held) -> dict:
@@ -5638,7 +6127,7 @@ def main():
     print(f"phase 3 took {seconds['phase 3']:.1f} s")
     # local training on the card is bit-reproducible only under
     # deterministic algorithms, which route a's run_rounds part ran under
-    # (its 6 rounds, eager and through the graph): its final state is the
+    # (its rounds, eager and through the graph): its final state is the
     # one to hold equal to another build's to the bit
     det = sl["run_rounds"]["a"]
     t_phase = time.perf_counter()
@@ -5682,17 +6171,29 @@ def main():
 
     rows = []
     for name, r in kern.items():
+        # phase 3's rounds replay the round's programs: the wrappers
+        # launched in their warm-ups (and in the eager twins); a round's
+        # launches are the graphs' kernel nodes × replays, kept apart
         runs = [(route, sl[route]["launches"][name]) for route in ROUTES]
-        per_round = {route: n / ROUNDS for route, n in runs if n}
+        per_round = {route: sl[route]["graph_launches"][name] / ROUNDS
+                     for route in ROUTES
+                     if sl[route]["graph_launches"][name]}
+        in_graph = sum(sl[route]["graph_launches"][name] for route in ROUTES)
+        kp, jp = sl["k"]["programs"], sl["j"]["programs"]
+        runs.append(("k programs", kp["eager"][name] + kp["wrapper"][name]))
+        in_graph += kp["graph"][name] + jp["graph_launches"][name]
         # run_rounds' wrapper launches (its eager loops and warm-ups) count;
         # the graph's are read from its kernel nodes and kept apart
         rr = sl["run_rounds"].values()
         wrapped = sum(x["launches_wrapper"][name] for x in rr)
-        in_graph = sum(x["launches_in_graph"][name] for x in rr)
+        in_graph += sum(x["launches_in_graph"][name] for x in rr)
         runs.append(("run_rounds", wrapped))
-        if wrapped or in_graph:
-            per_round["run_rounds (all, eager + warm-up)"] = wrapped
-            per_round["run_rounds (all, graph nodes x replays)"] = in_graph
+        if wrapped:
+            per_round["run_rounds and round pairs (all, eager + warm-up)"] = (
+                wrapped)
+            per_round["run_rounds and round pairs (all, graph nodes x "
+                      "replays)"] = sum(x["launches_in_graph"][name]
+                                        for x in rr)
         mesh_n = sum(j["launches"][name] for j in mesh_res.values())
         runs += [("m", mesh_n), ("m1", m1["launches"][name]),
                  ("o1", zoo["o1"]["launches"][name])]
@@ -5711,7 +6212,13 @@ def main():
             per_round["o1 (eager rounds + program warm-ups)"] = (
                 zoo["o1"]["launches"][name])
         for route, rounds in lm_rounds.items():
-            if zoo[route]["launches"][name]:
+            # q, s and u replay train's per-round graph: a round's
+            # launches are its nodes (the wrappers': the warm-up round's)
+            graph = zoo[route].get("graph_launches", {}).get(name, 0)
+            in_graph += graph
+            if graph:
+                per_round[f"{route} (a replay, graph nodes)"] = graph / rounds
+            elif zoo[route]["launches"][name]:
                 per_round[f"{route} (a round, all ranks)"] = (
                     zoo[route]["launches"][name] / rounds)
         print(f"kernel {name}: {r['ms']:.4f} ms median of 30, {r['bytes']} "
@@ -5728,6 +6235,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"]})
     seconds["all"] = time.perf_counter() - t_start
+    seconds["graph dumps, this process"] = DUMP_S[0]
     print(f"seconds by phase and route: "
           f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     outdir = ROOT / "chiprun_out"

@@ -148,14 +148,18 @@ def _run(sim, st, plan):
     """The rounds of ``plan`` from ``st``: one ``run_rounds`` call through
     the async engine on route j, else a ``FedSim.round`` a round with a
     generator (randk's draws) and the next round's ids (the EF store's
-    prefetch)."""
-    if sim._async is not None:
-        ids, batches = chip_smoke.stacked(plan)
-        return sim.run_rounds(st, batches, ids)[0]
-    for r, (idx, b) in enumerate(plan):
-        st, _ = sim.round(st, b, idx, torch.Generator().manual_seed(r),
-                          prefetch_idx=plan[r + 1][0] if r + 1 < len(plan)
-                          else None)
+    prefetch). The rounds run their eager bodies
+    (``repro_torch.disable_graphs``): a replayed graph has no stage
+    ranges to break the round down by."""
+    from repro_torch import disable_graphs
+    with disable_graphs():
+        if sim._async is not None:
+            ids, batches = chip_smoke.stacked(plan)
+            return sim.run_rounds(st, batches, ids)[0]
+        for r, (idx, b) in enumerate(plan):
+            st, _ = sim.round(st, b, idx, torch.Generator().manual_seed(r),
+                              prefetch_idx=plan[r + 1][0]
+                              if r + 1 < len(plan) else None)
     return st
 
 

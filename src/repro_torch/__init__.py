@@ -32,15 +32,52 @@ neither ``jax`` nor anything of ``repro``:
                                     and the port's state → the JAX layout
 
 Entry points take ``device=`` and default to CUDA; without a card they
-raise unless the caller asks for ``device="cpu"``. ``FedSim.run_rounds``
-(and ``FederatedTrainer.run(scan_rounds=R)``) runs R rounds as one
-program, as the reference's scan does: on CUDA one captured CUDA graph of
-a round, replayed R times, with one host read at the end; on the CPU the
-same round body, run eagerly.
+raise unless the caller asks for ``device="cpu"``. Every per-round entry
+point is one program per shape and setting, as the reference jits it:
+``FedSim.round``, the async engine's dispatch and flush, and the mesh's
+per-round step (``FederatedTrainer(mesh=...).run``, ``launch.train``) are
+each one CUDA graph on the card, captured at the first call after one
+dropped warm-up run and replayed once a call; ``FedSim.run_rounds`` (and
+``FederatedTrainer.run(scan_rounds=R)``) runs R rounds as one program, as
+the reference's scan does: one captured round, replayed R times, with one
+host read at the end. On the CPU the same bodies run eagerly.
+:func:`disable_graphs` (the counterpart of ``jax.disable_jit()``) makes
+the per-round entry points call their eager function instead, on any
+device.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 __version__ = "0.1.0"
+
+#: false (in this thread or task) while :func:`disable_graphs` is open
+_GRAPHS = contextvars.ContextVar("repro_torch_graphs", default=True)
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Within (in this thread or task): every per-round entry point calls
+    its eager function on the caller's state and makes no program, as
+    ``jax.disable_jit()`` makes the reference's jitted functions run op by
+    op: ``FedSim.round`` its round, the async engine's steps
+    ``FedSim._async_dispatch`` and ``FedSim._async_flush``, and
+    ``MeshRounds.round`` the mesh round itself. The multi-round drivers
+    (``FedSim.run_rounds``, ``MeshRounds`` called with R rounds) stay
+    programs; their eager twin is the loop of per-round calls inside
+    this. The kernels launch inside it as outside. Only a caller enters
+    it: nothing in the package falls back to it."""
+    token = _GRAPHS.set(False)
+    try:
+        yield
+    finally:
+        _GRAPHS.reset(token)
+
+
+def graphs_enabled() -> bool:
+    """False inside :func:`disable_graphs`."""
+    return _GRAPHS.get()
 
 
 def resolve_device(device=None):

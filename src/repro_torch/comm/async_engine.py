@@ -17,8 +17,12 @@ uplink (``FedSim._async_dispatch``; EF booked at dispatch, through the
 ``topk_ef_sparse`` kernel for blocktopk), a flush ingests a ``(B, k)``
 masked buffer with a weight and a fill vector (``FedSim._async_flush``:
 the fused ``fedams_ingest`` through an exact pre-scale, or the weighted
-scatter-mean and ``fedams_update``). The payloads stay on the device; the
-event loop itself is host-side Python, as the transport is.
+scatter-mean and ``fedams_update``). Each step is one program per shape,
+as the reference jits each (``FedSim._dispatch``, ``FedSim._flush``: on
+the card one captured CUDA graph each, replayed once a step; a partial
+flush has the full flush's shapes). The payloads stay on the device; the
+event loop itself is host-side Python, as the transport is, and runs
+between the steps.
 
 Determinism and the parity anchor: every draw is keyed by identity triples
 and the event queue breaks time ties by insertion order, so a run is a
@@ -102,6 +106,7 @@ class AsyncRoundEngine:
             client_idx = client_idx.cpu().numpy()
         idx_host = np.asarray(client_idx, dtype=np.int64)
         R, n = int(idx_host.shape[0]), int(idx_host.shape[1])
+        sim._check_ids(idx_host)   # so the dispatches' row checks are off
         if B > n:
             raise ValueError(
                 f"async_buffer={B} exceeds the staged cohort size n={n} — "
@@ -135,7 +140,7 @@ class AsyncRoundEngine:
                 {k: v[r] for k, v in client_batches.items()}, ids, fplan)
             k_all = hetero_step_counts(sim.fed,
                                        None if rngs is None else rngs[r], n)
-            vals, sidx, losses = sim._async_dispatch(
+            vals, sidx, losses = sim._dispatch(
                 cur.errors, cur.x_client, batches, rows, ridx, k_all, fplan)
             t0 = clock.now  # dispatched at the server's current sim time
             for i in range(n):
@@ -182,7 +187,7 @@ class AsyncRoundEngine:
             tau[:take] = [version - e.version for e in entries]
             w = (fill.astype(np.float64)
                  * self.weight_fn(tau)).astype(np.float32)
-            cur, met = sim._async_flush(
+            cur, met = sim._flush(
                 cur, vals_buf, idx_buf, torch.from_numpy(w).to(dev),
                 torch.from_numpy(fill).to(dev), loss_buf)
             version += 1

@@ -146,7 +146,8 @@ class FederatedTrainer:
         stages R rounds of client ids and batches at a time and runs them
         through ``FedSim.run_rounds`` (the same history as the per-round
         loop; with ``fed.ef_store`` its loop prefetches each next round's
-        EF rows); otherwise one ``FedSim.round`` call a round. With
+        EF rows); otherwise one ``FedSim.round`` call a round (one replay
+        of its program on the card). With
         ``fed.async_buffer`` the whole run is staged at once and the
         history holds one row a flush. With
         ``train.checkpoint_every`` the state is saved to ``ckpt_round{r}``
@@ -206,14 +207,17 @@ class FederatedTrainer:
         return self.history
 
     def _run_mesh(self, rounds: int, scan_rounds: int, log):
-        """The mesh loop: one ``fed_round`` call a round on this rank's
-        shard of ``lm_data.mesh_batch`` (seed = the round index, as the
-        JAX trainer's), or with ``scan_rounds=R > 1`` R staged rounds at a
-        time through ``build_fed_rounds_scan`` (the same history): one
-        program, kept with the trainer, that on CUDA + NCCL replays one
-        captured round R times and reads the metrics once a chunk (the
-        state is its carry). Checkpoints as the simulation loop writes
-        them; only rank 0 logs."""
+        """The mesh loop: one round a call on this rank's shard of
+        ``lm_data.mesh_batch`` (seed = the round index, as the JAX
+        trainer's), through ``build_fed_rounds_scan``'s program at R = 1
+        (``MeshRounds.round``, the reference's jitted step: on CUDA + NCCL
+        one captured round replayed once a round; the eager ``fed_round``
+        inside ``repro_torch.disable_graphs``), or with ``scan_rounds=R >
+        1`` R staged rounds a call through the same object (the same
+        history): on CUDA + NCCL one captured round replayed R times and
+        the metrics read once a chunk. The programs are kept with the
+        trainer; the state is their carry. Checkpoints as the simulation
+        loop writes them; only rank 0 logs."""
         fed, train = self.fed, self.train
         ce = train.checkpoint_every
         log = log if dist.get_rank() == 0 else None
@@ -227,10 +231,10 @@ class FederatedTrainer:
                 log(f"round {r:4d}  loss {rec['loss']:8.4f}  "
                     f"({time.time() - t0:.1f}s)")
 
+        if self._scan is None:
+            self._scan = meshmod.build_fed_rounds_scan(self._rnd, log)
+        step = self._scan
         if scan_rounds and scan_rounds > 1:
-            if self._scan is None:
-                self._scan = meshmod.build_fed_rounds_scan(self._rnd, log)
-            step = self._scan
             r = 0
             while r < rounds:
                 chunk = min(scan_rounds, rounds - r)
@@ -251,8 +255,8 @@ class FederatedTrainer:
         for r in range(rounds):
             raw = self.lm_data.mesh_batch(r, fed.local_steps,
                                           train.global_batch, train.seq_len)
-            self._state, met = self._rnd(self._state, self._mesh_batch(raw),
-                                         r)
+            self._state, met = step.round(self._state,
+                                          self._mesh_batch(raw), r)
             record(met, r)
             if ce and r % ce == 0 and r > 0:
                 self.save(f"ckpt_round{r}")

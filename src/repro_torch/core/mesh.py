@@ -36,7 +36,11 @@ Many rounds, one program (:func:`build_fed_rounds_scan`, the reference's
 (:meth:`MeshRound.stage_inputs`, which the eager round runs at R = 1),
 then the round body runs round after round on the state's own tensors,
 reading its round's slot at a round counter on the device; on CUDA +
-NCCL one round is captured into a CUDA graph and replayed R times.
+NCCL one round is captured into a CUDA graph and replayed R times. The
+per-round step the trainer and ``launch.train`` take a round at a time
+(the reference jits it) is the same program at R = 1
+(:meth:`MeshRounds.round`), one kept across the calls; ``fed_round``
+itself stays the eager round, the reference's un-jitted ``rnd``.
 
 A model is duck-typed as the JAX one: ``defs()`` (a nested dict of
 ``ParamDef``), ``loss(p, b, ctx, remat_policy=..., chunk=...) -> (loss,
@@ -51,7 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import graphs_enabled, resolve_device
 from repro_torch.comm.faults import (FaultPlan, corrupt_selection,
                                      mesh_corruption_plan, mesh_fault_mask)
 from repro_torch.configs.base import FedConfig, TrainConfig
@@ -755,12 +759,14 @@ class _RoundsProgram:
 
     def run(self, R: int):
         """R rounds from the loaded carry → the (keys, R) metrics on the
-        host (the one host read) and, on CUDA, each round's ms by CUDA
-        events (a replay's, or an eager body's)."""
+        host (the one host read; a copy of the slots, which the next call
+        writes again) and, on CUDA, each round's ms by CUDA events (a
+        replay's, or an eager body's)."""
         dev = self.out.device
         timed = dev.type == "cuda"
         events = [torch.cuda.Event(enable_timing=True)
                   for _ in range(R + 1)] if timed else []
+        read = lambda: self.out[:, :R].to("cpu", copy=True)
         if not self.captured:
             for r in range(R):
                 if timed:
@@ -768,12 +774,15 @@ class _RoundsProgram:
                 self.step()
             if timed:
                 events[R].record()
-            return self.out[:, :R].cpu(), events
+            return read(), events
         here = torch.cuda.current_stream(dev)
         self.stream.wait_stream(here)
         with torch.cuda.stream(self.stream):
             if self.graph is None:
                 self.step(write=False)
+                # the warm-up's freed blocks back to the card: the
+                # capture's pool is its own and cannot reuse them
+                torch.cuda.empty_cache()
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
                 # thread-local: another thread's CUDA calls (the NCCL
                 # watchdog's event queries) do not void this capture
@@ -788,16 +797,18 @@ class _RoundsProgram:
                 self.graph.replay()
             events[R].record()
         here.wait_stream(self.stream)
-        return self.out[:, :R].cpu(), events
+        return read(), events
 
 
 class MeshRounds:
     """``rounds_fn(state, batches, seeds) -> (state, stacked metrics)``:
-    :func:`build_fed_rounds_scan`'s multi-round program. ``last`` holds what
-    the latest call did: ``captured`` (one CUDA graph of a round replayed,
-    or the staged body run eagerly), ``built`` (whether the call made its
-    program: a capture, on CUDA + NCCL), ``rounds``, ``round_ms`` (each
-    round's ms by CUDA events, None on the CPU) and ``program``."""
+    :func:`build_fed_rounds_scan`'s multi-round program; :meth:`round` is
+    the per-round step through the same program at R = 1. ``last`` holds
+    what the latest call did: ``captured`` (one CUDA graph of a round
+    replayed, or the staged body run eagerly), ``built`` (whether the call
+    made its program: a capture, on CUDA + NCCL), ``rounds``, ``events``
+    (each round's CUDA events, read by :meth:`round_ms`; None on the CPU)
+    and ``program``."""
 
     def __init__(self, rnd: MeshRound, log=None):
         self.rnd = rnd
@@ -850,6 +861,23 @@ class MeshRounds:
         return prog.carry, {k: stacked[j] for j, k in
                             enumerate(self.rnd.keys)}
 
+    def round(self, state: FedMeshState, batch, seed):
+        """One round, ``fed_round(state, batch, seed)``, as the reference's
+        jitted step: through this object's program at R = 1 (``batch``:
+        this rank's shard of one round, :func:`shard_batch` without
+        ``staged``), the one program kept across the calls, on CUDA + NCCL
+        one captured round replayed once a call. The state is consumed and
+        the carry returned, as :meth:`__call__` does; the metrics are 0-d
+        tensors on the host. Inside :func:`repro_torch.disable_graphs` the
+        round itself runs (``last`` then says so)."""
+        if not graphs_enabled():
+            self.last = dict(captured=False, built=False, rounds=1,
+                             events=None, program=None)
+            return self.rnd(state, batch, seed)
+        state, stacked = self(state, _map(lambda t: t.unsqueeze(0), batch),
+                              [seed])
+        return state, {k: v[0] for k, v in stacked.items()}
+
     def round_ms(self):
         """The latest call's rounds' ms by CUDA events (after the call's
         read, so reading them waits for nothing); None on the CPU."""
@@ -876,7 +904,9 @@ def build_fed_rounds_scan(fed_round: MeshRound, log=None) -> MeshRounds:
     front, reported in ``last["captured"]`` and logged (``log``) when a
     program is made; a capture or launch that fails raises. A program is
     kept per shape and setting (deterministic algorithms, TF32) and reused
-    by later calls of as many rounds or fewer (chunks of 3, then 1)."""
+    by later calls of as many rounds or fewer (chunks of 3, then 1, and
+    :meth:`MeshRounds.round`'s one round a call: the reference's jitted
+    per-round step)."""
     return MeshRounds(fed_round, log)
 
 

@@ -53,32 +53,39 @@ chunk on the sparse path), summing into a running aggregate; and
 ``fed.agg_groups`` aggregates in two tiers (a dense partial per group,
 then their sum), billing the g partials as tier-2 wire bytes.
 
-Many rounds, one program (:meth:`FedSim.run_rounds`, the reference's
-``lax.scan`` over rounds): the host stages all R rounds first — the ids (checked
-once), each round's network timing and fault plan, its step counts and
-randk's positions drawn from its generator, η_l, the batches — and one
-body (:meth:`FedSim._rounds_body`) runs round after round on a static copy
-of the state, reading its round's inputs at a round counter on the device
-and writing the new state back into the copy. On CUDA the body is captured
-once into a CUDA graph (per shape and setting, kept with the FedSim) and
-replayed R times, with no host work between replays and one host read of
-the stacked metrics; on the CPU it runs eagerly. Every kernel of the round
-runs inside the graph as itself; the launch counters count what the
-wrappers launched (the warm-up run's), and the capture's launches are kept
-with the program. The host counters (``bits``, the wire bytes and times,
-the fault verdicts) are booked after, as in the reference.
-:meth:`FedSim.round` stages its one round the same way and books through
-the same helper; a round takes η_l as a 0-d tensor and masks
-heterogeneous steps on the device (``core.local``), so the two drivers
-compute one thing, to the bit.
+One program per shape, as the reference jits its rounds: every round
+runs as one program (:class:`_Program`, one per shape and setting, kept
+with the FedSim), on CUDA one CUDA graph captured at its first call after
+one dropped warm-up run and replayed once a call, on the CPU the same body
+run eagerly. :meth:`FedSim.round` stages its round on the host — the ids
+(checked there), the network timing and fault plan, the step counts and
+randk's positions drawn from its generator, η_l, the batches — loads them
+into its program, whose carry adopts the state's EF buffer (updated in
+place) and holds copies of the rest, and runs it once; the new state and
+the metrics come back as tensors of their own. :meth:`FedSim.run_rounds`
+(the reference's ``lax.scan`` over rounds) stages all R rounds first, and
+its program's body (:meth:`FedSim._rounds_body`, the round's own) runs
+round after round on a copy of the state, reading its round's inputs at a
+round counter on the device: R replays, no host work between them and one
+host read of the stacked metrics. Every kernel of the round runs inside
+the graph as itself; the launch counters count what the wrappers launched
+(the warm-up run's), and the capture's launches are kept with the
+program. The host counters (``bits``, the wire bytes and times, the fault
+verdicts) are booked after, as in the reference, through one helper for
+both drivers. A round takes η_l as a 0-d tensor and masks heterogeneous
+steps on the device (``core.local``), so the drivers compute one thing, to
+the bit. Inside :func:`repro_torch.disable_graphs` a round runs eagerly on
+the caller's state (:meth:`FedSim._eager_round`), as ``jax.disable_jit()``
+runs the reference's.
 
 With ``fed.async_buffer`` the rounds are event-driven
 (``comm.async_engine.AsyncRoundEngine``): :meth:`FedSim.run_rounds`
-dispatches the staged cohorts (:meth:`FedSim._async_dispatch`) and flushes
-every B deliveries (:meth:`FedSim._async_flush`); :meth:`FedSim.round`
+dispatches the staged cohorts and flushes every B deliveries, each step
+one program (:meth:`FedSim._dispatch` adopts the EF buffer,
+:meth:`FedSim._flush` carries the server state); :meth:`FedSim.round`
 refuses. With ``fed.ef_store`` :meth:`FedSim.run_rounds` is a loop of
-:meth:`FedSim.round` (the cohort's rows move host↔device each round), as
-in the reference.
+:meth:`FedSim.round` (the cohort's rows move host↔device each round, into
+and out of the round program's (n, d) block), as in the reference.
 
 randk draws its positions every round (``compressors.randk_positions``,
 from the round's generator): the n clients' sets, γ's and the two-way
@@ -108,7 +115,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch import resolve_device
+from repro_torch import graphs_enabled, resolve_device
 from repro_torch.checkpoint.store import EFStore
 from repro_torch.comm.async_engine import AsyncRoundEngine
 from repro_torch.comm.faults import (FaultConfig, FaultInjector, FaultPlan,
@@ -218,38 +225,68 @@ def _shapes(tree) -> tuple:
 
 
 class _Program:
-    """R rounds of one FedSim as one program: a static carry (copies of the
-    state's tensors, so the caller's stay as they were), static inputs (a
-    :class:`_Staged`), a round counter on the device and the (keys, R)
-    metric slots. On CUDA the body is captured once into a CUDA graph,
-    after :data:`WARMUP_ROUNDS` runs on the carry on its own stream, which
-    are undone by loading the state again; each later run replays it.
-    ``counts``: the kernel launches the capture recorded into the graph
+    """One function of one FedSim as one program, the port's counterpart
+    of a jitted function: its carry (the state it updates: copies of the
+    caller's tensors, or, at the positions ``adopt`` names, the caller's
+    own tensors, updated in place), its static inputs, a round counter on
+    the device and the (keys, ``rounds``) metric slots. ``body`` names the
+    function, a method of the FedSim that :meth:`run` is given, called as
+    ``sim.<body>(prog)``: it reads the inputs (at the counter) and the
+    carry, writes the carry and the slots, and returns its outputs (or
+    None). An adopted slot stays the first caller's tensor: a later
+    caller's tensor there is lent in for the run (:meth:`load`), with no
+    new program.
+    On CUDA the body is captured once into a CUDA graph, after
+    :data:`WARMUP_ROUNDS` runs on its own stream whose writes to the carry
+    are undone; each later run replays it. Without a card the body runs
+    eagerly on the same buffers. ``counts``: the kernel launches the
+    capture recorded into the graph
     (:func:`repro_torch.kernels.ops.captured_launches`), which each replay
-    runs again; :data:`repro_torch.kernels.ops.launches` counts only the
-    launches a wrapper made (the warm-up's)."""
+    runs again; ``replays``: the replays so far.
+    :data:`repro_torch.kernels.ops.launches` counts only the launches a
+    wrapper made (the warm-up's)."""
 
-    def __init__(self, core, staged: _Staged, keys, device):
+    def __init__(self, body: str, carry, inputs, keys, rounds: int, device,
+                 adopt=()):
+        self.body = body
         self.keys = keys
         self.device = device
-        R = staged.idx.shape[0]
-        self.carry = pytree.tree_map(
-            lambda t: t.clone() if isinstance(t, torch.Tensor) else t, core)
-        self.inputs = staged
+        own = lambda tree: pytree.tree_map(
+            lambda x: x.to(device, copy=True)
+            if isinstance(x, torch.Tensor) else x, tree)
+        self.carry = tuple(t if i in adopt else own(t)
+                           for i, t in enumerate(carry))
+        self.adopt = tuple(adopt)
+        # the adopted positions' tensors of the latest caller, and the
+        # slots lent to it
+        self.given = {i: carry[i] for i in self.adopt}
+        self.lent = []
+        # the inputs' own slots: a caller's tensor may share its memory
+        # with the caller's arrays (a CPU tensor from numpy)
+        self.inputs = own(inputs)
         self.ctr = torch.zeros(1, dtype=torch.int64, device=device)
-        self.out = torch.zeros((len(keys), R), dtype=torch.float32,
+        self.out = torch.zeros((len(keys), rounds), dtype=torch.float32,
                                device=device)
-        self.graph = self.counts = None
+        self.graph = self.counts = self.outputs = None
+        self.replays = 0
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
 
-    def load(self, core, staged: _Staged):
-        """The state into the carry, the inputs into the static inputs
-        (unless they are them), the counter to 0."""
-        for dst, src in zip(_tensors(self.carry), _tensors(core)):
-            dst.copy_(src)
-        if staged is not self.inputs:
-            for dst, src in zip(_tensors(self.inputs), _tensors(staged)):
+    def load(self, carry, inputs):
+        """The state into the carry and the inputs into the static inputs
+        (a tensor that is its slot already is not copied), the counter to
+        0. An adopted slot given another tensor (another chain's EF
+        buffer, a restored state's) lends it in: the slot's own contents
+        are kept aside, and :meth:`run` copies the slot back into the
+        tensor and the kept contents into the slot, so the slot's owner
+        sees its buffer as it left it (one clone and three copies a call,
+        against a new capture)."""
+        self.given = {i: carry[i] for i in self.adopt}
+        self.lent = [(self.carry[i], carry[i], self.carry[i].clone())
+                     for i in self.adopt if carry[i] is not self.carry[i]]
+        for dst, src in zip(_tensors((self.carry, self.inputs)),
+                            _tensors((carry, inputs))):
+            if dst is not src:
                 dst.copy_(src)
         self.ctr.zero_()
 
@@ -265,36 +302,59 @@ class _Program:
                                     met[key].reshape(1).to(self.out.dtype))
         self.ctr.add_(1)
 
-    def run(self, sim: "FedSim", R: int, core):
-        """R rounds from the loaded state ``core`` → the (keys, R) metrics
-        on the host: the one host read."""
+    def run(self, sim: "FedSim", times: int = 1):
+        """``sim``'s body ``times`` times from the loaded state: on CUDA as
+        replays of its graph (captured at the first run), else eagerly.
+        Returns the last run's outputs (on CUDA the graph's own tensors,
+        which the next replay writes again)."""
+        body = getattr(sim, self.body)
         if self.stream is None:
-            for _ in range(R):
-                sim._rounds_body(self)
-            return self.out.clone()
-        here = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(here)
-        with torch.cuda.stream(self.stream):
-            if self.graph is None:
-                for _ in range(WARMUP_ROUNDS):
-                    sim._rounds_body(self)
-                self.load(core, self.inputs)
-                graph = torch.cuda.CUDAGraph(keep_graph=True)
-                with ops.captured_launches() as counts:
-                    with torch.cuda.graph(graph, stream=self.stream):
-                        sim._rounds_body(self)
-                graph.instantiate()
-                self.graph, self.counts = graph, counts
-            for _ in range(R):
-                self.graph.replay()
-        here.wait_stream(self.stream)
-        return self.out.cpu()
+            for _ in range(times):
+                self.outputs = body(self)
+        else:
+            here = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(here)
+            with torch.cuda.stream(self.stream):
+                if self.graph is None:
+                    self._capture(body)
+                for _ in range(times):
+                    self.graph.replay()
+                self.replays += times
+            here.wait_stream(self.stream)
+        for slot, theirs, kept in self.lent:
+            theirs.copy_(slot)
+            slot.copy_(kept)
+        self.lent = []
+        return self.outputs
+
+    def _capture(self, body):
+        """The warm-up runs (their writes to the carry undone: the carry
+        and the counter are put back as they were loaded), then the
+        capture; a capture that fails raises."""
+        saved = [t.clone() for t in _tensors(self.carry)]
+        for _ in range(WARMUP_ROUNDS):
+            body(self)
+        for dst, src in zip(_tensors(self.carry), saved):
+            dst.copy_(src)
+        del saved
+        self.ctr.zero_()
+        # the warm-up's freed blocks back to the card: the capture's pool
+        # is its own and cannot reuse them
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with ops.captured_launches() as counts:
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.outputs = body(self)
+        graph.instantiate()
+        self.graph, self.counts = graph, counts
 
     def result(self):
-        """The state after the run, as tensors of its own."""
-        return pytree.tree_map(
-            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
-            self.carry)
+        """The carry after the run: at an adopted position the caller's
+        tensor, every other part as tensors of its own."""
+        return tuple(
+            self.given[i] if i in self.adopt else pytree.tree_map(
+                lambda x: x.clone() if isinstance(x, torch.Tensor) else x, t)
+            for i, t in enumerate(self.carry))
 
 
 class FedSim:
@@ -494,14 +554,29 @@ class FedSim:
         """``client_batches``: dict of arrays with leading (n, K, ...);
         ``client_idx``: (n,) distinct client ids (host array or tensor);
         ``rng``: a ``torch.Generator``, needed for heterogeneous step counts
-        and randk's draws. The input state's EF buffer is updated in place.
+        and randk's draws. The input state's EF buffer is updated in place;
+        the returned state's other tensors and the metrics (0-d tensors on
+        the state's device) are its own.
+
+        The round is one program, as the reference jits its round: its
+        host draws are staged as :meth:`run_rounds` stages them, then the
+        round's body runs on the program of this shape and setting, kept
+        with this FedSim (:meth:`_program`): on CUDA one CUDA graph,
+        captured at the first call after a dropped warm-up run and replayed
+        once a call; on the CPU the same body, run eagerly. The program
+        adopts the first state's EF buffer as its slot (a state with
+        another buffer, from another chain or a restore, is lent in:
+        :meth:`_Program.load`). Inside
+        :func:`repro_torch.disable_graphs` the round runs eagerly on the
+        state itself (:meth:`_eager_round`).
 
         With ``fed.ef_store`` the round gathers the cohort's rows from the
-        host store into an (n, d) device block, runs over row *positions*
-        (per-client batches and draws key off position already, so every
-        row's math is bitwise the resident buffer's), and scatters the rows
-        back; ``prefetch_idx`` (the NEXT round's ids) starts the background
-        gather for round r+1 before this round's rows come back."""
+        host store into the program's (n, d) block, runs over row
+        *positions* (per-client batches and draws key off position already,
+        so every row's math is bitwise the resident buffer's), and scatters
+        the rows back; ``prefetch_idx`` (the NEXT round's ids) starts the
+        background gather for round r+1 before this round's rows come
+        back."""
         if self._async is not None:
             raise ValueError(
                 "fed.async_buffer routes training through the event-driven "
@@ -514,6 +589,43 @@ class FedSim:
         staged, timings, finfos = self._stage_rounds(
             state, {k: torch.as_tensor(v)[None]
                     for k, v in client_batches.items()}, ids[None], [rng])
+        run = (self._program_round if graphs_enabled()
+               else self._eager_round)
+        new_state, met = run(state, staged, ids, prefetch_idx)
+        bits = state.bits + self._bits_per_round(ids.size)
+        return (new_state._replace(bits=bits, round=state.round + 1),
+                self._book(met, bits, timings[0], finfos[0]))
+
+    def _program_round(self, state: SimState, staged: _Staged, ids,
+                       prefetch_idx):
+        """:meth:`round` through its program: the state and the staged
+        round loaded (with ``ef_store`` the cohort's rows gathered into the
+        program's block), one run, the rows scattered back; the new state
+        and the metrics as tensors of their own."""
+        carry = _core(state)
+        adopt = (2,)
+        if self._efs is not None:
+            with stage("ef_store"):
+                held = torch.from_numpy(self._efs.gather(ids))
+            carry = carry[:2] + (held,) + carry[3:]
+            staged = staged._replace(
+                idx=torch.arange(ids.size, device=self.device)[None])
+            adopt = ()
+        prog = self._program("round", carry, staged, adopt=adopt)
+        prog.run(self)
+        if self._efs is not None:
+            with stage("ef_store"):
+                if prefetch_idx is not None:
+                    self._efs.prefetch(np.asarray(prefetch_idx))
+                # the copy back waits for the round; the prefetch overlaps
+                self._efs.scatter(ids, prog.carry[2].cpu().numpy())
+        met = dict(zip(prog.keys, prog.out[:, 0].clone().unbind(0)))
+        return SimState(*prog.result(), bits=0, round=0), met
+
+    def _eager_round(self, state: SimState, staged: _Staged, ids,
+                     prefetch_idx):
+        """:meth:`round`'s body run eagerly on the state itself (inside
+        :func:`repro_torch.disable_graphs`)."""
         at = lambda t: None if t is None else t[0]
         batches = {k: v[0] for k, v in staged.batches.items()}
         fplan = (None if staged.fplan is None
@@ -534,9 +646,7 @@ class FedSim:
                     self._efs.prefetch(np.asarray(prefetch_idx))
                 # the copy back waits for the round; the prefetch overlaps
                 self._efs.scatter(ids, new_state.errors.cpu().numpy())
-        bits = state.bits + self._bits_per_round(ids.size)
-        return (new_state._replace(bits=bits, round=state.round + 1),
-                self._book(met, bits, timings[0], finfos[0]))
+        return new_state, met
 
     def _book(self, met: dict, bits: int, timing, finfo) -> dict:
         """A round's metrics, ``met`` (its device values), completed with
@@ -570,7 +680,8 @@ class FedSim:
 
         With ``fed.ef_store`` each round's cohort rows move host↔device
         around the round, which no static carry holds, so the rounds are a
-        loop of :meth:`round` that prefetches the next round's rows. With
+        loop of :meth:`round` (each one replay of its program) that
+        prefetches the next round's rows. With
         ``fed.async_buffer`` the async engine consumes all R cohorts and
         returns one metric dict per FLUSH — ``ceil(deliveries / B)`` of them,
         not R."""
@@ -591,8 +702,9 @@ class FedSim:
         R, n = ids.shape
         staged, timings, finfos = self._stage_rounds(state, client_batches,
                                                      ids, rngs)
-        prog = self._program(state, staged)
-        stacked = prog.run(self, R, _core(state))
+        prog = self._program("rounds", _core(state), staged)
+        prog.run(self, R)
+        stacked = prog.out.to("cpu", copy=True)   # the one host read
         bpr = self._bits_per_round(n)
         mets = [self._book({key: stacked[j, r]
                             for j, key in enumerate(prog.keys)},
@@ -613,12 +725,7 @@ class FedSim:
         of (R, …)-leading tensors on the device, and the host-side timings
         and fault verdicts."""
         R, n = ids.shape
-        m = self.fed.num_clients
-        for row in ids:
-            if np.unique(row).size != n:
-                raise ValueError("client_idx must hold distinct client ids")
-        if ids.size and (ids.min() < 0 or ids.max() >= m):
-            raise ValueError(f"client_idx must lie in [0, {m})")
+        self._check_ids(ids)
         timings = [self._round_timing(ids[r], state.round + r)
                    for r in range(R)]
         finfos = [None] * R
@@ -647,23 +754,41 @@ class FedSim:
                        if plans else None))
         return staged, timings, finfos
 
-    def _program(self, state: SimState, staged) -> "_Program":
-        """The program for this state's and these inputs' shapes and the
-        settings that pick kernels (deterministic algorithms, TF32), made
-        on first use and kept; loaded with ``state`` and ``staged``."""
-        core = _core(state)
-        key = (_shapes(core), _shapes(staged),
-               str(pytree.tree_structure(staged)),
+    def _check_ids(self, ids: np.ndarray) -> None:
+        """``ids`` (R, n): distinct in each round and in ``[0, m)``,
+        checked on the host, so the EF kernels' row checks can be off."""
+        m = self.fed.num_clients
+        for row in ids:
+            if np.unique(row).size != row.size:
+                raise ValueError("client_idx must hold distinct client ids")
+        if ids.size and (ids.min() < 0 or ids.max() >= m):
+            raise ValueError(f"client_idx must lie in [0, {m})")
+
+    def _program(self, kind: str, carry, inputs, adopt=()) -> "_Program":
+        """The program of ``kind`` — ``"rounds"`` (:meth:`run_rounds`),
+        ``"round"`` (:meth:`round`), ``"dispatch"`` or ``"flush"`` (the
+        async engine's steps) — for these shapes and the settings that
+        pick kernels (deterministic algorithms, TF32), made on first use
+        and kept; loaded with ``carry`` and ``inputs``. A program that
+        adopts the caller's tensors (``adopt``) keeps its first caller's
+        there and lends another caller's in (:meth:`_Program.load`)."""
+        key = (kind, _shapes(carry), _shapes(inputs),
+               str(pytree.tree_structure(inputs)),
                torch.are_deterministic_algorithms_enabled(),
                torch.backends.cudnn.allow_tf32,
                torch.backends.cuda.matmul.allow_tf32)
         prog = self._programs.get(key)
         if prog is None:
-            keys = ("loss", "gamma") + (("survivors", "rejected")
-                                        if self.faults is not None else ())
-            prog = self._programs[key] = _Program(core, staged, keys,
-                                                  self.device)
-        prog.load(core, staged)
+            if kind in ("round", "rounds"):
+                name, R = "_rounds_body", inputs.idx.shape[0]
+                keys = ("loss", "gamma") + (
+                    ("survivors", "rejected") if self.faults is not None
+                    else ())
+            else:
+                name, R, keys = f"_{kind}_body", 1, ()
+            prog = self._programs[key] = _Program(name, carry, inputs, keys,
+                                                  R, self.device, adopt)
+        prog.load(carry, inputs)
         return prog
 
     def _rounds_body(self, prog: "_Program"):
@@ -927,6 +1052,55 @@ class FedSim:
                 {"loss": loss, "gamma": gamma})
 
     # -- async buffered engine steps ------------------------------------------
+    def _dispatch(self, errors, x_client, batches, client_idx, round_idx,
+                  k_all, fplan=None):
+        """The engine's dispatch (:meth:`_async_dispatch`) as one program
+        per shape and setting, as the reference jits it with the EF buffer
+        donated: the program adopts ``errors`` (updated in place) and takes
+        the model, the batches, the ids (checked by the engine on the
+        host), η_l, the step counts and the fault plan as static inputs.
+        Returns the payloads ``(vals, idx, losses)`` as tensors of their
+        own. Inside :func:`repro_torch.disable_graphs`: the eager step."""
+        if not graphs_enabled():
+            return self._async_dispatch(errors, x_client, batches,
+                                        client_idx, round_idx, k_all, fplan)
+        inputs = (x_client, batches, client_idx, self._eta_l(round_idx),
+                  None if k_all is None else k_all.to(self.device), fplan)
+        prog = self._program("dispatch", (errors,), inputs, adopt=(0,))
+        return tuple(t.clone() for t in prog.run(self))
+
+    def _dispatch_body(self, prog: "_Program"):
+        x_client, batches, rows, eta_l, k_all, fplan = prog.inputs
+        with ops.rows_prechecked():
+            return self._dispatch_impl(prog.carry[0], x_client, batches,
+                                       rows, eta_l, k_all, fplan)
+
+    def _flush(self, state: SimState, vals, idx, w, fill, losses):
+        """The engine's flush (:meth:`_async_flush`) as one program per
+        shape and setting, as the reference jits it with the server state
+        donated: the server's x and m/v/v̂ are its carry, the (B, k) buffer,
+        the weights, the fill and the losses its static inputs (a partial
+        flush has the same shapes). Returns ``(state, met)``, the new state
+        and the metrics tensors of their own. Inside
+        :func:`repro_torch.disable_graphs`: the eager step."""
+        if not graphs_enabled():
+            return self._async_flush(state, vals, idx, w, fill, losses)
+        prog = self._program("flush", (state.params, state.opt),
+                             (vals, idx, w, fill, losses))
+        met = {k: v.clone() for k, v in prog.run(self).items()}
+        params, opt = prog.result()
+        return state._replace(params=params, opt=opt, x_client=params), met
+
+    def _flush_body(self, prog: "_Program"):
+        params, opt = prog.carry
+        new, met = self._async_flush(
+            SimState(params, opt, None, None, None, 0, 0), *prog.inputs)
+        for dst, src in zip(_tensors(prog.carry),
+                            _tensors((new.params, new.opt))):
+            if dst is not src:
+                dst.copy_(src)
+        return met
+
     def _async_dispatch(self, errors, x_client, batches, client_idx,
                         round_idx, k_all, fplan=None):
         """Client side of one async cohort: train and take the select-once
@@ -940,10 +1114,15 @@ class FedSim:
         re-validation agrees with it. Returns ``(vals, idx, losses)``, the
         payloads the engine schedules for delivery (validated at the
         flush)."""
-        fed = self.fed
+        return self._dispatch_impl(errors, x_client, batches, client_idx,
+                                   self._eta_l(round_idx), k_all, fplan)
+
+    def _dispatch_impl(self, errors, x_client, batches, client_idx, eta_l,
+                       k_all, fplan=None):
+        """:meth:`_async_dispatch` with η_l a 0-d tensor."""
         with stage("local_training"):
-            delta, losses = self._train_block(x_client, batches,
-                                              self._eta_l(round_idx), k_all)
+            delta, losses = self._train_block(x_client, batches, eta_l,
+                                              k_all)
         with stage("uplink"):
             old_rows = errors[client_idx] if fplan is not None else None
             vals, sidx = client_uplink_sparse(self.comp, errors, client_idx,

@@ -48,16 +48,19 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
     """One rank of the training driver on ``cfg`` (a ``ModelConfig``):
     the mesh over the initialized process group, params from
     ``torch.Generator().manual_seed(train_cfg.seed)`` on ``device`` (None:
-    CUDA), ``train_cfg.rounds`` rounds of ``FederatedLMData``
-    (``scan_rounds`` > 1: that many staged rounds a call through
-    ``core.mesh.build_fed_rounds_scan``: on CUDA + NCCL one captured
-    round replayed, on gloo the staged body run eagerly), then with
+    CUDA), ``train_cfg.rounds`` rounds of ``FederatedLMData`` through
+    ``core.mesh.build_fed_rounds_scan``'s program, one round a call
+    (``MeshRounds.round``, the reference's jitted step) or, with
+    ``scan_rounds`` > 1, that many staged rounds a call: on CUDA + NCCL
+    one captured round replayed, on gloo the staged body run eagerly
+    (inside ``repro_torch.disable_graphs`` the per-round loop calls the
+    eager round itself), then with
     ``checkpoint`` the global state written by rank 0 in the JAX package's
     layout. Rank 0 prints the reference's lines. Returns the rounds'
     metrics, each with its host time ``round_s`` (the device synchronized;
     a staged chunk's whole call, shared by its rounds) and its ``event_ms``
-    by CUDA events (a staged round's: its graph replay's on NCCL; None on
-    the CPU), the
+    by CUDA events (a round's graph replay's on NCCL; None on the CPU),
+    the
     parameter count (this rank's: its model shards) and this rank's peak
     device memory (CUDA); with ``keep_params``, the final params gathered
     over the model axis, on the host (every rank calls the gather; rank 0
@@ -114,8 +117,10 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
+    # the reference jits its step: one program per shape, kept across the
+    # rounds (per round: MeshRounds.round, the program at R = 1)
+    step = meshmod.build_fed_rounds_scan(rnd, log)
     if scan_rounds and scan_rounds > 1:
-        step = meshmod.build_fed_rounds_scan(rnd, log)
         r = 0
         while r < train_cfg.rounds:
             chunk = min(scan_rounds, train_cfg.rounds - r)
@@ -148,12 +153,15 @@ def train(cfg, fed, train_cfg, *, tp: int = 1, device=None,
                 ts = synced()
                 if timed:
                     e0.record()
-                state, met = rnd(state, batch, r)
+                state, met = step.round(state, batch, r)
                 if timed:
                     e1.record()
                 secs = synced() - ts
-            record(met, r, secs,
-                   event_ms=e0.elapsed_time(e1) if timed else None)
+            # the round's ms by CUDA events: its replay's (its staged
+            # body's on gloo), or the whole call's with graphs disabled
+            ev = step.round_ms() or ([e0.elapsed_time(e1)] if timed
+                                     else [None])
+            record(met, r, secs, event_ms=ev[0])
     out = {"history": history, "params": nparams,
            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                           if dev.type == "cuda" else None),

@@ -11,7 +11,8 @@ the same body runs eagerly.
 * **(a) R = 4 rounds of the program equal 4 × ``fed_round`` to the bit**
   (params, m, v, v̂, every EF row, every metric) on 8 gloo ranks over a
   grid of configurations, each program step (the body and its write into
-  the carry) under a ``TorchDispatchMode`` that refuses every host read
+  the carry) under a ``TorchDispatchMode`` (``tests/host_reads.py``) that
+  refuses every host read
   (``aten::_local_scalar_dense``, ``is_nonzero``, ``nonzero``, a copy to
   another device): dense; blocktopk fused through the kernels' twins and
   two-pass; two aggregation groups; partial participation; a crash trace
@@ -38,8 +39,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from host_reads import NoHostReads
+from repro_torch import disable_graphs
 from repro_torch.comm.faults import FaultConfig
 from repro_torch.configs.base import FedConfig, TrainConfig
 from repro_torch.core import mesh as meshmod
@@ -53,31 +55,6 @@ torch.set_num_threads(1)
 FIELDS = ("params", "m", "v", "vhat", "errors")
 M, D, DB, BC, K, R = 8, 2176, 24, 2, 2, 4
 SEL = dict(algorithm="fedcams", aggregation="sparse")
-
-#: the ops that read a device value on the host
-HOST_READS = ("aten._local_scalar_dense", "aten.is_nonzero", "aten.nonzero")
-
-
-class NoHostReads(TorchDispatchMode):
-    """Refuses every op that reads a tensor's value on the host, and every
-    copy of a tensor to another device (a copy of
-    ``tests/test_torch_run_rounds.py``'s)."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = str(func.overloadpacket)
-        if name in HOST_READS:
-            raise AssertionError(f"host read in the round body: {name}")
-        if name == "aten._to_copy" and "device" in kwargs:
-            src = args[0].device
-            if torch.device(kwargs["device"]) != src:
-                raise AssertionError(f"copy from {src} to "
-                                     f"{kwargs['device']} in the round body")
-        if name == "aten.copy_" and args[0].device != args[1].device:
-            raise AssertionError(f"copy from {args[1].device} to "
-                                 f"{args[0].device} in the round body")
-        return func(*args, **kwargs)
-
 
 class TwoLeafModel:
     """``loss = 0.5·Σ(w − t)² + 0.5·Σ(b − t[:, :DB])²`` over the batch
@@ -253,7 +230,8 @@ def trainer_run(world):
     kw = dict(fed=fed, train=train, model=TwoLeafModel(), mesh=mesh,
               lm_data=Targets(), device="cpu")
     loop = FederatedTrainer(**kw)
-    hist_loop = loop.run(log=None)
+    with disable_graphs():      # the eager loop of fed_round
+        hist_loop = loop.run(log=None)
     staged = FederatedTrainer(**kw)
     carries = []
     saved = meshmod.MeshRounds.__call__
@@ -592,7 +570,8 @@ def zoo_worker(rank, world):
     for arch in ZOO:
         cfg = get_arch(arch).smoke
         del seen[:]
-        loop = ttrain.train(cfg, fed, train, device="cpu", log=None)
+        with disable_graphs():      # the eager loop of fed_round
+            loop = ttrain.train(cfg, fed, train, device="cpu", log=None)
         staged = ttrain.train(cfg, fed, train, device="cpu", scan_rounds=3,
                               log=None)
         res[arch] = dict(loop=key(loop), staged=key(staged),

@@ -4,25 +4,29 @@ body run round after round on a static carry, reading its round's inputs
 at a round counter on the device (on CUDA captured once into a CUDA graph
 and replayed; here, on the CPU, run eagerly).
 
-The staged body is held to R × ``FedSim.round`` on the same inputs, state
-and per-round metrics ``torch.equal``, in the nine configurations of
+The staged body is held to R eager calls of ``FedSim.round`` (under
+``repro_torch.disable_graphs``: outside it ``round`` runs its own program)
+on the same inputs, state and per-round metrics ``torch.equal``, in the
+nine configurations of
 ``tests/test_scan_driver.py::test_scan_driver_bit_identical_to_loop`` and in
 more (faults, randk, the fused ingest kernel's twin, narrowed state and wire
 values, grouped aggregation). A ``TorchDispatchMode`` around the body
-refuses every host read (``aten::_local_scalar_dense``, ``is_nonzero``,
-``nonzero``, a copy to another device), so a body that passes here has no
-host sync to break a capture on the card. One case tracks the JAX
+(``tests/host_reads.py``) refuses every host read
+(``aten::_local_scalar_dense``, ``is_nonzero``, ``nonzero``, a copy to
+another device), so a body that passes here has no host sync to break a
+capture on the card. One case tracks the JAX
 ``FedSim.run_rounds`` from a numpy-staged init."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from benchmarks.common import make_problem
+from host_reads import NoHostReads
 from repro.configs.base import FedConfig as JaxFedConfig
 from repro.core.sim import FedSim as JaxSim
+from repro_torch import disable_graphs
 from repro_torch.comm.faults import FaultConfig
 from repro_torch.configs.base import FedConfig
 from repro_torch.convert import params_from_jax
@@ -41,30 +45,6 @@ MC = cm.MLPConfig(in_dim=16, hidden=32, depth=2, num_classes=4)
 DATA = FederatedClassification(num_clients=12, num_classes=4, feature_dim=16,
                                alpha=0.5, seed=0)
 M, N, K, R, B = 12, 4, 2, 5, 16
-
-#: the ops that read a device value on the host
-HOST_READS = ("aten._local_scalar_dense", "aten.is_nonzero", "aten.nonzero")
-
-
-class NoHostReads(TorchDispatchMode):
-    """Refuses every op that reads a tensor's value on the host, and every
-    copy of a tensor to another device."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = str(func.overloadpacket)
-        if name in HOST_READS:
-            raise AssertionError(f"host read in the round body: {name}")
-        if name == "aten._to_copy" and "device" in kwargs:
-            src = args[0].device
-            if torch.device(kwargs["device"]) != src:
-                raise AssertionError(f"copy from {src} to "
-                                     f"{kwargs['device']} in the round body")
-        if name == "aten.copy_" and args[0].device != args[1].device:
-            raise AssertionError(f"copy from {args[1].device} to "
-                                 f"{args[0].device} in the round body")
-        return func(*args, **kwargs)
-
 
 @pytest.fixture
 def no_host_reads(monkeypatch):
@@ -181,11 +161,13 @@ def _assert_same(st_l, st_s, mets_l, mets_s):
 
 
 def _loop(sim, st, ids, batches, rngs):
+    """R eager rounds: ``FedSim.round`` under ``disable_graphs``."""
     mets = []
-    for r in range(len(ids)):
-        st, met = sim.round(st, {k: v[r] for k, v in batches.items()},
-                            ids[r], rngs[r])
-        mets.append(met)
+    with disable_graphs():
+        for r in range(len(ids)):
+            st, met = sim.round(st, {k: v[r] for k, v in batches.items()},
+                                ids[r], rngs[r])
+            mets.append(met)
     return st, mets
 
 
@@ -269,8 +251,9 @@ def test_the_dispatch_mode_catches_a_planted_host_read(plant, no_host_reads):
     ids, batches = _stage(2)
     with pytest.raises(AssertionError, match="host read"):
         sim.run_rounds(st, batches, ids, _rngs(2))
-    # the same read outside the body is fine
-    sim.round(st, {k: v[0] for k, v in batches.items()}, ids[0])
+    # the same read outside the body is fine: the eager round
+    with disable_graphs():
+        sim.round(st, {k: v[0] for k, v in batches.items()}, ids[0])
 
 
 def test_ids_are_checked_once_on_the_host():
@@ -286,13 +269,11 @@ def test_ids_are_checked_once_on_the_host():
         sim.run_rounds(st, batches, bad)
 
 
-def test_ef_store_and_async_keep_their_paths(monkeypatch):
-    """ef_store runs R × round with the next round's rows prefetched (no
-    program); async_buffer runs the buffered engine, one metric dict a
-    flush (no program)."""
-    calls = []
-    monkeypatch.setattr(FedSim, "_rounds_body",
-                        lambda self, prog: calls.append(prog))
+def test_ef_store_and_async_keep_their_paths():
+    """ef_store runs R × round, each one run of the round's program (one
+    program for the R rounds), with the next round's rows prefetched;
+    async_buffer runs the buffered engine, one metric dict a flush, through
+    its dispatch and flush programs; neither makes a run_rounds program."""
     ids, batches = _stage()
     sim_s, st_s = _make(ef_store=True)
     prefetched = []
@@ -308,7 +289,8 @@ def test_ef_store_and_async_keep_their_paths(monkeypatch):
                         track_gamma=False, async_buffer=2)
     st_a, mets_a = sim_a.run_rounds(st_a, batches, ids)
     assert len(mets_a) == R * N // 2 and "staleness_max" in mets_a[0]
-    assert not calls and not sim_s._programs and not sim_a._programs
+    assert [key[0] for key in sim_s._programs] == ["round"]
+    assert sorted(key[0] for key in sim_a._programs) == ["dispatch", "flush"]
     with pytest.raises(ValueError, match="run_rounds"):
         sim_a.round(st_a, {k: v[0] for k, v in batches.items()}, ids[0])
 

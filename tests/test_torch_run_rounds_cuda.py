@@ -1,5 +1,7 @@
 """``FedSim.run_rounds`` on the card: one CUDA graph of a round, replayed,
-against the eager loop of ``FedSim.round``, to the bit. Marked ``cuda``:
+against the eager loop of ``FedSim.round`` (under
+``repro_torch.disable_graphs``: ``round`` is itself a replayed graph
+outside it), to the bit. Marked ``cuda``:
 the ``card`` fixture skips without CUDA (decided at run time). No jax here,
 so it runs where the card is:
 
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import disable_graphs
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.sim import WARMUP_ROUNDS, FedSim
 from repro_torch.data.synthetic import FederatedClassification
@@ -76,10 +79,11 @@ def test_run_rounds_replays_one_graph_of_the_eager_round(card, kw):
         st = sim.init(p0)
         ops.reset_launches()
         mets = []
-        for r in range(R):
-            st, met = sim.round(st, {k: v[r] for k, v in batches.items()},
-                                ids[r], rngs()[r])
-            mets.append(met)
+        with disable_graphs():
+            for r in range(R):
+                st, met = sim.round(st, {k: v[r] for k, v in
+                                         batches.items()}, ids[r], rngs()[r])
+                mets.append(met)
         torch.cuda.synchronize()
         eager = dict(ops.launches)
         sim_g = FedSim(loss, fed)
