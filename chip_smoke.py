@@ -210,7 +210,17 @@ then, on the card:
    range, logits finite; prefill + decode against the full-sequence
    forward at full width, 2 layers, fp32; the smoke config's loss, prefill
    and decode on the card against the CPU. Prints prefill ms, decode ms a
-   token, tokens/s and peak memory;
+   token, tokens/s and peak memory. Every serving route (n, p, r, t, v)
+   serves through ``launch/programs.py``'s programs: one prefill and one
+   decode capture a shape (one shared pool), a replay a token, no other
+   capture; the first run is held to its eager twin under
+   ``repro_torch.disable_graphs()`` (``TWIN_GEN`` tokens), those tokens
+   and the prefill's logits to the bit, and prints the decode's kernel nodes ×
+   replays and its ms a token against the twin's, each peak beside
+   ``serve_reckoning``; a route's runs follow one another with no
+   ``repro_torch.clear_caches()`` between them (each takes the session
+   of the run before it: peak allocated and reserved printed), which
+   frees the programs before a route, before the twin and after it;
 6. trains gemma2-2b on the mesh (route o: published widths, 2 layers,
    745,549,056 params in 20 leaves) through ``launch/train.py``'s
    ``train`` on two gloo ranks sharing the card: fedcams, blockwise top-k
@@ -288,7 +298,7 @@ then, on the card:
    ``topk_ef_sparse`` + 67 ``fedams_ingest`` a round;
 13. serves xlstm-350m at its published widths and depth (route v: 24
    layers alternating mLSTM and sLSTM, 343,856,128 params, bf16 compute)
-   as route n: batch 4 × 512 + 32, then at 4 of the 24 layers 1 × 4,608 +
+   as route n: batch 4 × 512 + 32, then at 2 of the 24 layers 1 × 4,608 +
    16 (two mLSTM q-chunks of 2,304; the sLSTM steps 4,608 times a layer);
    decode against the forward at 4 layers, fp32; the smoke config on the
    card against the CPU;
@@ -3720,6 +3730,9 @@ DECODE_TOL = 1e-4
 CARD_TOL = 1e-4
 
 
+#: the tokens of a serving route's eager twin (``serve_route``): its first
+#: run's first TWIN_GEN tokens, the decode timed over TWIN_GEN - 1 steps
+TWIN_GEN = 8
 #: each serving route's first run: its prefill's last-position logits and
 #: its greedy tokens (route x holds its tp = 2 run against route n's)
 SERVED = {}
@@ -3732,6 +3745,40 @@ def _serve_summary(out, batch, gen, peak, vocab) -> dict:
             "decode_ms_per_token": out["decode_s"] * 1e3 / max(gen - 1, 1),
             "tokens_per_s": batch * (gen - 1) / max(out["decode_s"], 1e-9),
             "peak_gb": peak / 1e9, "tokens": toks[:, :8].tolist()}
+
+
+def graph_kernel_nodes(graph) -> int:
+    """A captured graph's kernel nodes, all kernels (``debug_dump``'s
+    DOT names each kernel node's type once)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.dot")
+        with warnings.catch_warnings():     # its "DEBUG: calling ..." notes
+            warnings.filterwarnings("ignore", message="DEBUG: calling")
+            graph.debug_dump(path)
+        n = len(re.findall(r"(?<![A-Za-z_])KERNEL(?![A-Za-z_])",
+                           Path(path).read_text()))
+    DUMP_S[0] += time.perf_counter() - t0
+    return n
+
+
+def serve_programs(route: str, label: str, sess, gen: int) -> dict:
+    """What a run's session did: captured (on the card, one prefill and
+    one decode graph), one capture each, one prefill replay and ``gen`` - 1
+    decode replays; the decode graph's kernel nodes."""
+    check(sess is not None and sess.captured and sess.captures == 2
+          and sorted(sess.graphs) == ["decode", "prefill"]
+          and sess.replays == {"prefill": 1, "decode": gen - 1},
+          f"route {route} {label}: the serving programs ran "
+          f"{None if sess is None else (sess.captured, sess.captures, sess.replays)}"
+          f", not one capture each, a prefill replay and {gen - 1} decode "
+          f"replays")
+    nodes = graph_kernel_nodes(sess.graphs["decode"])
+    check(nodes > 0, f"route {route} {label}: the decode graph has no "
+          f"kernel node")
+    return {"captures": sess.captures, "replays": dict(sess.replays),
+            "decode_kernel_nodes": nodes,
+            "decode_nodes_x_replays": nodes * sess.replays["decode"]}
 
 
 def _rel_err(got, want) -> float:
@@ -3802,21 +3849,36 @@ def smoke_card_vs_cpu(arch: str, chunk: int = 2048) -> float:
                for a, b in zip(outs["cuda"], outs["cpu"]))
 
 
-def serve_route(route: str, cfg, generator, runs=None) -> dict:
+def serve_route(route: str, cfg, generator, runs=None,
+                twin: bool = True) -> dict:
     """``cfg`` served through ``launch/serve.py``: ``serve`` on the first of
     ``runs`` ((batch, prompt, gen, q-chunk); default ``SERVE_RUNS``: batch
-    4, prompt 512, gen 32; weights from ``generator``), then ``generate`` on the same weights for each other run
-    (``SERVE_RUNS``: batch 1, a 4,608-token prompt, gen 16, q-chunk 256).
-    Tokens in range, logits finite, each run's peak memory beside
-    ``serve_reckoning``'s; the port's kernels launch no time. Returns the
-    runs' numbers and the params."""
+    4, prompt 512, gen 32; weights from ``generator``), then ``generate`` on
+    the same weights for each other run (``SERVE_RUNS``: batch 1, a
+    4,608-token prompt, gen 16, q-chunk 256), back to back. Each run goes
+    through its session's programs (:func:`serve_programs`: a prefill and a
+    decode capture, a replay a token), the configuration's one session:
+    a run takes the session of the run before it, its pool and carry, with
+    no ``clear_caches()`` between them, and prints its peak allocated and
+    reserved. With ``twin`` the first run is then held to its eager twin
+    under ``repro_torch.disable_graphs()`` (the same prompts, ``TWIN_GEN``
+    tokens: those tokens and the prefill's logits to the bit), its decode
+    ms a token and peak beside the program's. Tokens in range, logits
+    finite, each run's peak memory beside ``serve_reckoning``'s; the
+    port's kernels launch no time; ``repro_torch.clear_caches()`` before
+    the route, before the twin and after the route. Returns the runs'
+    numbers and the params."""
+    import repro_torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as tserve
+    from repro_torch.launch.programs import programs_of
     from repro_torch.models.model import Model
     from repro_torch.models.params import count_params
 
     runs = runs or SERVE_RUNS
     model = Model(cfg)
+    # every Model of cfg shares these, serve()'s own included
+    progs = programs_of(model)
     d = count_params(model.defs())
     res = {"params": d, "num_params_config": cfg.num_params(),
            "reckoned_peak_gb": {b: serve_reckoning(model, d, b, s + g)
@@ -3825,17 +3887,27 @@ def serve_route(route: str, cfg, generator, runs=None) -> dict:
           f"(ModelConfig.num_params() reads {cfg.num_params():,}), "
           f"{4 * d / 1e9:.2f} GB fp32; reckoned peak "
           f"{res['reckoned_peak_gb']} GB")
-    ops.reset_launches()
-    params = None
-    for batch, prompt, gen, chunk in runs:
+
+    def fresh():
+        repro_torch.clear_caches()
+        gc.collect()
         torch.cuda.empty_cache()
+
+    ops.reset_launches()
+    params = first = None
+    fresh()
+    for i, (batch, prompt, gen, chunk) in enumerate(runs):
+        label, key = f"b{batch} s{prompt}", f"batch {batch}, prompt " \
+            f"{prompt}, gen {gen}"
         torch.cuda.reset_peak_memory_stats()
-        if params is None:
-            out = tserve.serve(cfg, batch=batch, prompt_len=prompt, gen=gen,
-                               device="cuda", generator=generator)
+        if i == 0:
+            out = tserve.serve(cfg, batch=batch, prompt_len=prompt,
+                               gen=gen, device="cuda", generator=generator)
             params = out.pop("params")
+            first = (label, key, batch, gen, chunk, out)
             res["init_s"] = out["init_s"]
-            print(f"route {route}: the weights drawn in {out['init_s']:.1f} s")
+            print(f"route {route}: the weights drawn in "
+                  f"{out['init_s']:.1f} s")
         else:
             prompts = np.random.default_rng(1).integers(
                 0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
@@ -3843,19 +3915,54 @@ def serve_route(route: str, cfg, generator, runs=None) -> dict:
         run = _serve_summary(out, batch, gen,
                              torch.cuda.max_memory_allocated(),
                              cfg.vocab_size)
+        run["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+        run["programs"] = serve_programs(route, label, progs.live, gen)
         SERVED.setdefault(route, (out["logits0"], out["tokens"]))
         check(run["tokens_in_range"] and run["finite"],
-              f"route {route} b{batch} s{prompt}: tokens out of range or "
+              f"route {route} {label}: tokens out of range or "
               f"logits not finite: {run}")
-        res[f"batch {batch}, prompt {prompt}, gen {gen}"] = run
+        res[key] = run
+        pr = run["programs"]
         print(f"route {route}: batch {batch}, prompt {prompt}, gen {gen}, "
-              f"q-chunk {chunk}: prefill {run['prefill_ms']:.1f} ms, decode "
-              f"{run['decode_ms_per_token']:.2f} ms/token, "
-              f"{run['tokens_per_s']:.1f} tok/s, peak {run['peak_gb']:.2f} GB "
-              f"(reckoned {res['reckoned_peak_gb'][batch]:.2f})")
-        del out
-    gc.collect()
-    torch.cuda.empty_cache()
+              f"q-chunk {chunk}: prefill {run['prefill_ms']:.1f} ms (warm-up "
+              f"+ 2 captures + replay), decode {run['decode_ms_per_token']:.2f}"
+              f" ms/token, {run['tokens_per_s']:.1f} tok/s, peak "
+              f"{run['peak_gb']:.2f} GB allocated, "
+              f"{run['peak_reserved_gb']:.2f} reserved (reckoned "
+              f"{res['reckoned_peak_gb'][batch]:.2f}; "
+              f"{'the run before it dropped, ' if i else ''}no "
+              f"clear_caches()); programs: "
+              f"{pr['captures']} captures, replays {pr['replays']}, the "
+              f"decode graph's {pr['decode_kernel_nodes']:,} kernel nodes × "
+              f"{pr['replays']['decode']} replays = "
+              f"{pr['decode_nodes_x_replays']:,} launches")
+    del out
+    if twin:
+        label, key, batch, gen, chunk, out = first
+        run = res[key]
+        fresh()
+        torch.cuda.reset_peak_memory_stats()
+        g = min(gen, TWIN_GEN)
+        with disable_graphs():
+            eager = tserve.generate(model, params, out["prompts"], g,
+                                    chunk=chunk, log=None)
+        run["eager"] = e = _serve_summary(
+            eager, batch, g, torch.cuda.max_memory_allocated(),
+            cfg.vocab_size)
+        check(np.array_equal(out["tokens"][:, :g], eager["tokens"])
+              and torch.equal(out["logits0"], eager["logits0"]),
+              f"route {route} {label}: the programs' tokens or "
+              f"prefill logits differ from the eager twin's")
+        print(f"route {route}: {label}: the programs bitwise the eager "
+              f"twin (its {TWIN_GEN} tokens, the prefill logits); decode "
+              f"{run['decode_ms_per_token']:.2f} ms/token against the "
+              f"twin's {e['decode_ms_per_token']:.2f}, prefill "
+              f"{run['prefill_ms']:.1f} against {e['prefill_ms']:.1f} "
+              f"ms, peak {run['peak_gb']:.2f} against "
+              f"{e['peak_gb']:.2f} GB; {card_line()}")
+        del eager, out
+    del first
+    fresh()
     check(not any(ops.launches.values()),
           f"route {route}: serving launched the port's kernels {ops.launches}")
     return res, params
@@ -4705,7 +4812,9 @@ def shared_ranks(group: str, route: str) -> list:
         world, backend = GROUPS[group]
         jobs = _group_jobs(group)
         # the ranks share the card with this process: free what its earlier
-        # phases cached (the round programs' graph pools among it)
+        # phases cached (the programs' graph pools among it)
+        import repro_torch
+        repro_torch.clear_caches()
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -4838,10 +4947,12 @@ def route_u(held) -> dict:
 #: route v's runs through launch/serve.py: (batch, prompt, gen, q-chunk).
 #: The 4,608-token prompt is two mLSTM q-chunks of 2,304 at chunk 2048,
 #: and each sLSTM layer steps 4,608 times; it runs at XLSTM_LONG_LAYERS of
-#: the 24 layers (one sLSTM layer in two), for the script's time: at all
-#: 24 its prefill took 22.1 s of host-bound sLSTM steps
+#: the 24 layers (one mLSTM and one sLSTM layer), for the script's time: at
+#: all 24 its prefill took 22.1 s of host-bound sLSTM steps; at 4 its first
+#: call through the programs (two warm-ups, the captures, a replay) 9.7 s
+#: (H100 80GB HBM3, 700.00 W)
 XLSTM_SERVE_RUNS = ((4, 512, 32, 2048),)
-XLSTM_LONG_RUN, XLSTM_LONG_LAYERS = (1, 4608, 16, 2048), 4
+XLSTM_LONG_RUN, XLSTM_LONG_LAYERS = (1, 4608, 16, 2048), 2
 #: route v's decode against the forward: xlstm-350m's widths at 4 layers,
 #: fp32, a prompt of 96 and 8 decode steps
 XLSTM_DECODE_LAYERS = 4
@@ -4872,7 +4983,8 @@ def route_v() -> dict:
     torch.cuda.empty_cache()
     res["long"], params = serve_route(
         "v", mreplace(cfg, num_layers=XLSTM_LONG_LAYERS), torch.Generator(
-            device="cuda").manual_seed(3), runs=(XLSTM_LONG_RUN,))
+            device="cuda").manual_seed(3), runs=(XLSTM_LONG_RUN,),
+        twin=False)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6063,6 +6175,7 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    import repro_torch
     from repro_torch.kernels import _build
     t_start = t0 = time.perf_counter()
     paths = _build.build_all()
@@ -6166,6 +6279,7 @@ def main():
         zoo[route]["seconds"] = seconds[f"route {route}"] = (
             time.perf_counter() - t_phase)
         print(f"route {route} took {zoo[route]['seconds']:.1f} s")
+        repro_torch.clear_caches()
         gc.collect()
         torch.cuda.empty_cache()
 

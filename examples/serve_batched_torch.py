@@ -2,7 +2,11 @@
 run as serve_batched.py — prefill a batch of prompts, then greedy-decode
 continuations through the KV-cache path — with ``repro_torch`` at tp = 1
 on the card (or the CPU with ``--device cpu``). Any smoke config the port
-builds serves, the MoE one included.
+builds serves, the MoE one included. As serve_batched.py jits its prefill
+and decode step, both run as the programs of one
+``repro_torch.launch.programs.Session``: on the card one CUDA graph each,
+captured at the first prefill (its time included) and replayed, the
+position on the device; on the CPU the same bodies, run eagerly.
 
     PYTHONPATH=src python examples/serve_batched_torch.py --arch gemma2-2b \\
         [--device cpu]
@@ -19,7 +23,8 @@ import torch  # noqa: E402
 
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.models import Model, greedy_sample  # noqa: E402
+from repro_torch.launch.programs import programs_of  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.sharding.rules import ParallelContext  # noqa: E402
 
 ap = argparse.ArgumentParser()
@@ -51,24 +56,21 @@ def synced():
     return time.time()
 
 
-with torch.no_grad():
-    t0 = synced()
-    logits, caches = model.prefill(params, torch.as_tensor(prompts,
-                                                           device=dev),
-                                   ctx, max_len=max_len)
-    tok = greedy_sample(logits, ctx)[:, None]
-    print(f"prefill {args.batch}x{args.prompt_len}: "
-          f"{(synced()-t0)*1e3:.0f} ms")
+sess = programs_of(model).session(model, params, ctx, batch=args.batch,
+                                  prompt=args.prompt_len, max_len=max_len,
+                                  chunk=2048)
+t0 = synced()
+sess.prefill(model, params, torch.as_tensor(prompts, device=dev))
+tok = sess.carry.token           # the next step's input, on the device
+print(f"prefill {args.batch}x{args.prompt_len}: "
+      f"{(synced()-t0)*1e3:.0f} ms")
 
-    out = [tok[:, 0].cpu().numpy()]
-    t0 = synced()
-    for i in range(args.gen - 1):
-        lg, caches = model.decode_step(params, tok, caches,
-                                       args.prompt_len + i, ctx,
-                                       max_len=max_len)
-        tok = greedy_sample(lg, ctx)[:, None]
-        out.append(tok[:, 0].cpu().numpy())
-    dt = synced() - t0
+out = [tok[:, 0].to("cpu", copy=True).numpy()]
+t0 = synced()
+for i in range(args.gen - 1):
+    sess.decode(model, params)
+    out.append(tok[:, 0].to("cpu", copy=True).numpy())
+dt = synced() - t0
 gen = np.stack(out, 1)
 print(f"decode: {dt/max(args.gen-1, 1)*1e3:.1f} ms/step, "
       f"{args.batch*(args.gen-1)/max(dt, 1e-9):.0f} tok/s")

@@ -46,7 +46,9 @@ cohorts):
        (the whole model), and whether ``all_gather_into_tensor`` is taken
     n  serving: chip_smoke.py's route n at batch 4, prompt 512, gen 32
        (gemma2-2b at its published widths, 26 layers, seeded weights)
-       through ``launch/serve.py``'s ``generate``: a warm-up call, 3
+       through ``launch/serve.py``'s ``generate``, its eager twin (under
+       ``repro_torch.disable_graphs``: a replayed program has no ranges):
+       a warm-up call, 3
        unprofiled (prefill ms, decode ms a token), one profiled; its stages
        are the ``serve.prefill`` / ``serve.decode`` ranges, and by layer
        the ``model.<layer>`` ranges (embed, attention, ffn, unembed), each
@@ -347,10 +349,13 @@ def _serve(route):
     """Route n (p, r, t, v): ``generate`` on gemma2-2b (qwen2-moe-a2.7b,
     deepseek-v3-671b at 1 layer, recurrentgemma-2b, xlstm-350m at bf16)
     at full width, batch 4, prompt 512, gen 32 — a warm-up call, TIMED
-    unprofiled, one profiled."""
+    unprofiled, one profiled. All of them run the eager twin
+    (``repro_torch.disable_graphs``): a replayed serving program has no
+    ``model.<layer>`` ranges to break the call down by."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import disable_graphs
     from repro_torch.configs.base import mreplace
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import generate
@@ -370,14 +375,17 @@ def _serve(route):
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(batch, prompt)).astype(np.int32)
     quiet = lambda line: None
-    generate(model, params, prompts, gen, log=quiet)
-    runs = [generate(model, params, prompts, gen, log=quiet)
-            for _ in range(TIMED)]
-    wall = [(r["prefill_s"] + r["decode_s"]) * 1e3 for r in runs]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        r = generate(model, params, prompts, gen, log=quiet)
-        torch.cuda.synchronize()
+    print(f"route {route}: the eager twin of generate's programs "
+          f"(disable_graphs)")
+    with disable_graphs():
+        generate(model, params, prompts, gen, log=quiet)
+        runs = [generate(model, params, prompts, gen, log=quiet)
+                for _ in range(TIMED)]
+        wall = [(r["prefill_s"] + r["decode_s"]) * 1e3 for r in runs]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r = generate(model, params, prompts, gen, log=quiet)
+            torch.cuda.synchronize()
     events = _trace_events(prof)
     res = _print_breakdown(route, events, wall,
                            (r["prefill_s"] + r["decode_s"]) * 1e3,

@@ -32,23 +32,28 @@ neither ``jax`` nor anything of ``repro``:
                                     and the port's state → the JAX layout
 
 Entry points take ``device=`` and default to CUDA; without a card they
-raise unless the caller asks for ``device="cpu"``. Every per-round entry
-point is one program per shape and setting, as the reference jits it:
+raise unless the caller asks for ``device="cpu"``. Every jitted entry
+point of the reference is one program per shape and setting here:
 ``FedSim.round``, the async engine's dispatch and flush, and the mesh's
 per-round step (``FederatedTrainer(mesh=...).run``, ``launch.train``) are
 each one CUDA graph on the card, captured at the first call after one
 dropped warm-up run and replayed once a call; ``FedSim.run_rounds`` (and
-``FederatedTrainer.run(scan_rounds=R)``) runs R rounds as one program, as
-the reference's scan does: one captured round, replayed R times, with one
-host read at the end. On the CPU the same bodies run eagerly.
-:func:`disable_graphs` (the counterpart of ``jax.disable_jit()``) makes
-the per-round entry points call their eager function instead, on any
-device.
+``FederatedTrainer.run(scan_rounds=R)``) and ``MeshRounds`` called with R
+rounds run R rounds as one program, as the reference's scan does: one
+captured round, replayed R times, with one host read at the end; serving's
+prefill and decode (``launch.programs``: ``launch.serve.generate``, the
+step builders of ``launch.steps``) are one graph each per shape, sharing
+one pool, with the decode position on the device. On the CPU the same
+bodies run eagerly. :func:`disable_graphs` (the counterpart of
+``jax.disable_jit()``) makes every one of them call its eager function
+instead, on any device; :func:`clear_caches` (``jax.clear_caches()``)
+drops every program built so far.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import weakref
 
 __version__ = "0.1.0"
 
@@ -56,18 +61,26 @@ __version__ = "0.1.0"
 _GRAPHS = contextvars.ContextVar("repro_torch_graphs", default=True)
 
 
+#: the live objects that keep programs (FedSim, MeshRounds, serving's
+#: program caches), each with a ``clear_programs()``; held weakly, so that
+#: registering keeps nothing alive
+_CACHES = weakref.WeakSet()
+
+
 @contextlib.contextmanager
 def disable_graphs():
-    """Within (in this thread or task): every per-round entry point calls
-    its eager function on the caller's state and makes no program, as
-    ``jax.disable_jit()`` makes the reference's jitted functions run op by
-    op: ``FedSim.round`` its round, the async engine's steps
-    ``FedSim._async_dispatch`` and ``FedSim._async_flush``, and
-    ``MeshRounds.round`` the mesh round itself. The multi-round drivers
-    (``FedSim.run_rounds``, ``MeshRounds`` called with R rounds) stay
-    programs; their eager twin is the loop of per-round calls inside
-    this. The kernels launch inside it as outside. Only a caller enters
-    it: nothing in the package falls back to it."""
+    """Within (in this thread or task): every program-making entry point
+    calls its eager function on the caller's state and makes no program,
+    as ``jax.disable_jit()`` makes the reference's jitted functions run op
+    by op: ``FedSim.round`` its round, the async engine's steps
+    ``FedSim._async_dispatch`` and ``FedSim._async_flush``,
+    ``MeshRounds.round`` the mesh round itself, the multi-round drivers
+    (``FedSim.run_rounds``, ``MeshRounds`` called with R rounds) R of
+    those rounds one after another, and serving
+    (``launch.serve.generate``, the step builders' ``fn``) the model's
+    prefill and decode step op by op. The kernels launch inside it as
+    outside. Only a caller enters it: nothing in the package falls back
+    to it."""
     token = _GRAPHS.set(False)
     try:
         yield
@@ -78,6 +91,23 @@ def disable_graphs():
 def graphs_enabled() -> bool:
     """False inside :func:`disable_graphs`."""
     return _GRAPHS.get()
+
+
+def register_programs(owner):
+    """Makes ``owner``'s programs dropped by :func:`clear_caches` (it has
+    a ``clear_programs()``) for as long as it lives; returns it."""
+    _CACHES.add(owner)
+    return owner
+
+
+def clear_caches() -> None:
+    """Drops every program that a live ``FedSim``, ``MeshRounds`` or
+    serving program cache holds, with its CUDA graph and its memory pool,
+    as ``jax.clear_caches()`` drops the reference's executables: once no
+    caller holds a program's tensors, ``torch.cuda.empty_cache()`` hands
+    the bytes back to the card. A later call builds its program again."""
+    for owner in list(_CACHES):
+        owner.clear_programs()
 
 
 def resolve_device(device=None):

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import graphs_enabled, resolve_device
+from repro_torch import graphs_enabled, register_programs, resolve_device
 from repro_torch.comm.faults import (FaultPlan, corrupt_selection,
                                      mesh_corruption_plan, mesh_fault_mask)
 from repro_torch.configs.base import FedConfig, TrainConfig
@@ -815,6 +815,14 @@ class MeshRounds:
         self.log = log
         self.programs = {}
         self.last = None
+        register_programs(self)
+
+    def clear_programs(self) -> None:
+        """Drops every program kept (graphs, pools and static inputs; a
+        carry is the caller's state): ``repro_torch.clear_caches``. The
+        next call builds its program again."""
+        self.programs.clear()
+        self.last = None
 
     def _program(self, state, batches, inputs):
         dev = tree_leaves(state.params)[0].device
@@ -850,7 +858,11 @@ class MeshRounds:
         the call consumes: the state returned is the program's carry, the
         input state's own tensors on the first call (any other state is
         copied into the carry). Returns it and the metrics, each a (R,)
-        tensor on the host."""
+        tensor on the host. Inside :func:`repro_torch.disable_graphs` the R
+        rounds run one after another as the round itself, building no
+        program (``last`` then says so)."""
+        if not graphs_enabled():
+            return self._eager(state, batches, seeds)
         inputs = self.rnd.stage_inputs(state, seeds)
         prog, built = self._program(state, batches, inputs)
         prog.load(state, batches, inputs)
@@ -860,6 +872,21 @@ class MeshRounds:
                          events=events, program=prog)
         return prog.carry, {k: stacked[j] for j, k in
                             enumerate(self.rnd.keys)}
+
+    def _eager(self, state: FedMeshState, batches, seeds):
+        """:meth:`__call__` inside :func:`repro_torch.disable_graphs`: R =
+        len(seeds) eager rounds, ``fed_round(state, batch, seed)``, on
+        round r's slot of ``batches``; the metrics stacked on the host as
+        the program's slots hold them."""
+        cols = []
+        for r, seed in enumerate(seeds):
+            state, met = self.rnd(state, _map(lambda t: t[r], batches), seed)
+            cols.append(torch.stack([met[k].reshape(()).to(torch.float32)
+                                     for k in self.rnd.keys]))
+        self.last = dict(captured=False, built=False, rounds=len(seeds),
+                         events=None, program=None)
+        stacked = torch.stack(cols, 1).cpu()
+        return state, {k: stacked[j] for j, k in enumerate(self.rnd.keys)}
 
     def round(self, state: FedMeshState, batch, seed):
         """One round, ``fed_round(state, batch, seed)``, as the reference's

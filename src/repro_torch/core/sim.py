@@ -75,8 +75,10 @@ verdicts) are booked after, as in the reference, through one helper for
 both drivers. A round takes η_l as a 0-d tensor and masks heterogeneous
 steps on the device (``core.local``), so the drivers compute one thing, to
 the bit. Inside :func:`repro_torch.disable_graphs` a round runs eagerly on
-the caller's state (:meth:`FedSim._eager_round`), as ``jax.disable_jit()``
-runs the reference's.
+the caller's state (:meth:`FedSim._eager_round`), and :meth:`FedSim.run_rounds`
+R such rounds on a copy of it, as ``jax.disable_jit()`` runs the
+reference's; no program is built there. :meth:`FedSim.clear_programs`
+(``repro_torch.clear_caches``) drops the programs kept.
 
 With ``fed.async_buffer`` the rounds are event-driven
 (``comm.async_engine.AsyncRoundEngine``): :meth:`FedSim.run_rounds`
@@ -115,7 +117,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch import graphs_enabled, resolve_device
+from repro_torch import graphs_enabled, register_programs, resolve_device
 from repro_torch.checkpoint.store import EFStore
 from repro_torch.comm.async_engine import AsyncRoundEngine
 from repro_torch.comm.faults import (FaultConfig, FaultInjector, FaultPlan,
@@ -429,8 +431,10 @@ class FedSim:
         self._randk = (self.comp is not None
                        and self.comp.name.startswith("randk"))
         self._efs = None   # EFStore, made in init() once d is known
-        #: run_rounds' programs by shape and setting (CUDA graphs on CUDA)
+        #: the programs by kind, shape and setting (CUDA graphs on CUDA),
+        #: dropped by :meth:`clear_programs` (``repro_torch.clear_caches``)
         self._programs = {}
+        register_programs(self)
         self.unravel = None
         self.codec = self.network = self.comm_log = None
         if network is not None and not fed.wire:
@@ -676,7 +680,10 @@ class FedSim:
         setting, kept with this FedSim) and replayed R times, with no host
         work between replays and one host read of the stacked metrics at the
         end; on the CPU it runs eagerly. A capture or launch that fails
-        raises. The input state is left as it was.
+        raises. The input state is left as it was. Inside
+        :func:`repro_torch.disable_graphs` the R rounds run one after
+        another as :meth:`_eager_round`, building no program
+        (:meth:`_eager_rounds`).
 
         With ``fed.ef_store`` each round's cohort rows move host↔device
         around the round, which no static carry holds, so the rounds are a
@@ -702,16 +709,44 @@ class FedSim:
         R, n = ids.shape
         staged, timings, finfos = self._stage_rounds(state, client_batches,
                                                      ids, rngs)
-        prog = self._program("rounds", _core(state), staged)
-        prog.run(self, R)
-        stacked = prog.out.to("cpu", copy=True)   # the one host read
+        if graphs_enabled():
+            prog = self._program("rounds", _core(state), staged)
+            prog.run(self, R)
+            stacked = prog.out.to("cpu", copy=True)   # the one host read
+            core = prog.result()
+        else:
+            core, stacked = self._eager_rounds(state, staged, ids)
         bpr = self._bits_per_round(n)
         mets = [self._book({key: stacked[j, r]
-                            for j, key in enumerate(prog.keys)},
+                            for j, key in enumerate(self._metric_keys())},
                            state.bits + bpr * (r + 1), timings[r], finfos[r])
                 for r in range(R)]
-        return SimState(*prog.result(), bits=state.bits + bpr * R,
+        return SimState(*core, bits=state.bits + bpr * R,
                         round=state.round + R), mets
+
+    def _eager_rounds(self, state: SimState, staged: _Staged, ids):
+        """:meth:`run_rounds` inside :func:`repro_torch.disable_graphs`:
+        R rounds of :meth:`_eager_round`, one after another, on a copy of
+        the state (the input state is left as it was, as the program leaves
+        it). Returns the final state's parts and the (keys, R) metrics on
+        the host, as the program's slots hold them."""
+        copy = lambda t: t.clone() if isinstance(t, torch.Tensor) else t
+        cur = SimState(*pytree.tree_map(copy, _core(state)), bits=0, round=0)
+        cols = []
+        for r in range(ids.shape[0]):
+            one = pytree.tree_map(
+                lambda t: t[r:r + 1] if isinstance(t, torch.Tensor) else t,
+                staged)
+            cur, met = self._eager_round(cur, one, ids[r], None)
+            cols.append(torch.stack([met[key].reshape(()).to(torch.float32)
+                                     for key in self._metric_keys()]))
+        return _core(cur), torch.stack(cols, 1).cpu()
+
+    def _metric_keys(self) -> tuple:
+        """The metrics a round computes on the device, in the order the
+        round programs stack them."""
+        return ("loss", "gamma") + (("survivors", "rejected")
+                                    if self.faults is not None else ())
 
     def _stage_rounds(self, state: SimState, client_batches, ids, rngs):
         """What R rounds draw and read, made before the first of them, for
@@ -781,15 +816,20 @@ class FedSim:
         if prog is None:
             if kind in ("round", "rounds"):
                 name, R = "_rounds_body", inputs.idx.shape[0]
-                keys = ("loss", "gamma") + (
-                    ("survivors", "rejected") if self.faults is not None
-                    else ())
+                keys = self._metric_keys()
             else:
                 name, R, keys = f"_{kind}_body", 1, ()
             prog = self._programs[key] = _Program(name, carry, inputs, keys,
                                                   R, self.device, adopt)
         prog.load(carry, inputs)
         return prog
+
+    def clear_programs(self) -> None:
+        """Drops every program this FedSim has built (its graphs, pools,
+        static inputs and carry copies; an adopted EF buffer stays its
+        state's): ``repro_torch.clear_caches``. The next call builds its
+        program again."""
+        self._programs.clear()
 
     def _rounds_body(self, prog: "_Program"):
         """One round of :meth:`run_rounds`: round ``prog.ctr``'s inputs,

@@ -40,11 +40,24 @@ def generate(model, params, prompts, gen: int, *, max_len: int = 0,
     (gathered over the model axis), the prefill and decode times (host
     clock, the device synchronized) and whether every logit was finite.
     ``ctx``: this rank's context over a model axis (None: one process).
-    The prefill (with the first token) and the decode loop run in
-    ``serve.prefill`` / ``serve.decode`` profiler ranges
-    (``scripts/profile_round.py n``). ``chunk`` is ``Model.prefill``'s
-    q-chunk (the reference's default 2048; a prompt longer than 2·chunk
-    must be a multiple of it)."""
+    ``chunk`` is ``Model.prefill``'s q-chunk (the reference's default
+    2048; a prompt longer than 2·chunk must be a multiple of it).
+
+    The prefill (with the first token's sample) and each decode step
+    (the step, its sample and the finiteness flag, the reference's
+    ``dstep``) run as the programs of one ``launch.programs.Session``, as
+    the reference jits them: on CUDA one graph each, captured at the first
+    call for these weights and shapes and replayed once a call, the
+    position on the device; one host read a token (its sample). The
+    session is the model configuration's one (``programs_of(model).live``
+    after the call): another shape served next takes its place. Inside
+    ``repro_torch.disable_graphs()`` the eager twin runs instead:
+    ``Model.prefill`` and ``Model.decode_step`` op by op at an int
+    position. The prefill and the decode loop run in ``serve.prefill`` /
+    ``serve.decode`` profiler ranges (``scripts/profile_round.py n``,
+    which profiles the eager twin)."""
+    from repro_torch import graphs_enabled
+    from repro_torch.launch.programs import programs_of
     from repro_torch.models.model import greedy_sample
     from repro_torch.sharding.rules import ParallelContext
 
@@ -55,6 +68,10 @@ def generate(model, params, prompts, gen: int, *, max_len: int = 0,
     log = log or (lambda *_: None)
     dev = params["final_norm"].device
     finite = torch.ones((), dtype=torch.bool, device=dev)
+    sess = (programs_of(model).session(model, params, ctx, batch=B,
+                                       prompt=S, max_len=max_len,
+                                       chunk=chunk)
+            if graphs_enabled() else None)
 
     def seen(lg):
         nonlocal finite
@@ -64,24 +81,34 @@ def generate(model, params, prompts, gen: int, *, max_len: int = 0,
         _sync(dev)
         t0 = time.perf_counter()
         with torch.profiler.record_function("serve.prefill"):
-            logits, caches = model.prefill(
-                params, torch.as_tensor(prompts, device=dev), ctx,
-                max_len=max_len, chunk=chunk)
-            seen(logits)
-            tok = greedy_sample(logits, ctx)[:, None]
-            out = [tok[:, 0].cpu().numpy()]
+            if sess is not None:
+                logits = sess.prefill(model, params,
+                                      torch.as_tensor(prompts, device=dev))
+                tok = sess.carry.token
+            else:
+                logits, caches = model.prefill(
+                    params, torch.as_tensor(prompts, device=dev), ctx,
+                    max_len=max_len, chunk=chunk)
+                seen(logits)
+                tok = greedy_sample(logits, ctx)[:, None]
+            out = [tok[:, 0].to("cpu", copy=True).numpy()]
         t_prefill = time.perf_counter() - t0
         logits0 = ctx.all_gather_model(logits, axis=-1).cpu()
 
         t0 = time.perf_counter()
         with torch.profiler.record_function("serve.decode"):
             for i in range(gen - 1):
-                logits, caches = model.decode_step(params, tok, caches, S + i,
-                                                   ctx, max_len=max_len)
-                seen(logits)
-                tok = greedy_sample(logits, ctx)[:, None]
-                out.append(tok[:, 0].cpu().numpy())
+                if sess is not None:
+                    sess.decode(model, params)
+                else:
+                    logits, caches = model.decode_step(
+                        params, tok, caches, S + i, ctx, max_len=max_len)
+                    seen(logits)
+                    tok = greedy_sample(logits, ctx)[:, None]
+                out.append(tok[:, 0].to("cpu", copy=True).numpy())
         t_dec = time.perf_counter() - t0
+    if sess is not None:
+        finite = sess.carry.finite
     tokens = np.stack(out, 1)
     log(f"arch={cfg.name} batch={B} prompt={S} gen={gen}")
     log(f"prefill: {t_prefill*1e3:.1f} ms   decode: "

@@ -11,11 +11,18 @@ local_shape``): no allocation, no data. ``launch/dryrun.py`` runs
 ``fn(*abstract_args)`` under ``launch/op_analysis.OpCost``; on a card the
 same ``fn`` runs on real tensors of those shapes.
 
-Two inputs the step reads on the host are real values, not meta tensors:
-the train round's seed and round counter (CPU int32 scalars: the round
-draws its participation from them, ``core.mesh``), and the decode
-position (an int: the cache slot and, sequence-sharded, the rank that
-writes it). The reference traces both.
+Two inputs are real values, not meta tensors: the train round's seed and
+round counter (CPU int32 scalars: the round draws its participation from
+them on the host, ``core.mesh``), and the decode position (an int, or a
+0-d int tensor, which the step reads on the device: the cache slot and,
+sequence-sharded, the rank that writes it). The reference traces both.
+
+The serving steps' ``fn`` is the reference's jit: a
+``launch.programs.PrefillStep`` / ``DecodeStep``, a captured program
+(one CUDA graph per shape, replayed a call) where the step's collectives
+can be captured (CUDA with NCCL or none), and the eager step elsewhere:
+on ``meta`` (the dry run, ``op_analysis``), on the CPU and on gloo, so
+those trace and reckon what they always did.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (its
 ``mesh_dim_names`` and ``shape``); the ``ParallelContext`` a ``build_*`` makes
@@ -36,6 +43,7 @@ from repro_torch.configs.base import (FedConfig, ModelConfig, ShapeConfig,
 from repro_torch.configs.registry import ArchSpec
 from repro_torch.core.mesh import (FedMeshState, build_fed_round,
                                    fed_batch_defs, fed_state_defs)
+from repro_torch.launch.programs import DecodeStep, PrefillStep
 from repro_torch.models import params as pdefs
 from repro_torch.models.model import Model
 from repro_torch.sharding.rules import ParallelContext
@@ -207,10 +215,7 @@ def build_prefill_step(spec: ArchSpec, shape: ShapeConfig, mesh,
     tok_def = pdefs.ParamDef((shape.global_batch, shape.seq_len),
                              spec=(bax, None), dtype="int32")
 
-    def step(params, tokens):
-        return model.prefill(params, tokens, ctx, max_len=shape.seq_len,
-                             chunk=chunk)
-
+    step = PrefillStep(model, ctx, max_len=shape.seq_len, chunk=chunk)
     return StepBundle(fn=step, abstract_args=(
         params, _abstract({"t": tok_def}, sizes)["t"]), model=model,
         description="prefill", ctx=ctx)
@@ -218,8 +223,10 @@ def build_prefill_step(spec: ArchSpec, shape: ShapeConfig, mesh,
 
 def build_decode_step(spec: ArchSpec, shape: ShapeConfig, mesh,
                       *, chunk: int = 2048) -> StepBundle:
-    """``fn(params, token, caches, pos) -> (logits, caches)``; the cache
-    is sequence-sharded over ``"data"`` exactly at ``long_500k``."""
+    """``fn(params, token, caches, pos) -> (logits, caches)`` (a
+    ``launch.programs.DecodeStep``: captured on CUDA + NCCL, where it
+    consumes the caches given; the eager step elsewhere); the cache is
+    sequence-sharded over ``"data"`` exactly at ``long_500k``."""
     cfg = variant_for_shape(spec, shape)
     sizes = mesh_axis_sizes(mesh)
     model = Model(cfg, tp=sizes.get("model", 1))
@@ -236,10 +243,7 @@ def build_decode_step(spec: ArchSpec, shape: ShapeConfig, mesh,
     tok_def = pdefs.ParamDef((shape.global_batch, 1), spec=(bax, None),
                              dtype="int32")
 
-    def step(params, token, caches, pos):
-        return model.decode_step(params, token, caches, pos, ctx,
-                                 max_len=shape.seq_len)
-
+    step = DecodeStep(model, ctx, max_len=shape.seq_len)
     # the position: the cache's last slot (every slot filled)
     abstract = (_abstract(model.defs(), sizes),
                 _abstract({"t": tok_def}, sizes)["t"],

@@ -203,32 +203,48 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _cache_write(c, x, slot: int, inplace: bool = False):
-    """The cache ``c`` with ``x`` in ``slot`` of dim 1: ``c`` itself
-    written in place with ``inplace``, else a copy of ``c`` alone
-    (``slice_scatter`` copies the whole storage of a view, and a layer's
-    cache is a view of the stack's (n_groups, ...) one)."""
+def device_pos(pos, device):
+    """The decode position as a 0-d int32 tensor on ``device``: a tensor
+    is taken as it is (the decode programs keep theirs on the device), an
+    int is filled in there. Every decode computes from it alike, with no
+    host read: the slot it writes, the masks, the rotary angle."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32)
+    return torch.full((), pos, dtype=torch.int32, device=device)
+
+
+def _cache_write(c, x, slot, inplace: bool = False):
+    """The cache ``c`` with ``x`` (B, 1, ...) in ``slot`` (a 0-d int
+    tensor) of dim 1: ``c`` itself written in place with ``inplace``, else
+    a copy of ``c`` alone (``slice_scatter`` copies the whole storage of a
+    view, and a layer's cache is a view of the stack's (n_groups, ...)
+    one). One ``index_copy_`` at a device index, the reference's
+    ``dynamic_update_slice``."""
     out = c if inplace else c.clone()
-    out[:, slot:slot + 1] = x
-    return out
+    return out.index_copy_(1, slot.reshape(1).long(), x.to(c.dtype))
 
 
-def _write_slot(cache, new, gslot: int, total_len: int, ctx, kind,
+def _write_slot(cache, new, gslot, total_len: int, ctx, kind,
                 inplace: bool = False):
     """``cache`` (a NamedTuple of (B, C, ...) leaves) with ``new``'s
-    leaves written at the global slot ``gslot`` (in place with
-    ``inplace``), and the global slot ids of this rank's slots. On a
-    sequence-sharded cache the rank whose block ``[lo, lo + Cl)`` holds
-    the slot writes it; the others keep theirs."""
+    leaves written at the global slot ``gslot`` (a 0-d int tensor; in
+    place with ``inplace``), and the global slot ids of this rank's slots.
+    On a sequence-sharded cache every rank writes one slot, its local slot
+    clamped into its block ``[lo, lo + Cl)``: the new token where the
+    block holds ``gslot``, else that slot's own contents (the reference's
+    ``where(here, updated, cache)``, on the one slot)."""
     if not ctx.seq_axis:
         return (kind(*(_cache_write(c, x, gslot, inplace)
                        for c, x in zip(cache, new))),
                 torch.arange(total_len, device=cache[0].device))
     Cl = cache[0].shape[1]
     lo = ctx.seq_index() * Cl
-    if lo <= gslot < lo + Cl:
-        cache = kind(*(_cache_write(c, x, gslot - lo, inplace)
-                       for c, x in zip(cache, new)))
+    hit = (gslot >= lo) & (gslot < lo + Cl)
+    local = (gslot - lo).clamp(0, Cl - 1)
+    at = local.reshape(1).long()
+    cache = kind(*(_cache_write(
+        c, torch.where(hit, x.to(c.dtype), c.index_select(1, at)), local,
+        inplace) for c, x in zip(cache, new)))
     return cache, lo + torch.arange(Cl, device=cache[0].device)
 
 
@@ -251,17 +267,17 @@ def softmax_combine(s, vals, eq: str, ctx):
 def attn_decode(p, x, cache: KVCache, pos, dims: AttnDims, ctx, *,
                 window: int, cap: Optional[float], rope_theta: float,
                 total_len: int, dtype="bfloat16", inplace: bool = False):
-    """One-token decode. x: (B,1,d); pos: the current position (an int).
-    ``total_len`` is the global cache length C (a sequence-sharded cache
-    holds C / seq_shards slots a rank). Returns (out (B,1,d), new_cache);
-    the input cache is not modified, unless ``inplace``: then the new
-    token is written into it and it is the new cache."""
-    pos = int(pos)
+    """One-token decode. x: (B,1,d); pos: the current position (an int or
+    a 0-d int tensor: :func:`device_pos`). ``total_len`` is the global
+    cache length C (a sequence-sharded cache holds C / seq_shards slots a
+    rank). Returns (out (B,1,d), new_cache); the input cache is not
+    modified, unless ``inplace``: then the new token is written into it
+    and it is the new cache."""
     B = x.shape[0]
     hd = dims.head_dim
-    dev = x.device
+    pos = device_pos(pos, x.device)
     q, k, v = _project_qkv(p, x, dims, ctx, dtype)
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
+    posv = pos.reshape(1, 1).expand(B, 1)
     q = rope(q, posv, rope_theta)
     k = rope(k, posv, rope_theta)
     gslot = pos % total_len

@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.models import params as pdefs
-from repro_torch.models.attention import _write_slot, softmax_combine
+from repro_torch.models.attention import (_write_slot, device_pos,
+                                         softmax_combine)
 from repro_torch.models.layers import (NEG_INF, cast, mm, promoted,
                                        rms_norm, rope, softcap)
 from repro_torch.sharding.rules import pad_to
@@ -152,15 +153,15 @@ def mla_decode(p, x, cache: MLACache, pos, m: MLAConfig, ctx, *,
                cap: Optional[float] = None, dtype="bfloat16",
                inplace: bool = False):
     """Absorbed one-token decode against the latent cache. x: (B,1,d);
-    pos: the current position (an int); ``total_len`` is the cache length
-    C (a sequence-sharded cache holds C / seq_shards slots a rank).
-    Returns (out (B,1,d), new_cache); the input cache is not modified,
-    unless ``inplace`` (``attention.attn_decode``'s)."""
-    pos = int(pos)
+    pos: the current position (an int or a 0-d int tensor:
+    ``attention.device_pos``); ``total_len`` is the cache length C (a
+    sequence-sharded cache holds C / seq_shards slots a rank). Returns
+    (out (B,1,d), new_cache); the input cache is not modified, unless
+    ``inplace`` (``attention.attn_decode``'s)."""
     B = x.shape[0]
-    dev = x.device
+    pos = device_pos(pos, x.device)
     Hl = _local_heads(p, m)
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
+    posv = pos.reshape(1, 1).expand(B, 1)
     q_nope, q_rope = _queries(p, x, m, Hl, posv, rope_theta, dtype, ctx)
     c_new, kr_new = _latents(p, x, m, posv, rope_theta, dtype, ctx)
     gslot = pos % total_len
@@ -176,8 +177,9 @@ def mla_decode(p, x, cache: MLACache, pos, m: MLAConfig, ctx, *,
     s = _ein("bqhc,bkc->bhqk", q_lat, new_cache.c_kv).float()
     s = s + _ein("bqhd,bkd->bhqk", q_rope, new_cache.k_rope).float()
     s = softcap(s * scale, cap)
-    if pos < total_len:                 # slots past pos are still empty
-        s = torch.where((slot_ids <= pos)[None, None, None, :], s, NEG_INF)
+    # slots past pos are still empty until the cache is full
+    filled = (slot_ids <= pos) | (pos >= total_len)
+    s = torch.where(filled[None, None, None, :], s, NEG_INF)
     lat = softmax_combine(s, new_cache.c_kv, "bhqk,bkc->bqhc", ctx)
     # absorb W_uv on the way out
     w_uv = cast(p["w_uv"], dtype).reshape(m.kv_lora_rank, Hl, m.v_head_dim)

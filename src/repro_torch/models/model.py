@@ -30,6 +30,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import params as pdefs
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.layers import (embed_defs, embed_lookup, rms_norm,
@@ -177,21 +178,30 @@ class Model:
                              f"path")
 
     def prefill(self, params, tokens, ctx, *, max_len: int,
-                chunk: int = 2048):
-        """tokens (B,S) -> (last-position logits (B, V/tp), caches)."""
+                chunk: int = 2048, into=None):
+        """tokens (B,S) -> (last-position logits (B, V/tp), caches).
+        ``into``: caches of the decode's shapes, written with the prompt's
+        and returned (a decode program's carry); None: new ones."""
         self._require_decoder()
         x = embed_lookup(params["embed"], tokens, ctx, self.cfg.dtype)
         h, caches = stack_mod.stack_prefill(params["stack"], x, self.cfg, ctx,
-                                            max_len=max_len, chunk=chunk)
+                                            max_len=max_len, chunk=chunk,
+                                            into=into)
         h = rms_norm(params["final_norm"], h[:, -1:], self.cfg.norm_eps)
         return self._unembed(params, h, ctx)[:, 0], caches
 
-    def decode_step(self, params, token, caches, pos, ctx, *, max_len: int):
-        """token (B,1), pos an int -> (logits (B, V/tp), new caches)."""
+    def decode_step(self, params, token, caches, pos, ctx, *, max_len: int,
+                    inplace: bool = False):
+        """token (B,1), pos an int or a 0-d int tensor (on the device: no
+        host read) -> (logits (B, V/tp), new caches). The caches given are
+        not modified, unless ``inplace``: then they are written and are
+        the new caches (a decode program's carry)."""
         self._require_decoder()
         x = embed_lookup(params["embed"], token, ctx, self.cfg.dtype)
-        h, caches = stack_mod.stack_decode(params["stack"], x, caches, pos,
-                                           self.cfg, ctx, max_len)
+        h, caches = stack_mod.stack_decode(params["stack"], x, caches,
+                                           attn.device_pos(pos, x.device),
+                                           self.cfg, ctx, max_len,
+                                           inplace=inplace)
         h = rms_norm(params["final_norm"], h, self.cfg.norm_eps)
         return self._unembed(params, h, ctx)[:, 0], caches
 

@@ -437,37 +437,50 @@ def _store(dst, src):
 
 
 def stack_prefill(p, x, cfg: ModelConfig, ctx, *, max_len: int,
-                  chunk: int = 2048):
-    """Full-sequence forward emitting decode caches. Returns (x, caches)."""
+                  chunk: int = 2048, into=None):
+    """Full-sequence forward emitting decode caches. Returns (x, caches).
+    ``into``: caches of the decode's shapes (a decode program's carry)
+    that each layer's cache is written into as it is made, and that are
+    returned; else the layers' caches are stacked anew."""
     group, n_groups, tail = plan_stack(cfg)
     dims = _dims(cfg, ctx.tp)
     per_group = []
     for g in range(n_groups):
         gp = _group(p["groups"], g)
-        cs = {}
+        cs = {} if into is None else _group(into["groups"], g)
         for j, desc in enumerate(group):
-            x, cs[f"l{j}"] = layer_prefill(gp[f"l{j}"], x, cfg, desc, dims,
-                                           ctx, max_len, chunk)
+            x, c = layer_prefill(gp[f"l{j}"], x, cfg, desc, dims, ctx,
+                                 max_len, chunk)
+            if into is None:
+                cs[f"l{j}"] = c
+            else:
+                tree_map(_store, cs[f"l{j}"], c)
         per_group.append(cs)
-    caches = {"groups": _stack_groups(per_group)}
+    caches = into or {"groups": _stack_groups(per_group)}
     if tail:
-        ct = {}
+        ct = caches.setdefault("tail", {})
         for j, desc in enumerate(tail):
-            x, ct[f"t{j}"] = layer_prefill(p["tail"][f"t{j}"], x, cfg, desc,
-                                           dims, ctx, max_len, chunk)
-        caches["tail"] = ct
+            x, c = layer_prefill(p["tail"][f"t{j}"], x, cfg, desc, dims,
+                                 ctx, max_len, chunk)
+            if into is None:
+                ct[f"t{j}"] = c
+            else:
+                tree_map(_store, ct[f"t{j}"], c)
     return x, caches
 
 
-def stack_decode(p, x, caches, pos, cfg: ModelConfig, ctx, max_len: int):
-    """One-token decode through the whole stack. Returns (x, new_caches).
-    The new caches are one copy of ``caches`` (which are not modified),
-    each layer's entry written into it in place: the old and the new
-    caches and no third copy, as the reference's scan holds its input
-    and output stacks."""
+def stack_decode(p, x, caches, pos, cfg: ModelConfig, ctx, max_len: int,
+                 *, inplace: bool = False):
+    """One-token decode through the whole stack at ``pos`` (an int or a
+    0-d int tensor). Returns (x, new_caches). The new caches are one copy
+    of ``caches`` (which are not modified), each layer's entry written
+    into it in place: the old and the new caches and no third copy, as the
+    reference's scan holds its input and output stacks. With ``inplace``
+    (a decode program's carry) ``caches`` themselves are written and
+    returned: no copy."""
     group, n_groups, tail = plan_stack(cfg)
     dims = _dims(cfg, ctx.tp)
-    new_caches = tree_map(torch.clone, caches)
+    new_caches = caches if inplace else tree_map(torch.clone, caches)
     for g in range(n_groups):
         gp, gc = _group(p["groups"], g), _group(new_caches["groups"], g)
         for j, desc in enumerate(group):
