@@ -54,9 +54,10 @@ then, on the card:
    2,560 to 655,360,000 values (its tied table); the ingest on 1 client;
    route w's xlstm-350m leaves at 4 layers as a rank at tp 2 holds them,
    1,024 to 25,755,648 values, the ingest on 2 clients); and ``topk_ef`` and
-   ``fedams_update`` at every shape route z launches them
+   ``fedams_update`` at every shape routes z and lm launch them
    (``phase_z_shapes``: xlstm-350m's leaves at 2 layers, 1,024 to the
-   51,511,296-value embedding table, both FedAMS options).
+   51,511,296-value embedding table, and the LM example's 100m preset's
+   leaves, both FedAMS options).
    All bitwise (a NaN must meet a NaN).
    Each kernel is timed with CUDA events (median of 30 launches, L2
    flushed before each) beside its twin and its bound, and the two large
@@ -84,8 +85,8 @@ then, on the card:
    each round a call of ``FedSim.round``, one replay of its program (one
    CUDA graph, captured at the first call after one dropped warm-up run;
    route j's dispatches and flushes replay two programs), so a route's
-   launches are its graphs' ``debug_dump`` kernel nodes times their
-   replays and the wrappers count the warm-ups' (route i's clip share is
+   launches are its graphs' kernel nodes (read from the driver) times
+   their replays and the wrappers count the warm-ups' (route i's clip share is
    read from its rounds run eagerly under ``disable_graphs``, where the
    payloads' norms can be read on the host):
    (a) blocktopk, ``track_gamma=False``, fused ingest → ``topk_ef_sparse``
@@ -153,8 +154,8 @@ then, on the card:
    metrics' read); the final state and every metric equal to the loop's
    to the bit; the wrappers launching in the call only in the warm-up
    run, the capture recording one round's launches, and the graph's
-   ``debug_dump`` holding one kernel node for each of them, so naming
-   ``topk_ef_sparse_kernel`` and ``fedams_ingest_kernel`` (a and the two
+   nodes, read from the driver, holding one kernel node for each of
+   them, so naming ``topk_ef_sparse_kernel`` and ``fedams_ingest_kernel`` (a and the two
    problems) and ``sign_ef_kernel`` (c). Routes a and b also run
    ``run_rounds`` once in the default mode, which the eager rounds above
    are timed in. Prints the eager round ms (host clock and CUDA events),
@@ -193,7 +194,7 @@ then, on the card:
    round captured into a CUDA graph on the rank's NCCL stream after a
    warm-up round, replayed 6 times with no synchronizing CUDA operation
    between the first replay and the last and one after them; the graph's
-   52 + 52 kernel nodes read from ``debug_dump``; under deterministic
+   52 + 52 kernel nodes read from the driver; under deterministic
    algorithms state and metrics bitwise the loop's, and once more in the
    default mode; eager rounds and replays timed by CUDA events; then, under
    deterministic algorithms, the 6 rounds through the per-round step,
@@ -339,25 +340,39 @@ then, on the card:
    and ``KernelImpl``: 3 rounds) against ``h100_sxm`` beside the measured
    step; and the dry run of gemma2-2b at long_500k on the 16 × 16 mesh
    (``python -m repro_torch.launch.dryrun``) prints ``[ok]``;
-17. runs xlstm-350m's train_4k round on the card (route z): the step
-   ``steps.build_train_step`` builds with the dry run's settings (fedcams,
+17. runs xlstm-350m's train_4k round on the card (route z) through the
+   step builders' program: the step ``steps.build_train_step`` builds (a
+   ``launch.programs.TrainStep``) with the dry run's settings (fedcams,
    top-k 1/64 over the dense uplink, remat "full"; K = 1 where its CLI
-   says 4) at published
-   widths, 2 layers (one mLSTM, one sLSTM), one client's share of
-   train_4k (batch 16 × 4,096) on one NCCL rank: the peak op_analysis
-   reckons on meta first (at most 70 GB), then 1 round: losses and state
-   finite, round ms, peak memory within 3 % of the reckoning, 19
-   ``topk_ef`` + 19 ``fedams_update`` a round (meta's count) at shapes
-   phase 1 held.
+   says 4) at published widths, 2 layers (one mLSTM, one sLSTM), on one
+   NCCL rank. At batch 16 × 512 its round, captured, equals its eager
+   twin under ``disable_graphs()`` to the bit under deterministic
+   algorithms. At one client's share of train_4k (batch 16 × 4,096): the
+   peak op_analysis reckons on meta first (at most 70 GB), then 2 calls
+   of ``b.fn``: one captured graph (the first call a warm-up round, the
+   capture and a replay, the second a replay), its nodes by type and by
+   port kernel read from the driver, 19 ``topk_ef`` + 19
+   ``fedams_update`` nodes (meta's count, the capture's launches) at
+   shapes phase 1 held, the first call's parts (the warm-up by CUDA
+   events, the capture's and the instantiation's host seconds), each
+   replay's ms, losses and state finite, the peak within 3 % of the
+   reckoning.
    One sLSTM layer (batch 16, fp32) against a witness that indexes
    ``pre[:, i]`` a step, the loop the port had before it stepped over
    ``pre.unbind(1)``: at S = 512 the output and every gradient equal
    (``==``; ``scripts/slstm_time.py`` times both at S = 4,096). The
    card's count of the 2-layer loss and gradient at 16 × 512 equals
-   meta's, and run plainly its peak is within 3 % of meta's reckoning.
+   meta's, and run plainly its peak is within 3 % of meta's reckoning;
+18. runs ``examples/train_lm_fedcams_torch.py``'s ``rank_main`` on the
+   NCCL rank (route lm: ``--preset 100m --clients 1 --tp 1 --rounds 3``):
+   through its per-round program (one captured round, a replay a round)
+   and under ``disable_graphs()``, under deterministic algorithms: the
+   losses and the final state to the bit, the graph's port-kernel nodes
+   (read from the driver) the capture's launches, the replays' ms beside
+   the eager rounds'.
 The routes' ranks start three times: four gloo ranks run routes m, w and
 x's four-rank jobs in turn, two gloo ranks those of o, w's tp 1 pairs, x's
-tp 2 serving and y, one NCCL rank those of m1, o1, q, s, u and z; each group
+tp 2 serving and y, one NCCL rank those of m1, o1, q, s, u, z and lm; each group
 starts at its first route (a start and teardown cost 12-20 s). Every
 phase and route prints its seconds (a route that starts a group pays its
 start and all its jobs), each job its own, and a line before the kernels
@@ -367,13 +382,14 @@ Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (``launches``: the wrappers' counts over phase 3 and the later routes —
 the programs' warm-ups and the eager twins; ``graph_launches``, apart:
 phase 3's round programs', the run_rounds graphs' and the mesh programs'
-(m1, o1) kernel nodes times their replays) and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
+(m1, o1, q, s, u, z, lm) kernel nodes times their replays) and, last, ``{"ok": true, "device": {...}}``. Exits nonzero, with no result,
 without CUDA or when any check fails. Longer output goes to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -1336,9 +1352,10 @@ def phase_lm_shapes(dev, out: dict) -> dict:
 #: round, a launch each), the local steps 4 -> 1 (``--local-steps``: at
 #: K = 4 the 2 rounds took 124-139 s of the script's 1,200, host-bound on
 #: 3.35 M launches a round; at K = 2 one round took 44.5 s and repeated
-#: its first local step's peak), and the rounds 2 -> 1 (the second took
-#: 22.7 s and repeated the first's launches, shapes and peak)
-Z_LAYERS, Z_SEQ, Z_BATCH, Z_ROUNDS, Z_LOCAL_STEPS = 2, 4096, 16, 1, 1
+#: its first local step's peak). Its rounds run through the step's
+#: program: 2 calls, the first a warm-up round, the capture and a replay,
+#: the second a replay alone
+Z_LAYERS, Z_SEQ, Z_BATCH, Z_ROUNDS, Z_LOCAL_STEPS = 2, 4096, 16, 2, 1
 #: the most route z's step may reckon (op_analysis on meta: arguments +
 #: temporaries) on the card; over it the batch would have to be cut
 Z_MAX_GB = 70.0
@@ -1347,10 +1364,11 @@ Z_MAX_GB = 70.0
 #: the reckoning: routes y and z and route z's loss + gradient at
 #: Z_CHECK_SEQ (ROADMAP Queue 3 item 35)
 RECKON_TOL = 0.03
-#: the sLSTM layer against its indexing witness: bitwise at Z_CHECK_SEQ
-#: (batch Z_BATCH, fp32; scripts/slstm_time.py times both at Z_SEQ); the
-#: card's count of the 2-layer loss and gradient against meta's at
-#: Z_CHECK_SEQ
+#: route z's round through the program against its eager twin, bitwise
+#: under deterministic algorithms; the sLSTM layer against its indexing
+#: witness, bitwise (batch Z_BATCH, fp32; scripts/slstm_time.py times both
+#: at Z_SEQ); the card's count of the 2-layer loss and gradient against
+#: meta's: each at batch Z_BATCH x Z_CHECK_SEQ
 Z_CHECK_SEQ = 512
 
 
@@ -1368,10 +1386,11 @@ def z_configs():
 
 
 def phase_z_shapes(dev, out: dict) -> dict:
-    """``topk_ef`` and ``fedams_update`` at every shape route z launches
-    them, bitwise against the twins, into ``out`` (:func:`phase_mesh_shapes`'
-    record): for each leaf size d of :func:`z_cfg` (1,024 to the
-    51,511,296-value embedding table) a (1, d) row at the leaf's block
+    """``topk_ef`` and ``fedams_update`` at every shape routes z and lm
+    launch them, bitwise against the twins, into ``out``
+    (:func:`phase_mesh_shapes`' record): for each leaf size d of
+    :func:`z_cfg` (1,024 to the 51,511,296-value embedding table) and of
+    the LM example's model at :data:`LM_EX_FLAGS` a (1, d) row at the leaf's block
     layout and k on random inputs, and on ``ref.topk_hard_cases`` up to
     ``LM_HARD_MAX`` values; ``fedams_update`` at N = d for both options.
     The largest leaf is also timed alone: each kernel's CUDA-event ms
@@ -1381,10 +1400,15 @@ def phase_z_shapes(dev, out: dict) -> dict:
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(5)
-    hold = lambda *a, **k: _hold(out, "route z", *a, **k)
+    hold = lambda *a, **k: _hold(out, "routes z and lm", *a, **k)
     rows = torch.zeros(1, dtype=torch.int64, device=dev)
     ratio = z_configs()[0].compress_ratio
-    leaves = sorted(set(leaf_sizes(z_cfg())))
+    ex = lm_example()
+    args = ex.parser().parse_args(list(LM_EX_FLAGS))
+    check(args.ratio == ratio, f"route lm's ratio {args.ratio} is not route "
+          f"z's {ratio}: hold its shapes at its own k")
+    leaves = sorted(set(leaf_sizes(z_cfg()))
+                    | set(leaf_sizes(ex.model_config(args.preset))))
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)
     kw = dict(eta=0.1, beta1=0.9, beta2=0.99, eps=1e-4)
     seg = 2048
@@ -1882,8 +1906,8 @@ def disable_graphs():
 
 def round_launches(label, sim, rounds: int, wrapper: dict) -> dict:
     """The launches of ``rounds`` rounds (cohorts and flushes on route j)
-    through ``sim``'s programs: each graph's kernel nodes (``debug_dump``,
-    held to its capture's record) times its replays, summed; the wrappers
+    through ``sim``'s programs: each graph's kernel nodes
+    (:func:`graph_census`, held to its capture's record) times its replays, summed; the wrappers
     (``wrapper``, counted over the same rounds) launched only in the
     warm-ups, one run of each program. Returns the graphs' launches."""
     from repro_torch.core.sim import WARMUP_ROUNDS
@@ -1892,7 +1916,7 @@ def round_launches(label, sim, rounds: int, wrapper: dict) -> dict:
     for key, prog in sim._programs.items():
         check(prog.graph is not None, f"{label}: its {key[0]} program has no "
               f"graph")
-        nodes = dump_nodes(prog.graph)
+        nodes = graph_census(prog.graph)[1]
         check(nodes == {k: prog.counts.get(k, 0) for k in nodes},
               f"{label}: the {key[0]} graph's kernel nodes {nodes} against "
               f"its capture's launches {dict(prog.counts)}")
@@ -2271,40 +2295,86 @@ def graph_spy():
             rec["syncs"] = syncs()
 
 
-#: the seconds :func:`dump_nodes` took in this process, in all
+#: the seconds :func:`graph_census` took in this process, in all
 DUMP_S = [0.0]
 
+#: CUgraphNodeType values (the driver's ``cuda.h``) by name
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record",
+              8: "ext_semas_signal", 9: "ext_semas_wait", 10: "mem_alloc",
+              11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
 
-def dump_nodes(graph) -> dict:
-    """A captured graph's kernel nodes, by kernel, read from its
-    ``debug_dump`` (each node names its function once), in one pass over
-    the dump."""
+
+class KernelNodeParams(ctypes.Structure):
+    """The driver's ``CUDA_KERNEL_NODE_PARAMS_v2``."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_census(graph) -> tuple:
+    """A captured graph's nodes read from the driver, on
+    ``CUDAGraph.raw_cuda_graph()`` (every program keeps its graph with
+    ``keep_graph=True``): (its nodes by type, its kernel nodes by port
+    kernel). Each kernel node's function (``cuGraphKernelNodeGetParams``)
+    is named by ``cuFuncGetName`` (``cuKernelGetName`` where the node holds
+    a library kernel) and matched to :data:`KERNEL_SYMBOLS`. No DOT file,
+    whatever the graph's size."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "round.dot")
-        with warnings.catch_warnings():     # its "DEBUG: calling ..." notes
-            warnings.filterwarnings("ignore", message="DEBUG: calling")
-            graph.debug_dump(path)
-        text = Path(path).read_text()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        rc = fn(*args)
+        check(rc == 0, f"{fn.__name__} returned CUresult {rc}")
+
+    g = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    n = ctypes.c_size_t(0)
+    call(cu.cuGraphGetNodes, g, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call(cu.cuGraphGetNodes, g, nodes, ctypes.byref(n))
     owner = {sym: name for name, syms in KERNEL_SYMBOLS.items()
              for sym in syms}
-    # the longest symbol first: none is a prefix match of another's node
-    alt = "|".join(sorted(map(re.escape, owner), key=len, reverse=True))
-    out = dict.fromkeys(KERNEL_SYMBOLS, 0)
-    for sym in re.findall(rf"(?<![A-Za-z_])({alt})", text):
-        out[owner[sym]] += 1
+    # the longest symbol first: none is a prefix match of another's name
+    sym = re.compile("(?<![A-Za-z_])(" + "|".join(
+        sorted(map(re.escape, owner), key=len, reverse=True)) + ")")
+    named = {}
+
+    def port_kernel(getter, handle):
+        if (getter, handle) not in named:
+            name = ctypes.c_char_p()
+            call(getattr(cu, getter), ctypes.byref(name),
+                 ctypes.c_void_p(handle))
+            m = sym.search(name.value.decode())
+            named[getter, handle] = owner[m.group(1)] if m else None
+        return named[getter, handle]
+
+    kind, prm = ctypes.c_int(0), KernelNodeParams()
+    types, kernels = {}, dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        call(cu.cuGraphNodeGetType, node, ctypes.byref(kind))
+        t = NODE_TYPES.get(kind.value, str(kind.value))
+        types[t] = types.get(t, 0) + 1
+        if t != "kernel":
+            continue
+        call(cu.cuGraphKernelNodeGetParams_v2, node, ctypes.byref(prm))
+        k = (port_kernel("cuFuncGetName", prm.func) if prm.func
+             else port_kernel("cuKernelGetName", prm.kern))
+        if k is not None:
+            kernels[k] += 1
     DUMP_S[0] += time.perf_counter() - t0
-    return out
+    return types, kernels
 
 
 def graph_nodes(sim) -> dict:
     """The kernel nodes of the one graph ``sim.run_rounds`` captured
-    (:func:`dump_nodes`), and the capture's wrapper launches
+    (:func:`graph_census`), and the capture's wrapper launches
     (``_Program.counts``)."""
     progs = list(sim._programs.values())
     check(len(progs) == 1 and progs[0].graph is not None,
           f"{len(progs)} run_rounds programs")
-    return dump_nodes(progs[0].graph), dict(progs[0].counts)
+    return graph_census(progs[0].graph)[1], dict(progs[0].counts)
 
 
 def _same_metric(a, b) -> bool:
@@ -3454,7 +3524,7 @@ def _graph_checks(label, scan, spy, rounds: int, whole: bool) -> dict:
     reported), once, and replayed ``rounds`` times with no synchronizing
     CUDA operation between the first replay and the last; with ``whole``
     (the spy around the program's call alone) exactly one after them, the
-    metrics' read. Its graph's kernel nodes (``debug_dump``) are one for
+    metrics' read. Its graph's kernel nodes (:func:`graph_census`) are one for
     each launch its capture recorded. Returns the replays' ms, the nodes
     and the sync counts."""
     prog = scan.last["program"]
@@ -3469,7 +3539,7 @@ def _graph_checks(label, scan, spy, rounds: int, whole: bool) -> dict:
           f"{label}: synchronizing CUDA operations counted {at} at the "
           f"replays and {spy['syncs']} in all; none between the replays "
           f"and {'one' if whole else 'some'} after them expected")
-    nodes = dump_nodes(prog.graph)
+    nodes = graph_census(prog.graph)[1]
     check(nodes == dict(prog.counts), f"{label}: the graph's kernel nodes "
           f"{nodes} against the capture's launches {dict(prog.counts)}")
     return dict(replay_ms=replay_ms, nodes=nodes, syncs=spy["syncs"],
@@ -3581,7 +3651,7 @@ def _mesh_per_round(label, step, st0, batches, want, want_mets) -> dict:
           f"{label} per-round step: captured {step.last['captured']}, "
           f"{len(step.programs)} programs, {spy['captures']} captures, "
           f"{len(replay)} replays for {len(batches)} calls")
-    nodes = dump_nodes(prog.graph)
+    nodes = graph_census(prog.graph)[1]
     check(nodes == {k: prog.counts.get(k, 0) for k in nodes},
           f"{label} per-round step: the graph's kernel nodes {nodes} "
           f"against the capture's launches {dict(prog.counts)}")
@@ -3747,21 +3817,6 @@ def _serve_summary(out, batch, gen, peak, vocab) -> dict:
             "peak_gb": peak / 1e9, "tokens": toks[:, :8].tolist()}
 
 
-def graph_kernel_nodes(graph) -> int:
-    """A captured graph's kernel nodes, all kernels (``debug_dump``'s
-    DOT names each kernel node's type once)."""
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "serve.dot")
-        with warnings.catch_warnings():     # its "DEBUG: calling ..." notes
-            warnings.filterwarnings("ignore", message="DEBUG: calling")
-            graph.debug_dump(path)
-        n = len(re.findall(r"(?<![A-Za-z_])KERNEL(?![A-Za-z_])",
-                           Path(path).read_text()))
-    DUMP_S[0] += time.perf_counter() - t0
-    return n
-
-
 def serve_programs(route: str, label: str, sess, gen: int) -> dict:
     """What a run's session did: captured (on the card, one prefill and
     one decode graph), one capture each, one prefill replay and ``gen`` - 1
@@ -3773,7 +3828,7 @@ def serve_programs(route: str, label: str, sess, gen: int) -> dict:
           f"{None if sess is None else (sess.captured, sess.captures, sess.replays)}"
           f", not one capture each, a prefill replay and {gen - 1} decode "
           f"replays")
-    nodes = graph_kernel_nodes(sess.graphs["decode"])
+    nodes = graph_census(sess.graphs["decode"])[0].get("kernel", 0)
     check(nodes > 0, f"route {route} {label}: the decode graph has no "
           f"kernel node")
     return {"captures": sess.captures, "replays": dict(sess.replays),
@@ -4410,7 +4465,7 @@ def _lm_job(job: dict) -> dict:
     out.update(captured=step.last["captured"], programs=len(step.programs),
                captures=spy["captures"],
                replay_ms=[e0.elapsed_time(e1) for e0, e1 in spy["events"]],
-               nodes=dump_nodes(prog.graph) if prog.graph is not None
+               nodes=graph_census(prog.graph)[1] if prog.graph is not None
                else {}, capture_launches=dict(prog.counts or {}))
     st = state.pop("state")
     if job.get("digests"):
@@ -4673,7 +4728,7 @@ def _o1_per_round(run, sink, loop, loop_state) -> dict:
           f"route o1 per-round step: captured {step.last['captured']}, "
           f"{len(step.programs)} programs, {spy['captures']} captures, "
           f"{len(replay)} replays for {rounds} rounds")
-    nodes = dump_nodes(prog.graph)
+    nodes = graph_census(prog.graph)[1]
     check(nodes == {k: prog.counts.get(k, 0) for k in nodes},
           f"route o1 per-round step: the graph's kernel nodes {nodes} "
           f"against the capture's launches {dict(prog.counts)}")
@@ -4800,6 +4855,7 @@ def _group_jobs(group: str) -> dict:
                                      ("aux", "mtp_ce")),
                 "u/u": _one_rank_job(rg_train_cfg(), RG_ROUNDS),
                 "z/z": dict(fn=_z_job),
+                "lm/lm": dict(fn=_lm_example_job),
                 "m1/graph": m1_graph_job(),
                 "o1/o1": o1_job()}
     return jobs
@@ -5904,32 +5960,173 @@ def route_y() -> dict:
                          for k in tr["launches"]}}
 
 
-def _z_job(job: dict) -> dict:
-    """Route z's rank: the train step ``steps.build_train_step`` builds for
-    :func:`z_cfg` with the dry run's settings on a (1, 1) ("data",
-    "model") mesh, one client of batch ``Z_BATCH`` x ``Z_SEQ``. Its count
-    on meta first (the reckoned peak; over ``Z_MAX_GB`` fails), then
-    ``Z_ROUNDS`` rounds on the card, the launch counters reset before
-    them: each round's ms and loss, the peak memory (above what the rank's
-    earlier jobs left allocated), the launches."""
+@contextlib.contextmanager
+def program_parts():
+    """Times a mesh program's first call (``core.mesh._RoundsProgram``) by
+    part: its warm-up round (``step(write=False)``) by CUDA events on its
+    stream and on the host's clock to a synchronize, its capture
+    (``CUDAGraph.capture_begin`` to ``capture_end``) and its instantiation
+    on the host's clock. Yields the record: lists of ms and s."""
+    from repro_torch.core import mesh as meshmod
+    G, P = torch.cuda.CUDAGraph, meshmod._RoundsProgram
+    step, begin, end, inst = P.step, G.capture_begin, G.capture_end, \
+        G.instantiate
+    rec = {"warmup_event_ms": [], "warmup_s": [], "capture_s": [],
+           "instantiate_s": []}
+    at = {}
+
+    def timed_step(self, write=True):
+        if write:
+            return step(self, write)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        out = step(self, write)
+        e1.record()
+        torch.cuda.synchronize()
+        rec["warmup_s"].append(time.perf_counter() - t0)
+        rec["warmup_event_ms"].append(e0.elapsed_time(e1))
+        return out
+
+    def timed_begin(self, *a, **kw):
+        at["capture"] = time.perf_counter()
+        return begin(self, *a, **kw)
+
+    def timed_end(self, *a, **kw):
+        out = end(self, *a, **kw)
+        rec["capture_s"].append(time.perf_counter() - at.pop("capture"))
+        return out
+
+    def timed_inst(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = inst(self, *a, **kw)
+        rec["instantiate_s"].append(time.perf_counter() - t0)
+        return out
+
+    P.step, G.capture_begin, G.capture_end, G.instantiate = (
+        timed_step, timed_begin, timed_end, timed_inst)
+    try:
+        yield rec
+    finally:
+        P.step, G.capture_begin, G.capture_end, G.instantiate = (
+            step, begin, end, inst)
+
+
+@contextlib.contextmanager
+def nondeterminism_noted(sink: list):
+    """Deterministic algorithms, warn-only: each op that has no
+    deterministic implementation on the card runs and is noted in
+    ``sink`` (a pair held to the bit fails if one ran)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        sink.extend(sorted({str(w.message)[:160] for w in caught
+                            if "deterministic" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _same_metrics(a: dict, b: dict) -> bool:
+    """Two rounds' metrics (0-d tensors, on the host or the card) equal to
+    the bit."""
+    bits = lambda t: t.detach().to("cpu", torch.float32).reshape(1).view(
+        torch.int32)
+    return sorted(a) == sorted(b) and all(torch.equal(bits(a[k]), bits(b[k]))
+                                          for k in a)
+
+
+def _z_bundle(seq: int):
+    """Route z's step (``steps.build_train_step`` with the dry run's
+    settings at ``Z_LOCAL_STEPS``) at batch ``Z_BATCH`` x ``seq`` on a
+    (1, 1) ("data", "model") mesh, its TrainConfig at that shape, the
+    init drawn on the card from seed 0 and round r's batch."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.mesh import init_fed_state, shard_batch
     from repro_torch.data.synthetic import FederatedLMData
-    from repro_torch.kernels import ops
-    from repro_torch.launch import op_analysis as oa
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.params import tree_leaves
-
-    _sync()
-    base = torch.cuda.memory_allocated()
     fed, train = z_configs()
     spec = dataclasses.replace(get_arch("xlstm-350m"), model=z_cfg())
-    shape = ShapeConfig("train_4k, one client", Z_SEQ, Z_BATCH, "train")
-    b = steps.build_train_step(spec, shape,
-                               make_mesh((1, 1), ("data", "model"), "cuda"),
-                               fed, train)
+    b = steps.build_train_step(spec, ShapeConfig(
+        "train_4k, one client", seq, Z_BATCH, "train"),
+        make_mesh((1, 1), ("data", "model"), "cuda"), fed, train)
+    tcfg = dataclasses.replace(train, global_batch=Z_BATCH, seq_len=seq)
+    data = FederatedLMData(num_clients=b.fed.num_clients,
+                           vocab_size=spec.model.vocab_size, seed=0)
+    init = lambda: init_fed_state(b.model, b.fed, torch.Generator(
+        device="cuda").manual_seed(0), b.ctx, "cuda")
+    batch = lambda r: shard_batch(data.mesh_batch(
+        r, b.fed.local_steps, Z_BATCH, seq), b.model, b.fed, tcfg, b.ctx,
+        "cuda")
+    return b, init, batch
+
+
+def _z_pair() -> dict:
+    """Route z's round at batch ``Z_BATCH`` x ``Z_CHECK_SEQ`` under
+    deterministic algorithms: ``b.fn`` (the program: a warm-up round, the
+    capture, a replay) and its eager twin under ``disable_graphs()``, from
+    the same init: which state fields differ in any bit, whether the
+    metrics are the same bits, the program's report and each call's
+    seconds. Then ``repro_torch.clear_caches()``."""
+    import repro_torch
+    from repro_torch.core.mesh import _map
+    b, init, batch = _z_bundle(Z_CHECK_SEQ)
+    st0, x = init(), batch(0)
+    # the program consumes the state it is given: the twin starts from a copy
+    twin0 = _map(torch.clone, st0)
+    notes = []
+    with nondeterminism_noted(notes):
+        _sync()
+        t0 = time.perf_counter()
+        st, met = b.fn(st0, x, 0)
+        _sync()
+        prog_s = time.perf_counter() - t0
+        last = b.fn.rounds.last
+        with disable_graphs():
+            tw, tmet = b.fn(twin0, x, 0)
+        _sync()
+        twin_s = time.perf_counter() - t0 - prog_s
+    out = {"differs": _differs(st, tw), "same_metrics": _same_metrics(met,
+                                                                      tmet),
+           "loss": float(met["loss"]), "captured": last["captured"],
+           "counts": dict(last["program"].counts or {}), "program_s": prog_s,
+           "twin_s": twin_s, "nondeterministic": notes}
+    del st, st0, tw, twin0, met, tmet, last, b, x
+    repro_torch.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _z_job(job: dict) -> dict:
+    """Route z's rank. First :func:`_z_pair` at ``Z_CHECK_SEQ``. Then the
+    train step ``steps.build_train_step`` builds for :func:`z_cfg` with the
+    dry run's settings on a (1, 1) ("data", "model") mesh, one client of
+    batch ``Z_BATCH`` x ``Z_SEQ``: its count on meta (the reckoned peak;
+    over ``Z_MAX_GB`` fails), then ``Z_ROUNDS`` calls of ``b.fn`` on the
+    card, the launch counters reset before them, under :func:`graph_spy`
+    and :func:`program_parts`: the first a warm-up round, the capture and
+    a replay, the rest replays. Returns each call's ms and loss, the
+    program's report (captured, programs, captures, the replays' ms by
+    CUDA events, the graph's nodes by type, the capture's port-kernel
+    launches, the first call's parts), the peak memory (above what the
+    rank held before), the wrappers' launches (the warm-up's). Then
+    ``repro_torch.clear_caches()``: the card empty for the group's next
+    jobs."""
+    import repro_torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.models.params import tree_leaves
+
+    t0 = time.perf_counter()
+    pair = _z_pair()
+    pair["s"] = time.perf_counter() - t0
+    _sync()
+    base = torch.cuda.memory_allocated()
+    b, init, batch = _z_bundle(Z_SEQ)
     t0 = time.perf_counter()
     meta = oa.analyze(b.fn, *b.abstract_args)
     meta_s = time.perf_counter() - t0
@@ -5937,39 +6134,127 @@ def _z_job(job: dict) -> dict:
     reck_gb = (reck["argument_size"] + reck["temp_size"]) / 1e9
     check(reck_gb <= Z_MAX_GB, f"route z: the step reckons {reck_gb:.2f} GB "
           f"on meta, over {Z_MAX_GB}: cut the batch")
-    tcfg = dataclasses.replace(train, global_batch=shape.global_batch,
-                               seq_len=shape.seq_len)
-    state = init_fed_state(b.model, b.fed, torch.Generator(
-        device="cuda").manual_seed(0), b.ctx, "cuda")
-    data = FederatedLMData(num_clients=b.fed.num_clients,
-                           vocab_size=spec.model.vocab_size, seed=0)
+    state = init()
     _sync()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     round_ms, losses = [], []
-    for r in range(Z_ROUNDS):
-        batch = shard_batch(data.mesh_batch(r, b.fed.local_steps,
-                                            shape.global_batch,
-                                            shape.seq_len),
-                            b.model, b.fed, tcfg, b.ctx, "cuda")
-        _sync()
+    with graph_spy() as spy, program_parts() as parts:
+        for r in range(Z_ROUNDS):
+            x = batch(r)
+            _sync()
+            t0 = time.perf_counter()
+            state, met = b.fn(state, x, r)
+            _sync()
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            del x
+    rounds = b.fn.rounds
+    prog = rounds.last["program"]
+    types, kernels = (graph_census(prog.graph) if prog.graph is not None
+                      else ({}, {}))
+    out = {"pair": pair, "round_ms": round_ms, "losses": losses,
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "base_bytes": base, "launches": dict(ops.launches),
+           "captured": rounds.last["captured"],
+           "programs": len(rounds.programs), "captures": spy["captures"],
+           "replay_ms": [e0.elapsed_time(e1) for e0, e1 in spy["events"]],
+           "nodes": types, "kernel_nodes": kernels,
+           "capture_launches": dict(prog.counts or {}), "parts": parts,
+           "finite": all(bool(torch.isfinite(t).all())
+                         for t in tree_leaves(state.params)),
+           "leaves": len(tree_leaves(b.model.defs())),
+           "description": b.description, "reckoned": reck,
+           "reckoned_gb": reck_gb, "meta_s": meta_s,
+           "meta": {"ops": meta.ops, "flops": meta.flops,
+                    "bytes": meta.bytes, "launches": meta.launch_count}}
+    del state, met, prog, rounds, b
+    repro_torch.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: route lm: ``examples/train_lm_fedcams_torch.py`` on the NCCL rank at
+#: these flags (its 100m preset: 12 layers, d_model 768, vocab 8,192, fp32;
+#: one client, batch 8 x 128, K = 2, top-k 1/64 over the dense uplink)
+LM_EX_ROUNDS = 3
+LM_EX_FLAGS = ("--preset", "100m", "--clients", "1", "--tp", "1",
+               "--rounds", str(LM_EX_ROUNDS), "--device", "cuda")
+
+
+def lm_example():
+    """``examples/train_lm_fedcams_torch.py`` loaded as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_fedcams_torch",
+        ROOT / "examples" / "train_lm_fedcams_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lm_example_job(job: dict) -> dict:
+    """Route lm on this NCCL rank, under deterministic algorithms: the LM
+    example's ``rank_main`` at :data:`LM_EX_FLAGS` through its per-round
+    program (one round captured after a warm-up round, a replay a round;
+    under :func:`graph_spy`), then under ``disable_graphs()`` (each eager
+    round timed by CUDA events). Returns both runs' losses, which state
+    fields differ in any bit, the program's report (captured, programs,
+    captures, the replays' ms, the graph's nodes by type, the capture's
+    port-kernel launches, the wrappers' launches) and the eager rounds'
+    ms."""
+    import repro_torch
+    from repro_torch.core import mesh as meshmod
+    from repro_torch.kernels import ops
+    ex = lm_example()
+    args = ex.parser().parse_args(list(LM_EX_FLAGS))
+    sink, notes, ev = {}, [], []
+
+    def timed(self, *a):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = call(self, *a)
+        e1.record()
+        ev.append((e0, e1))
+        return out
+
+    with nondeterminism_noted(notes), _recording_state(sink):
+        ops.reset_launches()
         t0 = time.perf_counter()
-        state, met = b.fn(state, batch, r)
-        _sync()
-        round_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(met["loss"]))
-        del batch
-    return {"round_ms": round_ms, "losses": losses,
-            "peak_bytes": torch.cuda.max_memory_allocated() - base,
-            "base_bytes": base,
-            "launches": dict(ops.launches),
-            "finite": all(bool(torch.isfinite(t).all())
-                          for t in tree_leaves(state.params)),
-            "leaves": len(tree_leaves(b.model.defs())),
-            "description": b.description, "reckoned": reck,
-            "reckoned_gb": reck_gb, "meta_s": meta_s,
-            "meta": {"ops": meta.ops, "flops": meta.flops,
-                     "bytes": meta.bytes, "launches": meta.launch_count}}
+        with graph_spy() as spy:
+            losses = ex.rank_main(args, device=args.device)
+        prog_s = time.perf_counter() - t0
+        wrapper = dict(ops.launches)
+        rounds, st = sink.pop("rounds"), sink.pop("state")
+        prog = rounds.last["program"]
+        sink.clear()
+        # the recording round (_recording_state's), timed
+        call = meshmod.MeshRound.__call__
+        meshmod.MeshRound.__call__ = timed
+        try:
+            t0 = time.perf_counter()
+            with disable_graphs():
+                twin = ex.rank_main(args, device=args.device)
+            twin_s = time.perf_counter() - t0
+        finally:
+            meshmod.MeshRound.__call__ = call
+        tw = sink.pop("state")
+    torch.cuda.synchronize()
+    types, kernels = graph_census(prog.graph)
+    out = {"losses": losses, "twin_losses": twin, "differs": _differs(st, tw),
+           "captured": rounds.last["captured"],
+           "programs": len(rounds.programs), "captures": spy["captures"],
+           "replay_ms": [e0.elapsed_time(e1) for e0, e1 in spy["events"]],
+           "eager_ms": [e0.elapsed_time(e1) for e0, e1 in ev],
+           "nodes": types, "kernel_nodes": kernels,
+           "capture_launches": dict(prog.counts or {}),
+           "launches": wrapper, "program_s": prog_s, "twin_s": twin_s,
+           "nondeterministic": notes}
+    del st, tw, prog, rounds
+    sink.clear()
+    repro_torch.clear_caches()
+    return out
 
 
 def witness_slstm_train(p, x, num_heads: int, ctx, dtype="bfloat16"):
@@ -6079,31 +6364,50 @@ def _z_counts() -> dict:
 
 
 def route_z(held) -> dict:
-    """Route z: xlstm-350m's train_4k round on the card (ROADMAP Queue 3
-    item 32). (a) :func:`_z_job` on one NCCL rank: the step the dry run
-    builds, at ``Z_LAYERS`` layers and one client's share (batch
-    ``Z_BATCH`` x ``Z_SEQ``), ``Z_ROUNDS`` rounds: losses and state
-    finite, peak memory beside op_analysis's reckoning on meta, one
-    ``topk_ef`` and one ``fedams_update`` a leaf a round (as meta counts)
-    at shapes phase 1 held. (b) The sLSTM layer's loop over
-    ``pre.unbind(1)`` against the ``pre[:, i]`` witness
-    (:func:`_z_slstm`). (c) The card's count of the 2-layer loss and
+    """Route z: xlstm-350m's train_4k round on the card through the step
+    builders' program (``launch.programs.TrainStep``), on one NCCL rank
+    (:func:`_z_job`). (a) At ``Z_CHECK_SEQ`` the program's round equals
+    its eager twin under ``disable_graphs()`` to the bit (deterministic
+    algorithms). (b) At one client's share of train_4k (batch ``Z_BATCH``
+    x ``Z_SEQ``), ``Z_ROUNDS`` calls: one captured round (one capture,
+    a replay a call), its
+    graph's port-kernel nodes one ``topk_ef`` and one ``fedams_update`` a
+    leaf (as meta counts), the wrappers' launches the warm-up's, at
+    shapes phase 1 held; losses and state finite; the peak within
+    ``RECKON_TOL`` of op_analysis's reckoning on meta. (c) The sLSTM
+    layer's loop over ``pre.unbind(1)`` against the ``pre[:, i]`` witness
+    (:func:`_z_slstm`). (d) The card's count of the 2-layer loss and
     gradient equals meta's (:func:`_z_counts`)."""
     card = card_line()
     fed, train = z_configs()
     free, total = torch.cuda.mem_get_info()
     r = shared_ranks("nccl1", "z")[0]["z"]
-    seconds = {"rank_job": r["job_s"], "meta": r["meta_s"],
-               "rounds": sum(r["round_ms"]) / 1e3}
+    pair, parts = r["pair"], r["parts"]
+    check(pair["captured"] and not pair["differs"] and pair["same_metrics"],
+          f"route z: at {Z_BATCH} x {Z_CHECK_SEQ} the program (captured "
+          f"{pair['captured']}) differs from its eager twin in "
+          f"{pair['differs']}, metrics the same bits: {pair['same_metrics']}"
+          f"; ops without a deterministic implementation: "
+          f"{pair['nondeterministic']}")
     n_shapes = check_shapes_held("z", [r], held)
     leaves = r["leaves"]
     want = {"topk_ef": leaves, "fedams_update": leaves}
     check(r["meta"]["launches"] == want, f"route z: meta counts launches "
           f"{r['meta']['launches']}, expected {want}")
+    replays = len(r["replay_ms"])
+    check(r["captured"] and r["programs"] == 1 and r["captures"] == 1
+          and replays == Z_ROUNDS, f"route z: captured {r['captured']}, "
+          f"{r['programs']} programs, {r['captures']} captures, {replays} "
+          f"replays for {Z_ROUNDS} calls")
     got = {k: v for k, v in r["launches"].items() if v}
-    want = {k: v * Z_ROUNDS for k, v in want.items()}
-    check(got == want, f"route z: launches {got}, expected {want} "
-          f"({leaves} leaves a round)")
+    nodes = {k: v for k, v in r["kernel_nodes"].items() if v}
+    captured = {k: v for k, v in r["capture_launches"].items() if v}
+    check(got == want and nodes == want and captured == want
+          and pair["counts"] == dict(r["capture_launches"]),
+          f"route z: the warm-up's launches {got}, the graph's port-kernel "
+          f"nodes {nodes}, the capture's launches {captured} (at "
+          f"{Z_CHECK_SEQ}: {pair['counts']}), expected {want} ({leaves} "
+          f"leaves a round)")
     check(all(np.isfinite(r["losses"])) and r["finite"],
           f"route z: losses {r['losses']} or a non-finite state")
     peak = r["peak_bytes"] / 1e9
@@ -6111,19 +6415,42 @@ def route_z(held) -> dict:
           f"route z: peak {peak:.4f} GB against the reckoned "
           f"{r['reckoned_gb']:.4f} GB on meta: more than {RECKON_TOL:.0%} "
           f"apart")
+    graph = {k: v * replays for k, v in r["kernel_nodes"].items()}
+    first = r["round_ms"][0] / 1e3
+    seconds = {"rank_job": r["job_s"], "pair": pair["s"],
+               "meta": r["meta_s"], "first_call": first,
+               "replays": sum(r["round_ms"][1:]) / 1e3}
     print(f"route z [{card}]: xlstm-350m, {Z_LAYERS} layers, "
-          f"{r['description']}, batch {Z_BATCH} x {Z_SEQ} on one NCCL rank "
-          f"(fedcams, {fed.compressor} {fed.compress_ratio:g} over the "
+          f"{r['description']} through steps.build_train_step's TrainStep, "
+          f"batch {Z_BATCH} x {Z_CHECK_SEQ} on one NCCL rank, deterministic "
+          f"algorithms: the program's round (captured) equals its eager "
+          f"twin under disable_graphs() to the bit (params, m, v, v-hat, "
+          f"the EF row, the metrics); loss {pair['loss']}; the program's "
+          f"call {pair['program_s']:.1f} s, the twin's {pair['twin_s']:.1f}"
+          f" s")
+    print(f"route z [{card}]: xlstm-350m, {Z_LAYERS} layers, batch "
+          f"{Z_BATCH} x {Z_SEQ} on one NCCL rank (fedcams, "
+          f"{fed.compressor} {fed.compress_ratio:g} over the "
           f"{fed.aggregation} uplink, K = {fed.local_steps}, remat "
-          f"{train.remat_policy}): losses {r['losses']}; round ms "
-          f"{[round(t, 1) for t in r['round_ms']]}; peak {peak:.4f} GB, "
-          f"reckoned on meta {r['reckoned_gb']:.4f} GB, within "
-          f"{RECKON_TOL:.0%} ({r['reckoned']}; "
-          f"{r['meta_s']:.1f} s); meta counts {r['meta']['ops']:,} ops, "
-          f"{r['meta']['flops']:.4g} FLOPs, {r['meta']['bytes']:,} bytes a "
-          f"round; launches a round {leaves} topk_ef + {leaves} "
-          f"fedams_update; distinct launch shapes, each held by phase 1: "
-          f"{n_shapes}; {free / 1e9:.1f} of {total / 1e9:.1f} GB free before")
+          f"{train.remat_policy}), {Z_ROUNDS} calls of b.fn: captured "
+          f"{r['captured']}; the graph's nodes {r['nodes']}; its port-kernel "
+          f"nodes {nodes} (read from the driver; the capture's launches, "
+          f"ops.captured_launches, the same); the first call "
+          f"{first:.1f} s: the warm-up round "
+          f"{parts['warmup_event_ms'][0]:.1f} ms by CUDA events "
+          f"({parts['warmup_s'][0]:.1f} s to a synchronize), the capture "
+          f"{parts['capture_s'][0]:.1f} s and the instantiation "
+          f"{parts['instantiate_s'][0]:.1f} s of host time; the replays' ms "
+          f"(CUDA events) {[round(t, 2) for t in r['replay_ms']]}; calls' "
+          f"ms (host) {[round(t, 1) for t in r['round_ms']]}; losses "
+          f"{r['losses']}; peak {peak:.4f} GB, reckoned on meta "
+          f"{r['reckoned_gb']:.4f} GB, within {RECKON_TOL:.0%} "
+          f"({r['reckoned']}; {r['meta_s']:.1f} s); meta counts "
+          f"{r['meta']['ops']:,} ops, {r['meta']['flops']:.4g} FLOPs, "
+          f"{r['meta']['bytes']:,} bytes a round; graph launches "
+          f"{graph}; distinct launch shapes, each held by phase 1: "
+          f"{n_shapes}; {free / 1e9:.1f} of {total / 1e9:.1f} GB free "
+          f"before")
     t0 = time.perf_counter()
     sl = _z_slstm()
     gc.collect()
@@ -6157,11 +6484,61 @@ def route_z(held) -> dict:
           f"{small[0] / small[1]:.4f} of it; seconds by part "
           f"{ {k: round(v, 1) for k, v in seconds.items()} }")
     return {"card": card, "losses": r["losses"], "round_ms": r["round_ms"],
-            "peak_gb": peak, "reckoned_gb": r["reckoned_gb"],
+            "replay_ms": r["replay_ms"], "nodes": r["nodes"], "parts": parts,
+            "pair": pair, "peak_gb": peak, "reckoned_gb": r["reckoned_gb"],
             "reckoned": r["reckoned"], "meta": r["meta"],
             "shapes_held": n_shapes, "slstm": sl, "counts": counts["card"],
             "small_step_peak_vs_reckoned": small, "part_seconds": seconds,
-            "launches": r["launches"]}
+            "launches": r["launches"], "graph_launches": graph}
+
+
+def route_lm(held) -> dict:
+    """Route lm: ``examples/train_lm_fedcams_torch.py``'s ``rank_main`` on
+    the NCCL rank (:func:`_lm_example_job`): through its per-round program
+    one captured round, a replay a round, the losses and the final state
+    to the bit its ``disable_graphs()`` twin's under deterministic
+    algorithms; the capture's port kernels the warm-up's launches, at
+    shapes phase 1 held; the replays' ms beside the eager rounds'."""
+    card = card_line()
+    r = shared_ranks("nccl1", "lm")[0]["lm"]
+    n_shapes = check_shapes_held("lm", [r], held)
+    replays = len(r["replay_ms"])
+    check(r["captured"] and r["programs"] == 1 and r["captures"] == 1
+          and replays == LM_EX_ROUNDS, f"route lm: captured {r['captured']}, "
+          f"{r['programs']} programs, {r['captures']} captures, {replays} "
+          f"replays for {LM_EX_ROUNDS} rounds")
+    check(not r["differs"] and r["losses"] == r["twin_losses"],
+          f"route lm: the program's state differs from the twin's in "
+          f"{r['differs']}; losses {r['losses']} vs {r['twin_losses']}; "
+          f"ops without a deterministic implementation: "
+          f"{r['nondeterministic']}")
+    got = {k: v for k, v in r["launches"].items() if v}
+    nodes = {k: v for k, v in r["kernel_nodes"].items() if v}
+    captured = {k: v for k, v in r["capture_launches"].items() if v}
+    check(got == nodes == captured and nodes, f"route lm: the warm-up's "
+          f"launches {got}, the graph's port-kernel nodes {nodes}, the "
+          f"capture's launches {captured}")
+    check(all(np.isfinite(r["losses"])), f"route lm: losses {r['losses']}")
+    graph = {k: v * replays for k, v in r["kernel_nodes"].items()}
+    replay = float(np.median(r["replay_ms"][1:]))
+    eager = float(np.median(r["eager_ms"][1:]))
+    print(f"route lm [{card}]: examples/train_lm_fedcams_torch.py "
+          f"{' '.join(LM_EX_FLAGS)} on one NCCL rank, deterministic "
+          f"algorithms: losses {r['losses']}, equal to the disable_graphs() "
+          f"twin's, and the final params, m, v, v-hat and EF row to the bit; "
+          f"captured {r['captured']}, the graph's nodes {r['nodes']}, its "
+          f"port-kernel nodes {nodes}; the replays' ms (CUDA events) "
+          f"{[round(t, 3) for t in r['replay_ms']]} (median of 1.. "
+          f"{replay:.3f}) against the eager rounds' "
+          f"{[round(t, 3) for t in r['eager_ms']]} (median of 1.. "
+          f"{eager:.3f}): {eager / replay:.2f}x; the program's run "
+          f"{r['program_s']:.1f} s, the twin's {r['twin_s']:.1f} s; distinct "
+          f"launch shapes, each held by phase 1: {n_shapes}; the job "
+          f"{r['job_s']:.1f} s")
+    return {"card": card, "losses": r["losses"], "replay_ms": r["replay_ms"],
+            "eager_ms": r["eager_ms"], "nodes": r["nodes"],
+            "shapes_held": n_shapes, "launches": r["launches"],
+            "graph_launches": graph}
 
 
 def main():
@@ -6269,9 +6646,11 @@ def main():
                     "t": route_t, "u": lambda: route_u(mesh_held),
                     "v": route_v, "w": lambda: route_w(mesh_held),
                     "x": route_x, "y": route_y,
-                    "z": lambda: route_z(mesh_held)}
+                    "z": lambda: route_z(mesh_held),
+                    "lm": lambda: route_lm(mesh_held)}
     lm_rounds = {"o": LM_ROUNDS, "q": MOE_ROUNDS, "s": MLA_ROUNDS,
-                 "u": RG_ROUNDS, "w": W_ROUNDS, "z": Z_ROUNDS}
+                 "u": RG_ROUNDS, "w": W_ROUNDS, "z": Z_ROUNDS,
+                 "lm": LM_EX_ROUNDS}
     zoo = {}
     for route, fn in model_routes.items():
         t_phase = time.perf_counter()
@@ -6349,7 +6728,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"]})
     seconds["all"] = time.perf_counter() - t_start
-    seconds["graph dumps, this process"] = DUMP_S[0]
+    seconds["graph censuses, this process"] = DUMP_S[0]
     print(f"seconds by phase and route: "
           f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     outdir = ROOT / "chiprun_out"

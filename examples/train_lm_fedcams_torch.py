@@ -4,7 +4,11 @@ on the PyTorch port.
 The twin of ``examples/train_lm_fedcams.py``, with the same flags and
 lines, and ``--device`` (default ``cuda``). It runs the port's production
 path (``repro_torch.models.Model`` and the mesh round of
-``repro_torch.core.mesh``) on ``clients × tp`` ranks it starts itself
+``repro_torch.core.mesh`` as its per-round program, the reference's jitted
+step: ``build_fed_rounds_scan(...).round``, one captured round replayed a
+round on CUDA with NCCL, its staged body run eagerly on gloo; the state
+is consumed each round, ROADMAP Queue 3 item 40) on ``clients × tp``
+ranks it starts itself
 (``repro_torch.launch.mesh.spawn``: gloo on the CPU; on CUDA, NCCL with a
 card a rank, else gloo with the ranks sharing the cards). The default
 preset is a ~10M-param gemma-2-style model federated over 4 clients with
@@ -44,13 +48,24 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def model_config(preset: str):
+    """The ``ModelConfig`` of ``preset`` (``SIZES``): a gemma-2-style dense
+    LM, local attention at window 64 alternating with global, fp32."""
+    from repro_torch.configs import ModelConfig
+    L, D, H, KV, FF, V = SIZES[preset]
+    return ModelConfig(name=f"lm-{preset}", family="dense", num_layers=L,
+                       d_model=D, num_heads=H, num_kv_heads=KV, d_ff=FF,
+                       vocab_size=V, attn_pattern=(64, 0), logit_softcap=30.0,
+                       dtype="float32")
+
+
 def rank_main(args, *, device):
     """One rank: the model at ``args.tp``, the (clients, tp) mesh over
     ("data", "model"), the round, ``args.rounds`` rounds; rank 0 prints
     the reference's lines and writes the checkpoint (the global params)."""
     import torch.distributed as dist
 
-    from repro_torch.configs import FedConfig, ModelConfig, TrainConfig
+    from repro_torch.configs import FedConfig, TrainConfig
     from repro_torch.core import mesh as meshmod
     from repro_torch.data.synthetic import FederatedLMData
     from repro_torch.kernels.ops import KernelImpl
@@ -60,11 +75,7 @@ def rank_main(args, *, device):
     from repro_torch.sharding.rules import ParallelContext
 
     import torch
-    L, D, H, KV, FF, V = SIZES[args.preset]
-    cfg = ModelConfig(name=f"lm-{args.preset}", family="dense", num_layers=L,
-                      d_model=D, num_heads=H, num_kv_heads=KV, d_ff=FF,
-                      vocab_size=V, attn_pattern=(64, 0), logit_softcap=30.0,
-                      dtype="float32")
+    cfg = model_config(args.preset)
     fed = FedConfig(algorithm="fedcams", compressor=args.compressor,
                     compress_ratio=args.ratio, num_clients=args.clients,
                     local_steps=2, eta=0.3, eta_l=0.05, client_axes=("data",))
@@ -76,22 +87,23 @@ def rank_main(args, *, device):
     ctx = ParallelContext(model_axis="model" if args.tp > 1 else None,
                           tp=args.tp, client_axes=("data",),
                           num_clients=args.clients, mesh=mesh)
-    step = meshmod.build_fed_round(model, fed, train, ctx,
-                                   kernel_impl=KernelImpl(device=dev))
+    step = meshmod.build_fed_rounds_scan(meshmod.build_fed_round(
+        model, fed, train, ctx, kernel_impl=KernelImpl(device=dev)))
     state = meshmod.init_fed_state(model, fed, torch.Generator().manual_seed(0),
                                    ctx, dev)
     log = print if dist.get_rank() == 0 else (lambda *_: None)
     nparams = sum(t.numel() for t in tree_leaves(state.params))
     log(f"model={cfg.name} params={nparams/1e6:.1f}M clients={args.clients} "
         f"tp={args.tp} compressor={fed.compressor} r={fed.compress_ratio:g}")
-    data = FederatedLMData(num_clients=args.clients, vocab_size=V)
+    data = FederatedLMData(num_clients=args.clients,
+                           vocab_size=cfg.vocab_size)
     t0 = time.time()
     losses = []
     for r in range(args.rounds):
         raw = data.mesh_batch(r, fed.local_steps, args.global_batch,
                               args.seq_len)
         batch = meshmod.shard_batch(raw, model, fed, train, ctx, dev)
-        state, met = step(state, batch, r)
+        state, met = step.round(state, batch, r)
         losses.append(float(met["loss"]))
         if r % 10 == 0 or r == args.rounds - 1:
             log(f"round {r:4d}  loss {losses[-1]:7.4f}  "

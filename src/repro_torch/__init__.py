@@ -35,7 +35,9 @@ Entry points take ``device=`` and default to CUDA; without a card they
 raise unless the caller asks for ``device="cpu"``. Every jitted entry
 point of the reference is one program per shape and setting here:
 ``FedSim.round``, the async engine's dispatch and flush, and the mesh's
-per-round step (``FederatedTrainer(mesh=...).run``, ``launch.train``) are
+per-round step (``FederatedTrainer(mesh=...).run``, ``launch.train``,
+the step builders' train step ``launch.programs.TrainStep`` and the LM
+example) are
 each one CUDA graph on the card, captured at the first call after one
 dropped warm-up run and replayed once a call; ``FedSim.run_rounds`` (and
 ``FederatedTrainer.run(scan_rounds=R)``) and ``MeshRounds`` called with R
@@ -74,7 +76,8 @@ def disable_graphs():
     as ``jax.disable_jit()`` makes the reference's jitted functions run op
     by op: ``FedSim.round`` its round, the async engine's steps
     ``FedSim._async_dispatch`` and ``FedSim._async_flush``,
-    ``MeshRounds.round`` the mesh round itself, the multi-round drivers
+    ``MeshRounds.round`` (and so the step builders' train step) the mesh
+    round itself, the multi-round drivers
     (``FedSim.run_rounds``, ``MeshRounds`` called with R rounds) R of
     those rounds one after another, and serving
     (``launch.serve.generate``, the step builders' ``fn``) the model's
@@ -105,9 +108,18 @@ def clear_caches() -> None:
     serving program cache holds, with its CUDA graph and its memory pool,
     as ``jax.clear_caches()`` drops the reference's executables: once no
     caller holds a program's tensors, ``torch.cuda.empty_cache()`` hands
-    the bytes back to the card. A later call builds its program again."""
+    the bytes back to the card. A later call builds its program again.
+
+    It also drops cuBLAS's workspaces: cuBLAS keeps one for each (handle,
+    stream) that ran a matmul, for the process's life, and every mesh
+    program runs on a stream of its own. A later matmul allocates its
+    workspace again."""
+    import torch
+
     for owner in list(_CACHES):
         owner.clear_programs()
+    if torch.cuda.is_initialized():
+        torch._C._cuda_clearCublasWorkspaces()
 
 
 def resolve_device(device=None):

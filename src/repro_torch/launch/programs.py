@@ -1,5 +1,5 @@
-"""Serving's jitted entry points as programs, with the decode position on
-the device.
+"""The step builders' and serving's jitted entry points as programs, with
+the decode position on the device.
 
 Counterpart of the reference's ``jax.jit`` of ``prefill`` and of the
 decode step (``repro.launch.serve``: the prefill and ``dstep``, the decode
@@ -49,6 +49,17 @@ one handed caches that no session fits makes a session that adopts them.
 Either way the caches a step returns are valid until the session's next
 prefill or decode step. The reference's serving jit does not donate
 (ROADMAP Queue 3).
+
+The step builders' train step (:class:`TrainStep`) is the reference's
+jitted ``fed_round``: the mesh's per-round program
+(``core.mesh.build_fed_rounds_scan(...).round``), one captured round
+replayed a call where the round's collectives can be captured, its staged
+body run eagerly on the carry elsewhere (the CPU, gloo). It consumes the
+state it is given and returns the program's carry, as ``launch/train.py``
+does; the reference's step builder does not donate (ROADMAP Queue 3 item
+40). On ``meta`` (the dry run, ``launch/op_analysis``) and inside
+``repro_torch.disable_graphs()`` it runs the eager round, so the dry run
+counts what the round runs.
 """
 from __future__ import annotations
 
@@ -57,7 +68,7 @@ import weakref
 import torch
 
 from repro_torch import graphs_enabled, register_programs
-from repro_torch.core.mesh import captures_rounds
+from repro_torch.core.mesh import build_fed_rounds_scan, captures_rounds
 from repro_torch.models.model import greedy_sample
 from repro_torch.models.params import tree_leaves
 
@@ -352,3 +363,28 @@ class DecodeStep:
         else:
             c.pos.fill_(pos)
         return sess.decode(self.model, params).clone(), c.caches
+
+
+class TrainStep:
+    """``fn(state, batch, seed) -> (state, metrics)``: this rank's mesh
+    round ``eager`` (a ``core.mesh.MeshRound``) as the reference's jitted
+    ``fed_round``, through ``rounds`` (its ``core.mesh.MeshRounds``, kept
+    for the step's life: ``rounds.last`` and ``rounds.round_ms()`` report
+    the latest call). On a real device each call is ``rounds.round``: on
+    CUDA with NCCL or no process group one captured round replayed a call,
+    on gloo and on the CPU the staged body run eagerly on the carry. The
+    state given is consumed and the carry returned (ROADMAP Queue 3 item
+    40); the metrics are 0-d tensors on the host. On ``meta`` and inside
+    ``repro_torch.disable_graphs()`` (``rounds.round`` sees to that) the
+    eager round runs on the caller's state and leaves it as it was.
+    ``repro_torch.clear_caches()`` drops the program (``rounds`` is
+    registered)."""
+
+    def __init__(self, rnd):
+        self.eager = rnd
+        self.rounds = build_fed_rounds_scan(rnd)
+
+    def __call__(self, state, batch, seed):
+        if tree_leaves(state.params)[0].is_meta:
+            return self.eager(state, batch, seed)
+        return self.rounds.round(state, batch, seed)

@@ -17,12 +17,18 @@ them on the host, ``core.mesh``), and the decode position (an int, or a
 0-d int tensor, which the step reads on the device: the cache slot and,
 sequence-sharded, the rank that writes it). The reference traces both.
 
-The serving steps' ``fn`` is the reference's jit: a
+Every step's ``fn`` is the reference's jit. The train step's is a
+``launch.programs.TrainStep``: the mesh's per-round program, one captured
+round replayed a call where the round's collectives can be captured (CUDA
+with NCCL or none), its staged body run eagerly on the CPU and on gloo,
+and the eager round on ``meta``. It
+consumes the state it is given (the reference's step does not donate:
+ROADMAP Queue 3 item 40). The serving steps' is a
 ``launch.programs.PrefillStep`` / ``DecodeStep``, a captured program
 (one CUDA graph per shape, replayed a call) where the step's collectives
-can be captured (CUDA with NCCL or none), and the eager step elsewhere:
-on ``meta`` (the dry run, ``op_analysis``), on the CPU and on gloo, so
-those trace and reckon what they always did.
+can be captured, and the eager step elsewhere: on ``meta`` (the dry run,
+``op_analysis``), on the CPU and on gloo. So the dry run and
+``op_analysis`` trace and reckon what they always did.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (its
 ``mesh_dim_names`` and ``shape``); the ``ParallelContext`` a ``build_*`` makes
@@ -43,7 +49,7 @@ from repro_torch.configs.base import (FedConfig, ModelConfig, ShapeConfig,
 from repro_torch.configs.registry import ArchSpec
 from repro_torch.core.mesh import (FedMeshState, build_fed_round,
                                    fed_batch_defs, fed_state_defs)
-from repro_torch.launch.programs import DecodeStep, PrefillStep
+from repro_torch.launch.programs import DecodeStep, PrefillStep, TrainStep
 from repro_torch.models import params as pdefs
 from repro_torch.models.model import Model
 from repro_torch.sharding.rules import ParallelContext
@@ -163,8 +169,10 @@ def build_train_step(spec: ArchSpec, shape: ShapeConfig, mesh,
                      fed: FedConfig, train: TrainConfig,
                      *, kernel_impl=None, chunk: int = 2048) -> StepBundle:
     """The paper's fed_round as the train step for this (arch, mesh):
-    ``fn(state, batch, seed) -> (state, metrics)`` (``core.mesh.
-    build_fed_round``; its local phase runs forward and backward)."""
+    ``fn(state, batch, seed) -> (state, metrics)``, a
+    ``launch.programs.TrainStep`` of ``core.mesh.build_fed_round``'s round
+    (its local phase runs forward and backward; ``fn.eager`` is the round
+    itself)."""
     assert shape.kind == "train"
     cfg = spec.model
     sizes = mesh_axis_sizes(mesh)
@@ -176,8 +184,8 @@ def build_train_step(spec: ArchSpec, shape: ShapeConfig, mesh,
 
     sdefs = fed_state_defs(model, fed)
     bdefs = fed_batch_defs(model, fed, train)
-    fn = build_fed_round(model, fed, train, ctx, chunk=chunk,
-                         kernel_impl=kernel_impl)
+    fn = TrainStep(build_fed_round(model, fed, train, ctx, chunk=chunk,
+                                   kernel_impl=kernel_impl))
     state = FedMeshState(*(_abstract(t, sizes) for t in sdefs[:-1]),
                          round=torch.zeros((), dtype=torch.int32))
     abstract = (state, _abstract(bdefs, sizes),

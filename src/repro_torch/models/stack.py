@@ -381,16 +381,21 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, policy: str):
+    """``fn`` checkpointed by ``policy`` (``"none"``, ``"dots"``,
+    ``"full"``). No block draws a random number, so the recompute needs no
+    saved generator state: ``preserve_rng_state=False``. With it the
+    checkpoint would read the CUDA generator's state at each forward and
+    set it at each recompute, calls a CUDA graph's capture may refuse (the
+    mesh's captured round, remat "full"); the numbers are the same."""
     if policy == "none":
         return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
     if policy == "dots":
-        context_fn = functools.partial(
+        kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_matmuls)
-        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
-                                          context_fn=context_fn)
-    if policy == "full":
-        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
-    raise ValueError(f"unknown remat_policy {policy!r}")
+    elif policy != "full":
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return lambda *a: ckpt.checkpoint(fn, *a, **kw)
 
 
 def _group(p, g: int):

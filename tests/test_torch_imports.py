@@ -49,6 +49,7 @@ MODULES = [
     "repro_torch.models.stack", "repro_torch.models.xlstm",
     "repro_torch.models.model", "repro_torch.launch.serve",
     "repro_torch.launch.train", "repro_torch.launch.steps",
+    "repro_torch.launch.programs",
     "repro_torch.launch.op_analysis", "repro_torch.launch.roofline",
     "repro_torch.launch.dryrun", "repro_torch.models.mla",
     "repro_torch.models.rglru", "repro_torch.kernels",
